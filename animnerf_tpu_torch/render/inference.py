@@ -1,0 +1,229 @@
+"""Novel-view rendering of a trained model — counterpart of
+``animnerf_tpu/render/inference.py::Renderer`` on its compacted path.
+
+Per frame: the body geometry once (``prepare_frame``), a conservative
+ray cull (``_maybe_hit_fn``: rays whose segment passes no inflated vertex
+box composite to exact background), then the compacted render of the
+surviving rays: coarse samples, the box pre-pass, the kNN + warp-blend
+and the coarse MLP on the survivors only, deterministic fine sampling,
+its pre-pass, the fine warp, one fine MLP over coarse and fine survivors,
+the per-ray depth merge-sort and the composite.
+
+The JAX package's capacity rungs, overflow ratchet and ray padding
+(``_quantize``, ``_prime_caps``, ``_fetch_ratchet``, the 32768-ray
+quantum) exist only because XLA compiles static shapes. Eager PyTorch
+selects the survivors exactly (``torch.nonzero``) and renders the active
+rays as they are, so they are dropped here; the outputs are the same.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from animnerf_tpu_torch.models.warp import prepare_frame, rays_to_root_frame
+from animnerf_tpu_torch.ops.knn import keep_within_boxes
+from animnerf_tpu_torch.render.compact import (
+    compact_coarse,
+    compact_fine,
+    select_indices,
+)
+from animnerf_tpu_torch.render.volume_renderer import sample_coarse, sample_fine
+from animnerf_tpu_torch.system import AnimNeRFSystem
+from animnerf_tpu_torch.utils.device import (
+    DeviceLike,
+    pin_fp32_geometry,
+    resolve_device,
+)
+
+
+def turntable_rotation(i: int, n_views: int,
+                       angle_deg: float = 0.0) -> np.ndarray:
+    """View-i rotation: R_y(2*pi*i/N) @ R_x(-angle)."""
+    ax = -math.radians(angle_deg)
+    ca, sa = math.cos(ax), math.sin(ax)
+    R_x = np.array([[1, 0, 0], [0, ca, -sa], [0, sa, ca]], np.float32)
+    ay = 2.0 * math.pi * i / n_views
+    cy, sy = math.cos(ay), math.sin(ay)
+    R_y = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], np.float32)
+    P = np.eye(4, dtype=np.float32)
+    P[:3, :3] = R_y @ R_x
+    return P
+
+
+# as in the JAX package: frames above MAX_RAYS_PER_CALL rays are
+# ray-culled, and the compacted render takes up to 8x that per slab
+MAX_RAYS_PER_CALL = 32768
+SLAB_RAYS = 8 * MAX_RAYS_PER_CALL
+
+
+class Renderer:
+    """Renders frames of one system on one device (CUDA unless
+    ``device="cpu"``, which runs the kernels' plain versions)."""
+
+    def __init__(self, system: AnimNeRFSystem, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        pin_fp32_geometry()
+        self.system = system.to_device(self.device)
+        self.last_counts = (0, 0)  # coarse / fine survivors of the last frame
+
+    # -------------------------------------------------------------- inputs
+
+    def _params(self, d: dict) -> dict:
+        return {k: self._tensor(v) for k, v in d.items()}
+
+    def _tensor(self, a) -> torch.Tensor:
+        return a.to(self.device, torch.float32) if torch.is_tensor(a) \
+            else torch.tensor(np.asarray(a, np.float32), device=self.device)
+
+    def _rays_root_rotated(self, ctx, rays: torch.Tensor, P: torch.Tensor):
+        rays_root = rays_to_root_frame(ctx, rays)
+        o = torch.einsum("ij,brj->bri", P[:3, :3], rays_root[..., 0:3]) \
+            + P[:3, 3]
+        d = torch.einsum("ij,brj->bri", P[:3, :3], rays_root[..., 3:6])
+        return torch.cat([o, d, rays_root[..., 6:8]], dim=-1)
+
+    # ----------------------------------------------------------- ray cull
+
+    def _maybe_hit_fn(self, body_params: dict, body_tmpl: dict, rays, P):
+        """(B, R) bool: could any sample of this ray lie within
+        dis_threshold of the body? Also returns the per-ray root-frame far.
+        rays (B, R, 8), P (4, 4) host or device arrays."""
+        with torch.no_grad():
+            ctx = prepare_frame(self.system.body_model,
+                                self._params(body_params),
+                                self._params(body_tmpl))
+            return self._maybe_hit_ctx(ctx, self._rays_root_rotated(
+                ctx, self._tensor(rays), self._tensor(P)))
+
+    def _maybe_hit_ctx(self, ctx, rays_root: torch.Tensor):
+        """Slab test of the segment [near, far] against the 32 index-chunk
+        vertex AABBs inflated by thr (L-inf covers L2): exact along the
+        ray, conservative as a whole."""
+        o, d = rays_root[..., 0:3], rays_root[..., 3:6]
+        B, V = ctx.verts.shape[:2]
+        nb = 32
+        pad = (-V) % nb
+        vv = torch.cat([ctx.verts, ctx.verts[:, -1:].expand(B, pad, 3)], 1) \
+            if pad else ctx.verts
+        vv = vv.reshape(B, nb, -1, 3)
+        thr = self.system.scene_cfg.dis_threshold
+        lo = vv.amin(dim=2) - thr
+        hi = vv.amax(dim=2) + thr
+        near, far = rays_root[..., 6], rays_root[..., 7]
+        d0 = d == 0
+        inv = 1.0 / torch.where(d0, torch.ones_like(d), d)
+        t0 = (lo[:, None] - o[:, :, None]) * inv[:, :, None]  # (B, R, nb, 3)
+        t1 = (hi[:, None] - o[:, :, None]) * inv[:, :, None]
+        tmin = torch.minimum(t0, t1)
+        tmax = torch.maximum(t0, t1)
+        inside = (o[:, :, None] >= lo[:, None]) & (o[:, :, None] <= hi[:, None])
+        inf = torch.full_like(tmin, math.inf)
+        tmin = torch.where(d0[:, :, None], torch.where(inside, -inf, inf), tmin)
+        tmax = torch.where(d0[:, :, None], torch.where(inside, inf, -inf), tmax)
+        enter = torch.maximum(tmin.amax(dim=-1), near[..., None])
+        exit_ = torch.minimum(tmax.amin(dim=-1), far[..., None])
+        return (enter <= exit_).any(dim=-1), far
+
+    # ------------------------------------------------------ compacted path
+
+    def _render_compact(self, ctx, rays_root: torch.Tensor):
+        """Compacted render of (1, R, 8) root-frame rays -> (rgb (1, R, 3),
+        alpha (1, R), depth (1, R), n_coarse, n_fine survivors)."""
+        cfg = self.system.renderer_cfg
+        scene = self.system.scene
+        thr = self.system.scene_cfg.dis_threshold
+        z_c = sample_coarse(cfg, rays_root)
+        B, R, Kc = z_c.shape
+
+        def keep_of(z, K):
+            xyz = (rays_root[..., None, 0:3]
+                   + z[..., None] * rays_root[..., None, 3:6]
+                   ).reshape(B, R * K, 3)
+            return keep_within_boxes(xyz, ctx.verts_morton, thr)
+
+        def warp_fn(xyz):
+            return scene.warp_points(ctx, xyz)
+
+        sel_c = select_indices(keep_of(z_c, Kc))
+        out, weights, warped_c = compact_coarse(
+            cfg, warp_fn, scene.field_points, rays_root, z_c, sel_c,
+            need_rgb=(cfg.n_fine <= 0))
+        n_c = sel_c.shape[1]
+        if cfg.n_fine <= 0:
+            return (out["rgbs"], out["alphas"][..., 0], out["depths"][..., 0],
+                    n_c, 0)
+        mids = 0.5 * (z_c[..., :-1] + z_c[..., 1:])
+        z_f = sample_fine(cfg, mids, weights[..., 1:-1])
+        sel_f = select_indices(keep_of(z_f, cfg.n_fine))
+        out = compact_fine(cfg, warp_fn, scene.field_points, rays_root, z_c,
+                           z_f, sel_c, warped_c, sel_f)
+        return (out["rgbs"], out["alphas"][..., 0], out["depths"][..., 0],
+                n_c, sel_f.shape[1])
+
+    def _render_slabs(self, ctx, rays_root: torch.Tensor):
+        parts, n_c, n_f = [], 0, 0
+        for s in range(0, rays_root.shape[1], SLAB_RAYS):
+            *out, c, f = self._render_compact(
+                ctx, rays_root[:, s:s + SLAB_RAYS])
+            parts.append(out)
+            n_c, n_f = n_c + c, n_f + f
+        img, mask, depth = (torch.cat([p[i] for p in parts], dim=1)
+                            for i in range(3))
+        return img[0], mask[0], depth[0], n_c, n_f
+
+    def render_frame(self, body_params: dict, body_tmpl: dict, rays,
+                     P: Optional[np.ndarray] = None,
+                     img_wh: Optional[tuple] = None):
+        """rays (R, 8) -> numpy (img (R, 3), mask (R,), depth (R,)), or
+        (H, W, 3), (H, W), (H, W) with img_wh = (W, H)."""
+        if P is None:
+            P = np.eye(4, dtype=np.float32)
+        cfg = self.system.renderer_cfg
+        with torch.no_grad():
+            ctx = prepare_frame(self.system.body_model,
+                                self._params(body_params),
+                                self._params(body_tmpl))
+            rays_t = self._tensor(rays)[None]
+            n = rays_t.shape[1]
+            rays_root = self._rays_root_rotated(ctx, rays_t, self._tensor(P))
+            active = None
+            if n > MAX_RAYS_PER_CALL:
+                maybe, fars = self._maybe_hit_ctx(ctx, rays_root)
+                active = torch.nonzero(maybe[0], as_tuple=False)[:, 0]
+                if len(active) == n:
+                    active = None
+            if active is None:
+                img, mask, depth, n_c, n_f = self._render_slabs(ctx, rays_root)
+            else:
+                bg = 1.0 if cfg.white_bkgd else 0.0
+                img = torch.full((n, 3), bg, device=self.device)
+                mask = torch.zeros(n, device=self.device)
+                # culled rays composite to depth == far under white_bkgd
+                depth = fars[0].clone() if cfg.white_bkgd \
+                    else torch.zeros(n, device=self.device)
+                n_c = n_f = 0
+                if len(active):
+                    ai, am, ad, n_c, n_f = self._render_slabs(
+                        ctx, rays_root[:, active])
+                    img[active], mask[active], depth[active] = ai, am, ad
+            self.last_counts = (n_c, n_f)
+            img, mask, depth = (t.cpu().numpy() for t in (img, mask, depth))
+        if img_wh is not None:
+            W, H = img_wh
+            return img.reshape(H, W, 3), mask.reshape(H, W), depth.reshape(H, W)
+        return img, mask, depth
+
+    def render_stream(self, frames):
+        """Render a sequence of views (turntables, motion streams).
+        ``frames``: iterable of dicts with body_params, body_tmpl, rays
+        (R, 8), P (4, 4, optional), img_wh (optional). Yields (img, mask,
+        depth) per frame, in order. Eager launches are already
+        asynchronous, so the JAX package's dispatch pipelining has no
+        counterpart here."""
+        for f in frames:
+            yield self.render_frame(f["body_params"], f["body_tmpl"],
+                                    f["rays"], f.get("P"), f.get("img_wh"))

@@ -1,0 +1,110 @@
+"""The port package stands alone: no JAX, no ``animnerf_tpu`` imports; its
+entry points refuse to run on the CPU unless asked; CPU tensors take the
+plain versions; a missing nvcc is reported by name."""
+
+from __future__ import annotations
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+PKG = pathlib.Path(__file__).resolve().parents[1] / "animnerf_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "animnerf_tpu")
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, animnerf_tpu_torch.render.inference, "
+            "animnerf_tpu_torch.utils.convert, animnerf_tpu_torch.data.synthetic;"
+            "bad = [m for m in sys.modules if m.split('.')[0] in %r];"
+            "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=PKG.parent, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_no_module_imports_jax_or_the_jax_package(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def _tiny_system():
+    from animnerf_tpu_torch.data.synthetic import make_body_model
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+
+    return AnimNeRFSystem({"n_samples": 8, "n_importance": 4},
+                          make_body_model(64, 8, seed=1), device="cpu")
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from animnerf_tpu_torch.render.inference import Renderer
+    from animnerf_tpu_torch.utils.device import resolve_device
+
+    system = _tiny_system()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Renderer(system)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert Renderer(system, device="cpu").device.type == "cpu"
+
+
+def test_missing_nvcc_is_named(monkeypatch, tmp_path):
+    from animnerf_tpu_torch.ops import _build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBRARY", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.kernel_library()
+
+
+def test_cpu_tensors_take_the_plain_versions(monkeypatch):
+    """No build and no launch count on CPU tensors."""
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.ops.fused_mlp import fused_nerf_fwd, pack_params
+    from animnerf_tpu_torch.models.nerf import NeRFMLP
+    from animnerf_tpu_torch.ops.knn_kernel import knn_top4
+    from animnerf_tpu_torch.ops.sort_lanes import permute_lanes
+
+    def no_build():
+        raise AssertionError("a CPU tensor must not build the kernels")
+
+    monkeypatch.setattr(_build, "kernel_library", no_build)
+    _build.reset_launches()
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.normal(size=(1, 50, 3)).astype(np.float32))
+    knn_top4(pts, pts[:, :20].contiguous())
+    ws, bs = pack_params(NeRFMLP(4).state_dict(), 4, "float32")
+    fused_nerf_fwd(torch.zeros(1, 8, 10), ws, bs, 4, "float32")
+    permute_lanes(torch.zeros(1, 2, 3, 128),
+                  torch.arange(128, dtype=torch.int32).expand(1, 3, 128))
+    assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
+def test_build_hash_covers_every_source():
+    from animnerf_tpu_torch.ops import _build
+
+    assert sorted(_build.SOURCES) == sorted(
+        p.name for p in _build.CSRC.glob("*.cu"))
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert len(_build.source_hash()) == 16
