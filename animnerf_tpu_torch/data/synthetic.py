@@ -116,3 +116,19 @@ def make_body_model(num_verts: int = 256, num_joints: int = 24,
     rig = make_rig(num_verts, num_joints, num_betas, seed, surface=surface)
     rig["extra_joint_idxs"] = np.arange(min(4, num_verts), dtype=np.int32)
     return body_model_from_arrays(**rig)
+
+
+def random_pose_params(num_joints: int = 24, num_betas: int = 10,
+                       batch: int = 1, seed: int = 0,
+                       scale: float = 0.3) -> dict:
+    """Random SMPL parameters (numpy float32), the same draws as the JAX
+    package's ``random_pose_params`` for the same seed."""
+    rng = np.random.default_rng(seed)
+    return {
+        "betas": rng.normal(scale=0.5, size=(batch, num_betas)).astype(np.float32),
+        "global_orient": rng.normal(scale=scale, size=(batch, 3)).astype(np.float32),
+        "body_pose": rng.normal(
+            scale=scale, size=(batch, 3 * (num_joints - 1))
+        ).astype(np.float32),
+        "transl": rng.normal(scale=0.5, size=(batch, 3)).astype(np.float32),
+    }

@@ -22,7 +22,8 @@ from typing import Optional
 import torch
 
 from animnerf_tpu_torch.ops.knn_kernel import knn_top4
-from animnerf_tpu_torch.ops.warp_blend import morton_codes, warp_blend_fwd
+from animnerf_tpu_torch.ops.perm_sort import inverse_permutation, permute
+from animnerf_tpu_torch.ops.warp_blend import morton_codes, warp_blend_rows
 from animnerf_tpu_torch.smpl.body_model import BodyModel, BodyModelOutput
 from animnerf_tpu_torch.smpl.body_model import forward as body_forward
 
@@ -162,15 +163,17 @@ def prepare_frame(model: BodyModel, params: dict,
 
 def _morton_inputs(ctx: FrameContext):
     """(Morton-sorted verts, permuted [lbs | ober2cano] table). A stable
-    sort, as jnp.argsort: ties would otherwise permute differently."""
+    sort, as jnp.argsort: ties would otherwise permute differently. The
+    sorted cloud only feeds the kNN and the box pre-pass, so it is
+    detached (stop_gradient there); the table carries the gradient back
+    through the permutation's inverse gather."""
     B = ctx.verts.shape[0]
     V, J = ctx.lbs_weights.shape
-    perm = torch.argsort(morton_codes(ctx.verts), dim=1, stable=True)
-    verts_p = torch.gather(ctx.verts, 1, perm[..., None].expand(B, V, 3))
+    verts_c = ctx.verts.detach()
+    perm = torch.argsort(morton_codes(verts_c), dim=1, stable=True)
+    verts_p = torch.gather(verts_c, 1, perm[..., None].expand(B, V, 3))
     table = torch.cat([ctx.lbs_weights.expand(B, V, J), ctx.ober2cano], -1)
-    table_p = torch.gather(table, 1,
-                           perm[..., None].expand(B, V, table.shape[-1]))
-    return verts_p, table_p
+    return verts_p, permute(table, 1, perm, inverse_permutation(perm))
 
 
 def rays_to_root_frame(ctx: FrameContext, rays: torch.Tensor) -> torch.Tensor:
@@ -188,15 +191,25 @@ def rays_to_root_frame(ctx: FrameContext, rays: torch.Tensor) -> torch.Tensor:
 def unpose(ctx: FrameContext, xyz: torch.Tensor,
            dis_threshold: float = 0.2, weight_std: float = 0.1):
     """Warp (B, N, 3) observed points into canonical space on the fused
-    path: packed top-4 kNN against the Morton-sorted cloud, then the
-    warp-blend. Returns (xyz_canonical (B, N, 3), valid (B, N, 1)) with
-    valid in {0., 1.} (reference anim_nerf.py:180-192; view directions
-    are not warped on this path)."""
-    J = ctx.lbs_weights.shape[1]
-    dists, idx = knn_top4(xyz, ctx.verts_morton)
+    path (``unpose_rows``). Returns (xyz_canonical (B, N, 3), valid
+    (B, N, 1)) with valid in {0., 1.} (reference anim_nerf.py:180-192;
+    view directions are not warped on this path)."""
     rows = torch.nn.functional.pad(xyz.transpose(1, 2), (0, 0, 0, 5))
-    out, _, _ = warp_blend_fwd(rows, dists, idx, ctx.table_morton, J,
-                               float(weight_std), 0.9)
+    out = unpose_rows(ctx, rows, weight_std)
     xyz_cano = out[:, 0:3].transpose(1, 2)
     valid = (out[:, 3:4] < dis_threshold).to(xyz.dtype).transpose(1, 2)
     return xyz_cano, valid
+
+
+def unpose_rows(ctx: FrameContext, xyz_t: torch.Tensor,
+                weight_std: float = 0.1,
+                tile_skip: bool = False) -> torch.Tensor:
+    """Rows-native unpose: xyz_t (B, 8, N) rows [x|y|z|..] -> (B, 8, N)
+    rows [x'|y'|z'|blended_dist|0..]: the top-4 kNN of the detached points
+    against the Morton-sorted cloud (``tile_skip`` on Morton-ordered
+    points), then the differentiable warp-blend."""
+    J = ctx.lbs_weights.shape[1]
+    pts = xyz_t[:, 0:3].detach().transpose(1, 2).contiguous()
+    dists, idx = knn_top4(pts, ctx.verts_morton, tile_skip=tile_skip)
+    return warp_blend_rows(xyz_t, dists, idx, ctx.table_morton, J,
+                           float(weight_std), 0.9)

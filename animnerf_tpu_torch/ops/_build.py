@@ -30,7 +30,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "animnerf_tpu_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
-SOURCES = ("knn.cu", "warp_blend.cu", "fused_mlp.cu", "sort_lanes.cu")
+SOURCES = ("knn.cu", "warp_blend.cu", "fused_mlp.cu", "sort_lanes.cu",
+           "scatter.cu", "fused_mlp_bwd.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
@@ -41,14 +42,21 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: every function returns cudaGetLastError() as an int
 SIGNATURES = {
-    "animnerf_knn_top4": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "animnerf_knn_top4": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
     "animnerf_warp_blend_fwd": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _F, _F, _P],
     "animnerf_fused_mlp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "animnerf_gather_lanes": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "animnerf_weighted_scatter": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "animnerf_fused_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _P],
+    "animnerf_fused_mlp_bwd_sizes": [_I, _P],
 }
 
-LAUNCHES = {"knn": 0, "warp_blend": 0, "fused_mlp": 0, "permute_lanes": 0}
+# "knn_tile_skip" counts the kNN launches with the tile skip on (they also
+# count under "knn", the kernel's total)
+LAUNCHES = {"knn": 0, "knn_tile_skip": 0, "warp_blend": 0, "scatter": 0,
+            "fused_mlp": 0, "fused_mlp_bwd": 0, "permute_lanes": 0}
 
 
 def reset_launches() -> None:

@@ -2,8 +2,9 @@
 
 Counterpart of ``animnerf_tpu/ops/knn_pallas.py::knn_pallas`` on its
 default path (``packed=True``, k=4, the tournament kernel,
-``transposed_out=True``): points (B, N, 3) and the Morton-sorted vertices
-(B, V, 3) -> dists (B, 4, N) ascending and idx (B, 4, N) int32.
+``transposed_out=True``, optional ``tile_skip``): points (B, N, 3) and the
+Morton-sorted vertices (B, V, 3) -> dists (B, 4, N) ascending and idx
+(B, 4, N) int32.
 
 Each candidate's key is ``(bits(max(d2, 0)) & ~0x1FFF) | vertex_index``
 with d2 in the dot form ``pp + (m2z*pz + (m2y*py + (m2x*px + vq)))``; the
@@ -22,6 +23,7 @@ from animnerf_tpu_torch.ops import _build
 K = 4
 KEY_MASK = ~0x1FFF
 MAX_VERTS = 8192
+TILE_V = 1024  # the kernel's vertex tile (csrc/knn.cu)
 
 
 def _check(points: torch.Tensor, verts: torch.Tensor) -> None:
@@ -37,13 +39,32 @@ def _check(points: torch.Tensor, verts: torch.Tensor) -> None:
                          f"got V={verts.shape[1]}")
 
 
-def knn_top4(points: torch.Tensor, verts: torch.Tensor):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+def tile_boxes(verts: torch.Tensor) -> torch.Tensor:
+    """(B, V, 3) -> (B, ceil(V / TILE_V), 8) per-tile AABBs [lo xyz, hi xyz,
+    0, 0] of the kernel's vertex tiles (the last tile holds only real
+    vertices)."""
+    B, V, _ = verts.shape
+    nt = -(-V // TILE_V)
+    pad = nt * TILE_V - V
+    last = verts[:, -1:].expand(B, pad, 3)  # repeats a real vertex
+    vt = torch.cat([verts, last], dim=1).reshape(B, nt, TILE_V, 3)
+    return torch.cat([vt.amin(dim=2), vt.amax(dim=2),
+                      verts.new_zeros(B, nt, 2)], dim=-1).contiguous()
+
+
+def knn_top4(points: torch.Tensor, verts: torch.Tensor,
+             tile_skip: bool = False, stats: torch.Tensor = None):
+    """Kernel on CUDA tensors, plain version on CPU tensors (which ignores
+    ``tile_skip``: the output is the same either way). ``tile_skip`` lets a
+    warp skip vertex tiles that cannot hold any of its points' top-4 (exact;
+    pays when the points are Morton-ordered). ``stats``: an optional int64
+    CUDA tensor of 2 the kernel adds its warp-tile [swept, skipped] counts
+    to."""
     _check(points, verts)
     if points.device.type == "cpu":
         return knn_top4_plain(points, verts)
-    points = points.contiguous()
-    verts = verts.contiguous()
+    points = points.detach().contiguous()
+    verts = verts.detach().contiguous()
     _build.check_cuda("knn_top4", points, verts)
     B, N, _ = points.shape
     V = verts.shape[1]
@@ -51,10 +72,19 @@ def knn_top4(points: torch.Tensor, verts: torch.Tensor):
     i = torch.empty((B, K, N), dtype=torch.int32, device=points.device)
     if N == 0:
         return d, i
+    vbox = tile_boxes(verts) if tile_skip else None
+    if stats is not None and (stats.dtype != torch.int64
+                              or stats.numel() != 2
+                              or stats.device != points.device):
+        raise ValueError("stats must be an int64 tensor of 2 on the device")
     _build.kernel_library().call(
         "animnerf_knn_top4", points.data_ptr(), verts.data_ptr(),
-        d.data_ptr(), i.data_ptr(), B, N, V, _build.stream_of(points))
+        vbox.data_ptr() if tile_skip else None, int(bool(tile_skip)),
+        stats.data_ptr() if stats is not None else None, d.data_ptr(),
+        i.data_ptr(), B, N, V, _build.stream_of(points))
     _build.LAUNCHES["knn"] += 1
+    if tile_skip:
+        _build.LAUNCHES["knn_tile_skip"] += 1
     return d, i
 
 

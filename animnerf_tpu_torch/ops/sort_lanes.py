@@ -4,11 +4,14 @@ kernel plus plain version.
 Counterpart of ``animnerf_tpu/ops/sort_lanes.py``: ``permute_lanes`` (the
 fine pass's per-ray depth merge-sort over K <= 128 samples) and
 ``gather_lanes`` (sample_fine's CDF-bound lookups), both reaching the TPU
-kernel ``_permute_kernel`` through ``_permute_lanes_pallas``. Forward only:
-the inverse-permutation backward belongs to the training slice.
+kernel ``_permute_kernel`` through ``_permute_lanes_pallas``.
+``permute_lanes`` is differentiable: its backward is the same kernel with
+the inverse permutation (a permutation's adjoint), as the JAX custom VJP.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -55,9 +58,30 @@ def gather_lanes(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _gather(payload, idx)
 
 
-def permute_lanes(payload: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+class PermuteLanes(torch.autograd.Function):
+    """Lane permute by ``order``; the backward permutes by ``inv``."""
+
+    @staticmethod
+    def forward(ctx, payload, order, inv):
+        ctx.save_for_backward(inv)
+        return _gather(payload.detach(), order)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        return _gather(g.contiguous(), inv), None, None
+
+
+def permute_lanes(payload: torch.Tensor, order: torch.Tensor,
+                  inv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """payload (B, C, R, 128) re-ordered along the last axis by the
-    permutation ``order`` (B, R, 128)."""
+    permutation ``order`` (B, R, 128); ``inv`` is its inverse
+    (argsort(order)), which the backward applies: differentiating needs
+    it."""
     if payload.shape[-1] != LANES or order.shape[-1] != LANES:
         raise ValueError("permute_lanes works on 128 lanes")
+    if torch.is_grad_enabled() and payload.requires_grad:
+        if inv is None:
+            raise ValueError("permute_lanes needs inv to differentiate")
+        return PermuteLanes.apply(payload, order, inv)
     return _gather(payload, order)

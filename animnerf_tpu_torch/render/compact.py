@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from animnerf_tpu_torch.models.anim_nerf import SIGMA_OUTSIDE
+from animnerf_tpu_torch.ops.perm_sort import inverse_permutation
 from animnerf_tpu_torch.ops.sort_lanes import LANES, permute_lanes
 from animnerf_tpu_torch.render.volume_renderer import (
     RendererConfig,
@@ -151,7 +152,9 @@ def compact_fine(cfg: RendererConfig, warp_fn, field_fn, rays: torch.Tensor,
     padK = LANES - Kall
     z_pad = torch.nn.functional.pad(z_all, (0, padK), value=float("inf"))
     pay = torch.nn.functional.pad(pay, (0, padK))
-    order = torch.argsort(z_pad, dim=-1, stable=True).to(torch.int32)
-    sp = permute_lanes(pay.to(torch.float32).contiguous(), order)[..., :Kall]
+    order = torch.argsort(z_pad, dim=-1, stable=True)
+    sp = permute_lanes(pay.to(torch.float32).contiguous(),
+                       order.to(torch.int32),
+                       inverse_permutation(order).to(torch.int32))[..., :Kall]
     _, rgb_f, depth_f, alpha_f = composite_rows(cfg, sp, rays, sp[:, 4])
     return {"rgbs": rgb_f, "alphas": alpha_f, "depths": depth_f}

@@ -1,27 +1,53 @@
-"""Inference-only AnimNeRF system — counterpart of the serving half of
+"""AnimNeRF system — counterpart of
 ``animnerf_tpu/training/system.py::AnimNeRFSystem``.
 
 Builds ``scene_cfg`` (``AnimNeRFConfig``), ``renderer_cfg``
-(``RendererConfig``) and the scene model from a config dict with the
+(``RendererConfig``), the training options (``train_cfg``, the reference's
+``train`` section) and the scene model from a config dict with the
 reference's keys (a checkpoint's ``meta.json["cfg"]`` is one), and holds
-the body model. Parameters live in the ``nn.Module`` tree; load them with
-``load_anim_nerf`` (see ``utils/convert.py``).
+the body model and the learnable per-frame body parameters. Parameters
+live in the ``nn.Module`` tree; load them with ``load_anim_nerf`` or
+``load_params`` (see ``utils/convert.py``). The training step's functions
+take the system: ``training/system.py``.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
 from torch import nn
 
 from animnerf_tpu_torch.models.anim_nerf import AnimNeRFConfig, AnimNeRFModel
+from animnerf_tpu_torch.models.body_params import init_body_params
 from animnerf_tpu_torch.render.volume_renderer import RendererConfig
 from animnerf_tpu_torch.smpl.body_model import BodyModel
 from animnerf_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
-# config values outside the serving slice, and the value the slice supports
+# config values the port does not cover yet, and the value it supports
 UNPORTED = {"use_view": False, "use_deformation": False,
             "deformation_dim": 0, "apperance_dim": 0, "use_unpose": True,
             "unpose_view": False, "k_neigh": 4, "n_depth": 0}
+
+
+# the reference's train section (config.py there) as the step reads it
+TRAIN_DEFAULTS = {
+    "lambda_alphas": 0.1, "lambda_foreground": 0.01,
+    "lambda_background": 0.01, "lambda_normals": 0.01, "epsilon": 0.01,
+    "batch_size": 16, "max_epochs": 30, "lr": 5e-4,
+    "optimizer": {"type": "adam", "momentum": 0.9, "weight_decay": 0},
+    "scheduler": {"type": "poly", "poly_exp": 0.9},
+}
+
+
+def train_config(cfg: dict) -> dict:
+    """cfg["train"] over TRAIN_DEFAULTS (nested sections merged)."""
+    given = dict(cfg.get("train") or {})
+    out = dict(TRAIN_DEFAULTS, **given)
+    for sec in ("optimizer", "scheduler"):
+        out[sec] = dict(TRAIN_DEFAULTS[sec], **dict(given.get(sec) or {}))
+    return out
 
 
 def resolve_compute_dtype(value: str, device) -> str:
@@ -38,7 +64,10 @@ class AnimNeRFSystem(nn.Module):
     """Config + scene model + body model, on one device."""
 
     def __init__(self, cfg: dict, body_model: BodyModel,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, seed: Optional[int] = None):
+        """seed: draws the field's initial weights from a torch.Generator
+        (flax's initialisers, not flax's numbers); None draws them from the
+        global generator."""
         super().__init__()
         dev = resolve_device(device)
         g = cfg.get
@@ -46,8 +75,8 @@ class AnimNeRFSystem(nn.Module):
                if k in cfg and g(k) != want]
         if bad:
             raise NotImplementedError(
-                "not ported yet (the serving slice covers the flagship "
-                f"field): {', '.join(bad)}")
+                "not ported yet (the port covers the flagship field): "
+                f"{', '.join(bad)}")
         n_fine = int(g("n_importance", 32))
         self.scene_cfg = AnimNeRFConfig(
             freqs_xyz=int(g("freqs_xyz", 10)),
@@ -61,8 +90,17 @@ class AnimNeRFSystem(nn.Module):
         self.renderer_cfg = RendererConfig(
             n_coarse=int(g("n_samples", 64)), n_fine=n_fine,
             white_bkgd=bool(g("white_bkgd", True)))
-        self.scene = AnimNeRFModel(self.scene_cfg)
+        self.cfg = dict(cfg)
+        self.train_cfg = train_config(cfg)
+        self.model_type = str(g("model_type", "smpl"))
+        self.optim_body_params = bool(g("optim_body_params", True))
+        gen = None if seed is None else torch.Generator().manual_seed(seed)
+        self.scene = AnimNeRFModel(self.scene_cfg, generator=gen)
         self.body_model = body_model
+        self.body_params = nn.ParameterDict({
+            k: nn.Parameter(v) for k, v in init_body_params(
+                int(g("num_frames", 1)), self.model_type,
+                pose_dim=3 * (body_model.num_joints - 1)).items()})
         self.to_device(dev)
 
     def to_device(self, device) -> "AnimNeRFSystem":
@@ -76,3 +114,15 @@ class AnimNeRFSystem(nn.Module):
         self.scene.nerf.load_state_dict(groups["nerf"])
         if self.scene.nerf_fine is not None:
             self.scene.nerf_fine.load_state_dict(groups["nerf_fine"])
+
+    def load_params(self, params: dict) -> None:
+        """params: {"anim_nerf": {...}, "body_params": {name: tensor}}, as
+        ``utils/convert.py::params_from_jax`` returns them."""
+        self.load_anim_nerf(params["anim_nerf"])
+        with torch.no_grad():
+            for k, v in params["body_params"].items():
+                p = self.body_params[k]
+                if tuple(p.shape) != tuple(v.shape):
+                    raise ValueError(f"body param {k}: {tuple(v.shape)} "
+                                     f"for {tuple(p.shape)}")
+                p.copy_(v)

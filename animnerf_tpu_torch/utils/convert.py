@@ -107,3 +107,18 @@ def load_checkpoint(path: str) -> dict:
             out["body_params"] = {k: np.asarray(data[k], np.float32)
                                   for k in data.files}
     return out
+
+
+def params_from_jax(params: dict) -> dict:
+    """The JAX package's training params (numpy pytree: ``anim_nerf``
+    {``nerf``, ``nerf_fine``} flax dicts and ``body_params``) ->
+    {"anim_nerf": {"nerf": state dict, "nerf_fine": state dict},
+     "body_params": {name: float32 tensor}} for
+    ``AnimNeRFSystem.load_params``."""
+    out = {"anim_nerf": {net: nerf_params_from_flax(p)
+                         for net, p in params["anim_nerf"].items()},
+           "body_params": {k: torch.from_numpy(np.array(v, np.float32))
+                           for k, v in params["body_params"].items()}}
+    if "latent_codes" in params:
+        raise NotImplementedError("latent codes are not ported yet")
+    return out

@@ -137,3 +137,116 @@ def test_module_forward_matches_flax_apply():
                                atol=1e-5)
     np.testing.assert_allclose(sig[0].detach().numpy(), np.asarray(sig_j),
                                atol=1e-4)
+
+
+# ------------------------------------------------------------- backward
+
+
+def _dout(M, seed=2):
+    d = np.zeros((1, 8, M), np.float32)
+    d[0, :4] = np.random.default_rng(seed).normal(size=(4, M))
+    return d
+
+
+def _jax_bwd(params, rows, dout, dtype):
+    ws, bs = JF.pack_params(params, 10, dtype=dtype)
+    M = rows.shape[-1]
+    pad = ((0, 0), (0, 0), (0, (-M) % 256))
+    x, d = jnp.pad(jnp.asarray(rows), pad), jnp.pad(jnp.asarray(dout), pad)
+    if dtype == jnp.float32:
+        out = JF.fused_nerf_bwd(x, ws, bs, d, n_freqs=10, tile=256,
+                                dtype=dtype, interpret=True)
+    else:
+        # XLA:CPU compiles no bf16 x bf16 -> f32 dot (see the forward test)
+        with jax.disable_jit():
+            out = JF.fused_nerf_bwd(x, ws, bs, d, n_freqs=10, tile=256,
+                                    dtype=dtype, interpret=True)
+    d_xyz, d_ws, d_bs = jax.tree.map(np.asarray, out)
+    return d_xyz[..., :M], d_ws, d_bs
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm((a - b).ravel()) / max(np.linalg.norm(b.ravel()),
+                                                 1e-30)
+
+
+@pytest.mark.parametrize("name,M,tol", [("float32", 500, 1e-5),
+                                        ("bfloat16", 200, 2e-2)])
+def test_fused_backward_matches_kernel(name, M, tol):
+    """fused_nerf_bwd_plain (the CUDA kernel's plain version) against the
+    TPU kernel's fused_nerf_bwd in interpret mode: d_xyz, all 13 weight and
+    13 bias gradients. f32: summation order only (rel-L2 1e-5). bf16: the
+    same rounding points, but the f32 accumulation order differs and flips
+    bf16 roundings of the cotangents between layers (rel-L2 2e-2)."""
+    _, params = _flax()
+    rows, dout = _rows(M), _dout(M)
+    dt = jnp.dtype(name)
+    ref = _jax_bwd(params, rows, dout, dt)
+    ws, bs = TF.pack_params(nerf_params_from_flax(params), 10, name)
+    out = TF.fused_nerf_bwd(torch.from_numpy(rows), ws, bs,
+                            torch.from_numpy(dout), 10, name)
+    assert _rel_l2(out[0].numpy(), ref[0]) < tol, "d_xyz"
+    np.testing.assert_array_equal(out[0][0, 3:].numpy(), 0.0)
+    for i, (a, b) in enumerate(zip(out[1] + out[2], ref[1] + ref[2])):
+        assert a.shape == b.shape
+        if np.abs(b).max() == 0:  # padded rows, the skip half's bias
+            np.testing.assert_array_equal(a.numpy(), 0.0)
+        else:
+            assert _rel_l2(a.numpy(), b) < tol, f"gradient {i}"
+
+
+def test_autograd_function_matches_autograd_of_plain_forward():
+    """FusedNerf's backward (fused_nerf_bwd) against torch autograd through
+    the plain forward, f32, from the module's live parameters: the plain
+    backward is the same math written out (rel-L2 1e-5)."""
+    torch.manual_seed(0)
+    m = NeRFMLP(10, "float32")
+    rows = torch.from_numpy(_rows(300)).requires_grad_()
+    dout = torch.from_numpy(_dout(300))
+    (m.forward_rows(rows) * dout).sum().backward()
+    got = [rows.grad] + [p.grad for p in m.parameters()]
+    rows2 = rows.detach().clone().requires_grad_()
+    m.zero_grad()
+    ws, bs = TF.pack_params(dict(m.named_parameters()), 10, "float32")
+    (TF.fused_nerf_fwd_plain(rows2, ws, bs, 10, "float32")
+     * dout).sum().backward()
+    want = [rows2.grad] + [p.grad for p in m.parameters()]
+    for a, b in zip(got, want):
+        assert _rel_l2(a.numpy(), b.numpy()) < 1e-5
+
+
+def test_init_matches_flax_statistics():
+    """flax's Dense init: lecun_normal kernels (truncated to 2 std, variance
+    1/fan_in) and zero biases; per-layer std within 5% of flax's."""
+    _, params = _flax()
+    m = NeRFMLP(10, "float32", generator=torch.Generator().manual_seed(0))
+    for name, p in params["params"].items():
+        w = getattr(m, name).weight.detach().numpy()
+        k = p["kernel"]
+        assert w.shape == k.T.shape
+        np.testing.assert_array_equal(getattr(m, name).bias.detach().numpy(),
+                                      0.0)
+        bound = 2.0 * np.sqrt(1.0 / k.shape[0]) / 0.87962566103423978
+        assert np.abs(w).max() <= bound + 1e-6
+        assert np.abs(k).max() <= bound + 1e-6
+        if w.size >= 1000:
+            assert abs(w.std() / k.std() - 1.0) < 0.05, name
+
+
+def test_packed_follows_optimizer_steps():
+    """The no-grad cache repacks after an optimizer step changed the
+    parameters in place; it never serves stale weights."""
+    m = NeRFMLP(10, "float32")
+    first = m.packed()
+    assert m.packed() is first
+    opt = torch.optim.SGD(m.parameters(), lr=0.1)
+    rows = torch.from_numpy(_rows(50))
+    m.forward_rows(rows).sum().backward()
+    opt.step()
+    ws, bs = m.packed()
+    want_w, want_b = TF.pack_params({k: v.detach() for k, v in
+                                     m.state_dict().items()}, 10, "float32")
+    for a, b in zip(ws + bs, want_w + want_b):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert not torch.equal(ws[0], first[0][0])

@@ -65,3 +65,39 @@ def test_knn_sorted_and_exact_on_distinct_points():
     # quantized d2: <= 2^-10 relative on d2 (~5e-4 relative on d) plus the
     # dot form's cancellation near zero
     np.testing.assert_allclose(d[0], want, rtol=1e-3, atol=1e-3)
+
+
+def test_tile_skip_is_ignored_by_the_plain_version_and_boxes_bound_tiles():
+    """On the CPU ``tile_skip`` takes the plain version (the kernel's output
+    is bit-identical either way); the tile AABBs hold every vertex of
+    their 1024-vertex tile."""
+    from animnerf_tpu_torch.ops.knn_kernel import TILE_V, tile_boxes
+
+    pts, verts = _cloud(V=2500, N=300, seed=2)
+    tp, tv = torch.from_numpy(pts), torch.from_numpy(verts)
+    a = knn_top4(tp, tv, tile_skip=True)
+    b = knn_top4(tp, tv)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    box = tile_boxes(tv).numpy()
+    assert box.shape == (1, 3, 8)
+    for t in range(3):
+        v = verts[0, t * TILE_V:(t + 1) * TILE_V]
+        np.testing.assert_array_equal(box[0, t, :3], v.min(0))
+        np.testing.assert_array_equal(box[0, t, 3:6], v.max(0))
+
+
+def test_keep_rows_within_boxes_matches_jax():
+    """The rows-form box pre-pass against the JAX package's: exact."""
+    from animnerf_tpu.ops.knn import keep_rows_within_boxes as j_keep
+    from animnerf_tpu_torch.ops.knn import keep_rows_within_boxes
+
+    pts, verts = _cloud(V=1000, N=3000, seed=3)
+    rows = np.zeros((1, 8, 3000), np.float32)
+    rows[0, :3] = pts[0].T + np.random.default_rng(4).normal(
+        scale=0.2, size=(3, 3000)).astype(np.float32)
+    a = np.asarray(j_keep(jnp.asarray(rows), jnp.asarray(verts), 0.2))
+    b = keep_rows_within_boxes(torch.from_numpy(rows),
+                               torch.from_numpy(verts), 0.2).numpy()
+    assert 0 < b.sum() < b.size
+    np.testing.assert_array_equal(a, b)

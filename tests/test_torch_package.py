@@ -21,7 +21,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "animnerf_tpu")
 
 def test_import_loads_no_jax():
     code = ("import sys, animnerf_tpu_torch.render.inference, "
-            "animnerf_tpu_torch.utils.convert, animnerf_tpu_torch.data.synthetic;"
+            "animnerf_tpu_torch.utils.convert, animnerf_tpu_torch.data.synthetic,"
+            " animnerf_tpu_torch.training.system,"
+            " animnerf_tpu_torch.render.compact_rows,"
+            " animnerf_tpu_torch.ops.perm_sort, animnerf_tpu_torch.utils.rng;"
             "bad = [m for m in sys.modules if m.split('.')[0] in %r];"
             "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -80,9 +83,14 @@ def test_missing_nvcc_is_named(monkeypatch, tmp_path):
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     """No build and no launch count on CPU tensors."""
-    from animnerf_tpu_torch.ops import _build
-    from animnerf_tpu_torch.ops.fused_mlp import fused_nerf_fwd, pack_params
     from animnerf_tpu_torch.models.nerf import NeRFMLP
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.ops.blend import weighted_scatter_rows
+    from animnerf_tpu_torch.ops.fused_mlp import (
+        fused_nerf_bwd,
+        fused_nerf_fwd,
+        pack_params,
+    )
     from animnerf_tpu_torch.ops.knn_kernel import knn_top4
     from animnerf_tpu_torch.ops.sort_lanes import permute_lanes
 
@@ -94,8 +102,13 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     rng = np.random.default_rng(0)
     pts = torch.from_numpy(rng.normal(size=(1, 50, 3)).astype(np.float32))
     knn_top4(pts, pts[:, :20].contiguous())
+    knn_top4(pts, pts[:, :20].contiguous(), tile_skip=True)
     ws, bs = pack_params(NeRFMLP(4).state_dict(), 4, "float32")
     fused_nerf_fwd(torch.zeros(1, 8, 10), ws, bs, 4, "float32")
+    fused_nerf_bwd(torch.zeros(1, 8, 10), ws, bs, torch.ones(1, 8, 10), 4,
+                   "float32")
+    weighted_scatter_rows(torch.zeros(1, 4, 10, dtype=torch.int32),
+                          torch.ones(1, 4, 10), torch.ones(1, 16, 10), 5)
     permute_lanes(torch.zeros(1, 2, 3, 128),
                   torch.arange(128, dtype=torch.int32).expand(1, 3, 128))
     assert all(v == 0 for v in _build.LAUNCHES.values())

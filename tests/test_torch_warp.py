@@ -169,3 +169,106 @@ def test_unpose_matches_jax_warp():
     assert 0 < jvalid.sum() < N
     np.testing.assert_array_equal(tvalid.numpy(), jvalid)
     np.testing.assert_allclose(tc.numpy(), jc, atol=1e-4)
+
+
+# ------------------------------------------------------------- backward
+
+
+def _scatter_inputs(seed, B, N, V, clustered):
+    rng = np.random.default_rng(seed)
+    if clustered:  # Morton-coherent neighbours, as tests/test_blend.py:36
+        idx = rng.integers(100, 140, size=(B, 4, N)).astype(np.int32)
+        idx[..., ::31] = rng.integers(V - 20, V, size=idx[..., ::31].shape)
+    else:
+        idx = rng.integers(0, V, size=(B, 4, N)).astype(np.int32)
+    w = rng.uniform(size=(B, 4, N)).astype(np.float32)
+    g = rng.normal(size=(B, 16, N)).astype(np.float32)
+    return idx, w, g
+
+
+@pytest.mark.parametrize("clustered", [False, True])
+def test_weighted_scatter_plain_matches_kernel(clustered):
+    """weighted_scatter_rows_plain against the TPU scatter kernel in
+    interpret mode (kNN-native idx/w, rows-native g): f32 sums in another
+    order, rtol/atol 1e-5."""
+    from animnerf_tpu.ops.blend import weighted_scatter_rows_pallas
+    from animnerf_tpu_torch.ops.blend import (
+        weighted_scatter_rows,
+        weighted_scatter_rows_plain,
+    )
+
+    B, N, V = 2, 300, 1024
+    idx, w, g = _scatter_inputs(3 + clustered, B, N, V, clustered)
+    ref = np.asarray(weighted_scatter_rows_pallas(
+        jnp.asarray(idx), jnp.asarray(w), jnp.asarray(g), V, tile_n=128,
+        tile_v=256, interpret=True, transposed_in=True, g_t=True))
+    got = weighted_scatter_rows_plain(*(torch.from_numpy(a)
+                                        for a in (idx, w, g)), V)
+    assert got.shape == (B, V, 16)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    # the wrapper takes the plain version on CPU tensors
+    again = weighted_scatter_rows(*(torch.from_numpy(a)
+                                    for a in (idx, w, g)), V)
+    assert torch.equal(again, got)
+
+
+def test_warp_blend_rows_grads_match_jax_vjp():
+    """The port's warp_blend_rows autograd Function (backward: the weighted
+    scatter into the transform columns, R^T d_cano for the rows) against
+    the JAX custom VJP of warp_blend_rows, its forward in interpret mode:
+    f32 rounding only (atol 1e-5)."""
+    from animnerf_tpu.ops.warp_blend import warp_blend_rows as j_wbr
+    from animnerf_tpu.utils.interpret import rows_interpret_forced
+    from animnerf_tpu_torch.ops.warp_blend import warp_blend_rows
+
+    jctx, _ = _frame()
+    jv, jt = JW._morton_inputs(jctx)
+    jt = jt.at[..., :J].set(jnp.round(jt[..., :J] * 2.0) / 2.0)
+    rng = np.random.default_rng(10)
+    N = 500
+    pts = (np.asarray(jctx.verts)[:, rng.integers(0, V, N)]
+           + rng.normal(scale=0.06, size=(1, N, 3))).astype(np.float32)
+    d, i = knn_pallas(jnp.asarray(pts), jv, k=4, packed=True,
+                      transposed_out=True, interpret=True)
+    rows = np.zeros((1, 8, N), np.float32)
+    rows[0, :3] = pts[0].T
+    ct = rng.normal(size=(1, 8, N)).astype(np.float32)
+
+    with rows_interpret_forced():
+        def f(x, t):
+            return jnp.sum(j_wbr(x, d, i, t, J, 0.1, 0.9) * ct)
+
+        jgx, jgt = jax.grad(f, argnums=(0, 1))(jnp.asarray(rows), jt)
+    jax.clear_caches()
+    x = torch.from_numpy(rows).requires_grad_()
+    t = torch.tensor(np.asarray(jt)).requires_grad_()
+    out = warp_blend_rows(x, torch.tensor(np.asarray(d)),
+                          torch.tensor(np.asarray(i)), t, J, 0.1, 0.9)
+    (out * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(jgx), atol=1e-5)
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(jgt), atol=1e-5)
+    assert np.abs(t.grad.numpy()[..., J:]).max() > 0
+    np.testing.assert_array_equal(t.grad.numpy()[..., :J], 0.0)
+
+
+def test_unpose_rows_matches_jax():
+    """Rows-native unpose (kNN on the Morton cloud, with the tile skip
+    requested, then the warp-blend) against the JAX unpose_rows with its
+    kernels in interpret mode."""
+    from animnerf_tpu.utils.interpret import rows_interpret_forced
+
+    jctx, tctx = _frame()
+    rng = np.random.default_rng(12)
+    N = 400
+    pts = (np.asarray(jctx.verts)[:, rng.integers(0, V, N)]
+           + rng.normal(scale=0.1, size=(1, N, 3))).astype(np.float32)
+    rows = np.zeros((1, 8, N), np.float32)
+    rows[0, :3] = pts[0].T
+    with rows_interpret_forced():
+        ref = np.asarray(JW.unpose_rows(jctx, jnp.asarray(rows)))
+    jax.clear_caches()
+    got = TW.unpose_rows(tctx, torch.from_numpy(rows), tile_skip=True)
+    valid = ref[0, 3] < 0.2
+    assert 0 < valid.sum() < N
+    np.testing.assert_array_equal(got[0, 3].numpy() < 0.2, valid)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
