@@ -1,9 +1,10 @@
 """Synthetic SMPL-topology rigs (numpy only), as in the JAX package.
 
-Copy of ``animnerf_tpu/data/synthetic.py::make_rig`` and the SMPL branch of
-``make_body_model``: for the same seed the arrays are bit-identical to the
-JAX package's, so a checkpoint trained on a seeded rig (for instance
-``docs/demo/scale512``, seed 3) is served against exactly its body model.
+Copy of ``animnerf_tpu/data/synthetic.py::make_rig`` and
+``make_body_model`` (all five families): for the same seed the arrays are
+bit-identical to the JAX package's, so a checkpoint trained on a seeded
+rig (for instance ``docs/demo/scale512``, seed 3) is served against
+exactly its body model.
 """
 
 from __future__ import annotations
@@ -106,16 +107,37 @@ def make_rig(num_verts: int = 256, num_joints: int = 24, num_betas: int = 10,
 
 def make_body_model(num_verts: int = 256, num_joints: int = 24,
                     num_betas: int = 10, seed: int = 0,
-                    model_type: str = "smpl", surface: bool = False):
-    """Synthetic SMPL ``BodyModel`` on the CPU (move it with ``.to``)."""
+                    model_type: str = "smpl", num_pca: int = 6,
+                    surface: bool = False):
+    """Synthetic ``BodyModel`` on the CPU (move it with ``.to``). SMPL-H,
+    SMPL-X, MANO and FLAME rigs get their family's joint count (52 / 55 /
+    16 / 5) unless ``num_joints`` is set to another value than 24, and the
+    hand families random hand-PCA bases (num_pca, 45) and mean poses (45,)
+    from ``default_rng(seed + 77)``, drawn in the JAX package's order."""
+    from animnerf_tpu_torch.smpl.body_model import NUM_JOINTS
     from animnerf_tpu_torch.utils.convert import body_model_from_arrays
 
-    if model_type != "smpl":
-        raise NotImplementedError(
-            f"model_type {model_type!r}: only SMPL is ported so far")
+    if model_type not in NUM_JOINTS:
+        raise ValueError(f"unknown model_type {model_type!r}")
+    if model_type != "smpl" and num_joints == 24:
+        num_joints = NUM_JOINTS[model_type]
     rig = make_rig(num_verts, num_joints, num_betas, seed, surface=surface)
     rig["extra_joint_idxs"] = np.arange(min(4, num_verts), dtype=np.int32)
-    return body_model_from_arrays(**rig)
+    if model_type in ("smplh", "smplx", "mano"):
+        rng = np.random.default_rng(seed + 77)
+
+        def draw(scale, size):
+            return rng.normal(scale=scale, size=size).astype(np.float32)
+
+        if model_type == "mano":
+            rig["hand_components_l"] = draw(0.1, (num_pca, 45))
+            rig["hand_mean_l"] = draw(0.02, 45)
+        else:
+            rig["hand_components_l"] = draw(0.1, (num_pca, 45))
+            rig["hand_components_r"] = draw(0.1, (num_pca, 45))
+            rig["hand_mean_l"] = draw(0.02, 45)
+            rig["hand_mean_r"] = draw(0.02, 45)
+    return body_model_from_arrays(**rig, model_type=model_type)
 
 
 def random_pose_params(num_joints: int = 24, num_betas: int = 10,

@@ -1,8 +1,9 @@
 """Learnable per-frame body-model parameters — counterpart of
-``animnerf_tpu/models/body_params.py`` (SMPL).
+``animnerf_tpu/models/body_params.py``.
 
 Layout: {'betas': (1, 10), 'global_orient': (F, 3), 'body_pose': (F, P),
-'transl': (F, 3)}; betas are shared across frames.
+'transl': (F, 3), ...} with the family's further keys (hand PCA, jaw,
+neck, eyes, expression); betas are shared across frames.
 """
 
 from __future__ import annotations
@@ -13,6 +14,15 @@ import torch
 
 PARAM_DIMS = {
     "smpl": {"betas": 10, "global_orient": 3, "transl": 3, "body_pose": 69},
+    "smplh": {"betas": 10, "global_orient": 3, "transl": 3, "body_pose": 63,
+              "left_hand_pose": 6, "right_hand_pose": 6},
+    "smplx": {"betas": 10, "global_orient": 3, "transl": 3, "body_pose": 63,
+              "left_hand_pose": 6, "right_hand_pose": 6, "jaw_pose": 3,
+              "expression": 10},
+    "mano": {"betas": 10, "global_orient": 3, "transl": 3, "hand_pose": 6},
+    "flame": {"betas": 10, "global_orient": 3, "transl": 3, "neck_pose": 3,
+              "jaw_pose": 3, "leye_pose": 3, "reye_pose": 3,
+              "expression": 10},
 }
 
 
@@ -20,10 +30,9 @@ def init_body_params(num_frames: int, model_type: str = "smpl",
                      pose_dim: Optional[int] = None,
                      device=None) -> dict:
     """Zero-initialised store. pose_dim overrides the body_pose width (for
-    reduced-joint synthetic rigs)."""
+    reduced-joint synthetic rigs; the reference's cfg.pose_dim)."""
     if model_type not in PARAM_DIMS:
-        raise NotImplementedError(
-            f"model_type {model_type!r}: only SMPL is ported so far")
+        raise ValueError(f"unknown model_type {model_type!r}")
     dims = dict(PARAM_DIMS[model_type])
     if pose_dim is not None:
         dims["body_pose"] = pose_dim

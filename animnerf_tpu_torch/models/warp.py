@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from animnerf_tpu_torch.ops.knn_kernel import knn_top4
+from animnerf_tpu_torch.ops.knn_kernel import knn
 from animnerf_tpu_torch.ops.perm_sort import inverse_permutation, permute
 from animnerf_tpu_torch.ops.warp_blend import morton_codes, warp_blend_rows
 from animnerf_tpu_torch.smpl.body_model import BodyModel, BodyModelOutput
@@ -206,10 +206,11 @@ def unpose_rows(ctx: FrameContext, xyz_t: torch.Tensor,
                 tile_skip: bool = False) -> torch.Tensor:
     """Rows-native unpose: xyz_t (B, 8, N) rows [x|y|z|..] -> (B, 8, N)
     rows [x'|y'|z'|blended_dist|0..]: the top-4 kNN of the detached points
-    against the Morton-sorted cloud (``tile_skip`` on Morton-ordered
-    points), then the differentiable warp-blend."""
+    against the Morton-sorted cloud (``ops/knn_kernel.py::knn``: packed
+    keys, with ``tile_skip`` on Morton-ordered points, up to 8192 vertices,
+    the exact kernel above), then the differentiable warp-blend."""
     J = ctx.lbs_weights.shape[1]
     pts = xyz_t[:, 0:3].detach().transpose(1, 2).contiguous()
-    dists, idx = knn_top4(pts, ctx.verts_morton, tile_skip=tile_skip)
+    dists, idx = knn(pts, ctx.verts_morton, tile_skip=tile_skip)
     return warp_blend_rows(xyz_t, dists, idx, ctx.table_morton, J,
                            float(weight_std), 0.9)

@@ -31,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "animnerf_tpu_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 SOURCES = ("knn.cu", "warp_blend.cu", "fused_mlp.cu", "sort_lanes.cu",
-           "scatter.cu", "fused_mlp_bwd.cu")
+           "scatter.cu", "fused_mlp_bwd.cu", "knn_exact.cu", "min_dist.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
@@ -51,12 +51,15 @@ SIGNATURES = {
     "animnerf_fused_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _P],
     "animnerf_fused_mlp_bwd_sizes": [_I, _P],
+    "animnerf_knn_exact": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "animnerf_min_dist": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 # "knn_tile_skip" counts the kNN launches with the tile skip on (they also
 # count under "knn", the kernel's total)
 LAUNCHES = {"knn": 0, "knn_tile_skip": 0, "warp_blend": 0, "scatter": 0,
-            "fused_mlp": 0, "fused_mlp_bwd": 0, "permute_lanes": 0}
+            "fused_mlp": 0, "fused_mlp_bwd": 0, "permute_lanes": 0,
+            "knn_exact": 0, "min_dist": 0}
 
 
 def reset_launches() -> None:

@@ -1,14 +1,24 @@
-"""Conservative validity pre-pass of the compacted render and training.
+"""Validity pre-passes of the compacted render and training.
 
-Counterpart of ``animnerf_tpu/ops/knn.py::keep_within_boxes`` (the default
-``prepass="boxes"``) and ``keep_rows_within_boxes`` (its channel-leading
-form, the rows-compacted training step's). The kNN itself is
+Counterpart of ``animnerf_tpu/ops/knn.py``: ``keep_within_boxes`` (the
+default ``prepass="boxes"``), ``keep_rows_within_boxes`` (its
+channel-leading form, the rows-compacted training step's) and
+``min_vertex_distance`` (``prepass="exact"``: the CUDA kernel
+``csrc/min_dist.cu``, the counterpart of ``knn_pallas.py::_min_dist_kernel``
+through ``min_dist_pallas``, with its plain version). The kNN itself is
 ``ops/knn_kernel.py``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from animnerf_tpu_torch.ops import _build
+from animnerf_tpu_torch.ops.knn_kernel import (
+    check_points_verts,
+    exact_d2,
+    ieee_sqrt,
+)
 
 NB = 64  # index chunks of the vertex cloud
 
@@ -58,3 +68,40 @@ def keep_rows_within_boxes(xyz_t: torch.Tensor, verts: torch.Tensor,
                  & (y >= lo[:, b, 1:2]) & (y <= hi[:, b, 1:2])
                  & (z >= lo[:, b, 2:3]) & (z <= hi[:, b, 2:3]))
     return keep
+
+
+def min_vertex_distance(points: torch.Tensor,
+                        verts: torch.Tensor) -> torch.Tensor:
+    """(B, N, 3) points, (B, V, 3) verts -> (B, N) exact nearest-vertex
+    distance, on detached inputs: kernel on CUDA tensors, plain version on
+    CPU tensors."""
+    check_points_verts(points, verts, min_verts=1, max_verts=2**31 - 1)
+    if points.device.type == "cpu":
+        return min_vertex_distance_plain(points, verts)
+    points = points.detach().contiguous()
+    verts = verts.detach().contiguous()
+    _build.check_cuda("min_vertex_distance", points, verts)
+    B, N, _ = points.shape
+    out = torch.empty((B, N), dtype=torch.float32, device=points.device)
+    if N == 0:
+        return out
+    _build.kernel_library().call(
+        "animnerf_min_dist", points.data_ptr(), verts.data_ptr(),
+        out.data_ptr(), B, N, verts.shape[1], _build.stream_of(points))
+    _build.LAUNCHES["min_dist"] += 1
+    return out
+
+
+def min_vertex_distance_plain(points: torch.Tensor, verts: torch.Tensor,
+                              max_elems: int = 1 << 24) -> torch.Tensor:
+    """sqrt of the minimum over V of the rounded (v - p)^2 sums
+    (``knn_kernel.exact_d2``), in chunks over N so the (chunk x V) matrix
+    stays below ``max_elems``."""
+    check_points_verts(points, verts, min_verts=1, max_verts=2**31 - 1)
+    points, verts = points.detach(), verts.detach()
+    chunk = max(1, max_elems // verts.shape[1])
+    best = [exact_d2(points[:, s:s + chunk], verts).amin(dim=-1)
+            for s in range(0, points.shape[1], chunk)]
+    if not best:
+        return points.new_empty(points.shape[:2])
+    return ieee_sqrt(torch.cat(best, dim=1))

@@ -4,7 +4,9 @@
 Per frame: the body geometry once (``prepare_frame``), a conservative
 ray cull (``_maybe_hit_fn``: rays whose segment passes no inflated vertex
 box composite to exact background), then the compacted render of the
-surviving rays: coarse samples, the box pre-pass, the kNN + warp-blend
+surviving rays: coarse samples, the validity pre-pass (``prepass``:
+"boxes", inflated vertex-chunk boxes, or "exact", the nearest-vertex
+distance below ``dis_threshold``), the kNN + warp-blend
 and the coarse MLP on the survivors only, deterministic fine sampling,
 its pre-pass, the fine warp, one fine MLP over coarse and fine survivors,
 the per-ray depth merge-sort and the composite.
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from animnerf_tpu_torch.models.warp import prepare_frame, rays_to_root_frame
-from animnerf_tpu_torch.ops.knn import keep_within_boxes
+from animnerf_tpu_torch.ops.knn import keep_within_boxes, min_vertex_distance
 from animnerf_tpu_torch.render.compact import (
     compact_coarse,
     compact_fine,
@@ -60,11 +62,26 @@ MAX_RAYS_PER_CALL = 32768
 SLAB_RAYS = 8 * MAX_RAYS_PER_CALL
 
 
+PREPASSES = ("boxes", "exact")
+
+
 class Renderer:
     """Renders frames of one system on one device (CUDA unless
-    ``device="cpu"``, which runs the kernels' plain versions)."""
+    ``device="cpu"``, which runs the kernels' plain versions).
 
-    def __init__(self, system: AnimNeRFSystem, device: DeviceLike = None):
+    ``prepass``: "boxes" (default) keeps a sample when it lies in one of
+    the Morton cloud's 64 vertex-chunk boxes inflated by dis_threshold, a
+    superset of the valid samples at a fraction of the cost; "exact" keeps
+    it when its nearest-vertex distance is below dis_threshold
+    (``min_vertex_distance``, the min-distance kernel), the tightest
+    survivor set. Both give the same image: a kept sample that is not
+    valid gets the outside-shell sigma in the warp."""
+
+    def __init__(self, system: AnimNeRFSystem, device: DeviceLike = None,
+                 prepass: str = "boxes"):
+        if prepass not in PREPASSES:
+            raise ValueError(f"prepass {prepass!r}: one of {PREPASSES}")
+        self.prepass = prepass
         self.device = resolve_device(device)
         pin_fp32_geometry()
         self.system = system.to_device(self.device)
@@ -143,6 +160,8 @@ class Renderer:
             xyz = (rays_root[..., None, 0:3]
                    + z[..., None] * rays_root[..., None, 3:6]
                    ).reshape(B, R * K, 3)
+            if self.prepass == "exact":
+                return min_vertex_distance(xyz, ctx.verts) < thr
             return keep_within_boxes(xyz, ctx.verts_morton, thr)
 
         def warp_fn(xyz):

@@ -1,10 +1,14 @@
-"""SMPL body model on tensors — counterpart of ``animnerf_tpu/smpl/body_model.py``.
+"""SMPL-family body models on tensors — counterpart of
+``animnerf_tpu/smpl/body_model.py``.
 
 ``forward`` returns per-vertex transforms T, per-joint transforms A and the
 shape/pose blendshape offsets besides vertices and joints, with ``transl``
 folded into vertices, joints and the translation columns of A and T (the
-Anim-NeRF modification of SMPL). Only ``model_type="smpl"`` is ported; the
-other families raise ``NotImplementedError``.
+Anim-NeRF modification of SMPL). Five families: SMPL, SMPL-H and SMPL-X
+(hand poses through a PCA basis plus the mean hand pose; SMPL-X adds the
+jaw and eye joints), MANO (hand rig) and FLAME (head rig: neck, jaw, eyes);
+SMPL-X and FLAME add expression blendshapes when ``shapedirs`` holds
+them after the shape directions.
 """
 
 from __future__ import annotations
@@ -17,10 +21,18 @@ import torch
 
 from animnerf_tpu_torch.smpl import lbs as lbs_mod
 
+# skeleton joints driven by LBS (incl. root) per family
+NUM_JOINTS = {"smpl": 24, "smplh": 52, "smplx": 55, "mano": 16, "flame": 5}
+NUM_BODY_JOINTS = {"smpl": 23, "smplh": 21, "smplx": 21}
+
+_TENSORS = ("v_template", "shapedirs", "posedirs", "J_regressor",
+            "lbs_weights", "hand_components_l", "hand_components_r",
+            "hand_mean_l", "hand_mean_r")
+
 
 @dataclass
 class BodyModel:
-    """SMPL model data: tensors on one device plus host-side topology."""
+    """Body-model data: tensors on one device plus host-side topology."""
 
     v_template: torch.Tensor      # (V, 3)
     shapedirs: torch.Tensor       # (V, 3, num_betas)
@@ -32,6 +44,12 @@ class BodyModel:
     extra_joint_idxs: np.ndarray  # (E,)
     model_type: str = "smpl"
     gender: str = "neutral"
+    # SMPL-H/X (both sides) and MANO (left only) hand PCA; None for SMPL
+    hand_components_l: Optional[torch.Tensor] = None  # (P, 45)
+    hand_components_r: Optional[torch.Tensor] = None
+    hand_mean_l: Optional[torch.Tensor] = None        # (45,)
+    hand_mean_r: Optional[torch.Tensor] = None
+    flat_hand_mean: bool = False
 
     @property
     def num_verts(self) -> int:
@@ -41,10 +59,14 @@ class BodyModel:
     def num_joints(self) -> int:
         return self.J_regressor.shape[0]
 
+    @property
+    def num_betas(self) -> int:
+        return self.shapedirs.shape[-1]
+
     def to(self, device) -> "BodyModel":
-        return replace(self, **{k: getattr(self, k).to(device) for k in (
-            "v_template", "shapedirs", "posedirs", "J_regressor",
-            "lbs_weights")})
+        return replace(self, **{k: getattr(self, k).to(device)
+                                for k in _TENSORS
+                                if getattr(self, k) is not None})
 
 
 @dataclass
@@ -57,22 +79,94 @@ class BodyModelOutput:
     pose_offsets: torch.Tensor        # (B, V, 3)
 
 
+def _hand_pose(model: BodyModel, pose_pca: torch.Tensor,
+               side: str) -> torch.Tensor:
+    comps = model.hand_components_l if side == "l" else model.hand_components_r
+    mean = model.hand_mean_l if side == "l" else model.hand_mean_r
+    full = pose_pca @ comps  # (B, 45)
+    return full if model.flat_hand_mean else full + mean
+
+
+def _shape_inputs(model: BodyModel, betas, expression):
+    """SMPL-X/FLAME append the expression to the betas when shapedirs
+    holds expression directions after the shape directions."""
+    shapedirs = model.shapedirs
+    if model.model_type in ("smplx", "flame") and expression is not None \
+            and shapedirs.shape[-1] >= betas.shape[-1] + expression.shape[-1]:
+        coeffs = torch.cat([betas, expression], dim=-1)
+        return coeffs, shapedirs[..., :coeffs.shape[-1]]
+    return betas, shapedirs
+
+
 def forward(model: BodyModel, betas: torch.Tensor,
             global_orient: torch.Tensor,
             body_pose: Optional[torch.Tensor] = None,
-            transl: Optional[torch.Tensor] = None, **extra) -> BodyModelOutput:
-    """Pose the SMPL model from axis-angle parameters: betas (B, 10),
-    global_orient (B, 3), body_pose (B, 69), transl (B, 3)."""
-    if model.model_type != "smpl":
-        raise NotImplementedError(
-            f"model_type {model.model_type!r}: only SMPL is ported so far")
-    unused = sorted(k for k, v in extra.items() if v is not None)
-    if unused:
-        raise NotImplementedError(f"SMPL forward takes no {unused}")
-    full_pose = torch.cat([global_orient, body_pose], dim=1)
-    out = lbs_mod.lbs(betas, full_pose, model.v_template, model.shapedirs,
+            transl: Optional[torch.Tensor] = None,
+            left_hand_pose: Optional[torch.Tensor] = None,
+            right_hand_pose: Optional[torch.Tensor] = None,
+            hand_pose: Optional[torch.Tensor] = None,
+            jaw_pose: Optional[torch.Tensor] = None,
+            neck_pose: Optional[torch.Tensor] = None,
+            leye_pose: Optional[torch.Tensor] = None,
+            reye_pose: Optional[torch.Tensor] = None,
+            expression: Optional[torch.Tensor] = None,
+            pose2rot: bool = True, **extra) -> BodyModelOutput:
+    """Pose the body model: betas (B, num_betas), global_orient (B, 3),
+    body_pose (B, 69) SMPL / (B, 63) SMPL-H/X, transl (B, 3), hand poses
+    as PCA coefficients (B, P) (``hand_pose`` for MANO), jaw / neck / eye
+    poses (B, 3), expression (B, 10). Arguments another family uses are
+    ignored, as in the JAX package; unknown ones raise.
+
+    ``pose2rot=False`` (the reference's ``*Layer`` semantics): every pose
+    argument is rotation matrices, (B, n, 3, 3) or (B, n*9), and hand poses
+    are full 15-joint rotations (no PCA decode)."""
+    unknown = sorted(k for k, v in extra.items() if v is not None)
+    if unknown:
+        raise TypeError(f"forward takes no {unknown}")
+    mt = model.model_type
+    if mt not in NUM_JOINTS:
+        raise ValueError(f"unknown model_type {mt!r}")
+    B = betas.shape[0]
+    if pose2rot:
+        zeros3 = betas.new_zeros(B, 3)
+
+        def part(x, n):
+            return zeros3 if x is None else x
+    else:
+        eye = torch.eye(3, dtype=betas.dtype, device=betas.device)
+
+        def part(x, n):
+            if x is None:
+                return eye.expand(B, n, 3, 3)
+            return x.reshape(B, n, 3, 3)
+
+    def hand(x, side):
+        """15 finger joints: PCA-decoded axis-angle, or given matrices."""
+        return _hand_pose(model, x, side) if pose2rot else part(x, 15)
+
+    if mt == "smpl":
+        parts = [part(global_orient, 1),
+                 body_pose if pose2rot else part(body_pose,
+                                                 model.num_joints - 1)]
+    elif mt == "mano":
+        hp = hand_pose if hand_pose is not None else left_hand_pose
+        no_pca = pose2rot and model.hand_components_l is None
+        parts = [part(global_orient, 1), hp if no_pca else hand(hp, "l")]
+    elif mt == "flame":
+        parts = [part(p, 1) for p in (global_orient, neck_pose, jaw_pose,
+                                      leye_pose, reye_pose)]
+    else:
+        body = body_pose if pose2rot else part(body_pose, 21)
+        parts = [part(global_orient, 1), body]
+        if mt == "smplx":
+            parts += [part(p, 1) for p in (jaw_pose, leye_pose, reye_pose)]
+        parts += [hand(left_hand_pose, "l"), hand(right_hand_pose, "r")]
+    full_pose = torch.cat(parts, dim=1)
+
+    coeffs, shapedirs = _shape_inputs(model, betas, expression)
+    out = lbs_mod.lbs(coeffs, full_pose, model.v_template, shapedirs,
                       model.posedirs, model.J_regressor, model.parents,
-                      model.lbs_weights)
+                      model.lbs_weights, pose2rot=pose2rot)
     extra_j = out.vertices[:, torch.as_tensor(model.extra_joint_idxs,
                                               device=out.vertices.device,
                                               dtype=torch.long)]

@@ -101,13 +101,15 @@ class LBSOutput:
 
 
 def lbs(betas, pose, v_template, shapedirs, posedirs, J_regressor, parents,
-        lbs_weights) -> LBSOutput:
-    """Full skinning from axis-angle ``pose`` (B, J*3) incl. global orient."""
+        lbs_weights, pose2rot: bool = True) -> LBSOutput:
+    """Full skinning from ``pose`` incl. global orient: axis-angle (B, J*3),
+    or with ``pose2rot=False`` rotation matrices (B, J, 3, 3)."""
     B = max(betas.shape[0], pose.shape[0])
     shape_offsets = blend_shapes(betas, shapedirs)
     v_shaped = v_template[None] + shape_offsets
     joints_rest = vertices2joints(J_regressor, v_shaped)
-    rot_mats = rodrigues(pose.reshape(B, -1, 3))
+    rot_mats = rodrigues(pose.reshape(B, -1, 3)) if pose2rot \
+        else pose.reshape(B, -1, 3, 3)
     eye = torch.eye(3, dtype=v_template.dtype, device=v_template.device)
     pose_feature = (rot_mats[:, 1:] - eye).reshape(B, -1)
     pose_offsets = (pose_feature @ posedirs).reshape(B, -1, 3)

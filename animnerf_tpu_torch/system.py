@@ -100,7 +100,7 @@ class AnimNeRFSystem(nn.Module):
         self.body_params = nn.ParameterDict({
             k: nn.Parameter(v) for k, v in init_body_params(
                 int(g("num_frames", 1)), self.model_type,
-                pose_dim=3 * (body_model.num_joints - 1)).items()})
+                pose_dim=g("pose_dim")).items()})
         self.to_device(dev)
 
     def to_device(self, device) -> "AnimNeRFSystem":

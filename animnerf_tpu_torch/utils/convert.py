@@ -63,12 +63,17 @@ def body_model_from_arrays(v_template, shapedirs, posedirs, J_regressor,
                            lbs_weights, parents, faces,
                            extra_joint_idxs: Optional[np.ndarray] = None,
                            model_type: str = "smpl",
-                           gender: str = "neutral"):
-    """SMPL arrays (the loader's / ``make_rig``'s keys) -> ``BodyModel``
-    with float32 CPU tensors."""
+                           gender: str = "neutral",
+                           hand_components_l=None, hand_components_r=None,
+                           hand_mean_l=None, hand_mean_r=None,
+                           flat_hand_mean: bool = False):
+    """Body-model arrays (the loader's / ``make_rig``'s keys, plus the hand
+    PCA of SMPL-H/X and MANO) -> ``BodyModel`` with float32 CPU tensors."""
     from animnerf_tpu_torch.smpl.body_model import BodyModel
 
     def t(a):
+        if a is None:
+            return None
         return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
     if extra_joint_idxs is None:
@@ -79,7 +84,11 @@ def body_model_from_arrays(v_template, shapedirs, posedirs, J_regressor,
                      parents=np.asarray(parents, np.int32),
                      faces=np.asarray(faces, np.int32),
                      extra_joint_idxs=np.asarray(extra_joint_idxs, np.int32),
-                     model_type=model_type, gender=gender)
+                     model_type=model_type, gender=gender,
+                     hand_components_l=t(hand_components_l),
+                     hand_components_r=t(hand_components_r),
+                     hand_mean_l=t(hand_mean_l), hand_mean_r=t(hand_mean_r),
+                     flat_hand_mean=bool(flat_hand_mean))
 
 
 def load_checkpoint(path: str) -> dict:
@@ -114,7 +123,14 @@ def params_from_jax(params: dict) -> dict:
     {``nerf``, ``nerf_fine``} flax dicts and ``body_params``) ->
     {"anim_nerf": {"nerf": state dict, "nerf_fine": state dict},
      "body_params": {name: float32 tensor}} for
-    ``AnimNeRFSystem.load_params``."""
+    ``AnimNeRFSystem.load_params``. The body params may be any family's
+    (``models/body_params.py::PARAM_DIMS``); another name raises."""
+    from animnerf_tpu_torch.models.body_params import PARAM_DIMS
+
+    known = {k for dims in PARAM_DIMS.values() for k in dims}
+    unknown = sorted(set(params["body_params"]) - known)
+    if unknown:
+        raise KeyError(f"unknown body params {unknown}")
     out = {"anim_nerf": {net: nerf_params_from_flax(p)
                          for net, p in params["anim_nerf"].items()},
            "body_params": {k: torch.from_numpy(np.array(v, np.float32))

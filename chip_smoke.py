@@ -32,7 +32,22 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      (kernels) and on the CPU (plain versions) from the same parameters
      and noise, in f32 and in bf16: loss terms, gradients per parameter
      group and the parameters after one SGD-momentum step;
-  8. the kernels summary line, the card line, then the final status line.
+  8. SMPL-X kernel lines: the exact kNN and the nearest-vertex distance
+     against the seed-0 SMPL-X rig (V=10475, J=55), each bit-equal to its
+     plain version on the card;
+  9. smplx_serve: the flagship field with random weights from a seed (the
+     sigma heads' biases raised so the 0.2 m shell is opaque) on that rig,
+     a 512x512 turntable through ``Renderer.render_stream`` with
+     ``prepass="exact"``, launch counts reset just before and read just
+     after (the packed kNN must not launch), one profiled view, and the
+     same views with ``prepass="boxes"``, whose images must agree;
+ 10. smplx_serve_parity: one 64x64 view with prepass="exact" on the card
+     and on the CPU, bf16 and f32;
+ 11. smplx_train: the bench.py step on the SMPL-X rig with every SMPL-X
+     body parameter optimised: one warm-up step, 10 timed steps, one
+     profiled step, 20 steps on one fixed batch whose loss must fall;
+ 12. smplx_train_parity: phase 7 on the SMPL-X rig;
+ 13. the kernels summary line, the card line, then the final status line.
 """
 
 from __future__ import annotations
@@ -51,6 +66,9 @@ CKPT = os.path.join(ROOT, "docs", "demo", "scale512", "ckpt")
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+# non-FMA f32 operations (add, mul, min, compare): one per lane per cycle,
+# half the FMA peak, which counts an FMA as two
+PEAK_F32_NONFMA = PEAK_F32 / 2
 PEAK_BYTES = 3.35e12
 
 
@@ -434,6 +452,86 @@ def kernel_lines_train(dev):
     return lines
 
 
+SMPLX_KNN_POINTS = 1 << 20
+SMPLX_MIN_DIST_POINTS = 1 << 22
+
+
+def kernel_lines_smplx(dev):
+    """Check and time the SMPL-X kernels at their main-path widths against
+    the posed seed-0 SMPL-X cloud (V=10475, Morton order as the warp sees
+    it): the exact kNN over 2^20 points and the nearest-vertex distance
+    over 2^22 points (a slab of the serving pre-pass). Both versions round
+    every operation alike and take IEEE square roots, so the outputs must
+    be bit-equal. Neither has a one-call PyTorch counterpart (cdist then
+    topk / amin is two calls), so library_ms is null."""
+    import torch
+
+    from animnerf_tpu_torch.models.warp import prepare_frame
+    from animnerf_tpu_torch.ops.knn import (
+        min_vertex_distance,
+        min_vertex_distance_plain,
+    )
+    from animnerf_tpu_torch.ops.knn_kernel import knn_exact, knn_exact_plain
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    with torch.no_grad():
+        ctx = prepare_frame(smplx_rig().to(dev),
+                            tensors(smplx_params(1, 1), dev),
+                            tensors(smplx_params(1, 2, zero_transl=True), dev))
+    verts = ctx.verts_morton.contiguous()
+    V = verts.shape[1]
+
+    def points(N):
+        pick = torch.randint(0, V, (N,), generator=g, device=dev)
+        return (verts[0, pick] + 0.1 * torch.randn(N, 3, generator=g,
+                                                   device=dev))[None]
+
+    lines = {}
+    N = SMPLX_KNN_POINTS
+    pts = points(N).contiguous()
+    d, i = knn_exact(pts, verts)
+    dp, ip = knn_exact_plain(pts, verts)
+    torch.cuda.synchronize()
+    mism = int((i != ip).sum())
+    err = float((d - dp).abs().max())
+    check(mism == 0 and torch.equal(d, dp),
+          f"knn_exact: {mism} index mismatches, max err {err}")
+    lines["knn_exact"] = dict(
+        shape=f"points (1,{N},3) verts (1,{V},3)", max_abs_err=err,
+        tolerance=0.0, idx_mismatch=mism,
+        ms=time_ms(lambda: knn_exact(pts, verts), 20),
+        plain_ms=time_ms(lambda: knn_exact_plain(pts, verts), 1, warmup=1),
+        # 3 sub, 3 mul, 2 add and a compare per pair, none an FMA
+        bound_ms=max(9.0 * N * V / PEAK_F32_NONFMA,
+                     (N * 12 + V * 12 + N * 32) / PEAK_BYTES) * 1e3,
+        bound_by="operations", library_ms=None)
+
+    N = SMPLX_MIN_DIST_POINTS
+    pts = points(N).contiguous()
+    m = min_vertex_distance(pts, verts)
+    mp = min_vertex_distance_plain(pts, verts)
+    torch.cuda.synchronize()
+    err = float((m - mp).abs().max())
+    check(torch.equal(m, mp), f"min_dist: max err {err}")
+    lines["min_dist"] = dict(
+        shape=f"points (1,{N},3) verts (1,{V},3)", max_abs_err=err,
+        tolerance=0.0,
+        ms=time_ms(lambda: min_vertex_distance(pts, verts), 10),
+        plain_ms=time_ms(lambda: min_vertex_distance_plain(pts, verts), 1,
+                         warmup=1),
+        # 3 sub, 3 mul, 2 add and a min per pair, none an FMA
+        bound_ms=max(9.0 * N * V / PEAK_F32_NONFMA,
+                     (N * 12 + V * 12 + N * 4) / PEAK_BYTES) * 1e3,
+        bound_by="operations", library_ms=None)
+    return lines
+
+
+def tensors(d: dict, device) -> dict:
+    import torch
+
+    return {k: torch.tensor(v, device=device) for k, v in d.items()}
+
+
 KERNELS = {
     "knn": ("animnerf_tpu_torch/csrc/knn.cu",
             "animnerf_tpu/ops/knn_pallas.py:268"),
@@ -449,14 +547,28 @@ KERNELS = {
                       "animnerf_tpu/ops/fused_mlp.py:227"),
     "permute_lanes": ("animnerf_tpu_torch/csrc/sort_lanes.cu",
                       "animnerf_tpu/ops/sort_lanes.py:29"),
+    "knn_exact": ("animnerf_tpu_torch/csrc/knn_exact.cu",
+                  "animnerf_tpu/ops/knn_pallas.py:35"),
+    "min_dist": ("animnerf_tpu_torch/csrc/min_dist.cu",
+                 "animnerf_tpu/ops/knn_pallas.py:456"),
 }
 SERVE_KERNELS = ("knn", "warp_blend", "fused_mlp", "permute_lanes")
+TRAIN_KERNELS = ("knn", "knn_tile_skip", "warp_blend", "scatter",
+                 "fused_mlp", "fused_mlp_bwd", "permute_lanes")
+SMPLX_SERVE_KERNELS = ("min_dist", "knn_exact", "warp_blend", "fused_mlp",
+                       "permute_lanes")
+SMPLX_TRAIN_KERNELS = ("knn_exact", "warp_blend", "scatter", "fused_mlp",
+                       "fused_mlp_bwd", "permute_lanes")
 
 
 # ------------------------------------------------------------------ slice
 
 
-def render_turntable(system, bp, tmpl, angles, H=512, W=512):
+def render_turntable(system, bp, tmpl, angles, H=512, W=512,
+                     prepass="boxes", min_body_px=500, profile=True):
+    """Warm-up view, then the views of ``angles`` with the launch counts
+    reset just before and read just after, then (``profile``) one more
+    view under torch.profiler. Returns (views, launches, profile, images)."""
     import torch
 
     from animnerf_tpu_torch.ops import _build
@@ -465,7 +577,7 @@ def render_turntable(system, bp, tmpl, angles, H=512, W=512):
         turntable_rotation,
     )
 
-    renderer = Renderer(system)
+    renderer = Renderer(system, prepass=prepass)
     rays = frame_rays(H, W)
 
     def frames(views):
@@ -477,7 +589,7 @@ def render_turntable(system, bp, tmpl, angles, H=512, W=512):
         pass
     torch.cuda.synchronize()
     _build.reset_launches()
-    views = []
+    views, images = [], []
     t0 = time.perf_counter()
     for k, (img, mask, depth) in enumerate(
             renderer.render_stream(frames(angles))):
@@ -490,8 +602,9 @@ def render_turntable(system, bp, tmpl, angles, H=512, W=512):
                           rgb_mean=float(img.mean()),
                           mask_mean=float(mask.mean()),
                           depth_min=float(depth.min()), finite=finite))
+        images.append(img)
         check(finite, f"view {angles[k]}: non-finite output")
-        check(views[-1]["body_px"] > 500 and n_c > 0 and n_f > 0,
+        check(views[-1]["body_px"] > min_body_px and n_c > 0 and n_f > 0,
               f"view {angles[k]}: body not visible ({views[-1]})")
         t0 = time.perf_counter()
     launches = dict(_build.LAUNCHES)
@@ -500,7 +613,8 @@ def render_turntable(system, bp, tmpl, angles, H=512, W=512):
         for _ in renderer.render_stream(frames(angles[:1])):
             pass
 
-    return views, launches, profile_call(one_view, "view")
+    prof = profile_call(one_view, "view") if profile else None
+    return views, launches, prof, images
 
 
 def profile_call(fn, what: str):
@@ -566,6 +680,77 @@ def slice_parity(ck, system, bp, tmpl, H=96, W=96):
     return out
 
 
+def opaque_shell(system) -> None:
+    """Raise both sigma heads' biases by 30 so that random weights give an
+    opaque 0.2 m shell around the body: the views then show the body, and
+    the parity checks compare silhouettes and fine samples, not an almost
+    empty frame."""
+    import torch
+
+    with torch.no_grad():
+        for net in (system.scene.nerf, system.scene.nerf_fine):
+            net.sigma.bias += 30.0
+
+
+def smplx_serve(angles):
+    """The SMPL-X turntable with the exact pre-pass (launches, profile),
+    then the same views with the box pre-pass: the two images agree."""
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+
+    system = AnimNeRFSystem(SMPLX_CFG, smplx_rig(), device="cuda", seed=0)
+    opaque_shell(system)
+    bp, tmpl = smplx_params(1, 1), smplx_params(1, 2, zero_transl=True)
+    views, launches, prof, imgs = render_turntable(
+        system, bp, tmpl, angles, prepass="exact")
+    check(all(launches[k] > 0 for k in SMPLX_SERVE_KERNELS)
+          and launches["knn"] == 0,
+          f"SMPL-X serving launched the wrong kernels: {launches}")
+    bviews, _, _, bimgs = render_turntable(system, bp, tmpl, angles,
+                                           prepass="boxes", profile=False)
+    # both pre-passes are exact end to end: a kept sample that is not
+    # valid gets the outside-shell sigma, and every kernel works per point
+    agree = max(float(np.abs(a - b).max()) for a, b in zip(imgs, bimgs))
+    check(agree <= 1e-5, f"exact vs boxes pre-pass images: {agree}")
+    return views, launches, prof, bviews, agree
+
+
+def smplx_serve_parity(H=64, W=64):
+    """One SMPL-X view with prepass="exact" on the card (kernels) and on
+    the CPU (plain versions), the bounds of slice_parity."""
+    from animnerf_tpu_torch.render.inference import (
+        Renderer,
+        turntable_rotation,
+    )
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+
+    rays = frame_rays(H, W)
+    P = turntable_rotation(17, 64)
+    bp, tmpl = smplx_params(1, 1), smplx_params(1, 2, zero_transl=True)
+    out = {}
+    for dtype, bound in (("bfloat16", (5e-2, 40.0)), ("float32", (1e-3, 60.0))):
+        cfg = dict(SMPLX_CFG, compute_dtype=dtype)
+        res = {}
+        for dv in ("cuda", "cpu"):
+            system = AnimNeRFSystem(cfg, smplx_rig(), device=dv, seed=0)
+            opaque_shell(system)
+            r = Renderer(system, device=dv, prepass="exact")
+            t0 = time.perf_counter()
+            img, mask, _ = r.render_frame(bp, tmpl, rays, P, (W, H))
+            res[dv] = (img, mask, r.last_counts, time.perf_counter() - t0)
+        (ig, mg, cg, _), (ic, mc, cc, sc) = res["cuda"], res["cpu"]
+        mse = float(np.mean((ig - ic) ** 2))
+        psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
+        err = float(np.abs(ig - ic).max())
+        out[dtype] = dict(max_abs_img=err, max_abs_mask=float(
+            np.abs(mg - mc).max()), psnr_db=psnr, bound_max_abs=bound[0],
+            bound_psnr_db=bound[1], counts_gpu=cg, counts_cpu=cc,
+            body_px=int((mc > 0.5).sum()), cpu_seconds=sc)
+        check(err <= bound[0] and psnr >= bound[1],
+              f"SMPL-X parity {dtype}: max abs {err}, PSNR {psnr}")
+        check(out[dtype]["body_px"] > 50, f"SMPL-X parity: no body {out}")
+    return out
+
+
 # ------------------------------------------------------------------ train
 
 # the flagship of __graft_entry__._flagship_system / bench.py, in the
@@ -573,6 +758,36 @@ def slice_parity(ck, system, bp, tmpl, H=96, W=96):
 FLAGSHIP_CFG = {"n_samples": 64, "n_importance": 32, "use_view": False,
                 "freqs_xyz": 10, "num_frames": 8, "gender": "neutral",
                 "compute_dtype": "bfloat16"}
+# the same field on an SMPL-X body (body_pose 63 wide, hands, jaw,
+# expression)
+SMPLX_CFG = dict(FLAGSHIP_CFG, model_type="smplx")
+
+
+def smpl_rig():
+    from animnerf_tpu_torch.data.synthetic import make_body_model
+
+    return make_body_model(6890, 24, seed=0)
+
+
+def smplx_rig():
+    """The seed-0 SMPL-X rig: V=10475, J=55, 6 hand PCA components."""
+    from animnerf_tpu_torch.data.synthetic import make_body_model
+
+    return make_body_model(10475, model_type="smplx", seed=0)
+
+
+def smplx_params(B: int, seed: int, zero_transl: bool = False) -> dict:
+    """Every SMPL-X body parameter (models/body_params.py::PARAM_DIMS),
+    numpy float32 from a seed."""
+    from animnerf_tpu_torch.models.body_params import PARAM_DIMS
+
+    rng = np.random.default_rng(seed)
+    p = {k: rng.normal(scale=0.5 if k in ("betas", "transl", "expression")
+                       else 0.3, size=(B, d)).astype(np.float32)
+         for k, d in PARAM_DIMS["smplx"].items()}
+    if zero_transl:
+        p["transl"][:] = 0.0
+    return p
 
 
 def train_rays(batch: int, n_rays: int, seed: int = 0) -> np.ndarray:
@@ -587,16 +802,21 @@ def train_rays(batch: int, n_rays: int, seed: int = 0) -> np.ndarray:
     return np.concatenate([o, d, near, far], axis=-1)
 
 
-def train_batches(B: int, n_rays: int, seeds, device):
+def train_batches(B: int, n_rays: int, seeds, device,
+                  model_type: str = "smpl"):
     """bench.py's batch (random targets and fg/bg points from seed 0,
-    seed-2 template poses with zero transl), one per ray seed."""
+    seed-2 template poses with zero transl, every SMPL-X parameter for an
+    SMPL-X rig), one per ray seed."""
     import torch
 
     from animnerf_tpu_torch.data.synthetic import random_pose_params
 
     rng = np.random.default_rng(0)
-    tmpl = random_pose_params(24, batch=B, seed=2)
-    tmpl["transl"] = np.zeros_like(tmpl["transl"])
+    if model_type == "smplx":
+        tmpl = smplx_params(B, 2, zero_transl=True)
+    else:
+        tmpl = random_pose_params(24, batch=B, seed=2)
+        tmpl["transl"] = np.zeros_like(tmpl["transl"])
     base = {
         "frame_idx": np.arange(B, dtype=np.int64) % FLAGSHIP_CFG["num_frames"],
         "rgbs": rng.uniform(size=(B, n_rays, 3)).astype(np.float32),
@@ -619,25 +839,28 @@ def finite(trainer, details) -> bool:
     return bool(torch.stack(flags).all())
 
 
-def train_phase(dev, B: int = 16, R: int = 1024):
-    """The bench.py step: warm-up, 20 timed steps, one profiled step, then
-    30 steps on one fixed batch."""
+def train_phase(dev, cfg=FLAGSHIP_CFG, make_rig=smpl_rig,
+                model_type: str = "smpl", n_timed: int = 20,
+                n_fixed: int = 30, need=TRAIN_KERNELS, absent=(),
+                B: int = 16, R: int = 1024):
+    """The bench.py step: warm-up, ``n_timed`` timed steps (launch counts
+    reset just before and read just after: every kernel of ``need``
+    launched, none of ``absent``), one profiled step, then ``n_fixed``
+    steps on one fixed batch."""
     import torch
 
-    from animnerf_tpu_torch.data.synthetic import make_body_model
     from animnerf_tpu_torch.ops import _build
     from animnerf_tpu_torch.system import AnimNeRFSystem
     from animnerf_tpu_torch.training.system import RowsCompactTrainer
 
-    system = AnimNeRFSystem(FLAGSHIP_CFG, make_body_model(6890, 24, seed=0),
-                            device=dev, seed=0)
+    system = AnimNeRFSystem(cfg, make_rig(), device=dev, seed=0)
     trainer = RowsCompactTrainer(system, steps_per_epoch=100)
-    batches = train_batches(B, R, range(21), dev)
-    trainer.step(batches[20])  # warm-up
+    batches = train_batches(B, R, range(n_timed + 1), dev, model_type)
+    trainer.step(batches[n_timed])  # warm-up
     torch.cuda.synchronize()
     _build.reset_launches()
     steps = []
-    for s in range(20):
+    for s in range(n_timed):
         t0 = time.perf_counter()
         d = trainer.step(batches[s])
         torch.cuda.synchronize()
@@ -648,17 +871,19 @@ def train_phase(dev, B: int = 16, R: int = 1024):
                           compact_count=d["compact_count"], finite=ok))
         check(ok, f"train step {s}: non-finite loss or gradient")
     launches = dict(_build.LAUNCHES)
-    check(all(launches[k] > 0 for k in KERNELS),
+    check(all(launches[k] > 0 for k in need),
           f"a kernel of the train path was never launched: {launches}")
+    check(all(launches[k] == 0 for k in absent),
+          f"a kernel off the train path was launched: {launches}")
     prof = profile_call(lambda: trainer.step(batches[0]), "step")
 
     losses = []
-    for s in range(30):  # one fixed batch: the loss must fall
+    for s in range(n_fixed):  # one fixed batch: the loss must fall
         d = trainer.step(batches[1])
         check(finite(trainer, d), f"fixed-batch step {s}: non-finite")
         losses.append(float(d["loss"]))
-    check(losses[-1] < losses[0],
-          f"loss did not fall over 30 steps: {losses[0]} -> {losses[-1]}")
+    check(losses[-1] < losses[0], f"loss did not fall over {n_fixed} "
+          f"steps: {losses[0]} -> {losses[-1]}")
     med = float(np.median([st["ms"] for st in steps]))
     summary = {"rays_per_step": B * R, "steps": len(steps),
                "median_step_ms": med,
@@ -671,7 +896,7 @@ def train_phase(dev, B: int = 16, R: int = 1024):
                "launches_per_step": {k: v / len(steps)
                                      for k, v in launches.items()},
                "fixed_batch_loss_first": losses[0],
-               "fixed_batch_loss_30": losses[-1]}
+               "fixed_batch_loss_last": losses[-1]}
     return steps, summary, prof, losses
 
 
@@ -680,17 +905,20 @@ def _grad_groups(system):
 
     groups = {"field": system.scene.nerf, "fine_field": system.scene.nerf_fine,
               "body_params": system.body_params}
-    return {k: torch.cat([p.grad.detach().reshape(-1).cpu().double()
-                          for p in m.parameters()])
+    # a parameter the rig does not use has no gradient (the SMPL-X
+    # expression with 10 shape directions): zeros on both sides
+    return {k: torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).detach().reshape(-1)
+                          .cpu().double() for p in m.parameters()])
             for k, m in groups.items()}
 
 
-def train_parity(dev, B: int = 2, R: int = 128):
+def train_parity(dev, cfg=FLAGSHIP_CFG, make_rig=smpl_rig,
+                 model_type: str = "smpl", B: int = 2, R: int = 128):
     """One full-width step with B x R rays on the card (kernels) and on the
     CPU (plain versions) from the same parameters and noise."""
     import torch
 
-    from animnerf_tpu_torch.data.synthetic import make_body_model
     from animnerf_tpu_torch.system import AnimNeRFSystem
     from animnerf_tpu_torch.training.system import RowsCompactTrainer
     from animnerf_tpu_torch.utils.rng import draw_noise
@@ -709,17 +937,17 @@ def train_parity(dev, B: int = 2, R: int = 128):
                                param_abs=1e-4)}
     out = {}
     for dtype, bd in bounds.items():
-        cfg = dict(FLAGSHIP_CFG, compute_dtype=dtype,
-                   train={"optimizer": {"type": "sgd", "momentum": 0.9}})
+        cfg_d = dict(cfg, compute_dtype=dtype,
+                     train={"optimizer": {"type": "sgd", "momentum": 0.9}})
         res = {}
         for dv in (dev, "cpu"):
-            system = AnimNeRFSystem(cfg, make_body_model(6890, 24, seed=0),
-                                    device=dv, seed=0)
+            system = AnimNeRFSystem(cfg_d, make_rig(), device=dv, seed=0)
             noise = draw_noise(torch.Generator().manual_seed(7), B, R,
                                system.renderer_cfg,
                                system.body_model.num_verts).to(dv)
             trainer = RowsCompactTrainer(system, steps_per_epoch=100)
-            d = trainer.step(train_batches(B, R, [5], dv)[0], noise)
+            d = trainer.step(train_batches(B, R, [5], dv, model_type)[0],
+                             noise)
             res[dv] = ({k: float(v) for k, v in d.items()},
                        _grad_groups(system),
                        {k: p.detach().cpu() for k, p in
@@ -784,7 +1012,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     angles = [3, 17, 29, 41, 55]
-    views, serve_launches, prof = render_turntable(system, bp, tmpl, angles)
+    views, serve_launches, prof, _ = render_turntable(system, bp, tmpl,
+                                                      angles)
     for v in views:
         emit(dict(phase="view", **v))
     emit(dict(phase="profile", **prof))
@@ -794,9 +1023,9 @@ def main() -> int:
           "launches_per_view": {k: v / len(views)
                                 for k, v in serve_launches.items()},
           "seconds": time.perf_counter() - t0})
-    check(all(serve_launches[k] > 0 for k in SERVE_KERNELS),
-          f"a kernel of the serving path was never launched: "
-          f"{serve_launches}")
+    check(all(serve_launches[k] > 0 for k in SERVE_KERNELS)
+          and serve_launches["knn_exact"] == serve_launches["min_dist"] == 0,
+          f"the serving path launched the wrong kernels: {serve_launches}")
 
     t0 = time.perf_counter()
     parity = slice_parity(ck, system, bp, tmpl)
@@ -805,7 +1034,8 @@ def main() -> int:
     del system, ctx
 
     t0 = time.perf_counter()
-    steps, summary, prof, losses = train_phase("cuda")
+    steps, summary, prof, losses = train_phase(
+        "cuda", absent=("knn_exact", "min_dist"))
     for st in steps:
         emit(dict(phase="train_step", **st))
     emit(dict(phase="train_profile", **prof))
@@ -818,11 +1048,57 @@ def main() -> int:
     emit({"phase": "train_parity", **tparity,
           "seconds": time.perf_counter() - t0})
 
+    # ---- SMPL-X: the exact kNN and the min-distance pre-pass
+    t0 = time.perf_counter()
+    xlines = kernel_lines_smplx("cuda")
+    for name, line in xlines.items():
+        emit(dict(phase="kernel", name=name, **line))
+    lines.update(xlines)
+
+    angles = [3, 29, 55]
+    xviews, xserve, prof, bviews, agree = smplx_serve(angles)
+    for v in xviews:
+        emit(dict(phase="smplx_view", **v))
+    emit(dict(phase="smplx_profile", **prof))
+    emit({"phase": "smplx_serve", "views": len(xviews),
+          "median_view_ms": float(np.median([v["ms"] for v in xviews])),
+          "median_view_ms_boxes": float(np.median([v["ms"]
+                                                   for v in bviews])),
+          "survivors_boxes": [[v["n_coarse"], v["n_fine"]] for v in bviews],
+          "max_abs_img_exact_vs_boxes": agree, "launches": xserve,
+          "launches_per_view": {k: v / len(xviews)
+                                for k, v in xserve.items()},
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    emit({"phase": "smplx_serve_parity", **smplx_serve_parity(),
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    steps, xsummary, prof, losses = train_phase(
+        "cuda", SMPLX_CFG, smplx_rig, "smplx", n_timed=10, n_fixed=20,
+        need=SMPLX_TRAIN_KERNELS, absent=("knn", "min_dist"))
+    for st in steps:
+        emit(dict(phase="smplx_train_step", **st))
+    emit(dict(phase="smplx_train_profile", **prof))
+    emit(dict(phase="smplx_train", **xsummary, fixed_batch_losses=losses,
+              seconds=time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    emit({"phase": "smplx_train_parity",
+          **train_parity("cuda", SMPLX_CFG, smplx_rig, "smplx"),
+          "seconds": time.perf_counter() - t0})
+
+    # launches: the SMPL train phase's for the kernels of slices 1-2, the
+    # SMPL-X serve and train phases' (summed) for the two SMPL-X kernels
+    xlaunches = {k: xserve[k] + xsummary["launches"][k]
+                 for k in ("knn_exact", "min_dist")}
     rows = []
     for name, (src, replaces) in KERNELS.items():
         ln = lines[name]
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces,
+                     "launches": xlaunches.get(name, launches[name]),
                      "max_abs_err": ln["max_abs_err"], "ms": ln["ms"],
                      "plain_ms": ln["plain_ms"], "bound_ms": ln["bound_ms"],
                      "bound_by": ln["bound_by"],

@@ -1,10 +1,13 @@
-"""The port's packed top-4 kNN (plain version) against the TPU tournament
-kernel ``knn_pallas(packed=True)`` in interpret mode, on the CPU."""
+"""The port's kNN and nearest-vertex distance (plain versions) against the
+TPU kernels in interpret mode, on the CPU: the packed tournament kernel
+(``knn_pallas(packed=True)``), the exact kernel (``packed=False``), the
+dispatch between them and ``min_dist_pallas``."""
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from animnerf_tpu.ops.knn_pallas import knn_pallas
@@ -101,3 +104,124 @@ def test_keep_rows_within_boxes_matches_jax():
                                torch.from_numpy(verts), 0.2).numpy()
     assert 0 < b.sum() < b.size
     np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------- exact kNN, min distance
+
+
+def _smplx_cloud(N, seed):
+    """Points around a V=10475 cloud (SMPL-X's vertex count)."""
+    return _cloud(V=10475, N=N, seed=seed)
+
+
+def _ulps(a, b):
+    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32))
+
+
+def _knn_exact(pts, verts):
+    from animnerf_tpu_torch.ops.knn_kernel import knn_exact
+
+    d, i = knn_exact(torch.from_numpy(pts), torch.from_numpy(verts))
+    return d.numpy(), i.numpy()
+
+
+def _fma_free_d2(pts, verts):
+    """numpy f32 ((vx-px)^2 + (vy-py)^2) + (vz-pz)^2, every op rounded."""
+    e = verts[0][None] - pts[0][:, None]
+    return (e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1]) \
+        + e[..., 2] * e[..., 2]
+
+
+def test_knn_exact_plain_matches_exact_kernel():
+    """knn_exact_plain against the TPU exact kernel (``packed=False``) in
+    interpret mode at V=10475. XLA:CPU contracts the interpret-mode sum
+    into fma(ez, ez, fma(ex, ex, ey*ey)), which saves two of the TPU
+    kernel's roundings of d2, so distances agree within 2 ulps (1 ulp of
+    d2 per contraction, halved by the sqrt, plus the sqrt's own rounding)
+    and indices agree except where two candidates' d2 lie within that
+    rounding of each other."""
+    pts, verts = _smplx_cloud(1500, seed=5)
+    dj, ij = knn_pallas(jnp.asarray(pts), jnp.asarray(verts), k=4,
+                        packed=False, transposed_out=True, interpret=True)
+    dj, ij = np.asarray(dj), np.asarray(ij)
+    dt, it = _knn_exact(pts, verts)
+    assert dt.shape == dj.shape == (1, 4, 1500) and it.dtype == np.int32
+    diff = ij != it
+    if diff.any():
+        p = pts[0][np.nonzero(diff)[2]].astype(np.float64)
+        d2a = ((p - verts[0][ij[diff]]) ** 2).sum(-1)
+        d2b = ((p - verts[0][it[diff]]) ** 2).sum(-1)
+        assert np.all(np.abs(d2a - d2b) <= 4 * np.spacing(
+            np.maximum(d2a, d2b).astype(np.float32)))
+    assert diff.mean() < 1e-3
+    assert _ulps(dt[~diff], dj[~diff]).max() <= 2
+    assert np.all(np.diff(dt, axis=1) >= 0)
+
+
+def test_knn_exact_plain_rounds_like_the_tpu_kernel():
+    """Bit for bit against numpy's separately rounded f32 sums and a stable
+    sort (an equal d2 goes to the smaller index: duplicated vertices tie
+    exactly), over several chunks."""
+    from animnerf_tpu_torch.ops.knn_kernel import knn_exact_plain
+
+    pts, verts = _cloud(V=600, N=300, seed=6)
+    verts[0, 400:410] = verts[0, 100:110]  # exact ties
+    pts[0, :10] = verts[0, 100:110] + np.float32(1e-3)
+    d, i = knn_exact_plain(torch.from_numpy(pts), torch.from_numpy(verts),
+                           max_elems=6000)
+    d2 = _fma_free_d2(pts, verts)
+    order = np.argsort(d2, axis=1, kind="stable")[:, :4]
+    np.testing.assert_array_equal(i.numpy()[0], order.T)
+    want = np.sqrt(np.take_along_axis(d2, order, 1).astype(np.float64))
+    np.testing.assert_array_equal(d.numpy()[0], want.astype(np.float32).T)
+    assert np.all(i.numpy()[0, 0, :10] < 400)
+
+
+@pytest.mark.parametrize("V,packed,exact", [
+    (8192, True, False), (8193, True, True), (8192, False, True)])
+def test_knn_dispatches_by_vertex_count(V, packed, exact):
+    """knn takes the packed kernel up to 8192 vertices and the exact one
+    above (and with packed=False): the output is the one or the other
+    version's, and the two differ (quantised vs exact distances)."""
+    from animnerf_tpu_torch.ops.knn_kernel import knn, knn_exact_plain
+
+    pts, verts = _cloud(V=V, N=200, seed=7)
+    tp, tv = torch.from_numpy(pts), torch.from_numpy(verts)
+    got = knn(tp, tv, tile_skip=True, packed=packed)
+    want_exact = knn_exact_plain(tp, tv)
+    if V <= 8192:
+        want_packed = knn_top4_plain(tp, tv)
+    else:
+        with pytest.raises(ValueError, match="8192"):
+            knn_top4_plain(tp, tv)
+        want_packed = knn_top4_plain(tp, tv[:, :8192].contiguous())
+    assert not torch.equal(want_exact[0], want_packed[0])
+    want = want_exact if exact else want_packed
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_min_vertex_distance_plain_matches_kernel():
+    """min_vertex_distance_plain against the TPU min-distance kernel in
+    interpret mode at V=10475: within 2 ulps (XLA:CPU's two FMA
+    contractions, as for the exact kNN); bit-equal to the exact kNN's
+    nearest distance and to numpy's separately rounded sums."""
+    from animnerf_tpu.ops.knn_pallas import min_dist_pallas
+    from animnerf_tpu_torch.ops.knn import (
+        min_vertex_distance,
+        min_vertex_distance_plain,
+    )
+    from animnerf_tpu_torch.ops.knn_kernel import knn_exact_plain
+
+    pts, verts = _smplx_cloud(1200, seed=8)
+    mj = np.asarray(min_dist_pallas(jnp.asarray(pts), jnp.asarray(verts),
+                                    interpret=True))
+    tp, tv = torch.from_numpy(pts), torch.from_numpy(verts)
+    mt = min_vertex_distance(tp, tv).numpy()
+    assert mt.shape == mj.shape == (1, 1200)
+    assert _ulps(mt, mj).max() <= 2
+    np.testing.assert_array_equal(mt, knn_exact_plain(tp, tv)[0][:, 0])
+    d2 = _fma_free_d2(pts, verts).min(1).astype(np.float64)
+    np.testing.assert_array_equal(mt[0], np.sqrt(d2).astype(np.float32))
+    again = min_vertex_distance_plain(tp, tv, max_elems=50000).numpy()
+    np.testing.assert_array_equal(again, mt)

@@ -91,7 +91,8 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
         fused_nerf_fwd,
         pack_params,
     )
-    from animnerf_tpu_torch.ops.knn_kernel import knn_top4
+    from animnerf_tpu_torch.ops.knn import min_vertex_distance
+    from animnerf_tpu_torch.ops.knn_kernel import knn, knn_exact, knn_top4
     from animnerf_tpu_torch.ops.sort_lanes import permute_lanes
 
     def no_build():
@@ -103,6 +104,9 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     pts = torch.from_numpy(rng.normal(size=(1, 50, 3)).astype(np.float32))
     knn_top4(pts, pts[:, :20].contiguous())
     knn_top4(pts, pts[:, :20].contiguous(), tile_skip=True)
+    knn_exact(pts, pts[:, :20].contiguous())
+    knn(pts, pts[:, :20].contiguous(), packed=False)
+    min_vertex_distance(pts, pts[:, :20].contiguous())
     ws, bs = pack_params(NeRFMLP(4).state_dict(), 4, "float32")
     fused_nerf_fwd(torch.zeros(1, 8, 10), ws, bs, 4, "float32")
     fused_nerf_bwd(torch.zeros(1, 8, 10), ws, bs, torch.ones(1, 8, 10), 4,

@@ -58,11 +58,6 @@ def test_smpl_forward_matches_jax():
                                    err_msg=k)
 
 
-def test_other_body_families_raise():
-    with pytest.raises(NotImplementedError):
-        TS.make_body_model(num_verts=64, model_type="smplx")
-
-
 def test_load_pickle_matches_jax_loader():
     from animnerf_tpu.smpl.loader import load_pickle as jload
     from animnerf_tpu_torch.smpl.loader import load_pickle as tload

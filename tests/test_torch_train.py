@@ -63,8 +63,10 @@ def jax_noise(key, step, B, R, Kc, Kf, V) -> TrainNoise:
 
 
 def port_system(cfg, nj, params):
-    system = AnimNeRFSystem(dict(cfg), make_body_model(128, nj, seed=0),
-                            device="cpu")
+    # the JAX side sizes body_pose for the tiny rig's joints, not by the
+    # config's SMPL default of 69
+    system = AnimNeRFSystem(dict(cfg, pose_dim=3 * (nj - 1)),
+                            make_body_model(128, nj, seed=0), device="cpu")
     system.load_params(params_from_jax(jax.tree.map(np.asarray, params)))
     return system
 
