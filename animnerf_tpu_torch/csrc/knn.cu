@@ -3,18 +3,11 @@
 // Replaces: animnerf_tpu/ops/knn_pallas.py::_tournament_knn_kernel (the
 // packed, k=4 path of knn_pallas), with its optional tile_skip.
 //
-// Contract (bit-identical keys to the TPU kernel and to the plain version
-// in ops/knn_kernel.py): for point p and vertex v,
-//   pp   = (px*px + py*py) + pz*pz
-//   m2   = -(v + v),   vq = (vx*vx + vy*vy) + vz*vz
-//   d2   = max(pp + (m2z*pz + (m2y*py + (m2x*px + vq))), 0)
-//   key  = (bits(d2) & ~0x1FFF) | vertex_index        (V <= 8192)
-// The 4 smallest keys are returned ascending as sqrt(bits(key & ~0x1FFF))
-// and key & 0x1FFF. Keys are unique (index bits), so ties go to the
-// smaller index and the top-4 does not depend on the visiting order.
-// Every product and sum goes through __fmul_rn / __fadd_rn: nvcc would
-// otherwise contract a*b+c into an FMA, which XLA does not, and a key
-// differing in one bit can swap two neighbours.
+// Contract: the packed keys of knn_keys.cuh (bit-identical to the TPU
+// kernel and to the plain version in ops/knn_kernel.py). The 4 smallest
+// keys are returned ascending as sqrt(bits(key & ~0x1FFF)) and key &
+// 0x1FFF. Keys are unique (index bits), so ties go to the smaller index
+// and the top-4 does not depend on the visiting order.
 //
 // Bound on the H100: operations. Each (point, vertex) pair costs 3 f32
 // multiplies, 4 f32 adds, a max, two integer ops and a compare; bytes are
@@ -44,14 +37,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "knn_keys.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE_V = 1024;  // 16 KB of float4 per stage
-constexpr int MAX_TILES = 8;  // V <= 8192
-constexpr int KEY_MASK = ~0x1FFF;
-constexpr int BIGKEY = 0x7FFFFFFF;
+constexpr int MAX_TILES = knn_keys::MAX_VERTS / TILE_V;
+using knn_keys::BIGKEY;
+using knn_keys::KEY_MASK;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
 // squared distance from p to the AABB (lo, hi)
@@ -85,8 +80,7 @@ knn_top4_kernel(const float* __restrict__ points,  // (B, N, 3)
   const bool live = n < N;
   const float* p = points + ((size_t)b * N + (live ? n : 0)) * 3;
   const float px = p[0], py = p[1], pz = p[2];
-  const float pp = __fadd_rn(__fadd_rn(__fmul_rn(px, px), __fmul_rn(py, py)),
-                             __fmul_rn(pz, pz));
+  const float pp = knn_keys::point_pp(px, py, pz);
   int k0 = BIGKEY, k1 = BIGKEY, k2 = BIGKEY, k3 = BIGKEY;
   const float* vb = verts + (size_t)b * V * 3;
   const int n_tiles = (V + TILE_V - 1) / TILE_V;
@@ -146,25 +140,12 @@ knn_top4_kernel(const float* __restrict__ points,  // (B, N, 3)
     } else {
       __syncthreads();
     }
-    for (int j = threadIdx.x; j < cnt; j += THREADS) {
-      const float vx = vb[(size_t)(base + j) * 3 + 0];
-      const float vy = vb[(size_t)(base + j) * 3 + 1];
-      const float vz = vb[(size_t)(base + j) * 3 + 2];
-      const float vq = __fadd_rn(
-          __fadd_rn(__fmul_rn(vx, vx), __fmul_rn(vy, vy)), __fmul_rn(vz, vz));
-      sv[j] = make_float4(-__fadd_rn(vx, vx), -__fadd_rn(vy, vy),
-                          -__fadd_rn(vz, vz), vq);
-    }
+    for (int j = threadIdx.x; j < cnt; j += THREADS)
+      sv[j] = knn_keys::vertex_row(vb + (size_t)(base + j) * 3);
     __syncthreads();
     if (!warp_need) continue;
     for (int j = 0; j < cnt; ++j) {
-      const float4 v = sv[j];
-      float d2 = __fadd_rn(
-          pp, __fadd_rn(__fmul_rn(v.z, pz),
-                        __fadd_rn(__fmul_rn(v.y, py),
-                                  __fadd_rn(__fmul_rn(v.x, px), v.w))));
-      d2 = fmaxf(d2, 0.0f);
-      const int key = (__float_as_int(d2) & KEY_MASK) | (base + j);
+      const int key = knn_keys::packed_key(sv[j], px, py, pz, pp, base + j);
       if (key < k3) {  // sorted insert into k0 < k1 < k2 < k3
         if (key < k2) {
           k3 = k2;
@@ -190,8 +171,8 @@ knn_top4_kernel(const float* __restrict__ points,  // (B, N, 3)
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const size_t o = ((size_t)b * 4 + s) * N + n;
-    out_d[o] = sqrtf(__int_as_float(ks[s] & KEY_MASK));
-    out_i[o] = ks[s] & 0x1FFF;
+    out_d[o] = knn_keys::key_dist(ks[s]);
+    out_i[o] = knn_keys::key_index(ks[s]);
   }
 }
 

@@ -3,20 +3,21 @@
 // Replaces: animnerf_tpu/ops/blend.py::_scatter_kernel (reached through
 // weighted_scatter_rows_pallas with transposed_in=True, g_t=True).
 //
-//   out[b, idx[b, k, n], c] += w[b, k, n] * g[b, c, n]     c < 16, k < 4
+//   out[b, idx[b, k, n], c] += w[b, k, n] * g[b, c, n]     c < 16, k < K
 //
-// idx / w (B, 4, N) as the kNN and warp-blend kernels emit them, g
+// idx / w (B, K, N) as the kNN and warp-blend kernels emit them (K =
+// k_neigh, 1..16, a runtime argument: the loop over k is not unrolled), g
 // (B, 16, N) rows-native cotangents, out (B, V, 16) f32, zeroed by the
 // wrapper.
 //
-// Bound on the H100: bytes. Per point it reads 4 indices, 4 weights and
+// Bound on the H100: bytes. Per point it reads K indices, K weights and
 // 16 g values and the table is written once (V x 16 x 4 B = 441 KB per
 // element for SMPL, which lives in the 50 MB L2). The TPU kernel keeps a
 // VMEM-resident (Vp, 16) accumulator across a sequential point grid and
 // scatters with masked MXU matmuls over candidate vertex tiles; blocks of
 // a GPU run in parallel and in no order, and a block's 227 KB of shared
 // memory cannot hold the table, so the sum goes to global memory with f32
-// atomicAdd. Design: one thread per point, looping over its 4 neighbours.
+// atomicAdd. Design: one thread per point, looping over its K neighbours.
 // Morton order makes neighbouring points share neighbour vertices, so for
 // each k the warp first groups the lanes with equal indices
 // (__match_any_sync), sums the group's 16 contributions in lane order over
@@ -33,7 +34,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int K = 4;
+constexpr int MAX_K = 16;
 constexpr int F = 16;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
@@ -42,7 +43,7 @@ weighted_scatter_kernel(const int* __restrict__ idx,   // (B, K, N)
                         const float* __restrict__ w,   // (B, K, N)
                         const float* __restrict__ g,   // (B, F, N)
                         float* __restrict__ out,       // (B, V, F)
-                        int N, int V) {
+                        int N, int V, int K) {
   const int b = blockIdx.y;
   const int n = blockIdx.x * THREADS + threadIdx.x;
   const int lane = threadIdx.x & 31;
@@ -79,12 +80,13 @@ weighted_scatter_kernel(const int* __restrict__ idx,   // (B, K, N)
 
 extern "C" int animnerf_weighted_scatter(const void* idx, const void* w,
                                          const void* g, void* out, int B,
-                                         int N, int V, void* stream) {
+                                         int N, int V, int k, void* stream) {
+  if (k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
   if (N > 0 && B > 0) {
     dim3 grid((N + THREADS - 1) / THREADS, B);
     weighted_scatter_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         (const int*)idx, (const float*)w, (const float*)g, (float*)out, N,
-        V);
+        V, k);
   }
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 // Replaces: animnerf_tpu/ops/warp_blend.py::_warp_blend_kernel (reached
 // through warp_blend_fwd_pallas), forward only, warp_view=False.
 //
-// Per point n with its K = 4 neighbours (d_k, i_k) and table rows
+// Per point n with its K neighbours (d_k, i_k), K = 1..16 as the kNN
+// emits them, and table rows
 // row_v = [lbs (num_lbs) | ober2cano 4x4 (16)]:
 //   l1_k   = sum_j |lbs(i_k)[j] - lbs(i_0)[j]|
 //   gate_k = exp(-l1_k / (2 std^2)) > conf_gate
@@ -11,14 +12,18 @@
 //   bd     = sum_k w_k d_k,   bf = sum_k w_k T(i_k)
 //   out    = [bf[0:3]·xyz + bf[3] | bf[4:7]·xyz + bf[7] | bf[8:11]·xyz + bf[11]
 //             | bd | 0 0 0 0],   w (K rows),   bf (16 rows)
-// expf, not __expf: the gate is a hard threshold and a flipped gate turns
-// a weight from zero to nonzero.
+// Every sum over k runs in order k = 0, 1, ..., K-1, as the TPU kernel
+// (warp_blend.py:98-109) and the plain version take it. expf, not __expf:
+// the gate is a hard threshold and a flipped gate turns a weight from
+// zero to nonzero.
 //
 // Bound on the H100: bytes. Per point it reads 3 xyz floats, K distances
 // and K indices and writes 8 + K + 16 floats; the gathered table rows
-// (4 x 160 B for SMPL) come from L2, since the 1.1 MB table is ~2% of the
+// (K x 160 B for SMPL) come from L2, since the 1.1 MB table is ~2% of the
 // 50 MB L2. Design: one thread per point, the table read through the
-// read-only path (__ldg), everything else in registers. The TPU kernel's
+// read-only path (__ldg), everything else in registers (K is a template
+// argument, one instantiation per K, so the per-neighbour arrays stay
+// there). The TPU kernel's
 // 128-lane vertex chunks, candidate-chunk pruning and dynamic_gather
 // exist only for the TPU's lanes and are not carried over.
 
@@ -27,8 +32,9 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int K = 4;  // the kNN's top-4
+constexpr int MAX_K = 16;
 
+template <int K>
 __global__ void __launch_bounds__(THREADS)
 warp_blend_fwd_kernel(const float* __restrict__ xyz,    // (B, 8, N) rows
                       const float* __restrict__ dists,  // (B, K, N)
@@ -98,18 +104,35 @@ warp_blend_fwd_kernel(const float* __restrict__ xyz,    // (B, 8, N) rows
   for (int c = 0; c < 16; ++c) bf_out[((size_t)b * 16 + c) * N + n] = bf[c];
 }
 
+// launch the instantiation for k (1..MAX_K)
+template <int K>
+void launch(int k, dim3 grid, cudaStream_t stream, const float* xyz,
+            const float* dists, const int* idx, const float* table,
+            float* out, float* w_out, float* bf_out, int N, int V, int F,
+            int num_lbs, float inv_two_std2, float conf_gate) {
+  if (k == K) {
+    warp_blend_fwd_kernel<K><<<grid, THREADS, 0, stream>>>(
+        xyz, dists, idx, table, out, w_out, bf_out, N, V, F, num_lbs,
+        inv_two_std2, conf_gate);
+  } else if constexpr (K < MAX_K) {
+    launch<K + 1>(k, grid, stream, xyz, dists, idx, table, out, w_out,
+                  bf_out, N, V, F, num_lbs, inv_two_std2, conf_gate);
+  }
+}
+
 }  // namespace
 
 extern "C" int animnerf_warp_blend_fwd(
     const void* xyz, const void* dists, const void* idx, const void* table,
-    void* out, void* w_out, void* bf_out, int B, int N, int V, int F,
+    void* out, void* w_out, void* bf_out, int B, int N, int V, int F, int k,
     int num_lbs, float inv_two_std2, float conf_gate, void* stream) {
+  if (k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
   if (N > 0 && B > 0) {
     dim3 grid((N + THREADS - 1) / THREADS, B);
-    warp_blend_fwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)xyz, (const float*)dists, (const int*)idx,
-        (const float*)table, (float*)out, (float*)w_out, (float*)bf_out, N,
-        V, F, num_lbs, inv_two_std2, conf_gate);
+    launch<1>(k, grid, (cudaStream_t)stream, (const float*)xyz,
+              (const float*)dists, (const int*)idx, (const float*)table,
+              (float*)out, (float*)w_out, (float*)bf_out, N, V, F, num_lbs,
+              inv_two_std2, conf_gate);
   }
   return (int)cudaGetLastError();
 }

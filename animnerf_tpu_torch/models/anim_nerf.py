@@ -1,6 +1,7 @@
 """AnimNeRF scene model — counterpart of ``animnerf_tpu/models/anim_nerf.py``.
 
-``warp_points`` / ``warp_rows`` (kNN unpose, k=4, weight std 0.1) and
+``warp_points`` / ``warp_rows`` (kNN unpose, ``k_neigh`` neighbours,
+weight std 0.1) and
 ``field_points`` / ``field_rows`` (canonical MLP with the outside-shell
 sigma fill) on the fused kernel path, and ``query_sigma`` /
 ``query_normal`` for the loss's density and normal terms on the plain
@@ -31,6 +32,7 @@ class AnimNeRFConfig:
     use_fine: bool = True
     share_fine: bool = False
     dis_threshold: float = 0.2
+    k_neigh: int = 4
     query_inside: bool = False
     compute_dtype: str = "float32"
 
@@ -56,7 +58,8 @@ class AnimNeRFModel(nn.Module):
 
     def warp_points(self, ctx: FrameContext, xyz: torch.Tensor):
         """Observed -> canonical warp; returns (xyz_cano, valid)."""
-        return unpose(ctx, xyz, dis_threshold=self.cfg.dis_threshold)
+        return unpose(ctx, xyz, k=self.cfg.k_neigh,
+                      dis_threshold=self.cfg.dis_threshold)
 
     def field_points(self, xyz: torch.Tensor, valid=None,
                      use_fine: bool = False):
@@ -73,7 +76,8 @@ class AnimNeRFModel(nn.Module):
     def warp_rows(self, ctx: FrameContext, xyz_t: torch.Tensor,
                   tile_skip: bool = False) -> torch.Tensor:
         """(B, 8, N) rows -> (B, 8, N) rows [x'|y'|z'|bd|0..]."""
-        return unpose_rows(ctx, xyz_t, tile_skip=tile_skip)
+        return unpose_rows(ctx, xyz_t, k=self.cfg.k_neigh,
+                           tile_skip=tile_skip)
 
     def field_rows(self, rows: torch.Tensor, use_fine: bool) -> torch.Tensor:
         """rows (B, 8, N) [x'|y'|z'|bd|..] -> (B, 8, N) [r|g|b|sigma|0..]

@@ -31,7 +31,10 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "animnerf_tpu_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 SOURCES = ("knn.cu", "warp_blend.cu", "fused_mlp.cu", "sort_lanes.cu",
-           "scatter.cu", "fused_mlp_bwd.cu", "knn_exact.cu", "min_dist.cu")
+           "scatter.cu", "fused_mlp_bwd.cu", "knn_exact.cu", "min_dist.cu",
+           "knn_packed.cu", "knn_mxu.cu")
+# device code the sources include (hashed with them)
+HEADERS = ("knn_keys.cuh", "knn_slots.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
@@ -44,22 +47,24 @@ _F = ctypes.c_float
 SIGNATURES = {
     "animnerf_knn_top4": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
     "animnerf_warp_blend_fwd": [_P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _F, _F, _P],
+                                _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "animnerf_fused_mlp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "animnerf_gather_lanes": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "animnerf_weighted_scatter": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "animnerf_weighted_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "animnerf_fused_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _P],
     "animnerf_fused_mlp_bwd_sizes": [_I, _P],
-    "animnerf_knn_exact": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "animnerf_knn_exact": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "animnerf_min_dist": [_P, _P, _P, _I, _I, _I, _P],
+    "animnerf_knn_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "animnerf_knn_mxu": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # "knn_tile_skip" counts the kNN launches with the tile skip on (they also
 # count under "knn", the kernel's total)
 LAUNCHES = {"knn": 0, "knn_tile_skip": 0, "warp_blend": 0, "scatter": 0,
             "fused_mlp": 0, "fused_mlp_bwd": 0, "permute_lanes": 0,
-            "knn_exact": 0, "min_dist": 0}
+            "knn_exact": 0, "min_dist": 0, "knn_packed": 0, "knn_mxu": 0}
 
 
 def reset_launches() -> None:
@@ -88,7 +93,7 @@ def find_nvcc() -> str:
 def source_hash() -> str:
     h = hashlib.sha256()
     h.update(" ".join(ARCH + NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -1,34 +1,40 @@
-"""Top-4 nearest vertices: two CUDA kernels, their plain versions and the
+"""Top-k nearest vertices: three CUDA kernels, their plain versions and the
 dispatcher between them.
 
-Counterpart of ``animnerf_tpu/ops/knn_pallas.py::knn_pallas`` with k=4
-and ``transposed_out=True``: points (B, N, 3) and the Morton-sorted
-vertices (B, V, 3) -> dists (B, 4, N) ascending and idx (B, 4, N) int32.
-``knn`` takes the packed-key kernel (``knn_top4``, the tournament kernel's
-counterpart, optional ``tile_skip``) when ``packed`` and V <= 8192, and
-the exact kernel (``knn_exact``, ``_knn_kernel``'s counterpart) otherwise:
-JAX's rule at ``knn_pallas.py:554-558`` with its default 512-vertex tiles,
-under which "padded V <= 8192" is "V <= 8192". SMPL-X (V=10475) takes the
-exact kernel.
+Counterpart of ``animnerf_tpu/ops/knn_pallas.py::knn_pallas`` with
+``transposed_out=True``: points (B, N, 3) and the Morton-sorted vertices
+(B, V, 3) -> dists (B, k, N) ascending and idx (B, k, N) int32, for k in
+1..16 (``MAX_K``; the JAX package's ``k_neigh``). ``knn`` picks the kernel
+as ``knn_pallas`` does (``knn_pallas.py:554-607``) at its default
+512-vertex tiles, under which "padded V <= 8192" is "V <= 8192":
 
-Packed keys (``knn_top4``):
+- ``packed`` and V <= 8192, k == 4: ``knn_top4`` (kernel 1, the tournament
+  kernel's counterpart, optional ``tile_skip``);
+- ``packed`` and V <= 8192, k != 4: ``knn_packed`` (kernel 8, the
+  extract-min kernel's counterpart; no tile skip, as in JAX);
+- otherwise (SMPL-X's V=10475, or ``packed=False``): ``knn_exact``
+  (kernel 9, ``_knn_kernel``'s counterpart).
+
+Packed keys (``knn_top4``, ``knn_packed``):
 
 Each candidate's key is ``(bits(max(d2, 0)) & ~0x1FFF) | vertex_index``
 with d2 in the dot form ``pp + (m2z*pz + (m2y*py + (m2x*px + vq)))``; the
-4 smallest keys win (ties go to the smaller index) and the distances are
+k smallest keys win (ties go to the smaller index) and the distances are
 ``sqrt`` of the quantized d2 (13 low mantissa bits dropped, <= 2^-10
 relative on d2). Both versions compute every key bit for bit as the TPU
-kernel does; the vertex index field limits V to 8192.
+kernels do; the vertex index field limits V to 8192. Keys are unique, so
+kernel 1's tournament, kernel 8's extract-min passes and a plain top-k
+select the same keys: at k=4 the two kernels agree bit for bit.
 
 Exact (``knn_exact``): d2 = ((vx-px)^2 + (vy-py)^2) + (vz-pz)^2 with every
-operation rounded on its own, as ``_knn_kernel`` computes it, the 4
-smallest d2 ascending (an equal d2 goes to the smaller vertex index) and
-their IEEE square roots, for any V. Of ``_knn_kernel``'s options only
-``cull=False, far_skip=0`` is ported (no caller of the JAX package sets
-either); the AABB cull and the all-far skip are not. The TPU kernel
-evicts the first of its slots holding the current maximum, so where two
-vertices tie exactly at the fourth place it can keep the larger index;
-the port keeps the smaller one.
+operation rounded on its own, as ``_knn_kernel`` computes it, and the TPU
+kernel's top-k rule (``tile_slots_topk``): per 512-vertex tile its k
+smallest (d2, index) pairs, each replacing the first slot that holds the
+slots' maximum when strictly smaller, then its sorting network. Where
+distinct vertices tie exactly this keeps and orders them as the TPU
+kernel does. Any V >= k. Of ``_knn_kernel``'s options only ``cull=False,
+far_skip=0`` is ported (no caller of the JAX package sets either); the
+AABB cull and the all-far skip are not.
 """
 
 from __future__ import annotations
@@ -37,10 +43,18 @@ import torch
 
 from animnerf_tpu_torch.ops import _build
 
-K = 4
+K = 4  # knn_top4's k
+MAX_K = 16  # the kernels' template instantiations
 KEY_MASK = ~0x1FFF
 MAX_VERTS = 8192
-TILE_V = 1024  # the kernel's vertex tile (csrc/knn.cu)
+TILE_V = 1024  # the top-4 kernel's vertex tile (csrc/knn.cu)
+SLOT_TILE = 512  # the TPU kernels' vertex tile, which the top-k rule follows
+_PAD_KEY = (0x7F800000 << 32) | 0x7FFFFFFF  # d2 = +inf: never merged
+
+
+def check_k(k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be in 1..{MAX_K}, got {k}")
 
 
 def check_points_verts(points: torch.Tensor, verts: torch.Tensor,
@@ -73,6 +87,12 @@ def tile_boxes(verts: torch.Tensor) -> torch.Tensor:
                       verts.new_zeros(B, nt, 2)], dim=-1).contiguous()
 
 
+def _outputs(points: torch.Tensor, k: int):
+    B, N, _ = points.shape
+    return (torch.empty((B, k, N), dtype=torch.float32, device=points.device),
+            torch.empty((B, k, N), dtype=torch.int32, device=points.device))
+
+
 def knn_top4(points: torch.Tensor, verts: torch.Tensor,
              tile_skip: bool = False, stats: torch.Tensor = None):
     """Kernel on CUDA tensors, plain version on CPU tensors (which ignores
@@ -89,8 +109,7 @@ def knn_top4(points: torch.Tensor, verts: torch.Tensor,
     _build.check_cuda("knn_top4", points, verts)
     B, N, _ = points.shape
     V = verts.shape[1]
-    d = torch.empty((B, K, N), dtype=torch.float32, device=points.device)
-    i = torch.empty((B, K, N), dtype=torch.int32, device=points.device)
+    d, i = _outputs(points, K)
     if N == 0:
         return d, i
     vbox = tile_boxes(verts) if tile_skip else None
@@ -111,14 +130,44 @@ def knn_top4(points: torch.Tensor, verts: torch.Tensor,
 
 def knn_top4_plain(points: torch.Tensor, verts: torch.Tensor,
                    max_elems: int = 1 << 24):
-    """The same packed keys in chunks over N, so the (chunk x V) key matrix
-    stays below ``max_elems``; then an int top-k (smallest 4, sorted)."""
-    check_points_verts(points, verts)
+    """``knn_packed_plain`` at k=4."""
+    return knn_packed_plain(points, verts, K, max_elems)
+
+
+def knn_packed(points: torch.Tensor, verts: torch.Tensor, k: int):
+    """The packed-key top-k, any k in 1..16 (kernel 8): kernel on CUDA
+    tensors, plain version on CPU tensors. At k=4 it selects what
+    ``knn_top4`` selects, bit for bit."""
+    check_k(k)
+    check_points_verts(points, verts, min_verts=k)
+    if points.device.type == "cpu":
+        return knn_packed_plain(points, verts, k)
+    points = points.detach().contiguous()
+    verts = verts.detach().contiguous()
+    _build.check_cuda("knn_packed", points, verts)
+    B, N, _ = points.shape
+    d, i = _outputs(points, k)
+    if N == 0:
+        return d, i
+    _build.kernel_library().call(
+        "animnerf_knn_packed", points.data_ptr(), verts.data_ptr(),
+        d.data_ptr(), i.data_ptr(), B, N, verts.shape[1], k,
+        _build.stream_of(points))
+    _build.LAUNCHES["knn_packed"] += 1
+    return d, i
+
+
+def knn_packed_plain(points: torch.Tensor, verts: torch.Tensor, k: int,
+                     max_elems: int = 1 << 24):
+    """The packed keys in chunks over N, so the (chunk x V) key matrix
+    stays below ``max_elems``; then an int top-k (smallest k, sorted)."""
+    check_k(k)
+    check_points_verts(points, verts, min_verts=k)
     B, N, _ = points.shape
     V = verts.shape[1]
     if N == 0:
-        return (points.new_empty((B, K, 0)),
-                torch.empty((B, K, 0), dtype=torch.int32, device=points.device))
+        return (points.new_empty((B, k, 0)),
+                torch.empty((B, k, 0), dtype=torch.int32, device=points.device))
     vx, vy, vz = (verts[..., c][:, None, :] for c in range(3))  # (B, 1, V)
     m2x, m2y, m2z = -(vx + vx), -(vy + vy), -(vz + vz)
     vq = vx * vx + vy * vy + vz * vz
@@ -132,30 +181,30 @@ def knn_top4_plain(points: torch.Tensor, verts: torch.Tensor,
         d2 = torch.clamp_min(pp + (m2z * pz + (m2y * py + (m2x * px + vq))),
                              0.0)
         key = (d2.view(torch.int32) & KEY_MASK) | col
-        keys.append(torch.topk(key, K, dim=-1, largest=False,
+        keys.append(torch.topk(key, k, dim=-1, largest=False,
                                sorted=True).values)
-    top = torch.cat(keys, dim=1).transpose(1, 2).contiguous()  # (B, 4, N)
+    top = torch.cat(keys, dim=1).transpose(1, 2).contiguous()  # (B, k, N)
     d = ieee_sqrt((top & KEY_MASK).view(torch.float32))
     return d, top & 0x1FFF
 
 
-def knn_exact(points: torch.Tensor, verts: torch.Tensor):
-    """The exact kNN: kernel on CUDA tensors, plain version on CPU
-    tensors. Any V >= 4."""
-    check_points_verts(points, verts, max_verts=2**31 - 1)
+def knn_exact(points: torch.Tensor, verts: torch.Tensor, k: int = K):
+    """The exact kNN (kernel 9): kernel on CUDA tensors, plain version on
+    CPU tensors. Any V >= k."""
+    check_k(k)
+    check_points_verts(points, verts, min_verts=k, max_verts=2**31 - 1)
     if points.device.type == "cpu":
-        return knn_exact_plain(points, verts)
+        return knn_exact_plain(points, verts, k)
     points = points.detach().contiguous()
     verts = verts.detach().contiguous()
     _build.check_cuda("knn_exact", points, verts)
     B, N, _ = points.shape
-    d = torch.empty((B, K, N), dtype=torch.float32, device=points.device)
-    i = torch.empty((B, K, N), dtype=torch.int32, device=points.device)
+    d, i = _outputs(points, k)
     if N == 0:
         return d, i
     _build.kernel_library().call(
         "animnerf_knn_exact", points.data_ptr(), verts.data_ptr(),
-        d.data_ptr(), i.data_ptr(), B, N, verts.shape[1],
+        d.data_ptr(), i.data_ptr(), B, N, verts.shape[1], k,
         _build.stream_of(points))
     _build.LAUNCHES["knn_exact"] += 1
     return d, i
@@ -179,38 +228,93 @@ def ieee_sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
-def knn_exact_plain(points: torch.Tensor, verts: torch.Tensor,
-                    max_elems: int = 1 << 24):
-    """The exact kNN in chunks over N: d2 as ``exact_d2``, then the 4
-    smallest (d2, index) pairs as int64 keys ``bits(d2) << 32 | index``
-    (d2 >= 0, so its bits order as its value; equal d2 go to the smaller
-    index)."""
-    check_points_verts(points, verts, max_verts=2**31 - 1)
+def _flip_negative(b: torch.Tensor) -> torch.Tensor:
+    """int32 float bits <-> int32 whose signed order is the floats' order
+    (its own inverse)."""
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
+def _ordered_bits(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 in the floats' order (-0 as +0)."""
+    return _flip_negative((x + 0.0).view(torch.int32))
+
+
+def _sorting_network(k: int):
+    """The TPU kernels' final compare-swap pairs (knn_pallas.py:149-155)."""
+    if k == 4:
+        return ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
+    return tuple((a, a + 1) for end in range(k - 1, 0, -1)
+                 for a in range(end))
+
+
+def tile_slots_topk(d2: torch.Tensor, k: int):
+    """The TPU kernels' top-k rule on (B, c, V) squared distances -> (d2,
+    idx int32), each (B, c, k), ascending: k slots start at (+inf, 0); per
+    512-vertex tile in index order, its k smallest (d2, index) pairs
+    (int64 keys, ascending) each replace the first slot holding the slots'
+    maximum (``torch.argmax`` returns the first) when strictly smaller;
+    then the sorting network, swapping only on a strictly larger d2."""
+    B, c, V = d2.shape
+    nt = -(-V // SLOT_TILE)
+    col = torch.arange(V, dtype=torch.int64, device=d2.device)
+    key = (_ordered_bits(d2).to(torch.int64) << 32) | col
+    pad = nt * SLOT_TILE - V
+    if pad:
+        key = torch.cat([key, key.new_full((B, c, pad), _PAD_KEY)], dim=-1)
+    top = torch.topk(key.reshape(B, c, nt, SLOT_TILE), k, dim=-1,
+                     largest=False, sorted=True).values      # (B, c, nt, k)
+    td = _flip_negative((top >> 32).to(torch.int32)).view(torch.float32)
+    ti = (top & 0xFFFFFFFF).to(torch.int32)
+    sd = d2.new_full((B, c, k), float("inf"))
+    si = torch.zeros((B, c, k), dtype=torch.int32, device=d2.device)
+    for t in range(nt):
+        for s in range(k):
+            am = torch.argmax(sd, dim=-1, keepdim=True)
+            mx = torch.gather(sd, -1, am)
+            cand = td[:, :, t, s:s + 1]
+            repl = cand < mx
+            sd.scatter_(-1, am, torch.where(repl, cand, mx))
+            si.scatter_(-1, am, torch.where(repl, ti[:, :, t, s:s + 1],
+                                            torch.gather(si, -1, am)))
+    ds, is_ = list(sd.unbind(-1)), list(si.unbind(-1))
+    for a, b in _sorting_network(k):
+        swap = ds[a] > ds[b]
+        ds[a], ds[b] = (torch.where(swap, ds[b], ds[a]),
+                        torch.where(swap, ds[a], ds[b]))
+        is_[a], is_[b] = (torch.where(swap, is_[b], is_[a]),
+                          torch.where(swap, is_[a], is_[b]))
+    return torch.stack(ds, -1), torch.stack(is_, -1)
+
+
+def knn_exact_plain(points: torch.Tensor, verts: torch.Tensor, k: int = K,
+                    max_elems: int = 1 << 22):
+    """The exact kNN in chunks over N (a (chunk x V) matrix below
+    ``max_elems``): d2 as ``exact_d2``, then ``tile_slots_topk``."""
+    check_k(k)
+    check_points_verts(points, verts, min_verts=k, max_verts=2**31 - 1)
     points, verts = points.detach(), verts.detach()
     B, N, _ = points.shape
     V = verts.shape[1]
     if N == 0:
-        return (points.new_empty((B, K, 0)),
-                torch.empty((B, K, 0), dtype=torch.int32, device=points.device))
-    col = torch.arange(V, dtype=torch.int64, device=points.device)
+        return (points.new_empty((B, k, 0)),
+                torch.empty((B, k, 0), dtype=torch.int32, device=points.device))
     chunk = max(1, max_elems // V)
-    keys = []
-    for s in range(0, N, chunk):
-        d2 = exact_d2(points[:, s:s + chunk], verts)
-        key = (d2.view(torch.int32).to(torch.int64) << 32) | col
-        keys.append(torch.topk(key, K, dim=-1, largest=False,
-                               sorted=True).values)
-    top = torch.cat(keys, dim=1).transpose(1, 2).contiguous()  # (B, 4, N)
-    d2 = (top >> 32).to(torch.int32).view(torch.float32)
-    return ieee_sqrt(d2), (top & 0xFFFFFFFF).to(torch.int32)
+    parts = [tile_slots_topk(exact_d2(points[:, s:s + chunk], verts), k)
+             for s in range(0, N, chunk)]
+    d2 = torch.cat([p[0] for p in parts], dim=1).transpose(1, 2)
+    idx = torch.cat([p[1] for p in parts], dim=1).transpose(1, 2)
+    return ieee_sqrt(d2.contiguous()), idx.contiguous()
 
 
-def knn(points: torch.Tensor, verts: torch.Tensor, tile_skip: bool = False,
-        packed: bool = True):
-    """The top-4 kNN as ``knn_pallas`` picks its kernel: packed keys
-    (``knn_top4``, with ``tile_skip``) when ``packed`` and V <= 8192, the
-    exact kernel otherwise (which, as in the JAX package, has no tile skip
-    and ignores it)."""
+def knn(points: torch.Tensor, verts: torch.Tensor, k: int = K,
+        tile_skip: bool = False, packed: bool = True):
+    """The top-k kNN as ``knn_pallas`` picks its kernel: packed keys when
+    ``packed`` and V <= 8192 (``knn_top4`` with ``tile_skip`` at k=4,
+    ``knn_packed`` otherwise), the exact kernel otherwise. As in the JAX
+    package only the k=4 packed kernel has the tile skip; the others
+    ignore it."""
     if packed and verts.shape[1] <= MAX_VERTS:
-        return knn_top4(points, verts, tile_skip=tile_skip)
-    return knn_exact(points, verts)
+        if k == K:
+            return knn_top4(points, verts, tile_skip=tile_skip)
+        return knn_packed(points, verts, k)
+    return knn_exact(points, verts, k)

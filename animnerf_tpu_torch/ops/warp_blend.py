@@ -4,9 +4,10 @@ the vertex table.
 
 Counterpart of ``animnerf_tpu/ops/warp_blend.py::warp_blend_fwd_pallas``
 with ``inputs_t=True, xyz_rows=True, warp_view=False``:
-xyz rows (B, 8, N) [x|y|z|..], dists/idx (B, 4, N) as the top-4 kNN emits
-them, table (B, V, num_lbs + 16) -> (out (B, 8, N) rows
-[x'|y'|z'|bd|0 0 0 0], w (B, 4, N), bf (B, 16, N)), and of
+xyz rows (B, 8, N) [x|y|z|..], dists/idx (B, k, N) as the top-k kNN emits
+them (k = ``k_neigh``, 1..16, read from the shapes), table
+(B, V, num_lbs + 16) -> (out (B, 8, N) rows [x'|y'|z'|bd|0 0 0 0],
+w (B, k, N), bf (B, 16, N)), and of
 ``warp_blend_rows`` (its custom VJP): differentiable through xyz rows
 0..2 and the table's 16 transform columns, whose gradient is the weighted
 row scatter (``ops/blend.py``, the backward kernel); the distances, the
@@ -20,11 +21,10 @@ import torch
 
 from animnerf_tpu_torch.ops import _build
 from animnerf_tpu_torch.ops.blend import (
+    MAX_K,
     gather_blend_plain,
     weighted_scatter_rows,
 )
-
-K = 4  # neighbours per point: the kNN's top-4
 
 
 def spread_bits(x: torch.Tensor) -> torch.Tensor:
@@ -50,8 +50,10 @@ def morton_codes(verts: torch.Tensor) -> torch.Tensor:
 
 def _check(xyz_rows, dists, idx, table, num_lbs):
     B, k, N = idx.shape
-    if k != K or xyz_rows.shape != (B, 8, N) or dists.shape != (B, K, N):
-        raise ValueError(f"shapes: xyz_rows {tuple(xyz_rows.shape)}, dists "
+    if not 1 <= k <= MAX_K or xyz_rows.shape != (B, 8, N) \
+            or dists.shape != (B, k, N):
+        raise ValueError(f"shapes (k must be in 1..{MAX_K}): xyz_rows "
+                         f"{tuple(xyz_rows.shape)}, dists "
                          f"{tuple(dists.shape)}, idx {tuple(idx.shape)}")
     if table.dim() != 3 or table.shape[0] != B \
             or table.shape[2] != num_lbs + 16:
@@ -74,18 +76,18 @@ def warp_blend_fwd(xyz_rows: torch.Tensor, dists: torch.Tensor,
     xyz_rows, dists, idx, table = (t.contiguous() for t in
                                    (xyz_rows, dists, idx, table))
     _build.check_cuda("warp_blend_fwd", xyz_rows, dists, idx, table)
-    B, _, N = idx.shape
+    B, k, N = idx.shape
     V, F = table.shape[1:]
     dev = xyz_rows.device
     out = torch.empty((B, 8, N), dtype=torch.float32, device=dev)
-    w = torch.empty((B, K, N), dtype=torch.float32, device=dev)
+    w = torch.empty((B, k, N), dtype=torch.float32, device=dev)
     bf = torch.empty((B, 16, N), dtype=torch.float32, device=dev)
     if N == 0:
         return out, w, bf
     _build.kernel_library().call(
         "animnerf_warp_blend_fwd", xyz_rows.data_ptr(), dists.data_ptr(),
         idx.data_ptr(), table.data_ptr(), out.data_ptr(), w.data_ptr(),
-        bf.data_ptr(), B, N, V, F, num_lbs,
+        bf.data_ptr(), B, N, V, F, k, num_lbs,
         1.0 / (2.0 * float(weight_std) ** 2), float(conf_gate),
         _build.stream_of(xyz_rows))
     _build.LAUNCHES["warp_blend"] += 1

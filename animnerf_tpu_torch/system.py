@@ -28,7 +28,9 @@ from animnerf_tpu_torch.utils.device import DeviceLike, resolve_device
 # config values the port does not cover yet, and the value it supports
 UNPORTED = {"use_view": False, "use_deformation": False,
             "deformation_dim": 0, "apperance_dim": 0, "use_unpose": True,
-            "unpose_view": False, "k_neigh": 4, "n_depth": 0}
+            "unpose_view": False, "n_depth": 0}
+# k_neigh: the kNN kernels are instantiated for 1..16 neighbours
+MAX_K_NEIGH = 16
 
 
 # the reference's train section (config.py there) as the step reads it
@@ -77,12 +79,18 @@ class AnimNeRFSystem(nn.Module):
             raise NotImplementedError(
                 "not ported yet (the port covers the flagship field): "
                 f"{', '.join(bad)}")
+        k_neigh = int(g("k_neigh", 4))
+        if not 1 <= k_neigh <= MAX_K_NEIGH:
+            raise NotImplementedError(
+                f"k_neigh={k_neigh}: the port's kNN kernels take 1 to "
+                f"{MAX_K_NEIGH} neighbours")
         n_fine = int(g("n_importance", 32))
         self.scene_cfg = AnimNeRFConfig(
             freqs_xyz=int(g("freqs_xyz", 10)),
             use_fine=n_fine > 0,
             share_fine=bool(g("share_fine", False)),
             dis_threshold=float(g("dis_threshold", 0.2)),
+            k_neigh=k_neigh,
             query_inside=bool(g("query_inside", False)),
             compute_dtype=resolve_compute_dtype(
                 str(g("compute_dtype", "auto")), dev),

@@ -47,7 +47,25 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      body parameter optimised: one warm-up step, 10 timed steps, one
      profiled step, 20 steps on one fixed batch whose loss must fall;
  12. smplx_train_parity: phase 7 on the SMPL-X rig;
- 13. the kernels summary line, the card line, then the final status line.
+ 13. k_neigh = 8 (kernel 8, the packed extract-min kNN, in place of kernel
+     1; kernels 2, 5 and 9 at K = 8): kernel lines for ``knn_packed`` at
+     K = 8 and K = 4 (the latter bit-equal to kernel 1), warp-blend and
+     scatter at K = 8 (in phase 3's lines; the warp-blend on one-hot LBS
+     columns) and the exact kNN at K = 8 (in phase 8's). The k_neigh 8
+     phases run on the rigs with one-hot LBS weights (``rigid_lbs``): the
+     seeded rigs' smooth weights let the confidence gate keep neighbour 0
+     alone. k8_serve (the scale512 weights with k_neigh 8, views 3,
+     29, 55, launch counts: kernel 8 launched, kernels 1, 7 and 9 not, one
+     profiled view); k8_serve_parity (phase 5 at k_neigh 8); k8_train (the
+     bench.py step with k_neigh 8: warm-up, 10 timed steps, one profiled,
+     20 on one batch whose loss must fall); k8_train_parity (phase 7 at
+     k_neigh 8); smplx_k8_parity (phase 10 at k_neigh 8 in f32, launching
+     the exact kNN at K = 8);
+ 14. the matmul-form kNN (kernel 10) at "highest" and "default" against
+     its plain version at the kNN tool's shapes, then the port's kNN tool
+     (``animnerf_tpu_torch/tools/bench_knn.py``): every row, with the
+     launch counts reset just before and read just after;
+ 15. the kernels summary line, the card line, then the final status line.
 """
 
 from __future__ import annotations
@@ -70,6 +88,11 @@ PEAK_F32 = 67e12
 # half the FMA peak, which counts an FMA as two
 PEAK_F32_NONFMA = PEAK_F32 / 2
 PEAK_BYTES = 3.35e12
+# chunk size of the plain kNN versions on the card (a (chunk x V) matrix):
+# large chunks keep their per-chunk launches few
+PLAIN_MAX_ELEMS = 1 << 26
+# card vs CPU image bounds per compute dtype: (max |img| difference, PSNR)
+PARITY_BOUNDS = (("bfloat16", (5e-2, 40.0)), ("float32", (1e-3, 60.0)))
 
 
 def emit(obj) -> None:
@@ -102,21 +125,43 @@ def check(ok: bool, what: str) -> None:
 # ------------------------------------------------------------------ setup
 
 
+def rigid_lbs(body_model):
+    """The rig with one-hot LBS weights (the largest entry of each row,
+    rigid skinning): neighbours on one bone then pass the warp's
+    confidence gate together, where the seeded rigs' smooth weights keep
+    neighbour 0 alone and k_neigh would change nothing."""
+    import torch
+
+    J = body_model.lbs_weights.shape[1]
+    body_model.lbs_weights = torch.nn.functional.one_hot(
+        body_model.lbs_weights.argmax(1), J).float()
+    return body_model
+
+
+def scale512_system(ck, device, rigid=False, **cfg):
+    """The scale512 weights on the seed-3 rig (``rigid``: with one-hot LBS
+    weights), with config overrides."""
+    from animnerf_tpu_torch.data.synthetic import make_body_model
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+
+    bm = make_body_model(6890, 24, seed=3)
+    system = AnimNeRFSystem(dict(ck["cfg"], **cfg),
+                            rigid_lbs(bm) if rigid else bm, device=device)
+    system.load_anim_nerf(ck["anim_nerf"])
+    return system
+
+
 def scale512(device):
     """The trained scale512 system on the seed-3 rig, its frame params and
     the frame geometry."""
     import torch
 
-    from animnerf_tpu_torch.data.synthetic import make_body_model
     from animnerf_tpu_torch.models.warp import prepare_frame
     from animnerf_tpu_torch.smpl.loader import load_pickle
-    from animnerf_tpu_torch.system import AnimNeRFSystem
     from animnerf_tpu_torch.utils.convert import load_checkpoint
 
     ck = load_checkpoint(CKPT)
-    system = AnimNeRFSystem(ck["cfg"], make_body_model(6890, 24, seed=3),
-                            device=device)
-    system.load_anim_nerf(ck["anim_nerf"])
+    system = scale512_system(ck, device)
     keys = ("betas", "global_orient", "body_pose", "transl")
     frame = load_pickle(os.path.join(CKPT, "smpl_000001.pkl"))
     t = load_pickle(os.path.join(CKPT, "smpl_template.pkl"))
@@ -151,7 +196,12 @@ def kernel_lines(system, ctx):
         fused_nerf_fwd_plain,
         pack_params,
     )
-    from animnerf_tpu_torch.ops.knn_kernel import knn_top4, knn_top4_plain
+    from animnerf_tpu_torch.ops.knn_kernel import (
+        knn_packed,
+        knn_packed_plain,
+        knn_top4,
+        knn_top4_plain,
+    )
     from animnerf_tpu_torch.ops.sort_lanes import (
         gather_lanes_plain,
         permute_lanes,
@@ -216,6 +266,65 @@ def kernel_lines(system, ctx):
         bound_ms=max(wb_bytes / PEAK_BYTES,
                      N * (4 * (3 * J + 40) + 100) / PEAK_F32) * 1e3,
         bound_by="bytes", library_ms=None)
+
+    # -- kernel 8, the packed extract-min kNN, at K = 8 (k_neigh 8) and at
+    # K = 4, where it must select what kernel 1 selects
+    d8, i8 = knn_packed(pts, verts, 8)
+    dp8, ip8 = knn_packed_plain(pts, verts, 8)
+    torch.cuda.synchronize()
+    mism = int((i8 != ip8).sum())
+    err = float((d8 - dp8).abs().max())
+    check(mism == 0 and err == 0.0,
+          f"knn_packed K=8: {mism} index mismatches, max err {err}")
+    lines["knn_packed"] = dict(
+        shape=f"points (1,{N},3) verts (1,{V},3) K=8", max_abs_err=err,
+        tolerance=0.0, idx_mismatch=mism,
+        ms=time_ms(lambda: knn_packed(pts, verts, 8), reps),
+        plain_ms=time_ms(lambda: knn_packed_plain(pts, verts, 8), preps),
+        # kernel 1's operation count: 3 mul + 4 add in f32 per pair
+        bound_ms=max(7.0 * N * V / PEAK_F32,
+                     (N * 12 + V * 12 + N * 64) / PEAK_BYTES) * 1e3,
+        bound_by="operations", library_ms=None)
+    d4, i4 = knn_packed(pts, verts, 4)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(d4, d) and torch.equal(i4, i))
+    check(same, "knn_packed K=4 differs from knn_top4")
+    lines["knn_packed_k4"] = dict(
+        shape=f"points (1,{N},3) verts (1,{V},3) K=4",
+        max_abs_err=float((d4 - dp).abs().max()), tolerance=0.0,
+        bit_equal_to_knn_top4=same,
+        ms=time_ms(lambda: knn_packed(pts, verts, 4), reps),
+        plain_ms=time_ms(lambda: knn_packed_plain(pts, verts, 4), preps),
+        bound_ms=lines["knn"]["bound_ms"], bound_by="operations",
+        library_ms=None)
+
+    # -- warp-blend on the K = 8 neighbours, with one-hot LBS columns so
+    # that the confidence gate passes several of them (as rigid_lbs)
+    table8 = table.clone()
+    table8[..., :J] = torch.nn.functional.one_hot(
+        table[..., :J].argmax(-1), J).to(table.dtype)
+    args8 = (rows, d8, i8, table8, J, 0.1, 0.9)
+    out8 = warp_blend_fwd(*args8)
+    outp8 = warp_blend_fwd_plain(*args8)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(out8, outp8))
+    check(err <= tol, f"warp_blend K=8: max err {err} > {tol}")
+    # points that blend more than one neighbour
+    multi = float((out8[1][:, 1:] > 0).any(dim=1).float().mean())
+    check(multi > 0.1, f"warp_blend K=8: only {multi} of the points blend "
+          "more than one neighbour")
+    wb8_bytes = (3 * N + 2 * d8.numel() + table.numel()
+                 + sum(t.numel() for t in out8)) * 4
+    lines["warp_blend_k8"] = dict(
+        shape=f"rows (1,8,{N}) knn (1,8,{N}) table {tuple(table.shape)} "
+        "one-hot LBS", max_abs_err=err, tolerance=tol,
+        share_blending_2_or_more=multi,
+        ms=time_ms(lambda: warp_blend_fwd(*args8), reps),
+        plain_ms=time_ms(lambda: warp_blend_fwd_plain(*args8), preps),
+        bound_ms=max(wb8_bytes / PEAK_BYTES,
+                     N * (8 * (3 * J + 40) + 100) / PEAK_F32) * 1e3,
+        bound_by="bytes", library_ms=None)
+    del d8, i8, dp8, ip8, table8, out8, outp8
 
     # -- fused MLP: canonical points with the scale512 weights, bf16
     M = 1 << 21
@@ -307,7 +416,11 @@ def kernel_lines_train(dev):
         fused_nerf_bwd_plain,
         pack_params,
     )
-    from animnerf_tpu_torch.ops.knn_kernel import knn_top4, knn_top4_plain
+    from animnerf_tpu_torch.ops.knn_kernel import (
+        knn_packed,
+        knn_top4,
+        knn_top4_plain,
+    )
     from animnerf_tpu_torch.ops.perm_sort import _morton_rows
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -389,6 +502,32 @@ def kernel_lines_train(dev):
         library_ms=time_ms(lambda: flat.zero_().index_add_(0, rows, contrib),
                            reps))
 
+    # -- the same scatter at K = 8, on the packed kNN's 8 neighbours
+    _, i8 = knn_packed(pts, verts, 8)
+    w8 = torch.rand(B, 8, N, generator=g, device=dev)
+    w8 = (w8 / w8.sum(1, keepdim=True)).contiguous()
+    out = weighted_scatter_rows(i8, w8, gr, V)
+    outp = weighted_scatter_rows_plain(i8, w8, gr, V)
+    torch.cuda.synchronize()
+    err = float((out - outp).abs().max())
+    tol = 1e-5 * float(outp.abs().max())
+    check(err <= tol, f"scatter K=8: max err {err} > {tol}")
+    contrib8 = (w8[:, :, None, :] * gr[:, None]).permute(0, 1, 3, 2) \
+        .reshape(-1, 16).contiguous()
+    rows8 = (i8.long() + (torch.arange(B, device=dev) * V)[:, None, None]
+             ).reshape(-1)
+    lines["scatter_k8"] = dict(
+        shape=f"idx/w ({B},8,{N}) g ({B},16,{N}) -> ({B},{V},16)",
+        max_abs_err=err, tolerance=tol,
+        ms=time_ms(lambda: weighted_scatter_rows(i8, w8, gr, V), reps),
+        plain_ms=time_ms(lambda: weighted_scatter_rows_plain(i8, w8, gr, V),
+                         preps),
+        bound_ms=B * (N * (8 + 8 + 16) * 4 + V * 16 * 4) / PEAK_BYTES * 1e3,
+        bound_by="bytes",
+        library_ms=time_ms(lambda: flat.zero_().index_add_(0, rows8,
+                                                           contrib8), reps))
+    del i8, w8, contrib8, rows8
+
     # -- fused MLP backward: bf16 over 2^20 points, f32 over 2^16
     torch.manual_seed(0)
     mlp = NeRFMLP(10, "float32").to(dev)
@@ -460,9 +599,10 @@ def kernel_lines_smplx(dev):
     """Check and time the SMPL-X kernels at their main-path widths against
     the posed seed-0 SMPL-X cloud (V=10475, Morton order as the warp sees
     it): the exact kNN over 2^20 points and the nearest-vertex distance
-    over 2^22 points (a slab of the serving pre-pass). Both versions round
-    every operation alike and take IEEE square roots, so the outputs must
-    be bit-equal. Neither has a one-call PyTorch counterpart (cdist then
+    over 2^22 points (a slab of the serving pre-pass), and the exact kNN
+    at K = 8. Both versions round every operation alike, follow the same
+    top-k rule and take IEEE square roots, so the outputs must be
+    bit-equal. Neither has a one-call PyTorch counterpart (cdist then
     topk / amin is two calls), so library_ms is null."""
     import torch
 
@@ -489,22 +629,24 @@ def kernel_lines_smplx(dev):
     lines = {}
     N = SMPLX_KNN_POINTS
     pts = points(N).contiguous()
-    d, i = knn_exact(pts, verts)
-    dp, ip = knn_exact_plain(pts, verts)
-    torch.cuda.synchronize()
-    mism = int((i != ip).sum())
-    err = float((d - dp).abs().max())
-    check(mism == 0 and torch.equal(d, dp),
-          f"knn_exact: {mism} index mismatches, max err {err}")
-    lines["knn_exact"] = dict(
-        shape=f"points (1,{N},3) verts (1,{V},3)", max_abs_err=err,
-        tolerance=0.0, idx_mismatch=mism,
-        ms=time_ms(lambda: knn_exact(pts, verts), 20),
-        plain_ms=time_ms(lambda: knn_exact_plain(pts, verts), 1, warmup=1),
-        # 3 sub, 3 mul, 2 add and a compare per pair, none an FMA
-        bound_ms=max(9.0 * N * V / PEAK_F32_NONFMA,
-                     (N * 12 + V * 12 + N * 32) / PEAK_BYTES) * 1e3,
-        bound_by="operations", library_ms=None)
+    for k, name in ((4, "knn_exact"), (8, "knn_exact_k8")):
+        d, i = knn_exact(pts, verts, k)
+        dp, ip = knn_exact_plain(pts, verts, k, max_elems=PLAIN_MAX_ELEMS)
+        torch.cuda.synchronize()
+        mism = int((i != ip).sum())
+        err = float((d - dp).abs().max())
+        check(mism == 0 and torch.equal(d, dp),
+              f"{name}: {mism} index mismatches, max err {err}")
+        lines[name] = dict(
+            shape=f"points (1,{N},3) verts (1,{V},3) K={k}",
+            max_abs_err=err, tolerance=0.0, idx_mismatch=mism,
+            ms=time_ms(lambda: knn_exact(pts, verts, k), 20),
+            plain_ms=time_ms(lambda: knn_exact_plain(
+                pts, verts, k, max_elems=PLAIN_MAX_ELEMS), 1, warmup=0),
+            # 3 sub, 3 mul, 2 add and a compare per pair, none an FMA
+            bound_ms=max(9.0 * N * V / PEAK_F32_NONFMA,
+                         (N * 12 + V * 12 + N * 8 * k) / PEAK_BYTES) * 1e3,
+            bound_by="operations", library_ms=None)
 
     N = SMPLX_MIN_DIST_POINTS
     pts = points(N).contiguous()
@@ -524,6 +666,73 @@ def kernel_lines_smplx(dev):
                      (N * 12 + V * 12 + N * 4) / PEAK_BYTES) * 1e3,
         bound_by="operations", library_ms=None)
     return lines
+
+
+def kernel_lines_mxu(dev):
+    """Check and time the matmul-form kNN at the kNN tool's shapes (16 x
+    65536 ray-like points, V=6890, the tool's first point set) in both
+    precisions. The kernel and the plain version round every product and
+    sum alike, so the outputs must be bit-equal. A batched matmul computes
+    d2 but not the top-4, so library_ms is null."""
+    import torch
+
+    from animnerf_tpu_torch.ops.knn_mxu import knn_mxu, knn_mxu_plain
+    from animnerf_tpu_torch.tools.bench_knn import make_inputs
+
+    verts, sets = make_inputs(16, 65536)
+    verts = torch.from_numpy(verts).to(dev)
+    pts = torch.from_numpy(sets[0]).to(dev)
+    B, N, _ = pts.shape
+    V = verts.shape[1]
+    lines = {}
+    for prec, name in (("highest", "knn_mxu"), ("default", "knn_mxu_default")):
+        d, i = knn_mxu(pts, verts, 4, prec)
+        dp, ip = knn_mxu_plain(pts, verts, 4, prec,
+                               max_elems=PLAIN_MAX_ELEMS)
+        torch.cuda.synchronize()
+        mism = int((i != ip).sum())
+        err = float((d - dp).abs().max())
+        check(mism == 0 and err == 0.0,
+              f"{name}: {mism} index mismatches, max err {err}")
+        lines[name] = dict(
+            shape=f"points ({B},{N},3) verts ({B},{V},3) precision {prec}",
+            max_abs_err=err, tolerance=0.0, idx_mismatch=mism,
+            ms=time_ms(lambda: knn_mxu(pts, verts, 4, prec), 10),
+            plain_ms=time_ms(lambda: knn_mxu_plain(
+                pts, verts, 4, prec, max_elems=PLAIN_MAX_ELEMS), 1, warmup=0),
+            # 8 multiply-adds (16 flops) per pair at the FMA peak, above
+            # one compare per pair at the non-FMA rate
+            bound_ms=max(16.0 * B * N * V / PEAK_F32,
+                         1.0 * B * N * V / PEAK_F32_NONFMA,
+                         B * (N * 32 + V * 32 + N * 32) / PEAK_BYTES) * 1e3,
+            bound_by="operations", library_ms=None)
+    return lines
+
+
+def bench_knn_phase():
+    """The port's kNN tool on the card, launch counts reset just before and
+    read just after: every row of the JAX tool, extract-min and tournament
+    bit-equal, the matmul form at "highest" within 1e-4 of the exact
+    kNN's distances."""
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.tools import bench_knn
+
+    _build.reset_launches()
+    rows = bench_knn.run("cuda")
+    launches = dict(_build.LAUNCHES)
+    names = [r["row"] for r in rows if "row" in r]
+    check(names == ["exact kNN", "min distance", "packed extract-min",
+                    "packed tournament", "mxu highest", "mxu default"],
+          f"bench_knn rows: {names}")
+    checks = {r["check"]: r for r in rows if "check" in r}
+    bit = checks["tournament vs extract-min bit-equal"]
+    check(bit["d"] and bit["i"], f"bench_knn: {bit}")
+    check(checks["mxu highest vs exact"]["max_abs_d_err"] < 1e-4,
+          f"bench_knn: {checks['mxu highest vs exact']}")
+    check(all(launches[k] > 0 for k in ("knn_exact", "min_dist",
+                                        "knn_packed", "knn", "knn_mxu")),
+          f"bench_knn launched too few kernels: {launches}")
+    return rows, launches
 
 
 def tensors(d: dict, device) -> dict:
@@ -551,8 +760,25 @@ KERNELS = {
                   "animnerf_tpu/ops/knn_pallas.py:35"),
     "min_dist": ("animnerf_tpu_torch/csrc/min_dist.cu",
                  "animnerf_tpu/ops/knn_pallas.py:456"),
+    "knn_packed": ("animnerf_tpu_torch/csrc/knn_packed.cu",
+                   "animnerf_tpu/ops/knn_pallas.py:161"),
+    "knn_packed_k4": ("animnerf_tpu_torch/csrc/knn_packed.cu",
+                      "animnerf_tpu/ops/knn_pallas.py:161"),
+    "knn_exact_k8": ("animnerf_tpu_torch/csrc/knn_exact.cu",
+                     "animnerf_tpu/ops/knn_pallas.py:35"),
+    "warp_blend_k8": ("animnerf_tpu_torch/csrc/warp_blend.cu",
+                      "animnerf_tpu/ops/warp_blend.py:48"),
+    "scatter_k8": ("animnerf_tpu_torch/csrc/scatter.cu",
+                   "animnerf_tpu/ops/blend.py:59"),
+    "knn_mxu": ("animnerf_tpu_torch/csrc/knn_mxu.cu",
+                "tools/bench_knn.py:29"),
+    "knn_mxu_default": ("animnerf_tpu_torch/csrc/knn_mxu.cu",
+                        "tools/bench_knn.py:29"),
 }
 SERVE_KERNELS = ("knn", "warp_blend", "fused_mlp", "permute_lanes")
+K8_SERVE_KERNELS = ("knn_packed", "warp_blend", "fused_mlp", "permute_lanes")
+K8_TRAIN_KERNELS = ("knn_packed", "warp_blend", "scatter", "fused_mlp",
+                    "fused_mlp_bwd", "permute_lanes")
 TRAIN_KERNELS = ("knn", "knn_tile_skip", "warp_blend", "scatter",
                  "fused_mlp", "fused_mlp_bwd", "permute_lanes")
 SMPLX_SERVE_KERNELS = ("min_dist", "knn_exact", "warp_blend", "fused_mlp",
@@ -644,26 +870,26 @@ def profile_call(fn, what: str):
                     for e in events[:15]]}
 
 
-def slice_parity(ck, system, bp, tmpl, H=96, W=96):
-    """One view on the card (kernels) and on the CPU (plain versions)."""
-    from animnerf_tpu_torch.data.synthetic import make_body_model
+def slice_parity(ck, bp, tmpl, H=96, W=96, rigid=False, bounds=PARITY_BOUNDS,
+                 psnr_only=False, **cfg):
+    """One view on the card (kernels) and on the CPU (plain versions), the
+    scale512 system (``rigid`` and ``cfg`` as in scale512_system), per
+    (compute dtype, (max abs, PSNR bound)) of ``bounds``. ``psnr_only``
+    checks the PSNR bound alone and counts the image values beyond the
+    max-abs bound (for the rigid rig, whose warp jumps where a point's
+    nearest vertex changes bone: last-bit geometry differences between
+    the card and the CPU can move a sample across such a jump)."""
     from animnerf_tpu_torch.render.inference import (
         Renderer,
         turntable_rotation,
     )
-    from animnerf_tpu_torch.system import AnimNeRFSystem
 
     rays = frame_rays(H, W)
     P = turntable_rotation(17, 64)
     out = {}
-    for dtype, bound in (("bfloat16", (5e-2, 40.0)), ("float32", (1e-3, 60.0))):
-        cfg = dict(ck["cfg"], compute_dtype=dtype)
-        gpu = AnimNeRFSystem(cfg, make_body_model(6890, 24, seed=3),
-                             device="cuda")
-        gpu.load_anim_nerf(ck["anim_nerf"])
-        cpu = AnimNeRFSystem(cfg, make_body_model(6890, 24, seed=3),
-                             device="cpu")
-        cpu.load_anim_nerf(ck["anim_nerf"])
+    for dtype, bound in bounds:
+        gpu = scale512_system(ck, "cuda", rigid, compute_dtype=dtype, **cfg)
+        cpu = scale512_system(ck, "cpu", rigid, compute_dtype=dtype, **cfg)
         rg = Renderer(gpu)
         rc = Renderer(cpu, device="cpu")
         ig, mg, dg = rg.render_frame(bp, tmpl, rays, P, (W, H))
@@ -674,8 +900,10 @@ def slice_parity(ck, system, bp, tmpl, H=96, W=96):
         out[dtype] = dict(max_abs_img=err, max_abs_mask=float(
             np.abs(mg - mc).max()), psnr_db=psnr, bound_max_abs=bound[0],
             bound_psnr_db=bound[1], counts_gpu=rg.last_counts,
-            counts_cpu=rc.last_counts)
-        check(err <= bound[0] and psnr >= bound[1],
+            counts_cpu=rc.last_counts,
+            values_over_max_abs=int((np.abs(ig - ic) > bound[0]).sum()),
+            of=int(ig.size))
+        check((psnr_only or err <= bound[0]) and psnr >= bound[1],
               f"slice parity {dtype}: max abs {err}, PSNR {psnr}")
     return out
 
@@ -703,7 +931,7 @@ def smplx_serve(angles):
     views, launches, prof, imgs = render_turntable(
         system, bp, tmpl, angles, prepass="exact")
     check(all(launches[k] > 0 for k in SMPLX_SERVE_KERNELS)
-          and launches["knn"] == 0,
+          and launches["knn"] == launches["knn_packed"] == 0,
           f"SMPL-X serving launched the wrong kernels: {launches}")
     bviews, _, _, bimgs = render_turntable(system, bp, tmpl, angles,
                                            prepass="boxes", profile=False)
@@ -714,9 +942,10 @@ def smplx_serve(angles):
     return views, launches, prof, bviews, agree
 
 
-def smplx_serve_parity(H=64, W=64):
+def smplx_serve_parity(H=64, W=64, cfg=None, bounds=PARITY_BOUNDS):
     """One SMPL-X view with prepass="exact" on the card (kernels) and on
-    the CPU (plain versions), the bounds of slice_parity."""
+    the CPU (plain versions), per (compute dtype, (max abs, PSNR bound)) of
+    ``bounds``, those of slice_parity; ``cfg`` replaces SMPLX_CFG."""
     from animnerf_tpu_torch.render.inference import (
         Renderer,
         turntable_rotation,
@@ -727,11 +956,11 @@ def smplx_serve_parity(H=64, W=64):
     P = turntable_rotation(17, 64)
     bp, tmpl = smplx_params(1, 1), smplx_params(1, 2, zero_transl=True)
     out = {}
-    for dtype, bound in (("bfloat16", (5e-2, 40.0)), ("float32", (1e-3, 60.0))):
-        cfg = dict(SMPLX_CFG, compute_dtype=dtype)
+    for dtype, bound in bounds:
+        cfg_d = dict(cfg or SMPLX_CFG, compute_dtype=dtype)
         res = {}
         for dv in ("cuda", "cpu"):
-            system = AnimNeRFSystem(cfg, smplx_rig(), device=dv, seed=0)
+            system = AnimNeRFSystem(cfg_d, smplx_rig(), device=dv, seed=0)
             opaque_shell(system)
             r = Renderer(system, device=dv, prepass="exact")
             t0 = time.perf_counter()
@@ -761,12 +990,18 @@ FLAGSHIP_CFG = {"n_samples": 64, "n_importance": 32, "use_view": False,
 # the same field on an SMPL-X body (body_pose 63 wide, hands, jaw,
 # expression)
 SMPLX_CFG = dict(FLAGSHIP_CFG, model_type="smplx")
+# the flagship with 8 neighbours per warped point
+K8_CFG = dict(FLAGSHIP_CFG, k_neigh=8)
 
 
 def smpl_rig():
     from animnerf_tpu_torch.data.synthetic import make_body_model
 
     return make_body_model(6890, 24, seed=0)
+
+
+def rigid_smpl_rig():
+    return rigid_lbs(smpl_rig())
 
 
 def smplx_rig():
@@ -1024,18 +1259,19 @@ def main() -> int:
                                 for k, v in serve_launches.items()},
           "seconds": time.perf_counter() - t0})
     check(all(serve_launches[k] > 0 for k in SERVE_KERNELS)
-          and serve_launches["knn_exact"] == serve_launches["min_dist"] == 0,
+          and serve_launches["knn_exact"] == serve_launches["min_dist"]
+          == serve_launches["knn_packed"] == 0,
           f"the serving path launched the wrong kernels: {serve_launches}")
 
     t0 = time.perf_counter()
-    parity = slice_parity(ck, system, bp, tmpl)
+    parity = slice_parity(ck, bp, tmpl)
     emit({"phase": "slice_parity", **parity,
           "seconds": time.perf_counter() - t0})
     del system, ctx
 
     t0 = time.perf_counter()
     steps, summary, prof, losses = train_phase(
-        "cuda", absent=("knn_exact", "min_dist"))
+        "cuda", absent=("knn_exact", "min_dist", "knn_packed"))
     for st in steps:
         emit(dict(phase="train_step", **st))
     emit(dict(phase="train_profile", **prof))
@@ -1077,7 +1313,7 @@ def main() -> int:
     t0 = time.perf_counter()
     steps, xsummary, prof, losses = train_phase(
         "cuda", SMPLX_CFG, smplx_rig, "smplx", n_timed=10, n_fixed=20,
-        need=SMPLX_TRAIN_KERNELS, absent=("knn", "min_dist"))
+        need=SMPLX_TRAIN_KERNELS, absent=("knn", "min_dist", "knn_packed"))
     for st in steps:
         emit(dict(phase="smplx_train_step", **st))
     emit(dict(phase="smplx_train_profile", **prof))
@@ -1089,16 +1325,100 @@ def main() -> int:
           **train_parity("cuda", SMPLX_CFG, smplx_rig, "smplx"),
           "seconds": time.perf_counter() - t0})
 
-    # launches: the SMPL train phase's for the kernels of slices 1-2, the
-    # SMPL-X serve and train phases' (summed) for the two SMPL-X kernels
-    xlaunches = {k: xserve[k] + xsummary["launches"][k]
-                 for k in ("knn_exact", "min_dist")}
+    # ---- k_neigh 8: kernel 8 in place of kernel 1, kernels 2, 5, 9 at K=8,
+    # on the rigs with one-hot LBS weights (rigid_lbs), so that the warp
+    # blends several of the 8 neighbours
+    t0 = time.perf_counter()
+    ck, _, bp, tmpl, _ = scale512("cpu")
+    system8 = scale512_system(ck, "cuda", rigid=True, k_neigh=8)
+    k8views, k8serve, prof, _ = render_turntable(system8, bp, tmpl,
+                                                 [3, 29, 55])
+    for v in k8views:
+        emit(dict(phase="k8_view", **v))
+    emit(dict(phase="k8_profile", **prof))
+    emit({"phase": "k8_serve", "views": len(k8views),
+          "median_view_ms": float(np.median([v["ms"] for v in k8views])),
+          "launches": k8serve,
+          "launches_per_view": {k: v / len(k8views)
+                                for k, v in k8serve.items()},
+          "seconds": time.perf_counter() - t0})
+    check(all(k8serve[k] > 0 for k in K8_SERVE_KERNELS)
+          and k8serve["knn"] == k8serve["knn_exact"] == k8serve["min_dist"]
+          == 0, f"k_neigh 8 serving launched the wrong kernels: {k8serve}")
+    del system8
+
+    t0 = time.perf_counter()
+    # the seeded rig under slice_parity's bounds; the rigid rig (several
+    # neighbours blended) in f32 under its PSNR bound
+    emit({"phase": "k8_serve_parity",
+          **slice_parity(ck, bp, tmpl, k_neigh=8),
+          "rigid_lbs": slice_parity(ck, bp, tmpl, rigid=True,
+                                    bounds=PARITY_BOUNDS[1:], psnr_only=True,
+                                    k_neigh=8),
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    steps, k8summary, prof, losses = train_phase(
+        "cuda", K8_CFG, rigid_smpl_rig, n_timed=10, n_fixed=20,
+        need=K8_TRAIN_KERNELS, absent=("knn", "knn_exact", "min_dist"))
+    for st in steps:
+        emit(dict(phase="k8_train_step", **st))
+    emit(dict(phase="k8_train_profile", **prof))
+    emit(dict(phase="k8_train", **k8summary, fixed_batch_losses=losses,
+              seconds=time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    emit({"phase": "k8_train_parity",
+          **train_parity("cuda", K8_CFG, rigid_smpl_rig),
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    # f32 only: its bounds are the tighter, and the kNN is f32 either way
+    xparity8 = smplx_serve_parity(cfg=dict(SMPLX_CFG, k_neigh=8),
+                                  bounds=PARITY_BOUNDS[1:])
+    x8launches = dict(_build.LAUNCHES)
+    check(x8launches["knn_exact"] > 0 and x8launches["knn"]
+          == x8launches["knn_packed"] == 0,
+          f"SMPL-X k_neigh 8 launched the wrong kNN: {x8launches}")
+    emit({"phase": "smplx_k8_parity", **xparity8, "launches": x8launches,
+          "seconds": time.perf_counter() - t0})
+
+    # ---- kernel 10 and the port's kNN tool
+    t0 = time.perf_counter()
+    mlines = kernel_lines_mxu("cuda")
+    for name, line in mlines.items():
+        emit(dict(phase="kernel", name=name, **line))
+    lines.update(mlines)
+    brows, blaunches = bench_knn_phase()
+    for r in brows:
+        emit(dict(phase="bench_knn", **r))
+    emit({"phase": "bench_knn_done", "launches": blaunches,
+          "seconds": time.perf_counter() - t0})
+
+    # launches, each from the main path that runs the kernel: the SMPL
+    # train phase's for kernels 1-6; the SMPL-X serve and train phases'
+    # (summed) for kernels 7 and 9; the k_neigh 8 serve and train phases'
+    # (summed) for kernel 8 and kernels 2 and 5 at K = 8; the SMPL-X
+    # k_neigh 8 parity view's (card side) for kernel 9 at K = 8; the kNN
+    # tool's for kernel 8 at K = 4 and kernel 10 (one count for both
+    # precisions)
+    k8 = {k: k8serve[k] + k8summary["launches"][k]
+          for k in ("knn_packed", "warp_blend", "scatter")}
+    row_launches = dict(
+        launches,
+        knn_exact=xserve["knn_exact"] + xsummary["launches"]["knn_exact"],
+        min_dist=xserve["min_dist"] + xsummary["launches"]["min_dist"],
+        knn_packed=k8["knn_packed"], warp_blend_k8=k8["warp_blend"],
+        scatter_k8=k8["scatter"], knn_exact_k8=x8launches["knn_exact"],
+        knn_packed_k4=blaunches["knn_packed"], knn_mxu=blaunches["knn_mxu"],
+        knn_mxu_default=blaunches["knn_mxu"])
     rows = []
     for name, (src, replaces) in KERNELS.items():
         ln = lines[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
-                     "launches": xlaunches.get(name, launches[name]),
+                     "launches": row_launches[name],
                      "max_abs_err": ln["max_abs_err"], "ms": ln["ms"],
                      "plain_ms": ln["plain_ms"], "bound_ms": ln["bound_ms"],
                      "bound_by": ln["bound_by"],

@@ -158,23 +158,78 @@ def test_knn_exact_plain_matches_exact_kernel():
     assert np.all(np.diff(dt, axis=1) >= 0)
 
 
-def test_knn_exact_plain_rounds_like_the_tpu_kernel():
-    """Bit for bit against numpy's separately rounded f32 sums and a stable
-    sort (an equal d2 goes to the smaller index: duplicated vertices tie
-    exactly), over several chunks."""
+def _tpu_slots_topk(d2, k, tile=512):
+    """numpy/Python emulation of _knn_kernel's top-k rule for one point's
+    d2 row (knn_pallas.py:89-155): per tile the k smallest (d2, index)
+    pairs, each replacing the first slot holding the slots' maximum when
+    strictly smaller; then the k=4 network or the bubble network, swapping
+    on a strictly larger d2."""
+    sd, si = [np.float32(np.inf)] * k, [0] * k
+    for t0 in range(0, len(d2), tile):
+        seg = d2[t0:t0 + tile]
+        for j in np.argsort(seg, kind="stable")[:k]:
+            m = max(sd)
+            a = sd.index(m)
+            if seg[j] < m:
+                sd[a], si[a] = seg[j], t0 + int(j)
+    net = ([(0, 1), (2, 3), (0, 2), (1, 3), (1, 2)] if k == 4 else
+           [(a, a + 1) for end in range(k - 1, 0, -1) for a in range(end)])
+    for a, b in net:
+        if sd[a] > sd[b]:
+            sd[a], sd[b], si[a], si[b] = sd[b], sd[a], si[b], si[a]
+    return np.array(sd, np.float32), np.array(si)
+
+
+@pytest.mark.parametrize("k", [4, 8])
+def test_knn_exact_plain_rounds_like_the_tpu_kernel(k):
+    """Bit for bit against numpy's separately rounded f32 sums and a
+    Python emulation of the TPU kernel's slot rule (duplicated vertices
+    tie exactly), over several chunks."""
     from animnerf_tpu_torch.ops.knn_kernel import knn_exact_plain
 
     pts, verts = _cloud(V=600, N=300, seed=6)
     verts[0, 400:410] = verts[0, 100:110]  # exact ties
     pts[0, :10] = verts[0, 100:110] + np.float32(1e-3)
-    d, i = knn_exact_plain(torch.from_numpy(pts), torch.from_numpy(verts),
+    d, i = knn_exact_plain(torch.from_numpy(pts), torch.from_numpy(verts), k,
                            max_elems=6000)
     d2 = _fma_free_d2(pts, verts)
-    order = np.argsort(d2, axis=1, kind="stable")[:, :4]
-    np.testing.assert_array_equal(i.numpy()[0], order.T)
-    want = np.sqrt(np.take_along_axis(d2, order, 1).astype(np.float64))
-    np.testing.assert_array_equal(d.numpy()[0], want.astype(np.float32).T)
+    want = [_tpu_slots_topk(row, k) for row in d2]
+    np.testing.assert_array_equal(i.numpy()[0], np.stack([w[1] for w in want]).T)
+    want_d = np.sqrt(np.stack([w[0] for w in want]).astype(np.float64))
+    np.testing.assert_array_equal(d.numpy()[0], want_d.astype(np.float32).T)
     assert np.all(i.numpy()[0, 0, :10] < 400)
+    assert np.all(np.diff(d.numpy(), axis=1) >= 0)
+
+
+def _tie_cloud():
+    """A point at the origin and V=600 vertices: v0 (1,0,0), v1 (0,1,1),
+    v3 (1,2,0), v7 (2,1,0) and v520 (2,0,0), every other vertex at
+    x >= 10. v3 and v7 tie exactly at d2 = 5."""
+    verts = np.zeros((1, 600, 3), np.float32)
+    verts[0, :, 0] = 10 + np.arange(600)
+    for v, xyz in ((0, (1, 0, 0)), (1, (0, 1, 1)), (3, (1, 2, 0)),
+                   (7, (2, 1, 0)), (520, (2, 0, 0))):
+        verts[0, v] = xyz
+    return np.zeros((1, 1, 3), np.float32), verts
+
+
+@pytest.mark.parametrize("k", [4, 8])
+def test_exact_knn_breaks_ties_as_the_tpu_kernel(k):
+    """On the tie cloud the TPU kernel (tile_v=512) keeps v7 at k=4: v3
+    and v7 enter tile 0's top-4 and v520 then evicts the first slot that
+    holds the maximum, v3's. The port returns what knn_pallas(packed=False)
+    returns, indices and distances."""
+    from animnerf_tpu_torch.ops.knn_kernel import knn
+
+    pts, verts = _tie_cloud()
+    dj, ij = knn_pallas(jnp.asarray(pts), jnp.asarray(verts), k=k, tile_v=512,
+                        packed=False, interpret=True, transposed_out=True)
+    d, i = knn(torch.from_numpy(pts), torch.from_numpy(verts), k,
+               packed=False)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(d.numpy(), np.asarray(dj))
+    if k == 4:
+        np.testing.assert_array_equal(i.numpy()[0, :, 0], [0, 1, 520, 7])
 
 
 @pytest.mark.parametrize("V,packed,exact", [

@@ -24,7 +24,9 @@ def test_import_loads_no_jax():
             "animnerf_tpu_torch.utils.convert, animnerf_tpu_torch.data.synthetic,"
             " animnerf_tpu_torch.training.system,"
             " animnerf_tpu_torch.render.compact_rows,"
-            " animnerf_tpu_torch.ops.perm_sort, animnerf_tpu_torch.utils.rng;"
+            " animnerf_tpu_torch.ops.perm_sort, animnerf_tpu_torch.utils.rng,"
+            " animnerf_tpu_torch.ops.knn_mxu,"
+            " animnerf_tpu_torch.tools.bench_knn;"
             "bad = [m for m in sys.modules if m.split('.')[0] in %r];"
             "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -92,7 +94,13 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
         pack_params,
     )
     from animnerf_tpu_torch.ops.knn import min_vertex_distance
-    from animnerf_tpu_torch.ops.knn_kernel import knn, knn_exact, knn_top4
+    from animnerf_tpu_torch.ops.knn_kernel import (
+        knn,
+        knn_exact,
+        knn_packed,
+        knn_top4,
+    )
+    from animnerf_tpu_torch.ops.knn_mxu import knn_mxu
     from animnerf_tpu_torch.ops.sort_lanes import permute_lanes
 
     def no_build():
@@ -106,6 +114,11 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     knn_top4(pts, pts[:, :20].contiguous(), tile_skip=True)
     knn_exact(pts, pts[:, :20].contiguous())
     knn(pts, pts[:, :20].contiguous(), packed=False)
+    knn_packed(pts, pts[:, :20].contiguous(), 8)
+    knn_exact(pts, pts[:, :20].contiguous(), 8)
+    knn(pts, pts[:, :20].contiguous(), 2)
+    for prec in ("highest", "default"):
+        knn_mxu(pts, pts[:, :20].contiguous(), precision=prec)
     min_vertex_distance(pts, pts[:, :20].contiguous())
     ws, bs = pack_params(NeRFMLP(4).state_dict(), 4, "float32")
     fused_nerf_fwd(torch.zeros(1, 8, 10), ws, bs, 4, "float32")
@@ -113,6 +126,8 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
                    "float32")
     weighted_scatter_rows(torch.zeros(1, 4, 10, dtype=torch.int32),
                           torch.ones(1, 4, 10), torch.ones(1, 16, 10), 5)
+    weighted_scatter_rows(torch.zeros(1, 8, 10, dtype=torch.int32),
+                          torch.ones(1, 8, 10), torch.ones(1, 16, 10), 5)
     permute_lanes(torch.zeros(1, 2, 3, 128),
                   torch.arange(128, dtype=torch.int32).expand(1, 3, 128))
     assert all(v == 0 for v in _build.LAUNCHES.values())
@@ -123,5 +138,9 @@ def test_build_hash_covers_every_source():
 
     assert sorted(_build.SOURCES) == sorted(
         p.name for p in _build.CSRC.glob("*.cu"))
+    assert sorted(_build.HEADERS) == sorted(
+        p.name for p in _build.CSRC.glob("*.cuh"))
+    assert set(_build.LAUNCHES) >= {"knn", "knn_packed", "knn_exact",
+                                    "knn_mxu", "warp_blend", "scatter"}
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert len(_build.source_hash()) == 16

@@ -124,7 +124,21 @@ def test_select_indices_matches():
 # ------------------------------------------------------------ whole slice
 
 
-def _jax_frame(compute_dtype, H, W):
+def rigid_lbs_jax(body_model, J):
+    """The rig with one-hot LBS weights (the largest entry of each row):
+    neighbours on one bone then pass the warp's confidence gate together,
+    where the seeded rig's weights keep only neighbour 0."""
+    return body_model.replace(lbs_weights=jnp.eye(J, dtype=jnp.float32)[
+        jnp.argmax(body_model.lbs_weights, axis=1)])
+
+
+def rigid_lbs_torch(body_model, J):
+    body_model.lbs_weights = torch.nn.functional.one_hot(
+        body_model.lbs_weights.argmax(1), J).float()
+    return body_model
+
+
+def _jax_frame(compute_dtype, H, W, k_neigh=4, rigid=False):
     from __graft_entry__ import _flagship_system
     from animnerf_tpu.models.body_params import init_body_params
     from animnerf_tpu.ops.ray_utils import camera_to_c2w, gen_rays
@@ -135,7 +149,9 @@ def _jax_frame(compute_dtype, H, W):
     cfg, system, params_for, J = _flagship_system(tiny=True)
     cfg.compute_dtype = compute_dtype
     cfg.fused_mlp = "on"
-    system = AnimNeRFSystem(cfg, system.body_model)
+    cfg.k_neigh = k_neigh
+    system = AnimNeRFSystem(cfg, rigid_lbs_jax(system.body_model, J)
+                            if rigid else system.body_model)
     params = system.init_params(jax.random.PRNGKey(0),
                                 init_body_params(cfg.num_frames,
                                                  pose_dim=3 * (J - 1)))

@@ -62,22 +62,39 @@ def jax_noise(key, step, B, R, Kc, Kf, V) -> TrainNoise:
                       t(prng.normal(k2, (B, V, 3))))
 
 
-def port_system(cfg, nj, params):
+def port_system(cfg, nj, params, rigid_lbs: bool = False):
     # the JAX side sizes body_pose for the tiny rig's joints, not by the
     # config's SMPL default of 69
-    system = AnimNeRFSystem(dict(cfg, pose_dim=3 * (nj - 1)),
-                            make_body_model(128, nj, seed=0), device="cpu")
+    bm = make_body_model(128, nj, seed=0)
+    if rigid_lbs:
+        bm.lbs_weights = torch.nn.functional.one_hot(
+            bm.lbs_weights.argmax(1), nj).float()
+    system = AnimNeRFSystem(dict(cfg, pose_dim=3 * (nj - 1)), bm,
+                            device="cpu")
     system.load_params(params_from_jax(jax.tree.map(np.asarray, params)))
     return system
 
 
-@pytest.fixture(scope="module")
-def ref():
-    """One JAX value-and-grad of rows_compact_loss_fn (computed once)."""
+def jax_reference(k_neigh: int = 4, rigid_lbs: bool = False) -> dict:
+    """One JAX value-and-grad of rows_compact_loss_fn with ``k_neigh``
+    neighbours, its config, batch, parameters and noise. ``rigid_lbs``
+    replaces the rig's LBS weights by the one-hot of their largest entry
+    (rigid skinning), so that neighbours on one bone have equal weights and
+    the warp's confidence gate blends them (the seeded rig's weights
+    differ from vertex to vertex and keep only neighbour 0)."""
     old = os.environ.get("ANIMNERF_MORTON_COMPACT")
     os.environ["ANIMNERF_MORTON_COMPACT"] = "1"
     try:
         cfg, system, nj, batch = _tiny_setup(seed=0, B=B, n_rays=R)
+        if k_neigh != cfg.k_neigh or rigid_lbs:
+            from animnerf_tpu.training.system import AnimNeRFSystem as JSys
+
+            cfg.k_neigh = k_neigh
+            bm = system.body_model
+            if rigid_lbs:
+                bm = bm.replace(lbs_weights=jnp.eye(nj, dtype=jnp.float32)[
+                    jnp.argmax(bm.lbs_weights, axis=1)])
+            system = JSys(cfg, bm)
         state = system.init_state(
             jax.random.PRNGKey(0),
             init_body_params(cfg.num_frames, pose_dim=3 * (nj - 1)),
@@ -99,12 +116,21 @@ def ref():
                       cfg.n_importance, 128)
     return dict(cfg=cfg, nj=nj, batch=batch, params=state.params,
                 details=jax.tree.map(np.asarray, details),
-                grads=jax.tree.map(np.asarray, grads), noise=noise)
+                grads=jax.tree.map(np.asarray, grads), noise=noise,
+                rigid_lbs=rigid_lbs)
 
 
 @pytest.fixture(scope="module")
-def port(ref):
-    system = port_system(ref["cfg"], ref["nj"], ref["params"])
+def ref():
+    """The JAX reference at k_neigh=4 (computed once)."""
+    return jax_reference()
+
+
+def port_step(ref):
+    """The port's loss and gradients from the reference's parameters,
+    batch and noise -> (system with .grad set, details)."""
+    system = port_system(ref["cfg"], ref["nj"], ref["params"],
+                         ref["rigid_lbs"])
     batch = {k: torch.from_numpy(np.asarray(v)) for k, v in
              ref["batch"].items()}
     loss, details = TS.rows_compact_loss_fn(system, batch, ref["noise"])
@@ -112,11 +138,20 @@ def port(ref):
     return system, details
 
 
+@pytest.fixture(scope="module")
+def port(ref):
+    return port_step(ref)
+
+
 def test_rows_compact_details_match_jax(ref, port):
     """Every details entry, rtol 1e-5, except the normal terms (rtol 2e-3):
     they differentiate a 2^9-frequency encoding at jittered template
     vertices, which the two SMPL implementations compute to within ~1e-6
     (tests/test_torch_smpl.py), and that amplifies to ~1e-4 relative."""
+    check_details(ref, port)
+
+
+def check_details(ref, port):
     _, td = port
     jd = ref["details"]
     assert int(jd["compact_overflow"]) == 0
@@ -146,6 +181,10 @@ def test_rows_compact_grads_match_jax(ref, port):
     """Every gradient leaf: the fields' kernels and biases and the body
     params (the hybrid rel-L2 bound of the JAX package's own compacted vs
     dense test); the body-pose gradient is nonzero."""
+    check_grads(ref, port)
+
+
+def check_grads(ref, port):
     system, _ = port
     g = ref["grads"]
     for net in ("nerf", "nerf_fine"):
