@@ -21,7 +21,9 @@
 //
 // Bound on the H100: operations, ~3x the forward's 1.19 MFLOP per point
 // (recomputed forward, dgrad, wgrad): 3.57 MFLOP per point in bf16 on the
-// tensor cores.
+// tensor cores. The main kernel alone (recompute + dgrad): 2.36 MFLOP per
+// point, or the 9,856 B of scratch it writes per point, the larger: 3.08
+// ms per 2^20 points (bytes).
 //
 // What does not fit: the TPU kernel keeps all 8 trunk activations of a
 // 512-point tile and every dW/db accumulator (2.4 MB in f32) in VMEM
@@ -29,19 +31,30 @@
 // point and a block has 227 KB of shared memory; the dW set fits neither
 // a block's shared memory nor its registers, and blocks run in parallel.
 // Design, per chunk of up to `chunk` points:
-//   1. main kernel, one block of 8 warps per 128 points (bf16; f32: a SIMT
-//      block per 32 points): recompute the encoding and the forward
-//      (wmma, bf16 operands, f32 accumulators, as the forward kernel) with
-//      two 128x256 ping-pong activation buffers in shared memory, then run
-//      the dgrad chain backwards through the same buffers, accumulate
-//      d_enc (f32) in shared memory and apply the encoding chain rule in
-//      registers. Shared memory: 2 x 66 KB activations + 18 KB encoding +
-//      32 KB d_enc + 8 KB epilogue staging + 2 KB heads = 192 KB, one
-//      block per SM. Each layer's input activation and output cotangent
-//      (the two bf16 operands of its weight gradient, exactly as the TPU
-//      kernel rounds them) are also written to a point-major scratch in
-//      device memory (~9.9 KB per point), and ReLU masks are read back
-//      from there.
+//   1. main kernel (bf16), one block per 128 points: two consumer
+//      warpgroups of 64 points each and a producer warp. The producer
+//      streams the weights as 16 KB (or 8 KB) slabs with one cp.async.bulk
+//      each into a three-stage mbarrier ring (mlp_wgmma.cuh); the wrapper
+//      packs them once per call into exactly the slabs' shared-memory
+//      byte image (ops/fused_mlp.py::weight_image), W_l for the forward
+//      and W_l^T for the dgrad, so both directions read a K-major B
+//      operand. The consumers recompute the encoding and the forward, then
+//      run the dgrad chain backwards, each product a wgmma (m64n128k16,
+//      m64n64k16 for d_enc) from two 128 x 256 bf16 activation buffers in
+//      the 128-byte swizzled layout; the epilogues round, add the bias,
+//      apply ReLU or the mask in registers (their operands loaded before
+//      the products) and write bf16 into the other buffer. The skip
+//      layer's enc half accumulates into the same registers; its dgrad
+//      W8^T d_4 stays in f32 registers until d_enc = W8^T d_4 +
+//      bf16(W0^T d_0) is formed and the encoding chain rule applied. Each
+//      layer's input activation and output cotangent (the two bf16
+//      operands of its weight gradient, exactly as the TPU kernel rounds
+//      them) go to a point-major scratch in device memory (~9.9 KB per
+//      point), with 16-byte streaming stores issued under the next layer's
+//      first products; the trunk's ReLU bits stay in shared memory (16 KB
+//      a warpgroup). Shared memory: 2 x 64 KB activations + 16 KB encoding
+//      (later the heads) + 48 KB slab ring + 32 KB ReLU bits (later d_enc).
+//      f32 (not on the main path): a SIMT block per 32 points.
 //   2. weight gradients, dW_l = G_l^T H_l over the chunk's points: a
 //      hand-written split-K wmma kernel (128x128 output tile per block,
 //      operands staged in shared memory, 64 point splits); each block
@@ -51,18 +64,21 @@
 //      one partial per split.
 //   3. after the last chunk, one kernel sums the splits' partials in a
 //      fixed order.
-// No atomics anywhere: the gradients are deterministic, bit for bit from
-// run to run. The activations go through device memory once (written by
-// 1, read by 2); keeping them on chip would need the dW accumulators
-// spread over a cluster's shared memory, left to a later revision, as are
-// wgmma and TMA.
+// No atomics anywhere, and no sum crosses a block in the main kernel: the
+// gradients are deterministic, bit for bit from run to run. The
+// activations go through device memory once (written by 1, read by 2);
+// keeping them on chip would need the dW accumulators spread over a
+// cluster's shared memory, left to a later revision, as is wgmma for 2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
+
+#include "mlp_wgmma.cuh"
 
 using namespace nvcuda;
 
@@ -142,312 +158,436 @@ __device__ __forceinline__ float sigmoidf(float x) {
 
 // ================================================================ bf16 path
 
-constexpr int T = 128;  // points per block
-constexpr int WARPS = 8;
+constexpr int T = mlpw::ROWS;  // points per block
+constexpr int WARPS = 8;       // the weight-gradient kernel's block
 constexpr int THREADS = WARPS * 32;
-constexpr int LDH = WIDTH + 8;  // activation row pitch (bf16 elements)
-constexpr int LDE = E + 8;
-constexpr int RT = T / 16;
+constexpr int CONSUMERS = 256;  // two warpgroups of 64 points each
+constexpr int MAIN_THREADS = CONSUMERS + 32;  // + the producer warp
+constexpr int WG_ROWS = 64;
+constexpr int MASK_ROW = WIDTH / 8;  // bytes of one row's ReLU bits
 
-// out (T x N_OUT) = A (T x KR) . B [+ A2 (T x KR2) . B2], f32 accumulators.
-// B_COL: B(r, c) = W[c * ldw + r] (forward: W is (N_OUT, KR) row-major);
-// otherwise B(r, c) = W[r * ldw + c] (dgrad: W is (KR, N_OUT) row-major).
-// epi(t, c, acc) is called once for every output element, by one lane.
-template <int N_OUT, bool B_COL, class Epi>
-__device__ __forceinline__ void mma_tile(const bf16* A, int lda, int KR,
-                                         const bf16* __restrict__ W, int ldw,
-                                         const bf16* A2, int lda2, int KR2,
-                                         const bf16* __restrict__ W2,
-                                         int ldw2, float* scratch,
-                                         const Epi& epi) {
-  constexpr int CTT = N_OUT / 16;
-  constexpr int CG = CTT >= WARPS ? WARPS : CTT;
-  constexpr int RG = WARPS / CG;
-  constexpr int CT = CTT / CG;
-  constexpr int RTW = RT / RG;
-  typedef typename std::conditional<B_COL, wmma::col_major,
-                                    wmma::row_major>::type BLayout;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int cg = warp % CG;
-  const int rg = warp / CG;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RTW][CT];
-#pragma unroll
-  for (int r = 0; r < RTW; ++r)
-#pragma unroll
-    for (int c = 0; c < CT; ++c) wmma::fill_fragment(acc[r][c], 0.0f);
+// shared memory of the main kernel (bytes from a 1024-aligned base)
+constexpr int OFF_A = 0;                               // 128 x 256 bf16
+constexpr int OFF_B = OFF_A + T * WIDTH * 2;           // 128 x 256 bf16
+// 128 x 64 bf16 encoding; after the forward, the heads (128 x 4 f32)
+constexpr int OFF_ENC = OFF_B + T * WIDTH * 2;
+constexpr int OFF_RING = OFF_ENC + T * E * 2;          // the slab ring
+constexpr int OFF_MASK = OFF_RING + mlpw::STAGES * mlpw::SLAB_BYTES;
+constexpr int MASK_WG = DEPTH * WG_ROWS * MASK_ROW;    // 16 KB a warpgroup
+constexpr int OFF_BARS = OFF_MASK + 2 * MASK_WG;
+constexpr size_t SMEM_BF16 = OFF_BARS + 2 * mlpw::STAGES * 8 + 1024;
+static_assert(WG_ROWS * E * 4 <= MASK_WG, "d_enc reuses a mask region");
+static_assert(T * HEAD_COLS * 4 <= T * E * 2, "the heads reuse the encoding");
+static_assert(SMEM_BF16 <= 232448, "shared memory of one block");
 
-  for (int pass = 0; pass < 2; ++pass) {
-    const bf16* Ap = pass == 0 ? A : A2;
-    const bf16* Wp = pass == 0 ? W : W2;
-    const int la = pass == 0 ? lda : lda2;
-    const int lw = pass == 0 ? ldw : ldw2;
-    const int KK = pass == 0 ? KR : KR2;
-    if (Wp == nullptr) break;
-    for (int k0 = 0; k0 < KK; k0 += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bfr[CT];
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        const int c0 = (cg * CT + c) * 16;
-        const bf16* bp = B_COL ? Wp + (size_t)c0 * lw + k0
-                               : Wp + (size_t)k0 * lw + c0;
-        wmma::load_matrix_sync(bfr[c], bp, lw);
-      }
-#pragma unroll
-      for (int r = 0; r < RTW; ++r) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Ap + (rg * RTW + r) * 16 * la + k0, la);
-#pragma unroll
-        for (int c = 0; c < CT; ++c)
-          wmma::mma_sync(acc[r][c], a, bfr[c], acc[r][c]);
-      }
-    }
-  }
+// element offsets of the weight image's parts (ops/fused_mlp.py::
+// weight_image): fwd[l] holds W_l (N x K) for out = in . W_l^T, bwd[l]
+// holds W_l^T (K x N) for d_in = d_out . W_l; -1 where absent
+struct ImageOffsets {
+  int fwd[N_W];
+  int bwd[N_W];
+};
 
-#pragma unroll
-  for (int r = 0; r < RTW; ++r) {
-#pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      wmma::store_matrix_sync(scratch, acc[r][c], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int t0 = (rg * RTW + r) * 16;
-      const int c0 = (cg * CT + c) * 16;
-      for (int e = lane; e < 256; e += 32)
-        epi(t0 + (e >> 4), c0 + (e & 15), scratch[e]);
-      __syncwarp();
-    }
+// two f32 values rounded to bf16 (nearest even) and packed, lo in the
+// low half; and the f32 values of a packed pair's halves
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ float lo_f(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+// bits 0, 1: the pair's halves > 0 (bf16 bit patterns of values that are
+// not NaN: nonzero magnitude, clear sign)
+__device__ __forceinline__ uint32_t positive2(uint32_t w) {
+  const uint32_t pos = ~w & 0x80008000u;             // sign clear
+  const uint32_t nz = (w & 0x7FFF7FFFu) + 0x7FFF7FFFu;  // magnitude != 0
+  const uint32_t b = pos & nz;
+  return ((b >> 15) & 1u) | ((b >> 30) & 2u);
+}
+
+// part `part` of `parts` of a warpgroup's 64 rows of a swizzled (T x
+// WIDTH_T) buffer to the point-major scratch rows dst (chunk, WIDTH_T),
+// 16 B a store; with `mask`, also the rows' ReLU bits (bit c % 8 of byte
+// c / 8: activation > 0; the activations are ReLU outputs, never NaN).
+// Spread over the next layer's first slabs, the stores run under its
+// products. They are streaming stores (evict-first): the scratch is read
+// back only by the weight-gradient kernels, and in L2 it would push out
+// the weight slabs that every block re-reads.
+template <int WIDTH_T>
+__device__ __forceinline__ void copy_out(const unsigned char* buf,
+                                         bf16* __restrict__ dst, int mb,
+                                         int r0, unsigned char* mask,
+                                         int part = 0, int parts = 1) {
+  constexpr int CPR = WIDTH_T / 8;
+  constexpr int ITERS = WG_ROWS * CPR / 128;
+  const int wt = threadIdx.x & 127;
+  const int k0 = part * ITERS / parts;
+  const int k1 = (part + 1) * ITERS / parts;
+#pragma unroll 2
+  for (int k = k0; k < k1; ++k) {
+    const int i = wt + k * 128;
+    const int rl = i / CPR;
+    const int ch = i % CPR;
+    const uint4 v = *(const uint4*)(buf + mlpw::sw128(r0 + rl, ch * 8, T));
+    __stcs((uint4*)(dst + (size_t)(mb + r0 + rl) * WIDTH_T + ch * 8), v);
+    if (mask != nullptr)
+      mask[rl * MASK_ROW + ch] =
+          (unsigned char)(positive2(v.x) | positive2(v.y) << 2 |
+                          positive2(v.z) << 4 | positive2(v.w) << 6);
   }
 }
 
-// forward layer: bf16(bf16(acc) + bf16(b)) [ReLU] to smem and to the
-// layer's H scratch rows
-struct FwdEpi {
-  bf16* out;
-  bf16* h;
-  int hw;
-  const float* bias;
-  bool relu;
-  int mb;
-  __device__ void operator()(int t, int c, float acc) const {
-    float v = bf16r(bf16r(acc) + bf16r(bias[c]));
-    if (relu) v = fmaxf(v, 0.0f);
-    const bf16 q = __float2bfloat16_rn(v);
-    out[t * LDH + c] = q;
-    h[(size_t)(mb + t) * hw + c] = q;
+// forward layer of N outputs into Y: bf16(bf16(acc) + bf16(b)) [ReLU]
+// (hook(part, parts): run under each slab of the first tile, after the
+// slab before it is released: work there overlaps the products without
+// holding back the slab ring). The epilogue's
+// operands are loaded before the products, so their latency hides there.
+template <bool RELU, class Hook>
+__device__ __forceinline__ void fwd_layer(mlpw::Ring& ring, uint32_t a,
+                                          int kb, uint32_t a2, int kb2,
+                                          int N, unsigned char* Y,
+                                          const float* __restrict__ bias,
+                                          int r0, const Hook& hook) {
+  for (int nt = 0; nt < N / 128; ++nt) {
+    uint32_t bb[16];  // bf16(b) of the thread's column pairs
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const float2 b =
+          *(const float2*)(bias + nt * 128 + 8 * q + mlpw::pair_col());
+      bb[q] = pack_bf16x2(b.x, b.y);
+    }
+    float acc[64];
+    mlpw::tile_mma<128>(acc, ring, a, kb, a2, kb2, [&](int s) {
+      if (nt == 0) hook(s, kb + kb2);
+    });
+    mlpw::for_each_pair<128>(acc, r0, nt * 128, [&](int row, int c, int q,
+                                                    int, float v0, float v1) {
+      const uint32_t ab = pack_bf16x2(v0, v1);
+      float x0 = lo_f(ab) + lo_f(bb[q]);
+      float x1 = hi_f(ab) + hi_f(bb[q]);
+      if (RELU) {
+        x0 = fmaxf(x0, 0.0f);
+        x1 = fmaxf(x1, 0.0f);
+      }
+      *(uint32_t*)(Y + mlpw::sw128(row, c, T)) = pack_bf16x2(x0, x1);
+    });
   }
-};
-
-// dgrad: bf16(acc [+ xw[c] * xd[t]]), masked by act > 0, to smem and G
-struct DgradEpi {
-  bf16* out;
-  bf16* g;
-  int gw;
-  const bf16* mask;  // H rows of the activation, or null
-  const bf16* xw;    // extra term's weight row (sigma head), or null
-  const float* xd;   // extra term's per-point values (pitch HEAD_COLS)
-  int mb;
-  __device__ void operator()(int t, int c, float acc) const {
-    float v = acc;
-    if (xw != nullptr)
-      v += __bfloat162float(xw[c]) * bf16r(xd[t * HEAD_COLS]);
-    bf16 q = __float2bfloat16_rn(v);
-    if (mask != nullptr &&
-        !(__bfloat162float(mask[(size_t)(mb + t) * WIDTH + c]) > 0.0f))
-      q = __float2bfloat16_rn(0.0f);
-    out[t * LDH + c] = q;
-    g[(size_t)(mb + t) * gw + c] = q;
-  }
-};
-
-// d_enc (f32, T x E) += acc, rounded to bf16 first when asked
-struct DencEpi {
-  float* denc;
-  bool round;
-  __device__ void operator()(int t, int c, float acc) const {
-    denc[t * E + c] += round ? bf16r(acc) : acc;
-  }
-};
-
-__device__ __forceinline__ float dot_row_bf16(const bf16* h, const bf16* w,
-                                              int K) {
-  float acc = 0.0f;
-  for (int k = 0; k < K; k += 2) {
-    const float2 hv = __bfloat1622float2(*(const __nv_bfloat162*)(h + k));
-    const float2 wv = __bfloat1622float2(*(const __nv_bfloat162*)(w + k));
-    acc = fmaf(hv.x, wv.x, acc);
-    acc = fmaf(hv.y, wv.y, acc);
-  }
-  return acc;
 }
 
-constexpr size_t SMEM_BF16 =
-    (size_t)2 * T * LDH * sizeof(bf16) + (size_t)T * LDE * sizeof(bf16) +
-    (size_t)WARPS * 256 * sizeof(float) + (size_t)T * E * sizeof(float) +
-    (size_t)T * HEAD_COLS * sizeof(float);
+// dgrad layer of 256 outputs into Y: bf16(acc [+ xw[c] * bf16(d_sigma)]
+// with SIGMA), zero where the mask bit (the warpgroup's rows) is clear
+template <bool SIGMA, class Hook>
+__device__ __forceinline__ void dgrad_layer(mlpw::Ring& ring, uint32_t a,
+                                            int kb, unsigned char* Y,
+                                            const unsigned char* mask,
+                                            const bf16* __restrict__ xw,
+                                            const float* hsm, int r0,
+                                            const Hook& hook) {
+  const int rl = mlpw::pair_row();
+  float ds[2] = {0.0f, 0.0f};
+  if (SIGMA) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      ds[h] = bf16r(hsm[(rl + 8 * h) * HEAD_COLS + 3]);
+  }
+  for (int nt = 0; nt < WIDTH / 128; ++nt) {
+    // the thread's rows' mask bytes of this tile's 128 columns
+    uint32_t mw[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mw[h][j] = mask == nullptr
+                       ? 0xFFFFFFFFu
+                       : *(const uint32_t*)(mask + (rl + 8 * h) * MASK_ROW +
+                                            nt * 16 + 4 * j);
+    uint32_t xv[16];
+    if (SIGMA)
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        xv[q] = *(const uint32_t*)(xw + nt * 128 + 8 * q + mlpw::pair_col());
+    float acc[64];
+    mlpw::tile_mma<128>(acc, ring, a, kb, 0, 0, [&](int s) {
+      if (nt == 0) hook(s, kb);
+    });
+    mlpw::for_each_pair<128>(acc, r0, nt * 128, [&](int row, int c, int q,
+                                                    int h, float v0,
+                                                    float v1) {
+      if (SIGMA) {
+        v0 = fmaf(lo_f(xv[q]), ds[h], v0);
+        v1 = fmaf(hi_f(xv[q]), ds[h], v1);
+      }
+      const uint32_t bits = (mw[h][q >> 2] >> (8 * (q & 3) + (c & 7))) & 3u;
+      const uint32_t keep =
+          ((bits & 1u) ? 0x0000FFFFu : 0u) | ((bits & 2u) ? 0xFFFF0000u : 0u);
+      *(uint32_t*)(Y + mlpw::sw128(row, c, T)) = pack_bf16x2(v0, v1) & keep;
+    });
+  }
+}
 
-__global__ void __launch_bounds__(THREADS, 1)
+// One block of 128 points: two consumer warpgroups own 64 points each
+// (every sum stays inside its warpgroup), the producer warp streams the
+// weight slabs of every product, in the consumers' order, through the
+// ring. Per warpgroup: the encoding, the recomputed forward (each layer's
+// output goes to the H scratch, the trunk's ReLU bits stay in shared
+// memory), the heads, the dgrad chain (each cotangent to the G scratch),
+// d_enc and the encoding chain rule.
+__global__ void __launch_bounds__(MAIN_THREADS, 1)
 mlp_bwd_main_bf16(const float* __restrict__ xyz,   // (8, M) rows
                   const float* __restrict__ dout,  // (8, M) rows
                   float* __restrict__ dxyz,        // (8, M) rows
-                  MlpWeights p, bf16* __restrict__ hs, bf16* __restrict__ gs,
-                  float* __restrict__ heads, int M, int m_start, int Mc,
-                  int chunk, int n_freqs) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* bufA = (bf16*)smem;
-  bf16* bufB = bufA + T * LDH;
-  bf16* enc = bufB + T * LDH;
-  float* stage = (float*)(enc + T * LDE);
-  float* scratch = stage + (threadIdx.x >> 5) * 256;
-  float* denc = stage + WARPS * 256;  // (T, E)
-  float* hsm = denc + T * E;          // (T, HEAD_COLS)
-  const int mb = blockIdx.x * T;      // first point of the block, in chunk
+                  MlpWeights p, const bf16* __restrict__ image,
+                  ImageOffsets io, bf16* __restrict__ hs,
+                  bf16* __restrict__ gs, float* __restrict__ heads, int M,
+                  int m_start, int Mc, int chunk, int n_freqs) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      (unsigned char*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  const int mb = blockIdx.x * T;  // first point of the block, in chunk
+  mlpw::Ring ring{mlpw::smem_u32(smem + OFF_RING),
+                  mlpw::smem_u32(smem + OFF_BARS),
+                  mlpw::smem_u32(smem + OFF_BARS + 8 * mlpw::STAGES), 0, 0u};
+  if (threadIdx.x == 0) mlpw::ring_init(ring);
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warp
+    if (threadIdx.x != CONSUMERS) return;
+    auto F = [&](int l) { return image + io.fwd[l]; };
+    auto B = [&](int l) { return image + io.bwd[l]; };
+    mlpw::produce_product(ring, F(0), WIDTH, E, nullptr, 0);
+    for (int i = 1; i < DEPTH; ++i)
+      mlpw::produce_product(ring, F(i), WIDTH, WIDTH,
+                            i == SKIP ? F(8) : nullptr, E);
+    mlpw::produce_product(ring, F(10), WIDTH, WIDTH, nullptr, 0);
+    mlpw::produce_product(ring, F(11), DIR_W, WIDTH, nullptr, 0);
+    mlpw::produce_product(ring, B(11), WIDTH, DIR_W, nullptr, 0);
+    mlpw::produce_product(ring, B(10), WIDTH, WIDTH, nullptr, 0);
+    for (int i = DEPTH - 1; i >= 1; --i) {
+      if (i == SKIP) mlpw::produce_product(ring, B(8), E, WIDTH, nullptr, 0);
+      mlpw::produce_product(ring, B(i), WIDTH, WIDTH, nullptr, 0);
+    }
+    mlpw::produce_product(ring, B(0), E, WIDTH, nullptr, 0);
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7;
+  const int wt = threadIdx.x & 127;
+  const int r0 = wg * WG_ROWS;  // the warpgroup's first row
+  unsigned char* bufA = smem + OFF_A;
+  unsigned char* bufB = smem + OFF_B;
+  unsigned char* enc = smem + OFF_ENC;
+  unsigned char* masks = smem + OFF_MASK + wg * MASK_WG;
+  float* hsm = (float*)(smem + OFF_ENC) + r0 * HEAD_COLS;
   const bf16* const* w = (const bf16* const*)p.w;
   auto H = [&](int h) { return hs + (size_t)h_col(h) * chunk; };
   auto G = [&](int g) { return gs + (size_t)g_col(g) * chunk; };
+  auto rows_of = [&](const unsigned char* buf) {
+    return mlpw::smem_u32(buf) + r0 * 128;  // A operand: the wg's rows
+  };
+  auto mask_of = [&](int layer) { return masks + layer * WG_ROWS * MASK_ROW; };
+  auto publish = [&]() {  // epilogue stores -> the next products' reads
+    mlpw::fence_proxy_async();
+    mlpw::wg_sync(wg);
+  };
 
-  // positional encoding (as the forward kernel), and d_enc = 0
+  // positional encoding (as the forward kernel), two threads a point
   {
-    const int t = threadIdx.x % T;
-    const int half = threadIdx.x / T;
-    const int m = mb + t;
+    const int rl = wt % WG_ROWS;
+    const int half = wt / WG_ROWS;
+    const int m = mb + r0 + rl;
     const bool live = m < Mc;
     const size_t gm = (size_t)m_start + m;
     const float c3[3] = {live ? xyz[gm] : 0.0f,
                          live ? xyz[(size_t)M + gm] : 0.0f,
                          live ? xyz[2 * (size_t)M + gm] : 0.0f};
-    bf16* row = enc + t * LDE;
+    auto put = [&](int e, float v) {
+      *(bf16*)(enc + mlpw::sw128(r0 + rl, e, T)) = __float2bfloat16_rn(v);
+    };
     if (half == 0) {
-      for (int c = 0; c < 3; ++c) row[c] = __float2bfloat16_rn(c3[c]);
-      for (int e = 3 + 6 * n_freqs; e < E; ++e)
-        row[e] = __float2bfloat16_rn(0.0f);
+      for (int c = 0; c < 3; ++c) put(c, c3[c]);
+      for (int e = 3 + 6 * n_freqs; e < E; ++e) put(e, 0.0f);
     }
     for (int j = half; j < n_freqs; j += 2) {
       const float f = (float)(1 << j);
       for (int c = 0; c < 3; ++c) {
         const float a = f * c3[c];
-        row[3 + 6 * j + c] = __float2bfloat16_rn(sinf(a));
-        row[3 + 6 * j + 3 + c] = __float2bfloat16_rn(cosf(a));
+        put(3 + 6 * j + c, sinf(a));
+        put(3 + 6 * j + 3 + c, cosf(a));
       }
     }
   }
-  for (int i = threadIdx.x; i < T * E; i += THREADS) denc[i] = 0.0f;
-  __syncthreads();
-  for (int i = threadIdx.x; i < T * E; i += THREADS)
-    H(0)[(size_t)(mb + i / E) * E + i % E] = enc[(i / E) * LDE + i % E];
+  publish();
 
-  // ---- recomputed forward; every layer's output also goes to H
-  mma_tile<WIDTH, true>(enc, LDE, E, w[0], E, nullptr, 0, 0, nullptr, 0,
-                        scratch,
-                        FwdEpi{bufA, H(1), WIDTH, p.b[0], true, mb});
-  __syncthreads();
-  bf16* hin = bufA;
-  bf16* hout = bufB;
+  // ---- recomputed forward; every layer's output also goes to H, stored
+  // while the next layer's first products run
+  fwd_layer<true>(ring, rows_of(enc), 1, 0, 0, WIDTH, bufA, p.b[0], r0,
+                  [&](int s, int n) {
+                    copy_out<E>(enc, H(0), mb, r0, nullptr, s, n);
+                  });
+  publish();
+  unsigned char* hin = bufA;
+  unsigned char* hout = bufB;
   for (int i = 1; i < DEPTH; ++i) {
-    const FwdEpi epi{hout, H(i + 1), WIDTH, p.b[i], true, mb};
-    if (i == SKIP)
-      mma_tile<WIDTH, true>(hin, LDH, WIDTH, w[i], WIDTH, enc, LDE, E, w[8],
-                            E, scratch, epi);
-    else
-      mma_tile<WIDTH, true>(hin, LDH, WIDTH, w[i], WIDTH, nullptr, 0, 0,
-                            nullptr, 0, scratch, epi);
-    __syncthreads();
-    bf16* tmp = hin;
+    fwd_layer<true>(ring, rows_of(hin), WIDTH / 64, rows_of(enc),
+                    i == SKIP ? 1 : 0, WIDTH, hout, p.b[i], r0,
+                    [&](int s, int n) {
+                      copy_out<WIDTH>(hin, H(i), mb, r0, mask_of(i - 1), s, n);
+                    });
+    publish();
+    unsigned char* tmp = hin;
     hin = hout;
     hout = tmp;
   }
-  // hin = h7 (bufB). xyz_final (no ReLU) -> hf in bufA, dir_0 -> hd in bufB
-  mma_tile<WIDTH, true>(hin, LDH, WIDTH, w[10], WIDTH, nullptr, 0, 0,
-                        nullptr, 0, scratch,
-                        FwdEpi{hout, H(9), WIDTH, p.b[10], false, mb});
-  __syncthreads();
-  mma_tile<DIR_W, true>(hout, LDH, WIDTH, w[11], WIDTH, nullptr, 0, 0,
-                        nullptr, 0, scratch,
-                        FwdEpi{hin, H(10), DIR_W, p.b[11], true, mb});
-  __syncthreads();
-  bf16* hd = hin;   // bufB
-  bf16* spare = hout;  // bufA (hf, no longer needed on chip)
+  // hin = h7. xyz_final (no ReLU) -> hf in hout, dir_0 -> hd in hin
+  fwd_layer<false>(ring, rows_of(hin), WIDTH / 64, 0, 0, WIDTH, hout,
+                   p.b[10], r0, [&](int s, int n) {
+    copy_out<WIDTH>(hin, H(DEPTH), mb, r0, mask_of(DEPTH - 1), s, n);
+  });
+  publish();
+  fwd_layer<true>(ring, rows_of(hout), WIDTH / 64, 0, 0, DIR_W, hin,
+                  p.b[11], r0,
+                  [&](int s, int n) {
+                    copy_out<WIDTH>(hout, H(9), mb, r0, nullptr, s, n);
+                  });
+  publish();
+  copy_out<DIR_W>(hin, H(10), mb, r0, nullptr);
+  unsigned char* hd = hin;
+  unsigned char* spare = hout;  // hf, no longer needed on chip
 
-  // ---- heads: d_rgb_raw (f32) and d_sigma
-  for (int task = threadIdx.x; task < 4 * T; task += THREADS) {
-    const int c = task / T;
-    const int t = task % T;
-    const int m = mb + t;
+  // ---- heads: d_rgb_raw (f32) and d_sigma, the warpgroup's 64 points
+  for (int task = wt; task < 4 * WG_ROWS; task += 128) {
+    const int c = task / WG_ROWS;
+    const int rl = task % WG_ROWS;
+    const int m = mb + r0 + rl;
     const float d = m < Mc ? dout[(size_t)c * M + m_start + m] : 0.0f;
     if (c < 3) {
-      const float v = dot_row_bf16(hd + t * LDH, w[12] + c * DIR_W, DIR_W) +
-                      p.b[12][c];
-      const float s = sigmoidf(v);
-      hsm[t * HEAD_COLS + c] = d * s * (1.0f - s);
+      const bf16* wr = w[12] + c * DIR_W;
+      float acc = 0.0f;
+      for (int k = 0; k < DIR_W; k += 8) {
+        const uint4 hv = *(const uint4*)(hd + mlpw::sw128(r0 + rl, k, T));
+        const uint4 wv = *(const uint4*)(wr + k);
+        const uint32_t hw[4] = {hv.x, hv.y, hv.z, hv.w};
+        const uint32_t ww[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc = fmaf(lo_f(hw[j]), lo_f(ww[j]), acc);
+          acc = fmaf(hi_f(hw[j]), hi_f(ww[j]), acc);
+        }
+      }
+      const float s = sigmoidf(acc + p.b[12][c]);
+      hsm[rl * HEAD_COLS + c] = d * s * (1.0f - s);
     } else {
-      hsm[t * HEAD_COLS + 3] = d;
+      hsm[rl * HEAD_COLS + 3] = d;
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < T * HEAD_COLS; i += THREADS)
-    heads[(size_t)mb * HEAD_COLS + i] = hsm[i];
+  mlpw::wg_sync(wg);
+  for (int i = wt; i < WG_ROWS * HEAD_COLS; i += 128)
+    heads[(size_t)(mb + r0) * HEAD_COLS + i] = hsm[i];
 
   // ---- d_hd = mask(hd) bf16(W12^T bf16(d_rgb_raw))  (CUDA cores, K = 3)
-  for (int e = threadIdx.x; e < T * DIR_W; e += THREADS) {
-    const int t = e / DIR_W;
-    const int n = e % DIR_W;
-    float acc = 0.0f;
+  for (int i = wt; i < WG_ROWS * (DIR_W / 8); i += 128) {
+    const int rl = i / (DIR_W / 8);
+    const int n0 = (i % (DIR_W / 8)) * 8;
+    const uint32_t off = mlpw::sw128(r0 + rl, n0, T);
+    const uint4 hv = *(const uint4*)(hd + off);
+    const uint32_t hw[4] = {hv.x, hv.y, hv.z, hv.w};
+    float dr[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      acc = fmaf(__bfloat162float(w[12][c * DIR_W + n]),
-                 bf16r(hsm[t * HEAD_COLS + c]), acc);
-    bf16 q = __float2bfloat16_rn(acc);
-    if (!(__bfloat162float(hd[t * LDH + n]) > 0.0f))
-      q = __float2bfloat16_rn(0.0f);
-    spare[t * LDH + n] = q;
-    G(9)[(size_t)(mb + t) * DIR_W + n] = q;
+    for (int c = 0; c < 3; ++c) dr[c] = bf16r(hsm[rl * HEAD_COLS + c]);
+    uint32_t ow[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float acc[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[h] = 0.0f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          acc[h] = fmaf(__bfloat162float(w[12][c * DIR_W + n0 + 2 * j + h]),
+                        dr[c], acc[h]);
+      }
+      // hd is a ReLU output: zero the cotangent where it is not > 0
+      const uint32_t keep = positive2(hw[j]);
+      ow[j] = pack_bf16x2(acc[0], acc[1]) &
+              (((keep & 1u) ? 0x0000FFFFu : 0u) |
+               ((keep & 2u) ? 0xFFFF0000u : 0u));
+    }
+    const uint4 ov = make_uint4(ow[0], ow[1], ow[2], ow[3]);
+    *(uint4*)(spare + off) = ov;
+    __stcs((uint4*)(G(9) + (size_t)(mb + r0 + rl) * DIR_W + n0), ov);
   }
-  __syncthreads();
-  // d_hf = bf16(W11^T d_hd) -> bufB
-  mma_tile<WIDTH, false>(spare, LDH, DIR_W, w[11], WIDTH, nullptr, 0, 0,
-                         nullptr, 0, scratch,
-                         DgradEpi{hd, G(8), WIDTH, nullptr, nullptr, nullptr,
-                                  mb});
-  __syncthreads();
-  // d_7 = mask(h7) bf16(W10^T d_hf + W9^T bf16(d_sigma)) -> bufA
-  mma_tile<WIDTH, false>(hd, LDH, WIDTH, w[10], WIDTH, nullptr, 0, 0,
-                         nullptr, 0, scratch,
-                         DgradEpi{spare, G(7), WIDTH, H(8), w[9], hsm + 3,
-                                  mb});
-  __syncthreads();
-  bf16* cur = spare;
-  bf16* nxt = hd;
+  publish();
+  // d_hf = bf16(W11^T d_hd) -> hd's buffer
+  dgrad_layer<false>(ring, rows_of(spare), DIR_W / 64, hd, nullptr, nullptr,
+                     hsm, r0, [](int, int) {});
+  publish();
+  // d_7 = mask(h7) bf16(W10^T d_hf + W9^T bf16(d_sigma)) -> spare
+  dgrad_layer<true>(ring, rows_of(hd), WIDTH / 64, spare, mask_of(DEPTH - 1),
+                    w[9], hsm, r0, [&](int s, int n) {
+                      copy_out<WIDTH>(hd, G(8), mb, r0, nullptr, s, n);
+                    });
+  publish();
+  unsigned char* cur = spare;  // d_i, stored under the next products
+  unsigned char* nxt = hd;
+  float d_enc8[32];  // W8^T d_4 (f32, unrounded), the skip's enc half
   for (int i = DEPTH - 1; i >= 1; --i) {
-    if (i == SKIP)
-      mma_tile<E, false>(cur, LDH, WIDTH, w[8], E, nullptr, 0, 0, nullptr, 0,
-                         scratch, DencEpi{denc, false});
-    mma_tile<WIDTH, false>(cur, LDH, WIDTH, w[i], WIDTH, nullptr, 0, 0,
-                           nullptr, 0, scratch,
-                           DgradEpi{nxt, G(i - 1), WIDTH, H(i), nullptr,
-                                    nullptr, mb});
-    __syncthreads();
-    bf16* tmp = cur;
+    auto store = [&](int s, int n) {
+      copy_out<WIDTH>(cur, G(i), mb, r0, nullptr, s, n);
+    };
+    if (i == SKIP) {
+      mlpw::tile_mma<E>(d_enc8, ring, rows_of(cur), WIDTH / 64, 0, 0,
+                        [&](int s) { store(s, WIDTH / 64); });
+      dgrad_layer<false>(ring, rows_of(cur), WIDTH / 64, nxt, mask_of(i - 1),
+                         nullptr, hsm, r0, [](int, int) {});
+    } else {
+      dgrad_layer<false>(ring, rows_of(cur), WIDTH / 64, nxt, mask_of(i - 1),
+                         nullptr, hsm, r0, store);
+    }
+    publish();
+    unsigned char* tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
-  mma_tile<E, false>(cur, LDH, WIDTH, w[0], E, nullptr, 0, 0, nullptr, 0,
-                     scratch, DencEpi{denc, true});
-  __syncthreads();
+  // d_enc = W8^T d_4 + bf16(W0^T d_0), f32, into the (spent) mask region
+  {
+    float acc[32];
+    mlpw::tile_mma<E>(acc, ring, rows_of(cur), WIDTH / 64, 0, 0,
+                      [&](int s) {
+                        copy_out<WIDTH>(cur, G(0), mb, r0, nullptr, s,
+                                        WIDTH / 64);
+                      });
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = d_enc8[i] + bf16r(acc[i]);
+    float* denc = (float*)masks;
+    mlpw::for_each_pair<E>(acc, 0, 0, [&](int rl, int c, int, int, float v0,
+                                          float v1) {
+      denc[rl * E + (c ^ (rl & 31))] = v0;
+      denc[rl * E + ((c + 1) ^ (rl & 31))] = v1;
+    });
+  }
+  mlpw::wg_sync(wg);
 
-  // ---- encoding chain rule, in registers
-  if (threadIdx.x < T) {
-    const int t = threadIdx.x;
-    const int m = mb + t;
+  // ---- encoding chain rule, one thread a point
+  if (wt < WG_ROWS) {
+    const int rl = wt;
+    const int m = mb + r0 + rl;
     if (m < Mc) {
       const size_t gm = (size_t)m_start + m;
-      const float* de = denc + t * E;
+      const float* de = (const float*)masks + rl * E;
+      auto D = [&](int c) { return de[c ^ (rl & 31)]; };
       for (int c = 0; c < 3; ++c) {
         const float x = xyz[(size_t)c * M + gm];
-        float d = de[c];
+        float d = D(c);
         for (int j = 0; j < n_freqs; ++j) {
           const float f = (float)(1 << j);
           const float a = f * x;
-          d = d + f * (cosf(a) * de[3 + 6 * j + c] -
-                       sinf(a) * de[3 + 6 * j + 3 + c]);
+          d = d + f * (cosf(a) * D(3 + 6 * j + c) -
+                       sinf(a) * D(3 + 6 * j + 3 + c));
         }
         dxyz[(size_t)c * M + gm] = d;
       }
@@ -1017,8 +1157,13 @@ extern "C" int animnerf_fused_mlp_bwd_sizes(int chunk, void* sizes) {
   return 0;
 }
 
+// w_image: the bf16 weight image (ops/fused_mlp.py::weight_image), with
+// image_offsets its 2 x 13 part offsets (host int array: fwd then bwd);
+// both unused (may be null) in f32.
 extern "C" int animnerf_fused_mlp_bwd(const void* xyz, const void* dout,
                                       const void* w_ptrs, const void* b_ptrs,
+                                      const void* w_image,
+                                      const void* image_offsets,
                                       void* dxyz, void* grads, void* scratch,
                                       void* heads, void* partials, int M,
                                       int chunk, int n_freqs, int E_in,
@@ -1031,6 +1176,20 @@ extern "C" int animnerf_fused_mlp_bwd(const void* xyz, const void* dout,
     p.w[i] = ((const void* const*)w_ptrs)[i];
     p.b[i] = ((const float* const*)b_ptrs)[i];
   }
+  ImageOffsets io;
+  if (dtype == 0) {
+    if (w_image == nullptr || image_offsets == nullptr)
+      return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < N_W; ++i) {
+      io.fwd[i] = ((const int*)image_offsets)[i];
+      io.bwd[i] = ((const int*)image_offsets)[N_W + i];
+    }
+    // the parts the main kernel streams (ops/fused_mlp.py::IMAGE_PARTS)
+    for (int l : {0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11})
+      if (io.fwd[l] < 0 || io.bwd[l] < 0 || io.fwd[l] % 64 ||
+          io.bwd[l] % 64)
+        return (int)cudaErrorInvalidValue;
+  }
   const GradLayout L = grad_layout();
   cudaStream_t st = (cudaStream_t)stream;
   for (int m_start = 0; m_start < M; m_start += chunk) {
@@ -1042,9 +1201,10 @@ extern "C" int animnerf_fused_mlp_bwd(const void* xyz, const void* dout,
       cudaFuncSetAttribute(mlp_bwd_main_bf16,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)SMEM_BF16);
-      mlp_bwd_main_bf16<<<rows / T, THREADS, SMEM_BF16, st>>>(
-          (const float*)xyz, (const float*)dout, (float*)dxyz, p, hs, gs,
-          (float*)heads, M, m_start, Mc, chunk, n_freqs);
+      mlp_bwd_main_bf16<<<rows / T, MAIN_THREADS, SMEM_BF16, st>>>(
+          (const float*)xyz, (const float*)dout, (float*)dxyz, p,
+          (const bf16*)w_image, io, hs, gs, (float*)heads, M, m_start, Mc,
+          chunk, n_freqs);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
       const int rc = run_wgrad<bf16>(hs, gs, (const float*)heads, chunk,

@@ -65,26 +65,45 @@ def _check(idx_t, w_t, g, num_rows):
         raise ValueError(f"num_rows must be positive, got {num_rows}")
 
 
+def sort_entries(idx_t: torch.Tensor, w_t: torch.Tensor, g: torch.Tensor,
+                 num_rows: int):
+    """The flattened keys b * num_rows + idx of the entries e = (b * k + j)
+    * N + n of idx_t (B, k, N), stably sorted: (sorted keys int32, the
+    entry of each sorted key int64). Both versions sum each row's entries
+    in this order. An entry whose weight is 0 or whose point's cotangent
+    column is all 0 adds an exact zero (a sum that starts at +0 never
+    becomes -0, and x + 0 = x): it is keyed B * num_rows, past every row,
+    so that gated-off neighbours and padded points make no row longer."""
+    B = idx_t.shape[0]
+    keys = (idx_t.to(torch.int32) + (torch.arange(
+        B, dtype=torch.int32, device=idx_t.device) * num_rows)[:, None, None])
+    live = (w_t != 0) & (g != 0).any(1, keepdim=True)
+    keys = torch.where(live, keys, B * num_rows).reshape(-1)
+    return torch.sort(keys, stable=True)
+
+
 def weighted_scatter_rows(idx_t: torch.Tensor, w_t: torch.Tensor,
                           g: torch.Tensor, num_rows: int) -> torch.Tensor:
     """out[b, idx_t[b, k, n], :] += w_t[b, k, n] * g[b, :, n]: idx/w
     (B, k, N) as the kNN emits them, g (B, 16, N) rows-native ->
-    (B, num_rows, 16) float32. Kernel on CUDA tensors (f32 atomics: the
-    summation order, and so the last bits, vary between runs), plain
-    version on CPU tensors."""
+    (B, num_rows, 16) float32. Kernel on CUDA tensors, plain version on CPU
+    tensors; both sum each row's contributions in the stable order of
+    ``sort_entries``, so the result is bit-equal from run to run and
+    between the two."""
     _check(idx_t, w_t, g, num_rows)
     if idx_t.device.type == "cpu":
         return weighted_scatter_rows_plain(idx_t, w_t, g, num_rows)
     idx_t, w_t, g = (t.detach().contiguous() for t in (idx_t, w_t, g))
     _build.check_cuda("weighted_scatter_rows", idx_t, w_t, g)
     B, k, N = idx_t.shape
-    out = torch.zeros((B, num_rows, F), dtype=torch.float32,
+    out = torch.empty((B, num_rows, F), dtype=torch.float32,
                       device=idx_t.device)
     if N == 0:
-        return out
+        return out.zero_()
+    keys, perm = sort_entries(idx_t, w_t, g, num_rows)
     _build.kernel_library().call(
-        "animnerf_weighted_scatter", idx_t.data_ptr(), w_t.data_ptr(),
-        g.data_ptr(), out.data_ptr(), B, N, num_rows, k,
+        "animnerf_weighted_scatter", keys.data_ptr(), perm.data_ptr(),
+        w_t.data_ptr(), g.data_ptr(), out.data_ptr(), B, N, num_rows, k,
         _build.stream_of(idx_t))
     _build.LAUNCHES["scatter"] += 1
     return out
@@ -93,14 +112,21 @@ def weighted_scatter_rows(idx_t: torch.Tensor, w_t: torch.Tensor,
 def weighted_scatter_rows_plain(idx_t: torch.Tensor, w_t: torch.Tensor,
                                 g: torch.Tensor,
                                 num_rows: int) -> torch.Tensor:
-    """The same sum with ``index_add_`` over the flattened (B * num_rows)
-    rows of the (kN, 16) contributions."""
+    """The same sum in the kernel's order: the contributions w * g of the
+    stably sorted entries, added to their row one position of the row's
+    segment at a time (row segments longest first, so the rows still
+    summing are a prefix)."""
     _check(idx_t, w_t, g, num_rows)
     B, k, N = idx_t.shape
+    keys, perm = sort_entries(idx_t, w_t, g, num_rows)
     contrib = (w_t[:, :, None, :] * g[:, None, :, :])      # (B, k, 16, N)
-    contrib = contrib.permute(0, 1, 3, 2).reshape(B * k * N, F)
-    rows = (idx_t.long() + (torch.arange(B, device=idx_t.device)
-                            * num_rows)[:, None, None]).reshape(-1)
+    contrib = contrib.permute(0, 1, 3, 2).reshape(B * k * N, F)[perm]
+    counts = torch.bincount(keys.long(), minlength=B * num_rows + 1)[:-1]
+    starts = torch.cumsum(counts, 0) - counts
+    by_len = torch.argsort(counts, descending=True, stable=True)
+    live = torch.bincount(counts, minlength=1).flip(0).cumsum(0).flip(0)
     out = torch.zeros((B * num_rows, F), dtype=g.dtype, device=g.device)
-    out.index_add_(0, rows, contrib)
+    for j, n_live in enumerate(live[1:].tolist()):  # rows longer than j
+        rows = by_len[:n_live]
+        out[rows] = out[rows] + contrib[starts[rows] + j]
     return out.reshape(B, num_rows, F)

@@ -259,6 +259,86 @@ def fused_nerf_bwd_plain(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
             tuple(g.reshape(x.shape) for g, x in zip(db, bs)))
 
 
+# The bf16 backward kernel's weight image: each weight it streams, as the
+# exact shared-memory bytes of the slabs its wgmma products read
+# (csrc/mlp_wgmma.cuh). A part is an (R x C) operand, R output rows by C
+# reduction columns: W_l itself (N x K) for the forward's out = in . W_l^T,
+# W_l^T (K x N) for the dgrad's d_in = d_out . W_l. The heads (layers 9 and
+# 12) run on the CUDA cores and are read from the packed weights as they are.
+IMAGE_LAYERS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11)
+IMAGE_PARTS = tuple((l, False) for l in IMAGE_LAYERS) + tuple(
+    (l, True) for l in IMAGE_LAYERS)  # (layer, transposed)
+SLAB_COLS = 64  # reduction columns of a slab: one 128-byte swizzle row
+
+
+def image_offset(R: int, C: int) -> torch.Tensor:
+    """(R, C) int64 element offsets of an (R x C) bf16 operand in its image:
+    row tiles of NT = min(R, 128) rows, each cut into 64-column slabs
+    (slab index row_tile * C / 64 + col // 64, NT * 64 elements each);
+    inside a slab, row r at r * 64 and the 8-element chunk j of the row's
+    64 columns at chunk j ^ (r % 8) (the 128-byte swizzle)."""
+    nt = min(R, 128)
+    r = torch.arange(R)[:, None]
+    k = torch.arange(C)[None, :]
+    rr, kk = r % nt, k % SLAB_COLS
+    slab = (r // nt) * (C // SLAB_COLS) + k // SLAB_COLS
+    return (slab * nt * SLAB_COLS + rr * SLAB_COLS
+            + (((kk // 8) ^ (rr % 8)) * 8) + kk % 8)
+
+
+def image_layout(ws):
+    """[(layer, transposed, R, C, offset)] of IMAGE_PARTS in the image, and
+    its length in elements."""
+    parts, o = [], 0
+    for l, t in IMAGE_PARTS:
+        N, K = ws[l].shape
+        R, C = (K, N) if t else (N, K)
+        parts.append((l, t, R, C, o))
+        o += R * C
+    return parts, o
+
+
+_IMAGE_INDEX = {}
+
+
+def _image_index(ws) -> torch.Tensor:
+    """Index into the concatenated flat weights for every image element
+    (cached per device and shapes)."""
+    shapes = tuple(tuple(w.shape) for w in ws)
+    key = (str(ws[0].device), shapes)
+    if key not in _IMAGE_INDEX:
+        base = [0]
+        for w in ws:
+            base.append(base[-1] + w.numel())
+        parts, total = image_layout(ws)
+        index = torch.empty(total, dtype=torch.int64)
+        for l, t, R, C, o in parts:
+            r = torch.arange(R)[:, None]
+            k = torch.arange(C)[None, :]
+            K = ws[l].shape[1]
+            src = base[l] + (k * K + r if t else r * K + k)
+            index[o + image_offset(R, C).reshape(-1)] = src.reshape(-1)
+        _IMAGE_INDEX[key] = index.to(ws[0].device)
+    return _IMAGE_INDEX[key]
+
+
+def weight_image(ws):
+    """(image (n,) in the weights' dtype, offsets): the packed weights
+    gathered into the backward kernel's slab image, and the element offset
+    of each layer's part, fwd[0..12] then bwd[0..12] (-1 where absent)."""
+    image = torch.cat([w.reshape(-1) for w in ws])[_image_index(ws)]
+    offs = [-1] * (2 * N_W)
+    for l, t, _, _, o in image_layout(ws)[0]:
+        offs[N_W * t + l] = o
+    return image, offs
+
+
+def unpack_image(image: torch.Tensor, R: int, C: int,
+                 offset: int) -> torch.Tensor:
+    """The (R x C) operand at `offset` of an image, back in row-major."""
+    return image[offset + image_offset(R, C).to(image.device)]
+
+
 def _offsets(ws, bs):
     """Offsets of dW_0..12 then db_0..12 in the backward kernel's flat f32
     gradient buffer."""
@@ -314,9 +394,14 @@ def fused_nerf_bwd(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
         grads = torch.empty(total, dtype=torch.float32, device=dev)
         w_ptrs = (ctypes.c_void_p * N_W)(*[t.data_ptr() for t in ws])
         b_ptrs = (ctypes.c_void_p * N_W)(*[t.data_ptr() for t in bs])
+        image, img_offs = (weight_image(ws) if dt == torch.bfloat16
+                           else (None, [-1] * (2 * N_W)))
+        img_offs = (ctypes.c_int * (2 * N_W))(*img_offs)
         lib.call(
             "animnerf_fused_mlp_bwd", xyz_t.data_ptr(), dout.data_ptr(),
             ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
+            None if image is None else image.data_ptr(),
+            ctypes.addressof(img_offs),
             d_xyz.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
             heads.data_ptr(), partials.data_ptr(), M, chunk, n_freqs,
             enc_rows(n_freqs), 0 if dt == torch.bfloat16 else 1,

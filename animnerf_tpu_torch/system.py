@@ -52,6 +52,18 @@ def train_config(cfg: dict) -> dict:
     return out
 
 
+def num_frames(cfg: dict) -> int:
+    """cfg["num_frames"] when given, else the length of the training frame
+    range (the JAX package's ``finalize``): range(frame_start_ID,
+    frame_end_ID + 1, frame_skip) of cfg["train"], defaults 1, 400, 4."""
+    if cfg.get("num_frames") is not None:
+        return int(cfg["num_frames"])
+    t = cfg.get("train") or {}
+    return len(range(int(t.get("frame_start_ID", 1)),
+                     int(t.get("frame_end_ID", 400)) + 1,
+                     int(t.get("frame_skip", 4))))
+
+
 def resolve_compute_dtype(value: str, device) -> str:
     """'auto' is bfloat16 on the card (the fused MLP's fast path) and
     float32 on the CPU, as the JAX package resolves it per backend."""
@@ -84,7 +96,7 @@ class AnimNeRFSystem(nn.Module):
             raise NotImplementedError(
                 f"k_neigh={k_neigh}: the port's kNN kernels take 1 to "
                 f"{MAX_K_NEIGH} neighbours")
-        n_fine = int(g("n_importance", 32))
+        n_fine = int(g("n_importance", 16))
         self.scene_cfg = AnimNeRFConfig(
             freqs_xyz=int(g("freqs_xyz", 10)),
             use_fine=n_fine > 0,
@@ -107,7 +119,7 @@ class AnimNeRFSystem(nn.Module):
         self.body_model = body_model
         self.body_params = nn.ParameterDict({
             k: nn.Parameter(v) for k, v in init_body_params(
-                int(g("num_frames", 1)), self.model_type,
+                num_frames(cfg), self.model_type,
                 pose_dim=g("pose_dim")).items()})
         self.to_device(dev)
 

@@ -13,7 +13,10 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      on the card beside the stated tolerance, kernel / plain /
      library-call times (median of CUDA-event timings after a warm-up)
      and the least time the card could take (bytes or operations over the
-     H100's peak);
+     H100's peak); the scatter and the MLP backward also bit-equal across
+     two launches, and the bf16 MLP backward's main kernel (recompute +
+     dgrad, on wgmma) and weight-gradient kernels timed apart in one
+     profiled call;
   4. serving: the trained scale512 checkpoint on the seed-3 SMPL rig, a
      512x512 turntable rendered through ``Renderer.render_stream``,
      launch counts reset just before and read just after; then one more
@@ -93,6 +96,9 @@ PEAK_BYTES = 3.35e12
 PLAIN_MAX_ELEMS = 1 << 26
 # card vs CPU image bounds per compute dtype: (max |img| difference, PSNR)
 PARITY_BOUNDS = (("bfloat16", (5e-2, 40.0)), ("float32", (1e-3, 60.0)))
+# the bf16 MLP backward at 2^20 points before its main kernel moved to
+# wgmma (H100 80GB HBM3, 700 W): the kernel line's earlier time
+PREV_BWD_MS = 55.518
 
 
 def emit(obj) -> None:
@@ -478,13 +484,16 @@ def kernel_lines_train(dev):
     gr = torch.randn(B, 16, N, generator=g, device=dev)
     gr[:, 12:] = 0.0  # the warp-blend cotangent's zero rows
     out = weighted_scatter_rows(i1, w, gr, V)
+    out2 = weighted_scatter_rows(i1, w, gr, V)
     outp = weighted_scatter_rows_plain(i1, w, gr, V)
     torch.cuda.synchronize()
     err = float((out - outp).abs().max())
-    # f32 atomics land in a run-dependent order: a few ulps of the
-    # largest row sum
+    # both versions sum each row in the stable sort order of its entries
+    # (err 0 expected); the bound is a few ulps of the largest row sum
     tol = 1e-5 * float(outp.abs().max())
+    deterministic = bool(torch.equal(out, out2))
     check(err <= tol, f"scatter: max err {err} > {tol}")
+    check(deterministic, "scatter: two runs differ")
     contrib = (w[:, :, None, :] * gr[:, None]).permute(0, 1, 3, 2) \
         .reshape(-1, 16).contiguous()
     rows = (i1.long() + (torch.arange(B, device=dev) * V)[:, None, None]
@@ -492,7 +501,9 @@ def kernel_lines_train(dev):
     flat = torch.zeros(B * V, 16, device=dev)
     lines["scatter"] = dict(
         shape=f"idx/w ({B},4,{N}) g ({B},16,{N}) -> ({B},{V},16)",
-        max_abs_err=err, tolerance=tol,
+        max_abs_err=err, tolerance=tol, deterministic=deterministic,
+        bit_equal_to_plain=bool(torch.equal(out, outp)),
+        # the wrapper's stable sort of the keys included
         ms=time_ms(lambda: weighted_scatter_rows(i1, w, gr, V), reps),
         plain_ms=time_ms(lambda: weighted_scatter_rows_plain(i1, w, gr, V),
                          preps),
@@ -507,18 +518,22 @@ def kernel_lines_train(dev):
     w8 = torch.rand(B, 8, N, generator=g, device=dev)
     w8 = (w8 / w8.sum(1, keepdim=True)).contiguous()
     out = weighted_scatter_rows(i8, w8, gr, V)
+    out2 = weighted_scatter_rows(i8, w8, gr, V)
     outp = weighted_scatter_rows_plain(i8, w8, gr, V)
     torch.cuda.synchronize()
     err = float((out - outp).abs().max())
     tol = 1e-5 * float(outp.abs().max())
+    deterministic = bool(torch.equal(out, out2))
     check(err <= tol, f"scatter K=8: max err {err} > {tol}")
+    check(deterministic, "scatter K=8: two runs differ")
     contrib8 = (w8[:, :, None, :] * gr[:, None]).permute(0, 1, 3, 2) \
         .reshape(-1, 16).contiguous()
     rows8 = (i8.long() + (torch.arange(B, device=dev) * V)[:, None, None]
              ).reshape(-1)
     lines["scatter_k8"] = dict(
         shape=f"idx/w ({B},8,{N}) g ({B},16,{N}) -> ({B},{V},16)",
-        max_abs_err=err, tolerance=tol,
+        max_abs_err=err, tolerance=tol, deterministic=deterministic,
+        bit_equal_to_plain=bool(torch.equal(out, outp)),
         ms=time_ms(lambda: weighted_scatter_rows(i8, w8, gr, V), reps),
         plain_ms=time_ms(lambda: weighted_scatter_rows_plain(i8, w8, gr, V),
                          preps),
@@ -526,7 +541,7 @@ def kernel_lines_train(dev):
         bound_by="bytes",
         library_ms=time_ms(lambda: flat.zero_().index_add_(0, rows8,
                                                            contrib8), reps))
-    del i8, w8, contrib8, rows8
+    del i8, w8, contrib8, rows8, out2
 
     # -- fused MLP backward: bf16 over 2^20 points, f32 over 2^16
     torch.manual_seed(0)
@@ -574,6 +589,19 @@ def kernel_lines_train(dev):
               f"fused_mlp_bwd {dt}: median point {median_point}, flip "
               f"share {flip_share}, rel-L2 {max(rel)}")
         name = "fused_mlp_bwd" if dt == "bfloat16" else "fused_mlp_bwd_f32"
+        split = {}
+        if dt == "bfloat16":
+            # device time of the main kernel (recompute + dgrad) and of the
+            # rest (weight gradients, head and bias sums, split reduction)
+            # in one profiled call; the main kernel's own bound: its
+            # products (2x the forward's flops) or the H and G scratch it
+            # writes (9,856 B a point), the larger
+            split = split_bwd_profile(
+                lambda: fused_nerf_bwd(xyz, ws, bs, dout, 10, dt))
+            split.update(
+                bound_main_ms=max(2.0 * fwd_flops * M / peak,
+                                  M * 9856 / PEAK_BYTES) * 1e3,
+                prev_ms=PREV_BWD_MS)
         lines[name] = dict(
             shape=f"rows (1,8,{M}) dout (1,8,{M}) {dt} weights 13 packed",
             max_abs_err=err, max_rel_l2=max(rel),
@@ -586,7 +614,7 @@ def kernel_lines_train(dev):
             # recomputed forward + dgrad + wgrad: 3x the forward's flops
             bound_ms=max(3.0 * fwd_flops * M / peak,
                          M * (12 + 16 + 12) / PEAK_BYTES) * 1e3,
-            bound_by="operations", library_ms=None)
+            bound_by="operations", library_ms=None, **split)
         del a, a2, b
     return lines
 
@@ -864,10 +892,41 @@ def profile_call(fn, what: str):
               and e.self_device_time_total > 0]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in events) / 1e3
+    split = bwd_split(events)
     return {f"{what}_ms_profiled": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
+            "mlp_bwd_main_ms": split["main_ms"],
+            "mlp_bwd_wgrad_ms": split["wgrad_ms"],
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
                     for e in events[:15]]}
+
+
+def bwd_split(events) -> dict:
+    """Device ms of the MLP backward's main kernel and of its other
+    kernels (weight gradients, head and bias sums, split reduction) among
+    profiler events."""
+    main = sum(e.self_device_time_total for e in events
+               if "mlp_bwd_main" in e.key) / 1e3
+    rest = sum(e.self_device_time_total for e in events
+               if any(k in e.key for k in ("wgrad", "bias_sums",
+                                           "reduce_splits"))) / 1e3
+    return {"main_ms": main, "wgrad_ms": rest}
+
+
+def split_bwd_profile(fn) -> dict:
+    """bwd_split over one profiled call of fn (after a warm-up)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return bwd_split([e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA])
 
 
 def slice_parity(ck, bp, tmpl, H=96, W=96, rigid=False, bounds=PARITY_BOUNDS,
@@ -1159,8 +1218,8 @@ def train_parity(dev, cfg=FLAGSHIP_CFG, make_rig=smpl_rig,
     from animnerf_tpu_torch.utils.rng import draw_noise
 
     # Bounds. f32: the kernels and the plain versions sum in other orders
-    # (f32 atomics in the scatter, per-split partials in the MLP
-    # backward, cuBLAS vs CPU matmuls in the geometry and the plain MLP),
+    # (per-split partials in the MLP backward, cuBLAS vs CPU matmuls in
+    # the geometry and the plain MLP),
     # and last-bit geometry differences flip discrete choices of the step
     # (a sample's validity at the dis_threshold edge, an inverse-CDF bin);
     # the normal term differentiates a 2^9-frequency encoding at jittered

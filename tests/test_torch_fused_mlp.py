@@ -250,3 +250,54 @@ def test_packed_follows_optimizer_steps():
     for a, b in zip(ws + bs, want_w + want_b):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert not torch.equal(ws[0], first[0][0])
+
+
+def _swizzle_offsets(R, C):
+    """The image layout restated in numpy: element (r, k) of an (R x C)
+    operand lies in slab (r // nt) * (C / 64) + k // 64 (nt = min(R, 128)
+    rows, 64 columns, nt * 128 bytes), at byte (r % nt) * 128 + 16 *
+    ((k % 64) // 8 XOR r % 8) + 2 * (k % 8) of it."""
+    nt = min(R, 128)
+    r, k = np.meshgrid(np.arange(R), np.arange(C), indexing="ij")
+    slab = (r // nt) * (C // 64) + k // 64
+    byte = (slab * nt * 128 + (r % nt) * 128
+            + 16 * (((k % 64) // 8) ^ (r % 8)) + 2 * (k % 8))
+    return byte // 2
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_weight_image_holds_each_weight_once_at_its_swizzled_offset(
+        transposed):
+    """At the flagship widths, every weight the bf16 backward kernel
+    streams (layers 0-8, 10, 11) and its transpose: the image holds each
+    element exactly once, at the byte offset of the 128-byte swizzle
+    formula, and unpacking returns the weight."""
+    state = {k: v.detach() for k, v in NeRFMLP(10, "float32").state_dict()
+             .items()}
+    # distinct values, so a misplaced element cannot match by accident
+    for k in state:
+        if k.endswith(".weight"):
+            n = state[k].numel()
+            state[k] = (torch.arange(n, dtype=torch.float32) * 2 + 1
+                        ).reshape(state[k].shape)
+    ws, _ = TF.pack_params(state, 10, "float32")
+    image, offs = TF.weight_image(ws)
+    parts, total = TF.image_layout(ws)
+    assert image.numel() == total
+    assert total == sum(ws[l].numel() for l in TF.IMAGE_LAYERS) * 2
+    assert all(offs[TF.N_W * t + l] == -1 for l in (9, 12) for t in (0, 1))
+    img = image.numpy()
+    covered = np.zeros(total, np.int64)
+    for l, t, R, C, o in parts:
+        w = ws[l].numpy()
+        x = w.T if t else w
+        assert (R, C) == x.shape and offs[TF.N_W * t + l] == o
+        pos = o + _swizzle_offsets(R, C)
+        np.add.at(covered, pos.reshape(-1), 1)
+        if t == transposed:
+            np.testing.assert_array_equal(img[pos], x)
+            np.testing.assert_array_equal(
+                TF.unpack_image(image, R, C, o).numpy(), x)
+            np.testing.assert_array_equal(
+                TF.image_offset(R, C).numpy(), _swizzle_offsets(R, C))
+    assert (covered == 1).all()

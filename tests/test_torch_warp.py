@@ -219,6 +219,42 @@ def test_weighted_scatter_plain_matches_kernel(clustered):
     assert torch.equal(again, got)
 
 
+@pytest.mark.parametrize("K", [2, 4, 8])
+def test_weighted_scatter_sums_in_sorted_entry_order(K):
+    """The plain scatter (the CUDA kernel's summation order) is bit-equal
+    to a numpy loop over the entries e = (b * K + k) * N + n stably sorted
+    by b * V + idx, adding the f32 product w * g to its row (zero weights
+    and all-zero cotangent columns included); and within rtol/atol 1e-5 of
+    the TPU scatter kernel in interpret mode."""
+    from animnerf_tpu.ops.blend import weighted_scatter_rows_pallas
+    from animnerf_tpu_torch.ops.blend import weighted_scatter_rows_plain
+
+    B, N, V = 2, 160, 96
+    rng = np.random.default_rng(20 + K)
+    idx = rng.integers(0, V, size=(B, K, N)).astype(np.int32)
+    idx[:, :, ::3] = rng.integers(40, 44, size=idx[:, :, ::3].shape)
+    w = rng.uniform(size=(B, K, N)).astype(np.float32)
+    g = rng.normal(size=(B, 16, N)).astype(np.float32)
+    # gated-off neighbours and padded points: the scatter leaves these
+    # entries out, the loop below adds their exact zeros
+    w[:, 1:, ::2] = 0.0
+    g[:, :, ::5] = 0.0
+
+    keys = (idx + (np.arange(B) * V)[:, None, None]).reshape(-1)
+    want = np.zeros((B * V, 16), np.float32)
+    for e in np.argsort(keys, kind="stable"):
+        b, n = e // (K * N), e % N
+        want[keys[e]] = want[keys[e]] + w.reshape(-1)[e] * g[b, :, n]
+    got = weighted_scatter_rows_plain(
+        *(torch.from_numpy(a) for a in (idx, w, g)), V)
+    np.testing.assert_array_equal(got.reshape(B * V, 16).numpy(), want)
+
+    ref = np.asarray(weighted_scatter_rows_pallas(
+        jnp.asarray(idx), jnp.asarray(w), jnp.asarray(g), V, tile_n=128,
+        tile_v=128, interpret=True, transposed_in=True, g_t=True))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
 def test_warp_blend_rows_grads_match_jax_vjp():
     """The port's warp_blend_rows autograd Function (backward: the weighted
     scatter into the transform columns, R^T d_cano for the rows) against
