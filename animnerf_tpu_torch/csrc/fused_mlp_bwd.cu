@@ -188,19 +188,12 @@ struct ImageOffsets {
   int bwd[N_W];
 };
 
-// two f32 values rounded to bf16 (nearest even) and packed, lo in the
-// low half; and the f32 values of a packed pair's halves
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-__device__ __forceinline__ float lo_f(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float hi_f(uint32_t w) {
-  return __uint_as_float(w & 0xFFFF0000u);
-}
+// the recomputed forward is the forward kernel's own code (mlp_wgmma.cuh)
+using mlpw::fwd_layer;
+using mlpw::hi_f;
+using mlpw::lo_f;
+using mlpw::pack_bf16x2;
+
 // bits 0, 1: the pair's halves > 0 (bf16 bit patterns of values that are
 // not NaN: nonzero magnitude, clear sign)
 __device__ __forceinline__ uint32_t positive2(uint32_t w) {
@@ -239,43 +232,6 @@ __device__ __forceinline__ void copy_out(const unsigned char* buf,
       mask[rl * MASK_ROW + ch] =
           (unsigned char)(positive2(v.x) | positive2(v.y) << 2 |
                           positive2(v.z) << 4 | positive2(v.w) << 6);
-  }
-}
-
-// forward layer of N outputs into Y: bf16(bf16(acc) + bf16(b)) [ReLU]
-// (hook(part, parts): run under each slab of the first tile, after the
-// slab before it is released: work there overlaps the products without
-// holding back the slab ring). The epilogue's
-// operands are loaded before the products, so their latency hides there.
-template <bool RELU, class Hook>
-__device__ __forceinline__ void fwd_layer(mlpw::Ring& ring, uint32_t a,
-                                          int kb, uint32_t a2, int kb2,
-                                          int N, unsigned char* Y,
-                                          const float* __restrict__ bias,
-                                          int r0, const Hook& hook) {
-  for (int nt = 0; nt < N / 128; ++nt) {
-    uint32_t bb[16];  // bf16(b) of the thread's column pairs
-#pragma unroll
-    for (int q = 0; q < 16; ++q) {
-      const float2 b =
-          *(const float2*)(bias + nt * 128 + 8 * q + mlpw::pair_col());
-      bb[q] = pack_bf16x2(b.x, b.y);
-    }
-    float acc[64];
-    mlpw::tile_mma<128>(acc, ring, a, kb, a2, kb2, [&](int s) {
-      if (nt == 0) hook(s, kb + kb2);
-    });
-    mlpw::for_each_pair<128>(acc, r0, nt * 128, [&](int row, int c, int q,
-                                                    int, float v0, float v1) {
-      const uint32_t ab = pack_bf16x2(v0, v1);
-      float x0 = lo_f(ab) + lo_f(bb[q]);
-      float x1 = hi_f(ab) + hi_f(bb[q]);
-      if (RELU) {
-        x0 = fmaxf(x0, 0.0f);
-        x1 = fmaxf(x1, 0.0f);
-      }
-      *(uint32_t*)(Y + mlpw::sw128(row, c, T)) = pack_bf16x2(x0, x1);
-    });
   }
 }
 
@@ -395,65 +351,51 @@ mlp_bwd_main_bf16(const float* __restrict__ xyz,   // (8, M) rows
     mlpw::wg_sync(wg);
   };
 
-  // positional encoding (as the forward kernel), two threads a point
+  // positional encoding (the forward kernel's), two threads a point
   {
     const int rl = wt % WG_ROWS;
-    const int half = wt / WG_ROWS;
     const int m = mb + r0 + rl;
     const bool live = m < Mc;
     const size_t gm = (size_t)m_start + m;
     const float c3[3] = {live ? xyz[gm] : 0.0f,
                          live ? xyz[(size_t)M + gm] : 0.0f,
                          live ? xyz[2 * (size_t)M + gm] : 0.0f};
-    auto put = [&](int e, float v) {
-      *(bf16*)(enc + mlpw::sw128(r0 + rl, e, T)) = __float2bfloat16_rn(v);
-    };
-    if (half == 0) {
-      for (int c = 0; c < 3; ++c) put(c, c3[c]);
-      for (int e = 3 + 6 * n_freqs; e < E; ++e) put(e, 0.0f);
-    }
-    for (int j = half; j < n_freqs; j += 2) {
-      const float f = (float)(1 << j);
-      for (int c = 0; c < 3; ++c) {
-        const float a = f * c3[c];
-        put(3 + 6 * j + c, sinf(a));
-        put(3 + 6 * j + 3 + c, cosf(a));
-      }
-    }
+    mlpw::encode_row(enc, E, r0 + rl, wt / WG_ROWS, c3, n_freqs);
   }
   publish();
 
   // ---- recomputed forward; every layer's output also goes to H, stored
   // while the next layer's first products run
-  fwd_layer<true>(ring, rows_of(enc), 1, 0, 0, WIDTH, bufA, p.b[0], r0,
-                  [&](int s, int n) {
-                    copy_out<E>(enc, H(0), mb, r0, nullptr, s, n);
-                  });
+  fwd_layer<WIDTH, true>(ring, rows_of(enc), 1, 0, 0, bufA, p.b[0], r0,
+                         [&](int s, int n) {
+                           copy_out<E>(enc, H(0), mb, r0, nullptr, s, n);
+                         });
   publish();
   unsigned char* hin = bufA;
   unsigned char* hout = bufB;
   for (int i = 1; i < DEPTH; ++i) {
-    fwd_layer<true>(ring, rows_of(hin), WIDTH / 64, rows_of(enc),
-                    i == SKIP ? 1 : 0, WIDTH, hout, p.b[i], r0,
-                    [&](int s, int n) {
-                      copy_out<WIDTH>(hin, H(i), mb, r0, mask_of(i - 1), s, n);
-                    });
+    fwd_layer<WIDTH, true>(ring, rows_of(hin), WIDTH / 64, rows_of(enc),
+                           i == SKIP ? 1 : 0, hout, p.b[i], r0,
+                           [&](int s, int n) {
+                             copy_out<WIDTH>(hin, H(i), mb, r0,
+                                             mask_of(i - 1), s, n);
+                           });
     publish();
     unsigned char* tmp = hin;
     hin = hout;
     hout = tmp;
   }
   // hin = h7. xyz_final (no ReLU) -> hf in hout, dir_0 -> hd in hin
-  fwd_layer<false>(ring, rows_of(hin), WIDTH / 64, 0, 0, WIDTH, hout,
-                   p.b[10], r0, [&](int s, int n) {
+  fwd_layer<WIDTH, false>(ring, rows_of(hin), WIDTH / 64, 0, 0, hout,
+                          p.b[10], r0, [&](int s, int n) {
     copy_out<WIDTH>(hin, H(DEPTH), mb, r0, mask_of(DEPTH - 1), s, n);
   });
   publish();
-  fwd_layer<true>(ring, rows_of(hout), WIDTH / 64, 0, 0, DIR_W, hin,
-                  p.b[11], r0,
-                  [&](int s, int n) {
-                    copy_out<WIDTH>(hout, H(9), mb, r0, nullptr, s, n);
-                  });
+  fwd_layer<DIR_W, true>(ring, rows_of(hout), WIDTH / 64, 0, 0, hin,
+                         p.b[11], r0,
+                         [&](int s, int n) {
+                           copy_out<WIDTH>(hout, H(9), mb, r0, nullptr, s, n);
+                         });
   publish();
   copy_out<DIR_W>(hin, H(10), mb, r0, nullptr);
   unsigned char* hd = hin;
@@ -466,20 +408,9 @@ mlp_bwd_main_bf16(const float* __restrict__ xyz,   // (8, M) rows
     const int m = mb + r0 + rl;
     const float d = m < Mc ? dout[(size_t)c * M + m_start + m] : 0.0f;
     if (c < 3) {
-      const bf16* wr = w[12] + c * DIR_W;
-      float acc = 0.0f;
-      for (int k = 0; k < DIR_W; k += 8) {
-        const uint4 hv = *(const uint4*)(hd + mlpw::sw128(r0 + rl, k, T));
-        const uint4 wv = *(const uint4*)(wr + k);
-        const uint32_t hw[4] = {hv.x, hv.y, hv.z, hv.w};
-        const uint32_t ww[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc = fmaf(lo_f(hw[j]), lo_f(ww[j]), acc);
-          acc = fmaf(hi_f(hw[j]), hi_f(ww[j]), acc);
-        }
-      }
-      const float s = sigmoidf(acc + p.b[12][c]);
+      float acc[1] = {0.0f};
+      mlpw::dot_rows<1>(hd, r0 + rl, w[12] + c * DIR_W, 0, 0, DIR_W, acc);
+      const float s = sigmoidf(acc[0] + p.b[12][c]);
       hsm[rl * HEAD_COLS + c] = d * s * (1.0f - s);
     } else {
       hsm[rl * HEAD_COLS + 3] = d;

@@ -11,13 +11,20 @@
 //     weight the kernel reads into exactly the byte image of its slabs
 //     (ops/fused_mlp.py::image_offset), in order [row tile][64-column
 //     block], so one 1-D cp.async.bulk stages a slab: no tensor map.
-//   - a ring of STAGES slabs, each guarded by a "full" mbarrier (the bulk
-//     copy's transaction bytes) and an "empty" one (one arrival per
-//     consumer warp once its wgmma reads of the slab are done). One
-//     producer thread walks the slabs in the order the consumers use them.
+//   - a ring of `stages` slabs (STAGES unless the kernel has room for
+//     more), each guarded by a "full" mbarrier (the bulk copy's
+//     transaction bytes) and an "empty" one (one arrival per consumer
+//     warp once its wgmma reads of the slab are done). One producer
+//     thread walks the slabs in the order the consumers use them.
 //   - an epilogue hook, for_each_pair, that hands each pair of accumulator
 //     elements (columns c, c + 1 of one row) to a functor with its row and
 //     column.
+// On top of it, the forward code that both MLP kernels run (the forward,
+// fused_mlp.cu, and the backward's recompute, fused_mlp_bwd.cu), so the
+// two compute the same encoding and the same layer outputs bit for bit:
+// encode_row (the bf16 positional encoding), fwd_layer (a layer's
+// products and its epilogue at the TPU kernel's rounding points) and
+// dot_rows (a head's f32 dots of an activation row with weight rows).
 // Descriptors: start address >> 4, leading byte offset 16 B (unused by a
 // swizzled K-major operand whose 16-column step fits in the 128-B row),
 // stride byte offset 1024 B (8-row groups), swizzle mode 1 (128 B). A step
@@ -36,7 +43,7 @@ constexpr int ROWS = 128;                   // activation rows of a block
 constexpr int KBLOCK = 64;                  // columns of one swizzle row
 constexpr int KB_BYTES = ROWS * 128;        // a 64-column block of A
 constexpr int SLAB_BYTES = 128 * 128;       // the largest slab (NT = 128)
-constexpr int STAGES = 3;
+constexpr int STAGES = 3;                   // ring depth, the default
 constexpr int CONSUMER_WARPS = 8;           // two consumer warpgroups
 
 // byte offset of element (row, col) of a bf16 tile with `rows` rows
@@ -208,11 +215,12 @@ struct Ring {
   uint32_t empty;  // empty[0]
   int stage;
   uint32_t phase;
+  int stages = STAGES;
   __device__ __forceinline__ uint32_t slab() const {
     return slabs + stage * SLAB_BYTES;
   }
   __device__ __forceinline__ void advance() {
-    if (++stage == STAGES) {
+    if (++stage == stages) {
       stage = 0;
       phase ^= 1u;
     }
@@ -222,8 +230,7 @@ struct Ring {
 // thread 0: full[s] expects one arrival (the producer's, with the bytes),
 // empty[s] one per consumer warp
 __device__ __forceinline__ void ring_init(const Ring& r) {
-#pragma unroll
-  for (int s = 0; s < STAGES; ++s) {
+  for (int s = 0; s < r.stages; ++s) {
     mbar_init(r.full + 8 * s, 1);
     mbar_init(r.empty + 8 * s, CONSUMER_WARPS);
   }
@@ -321,6 +328,127 @@ __device__ __forceinline__ void for_each_pair(const float (&acc)[N / 2],
     const int c = col0 + 8 * q + pair_col();
     f(r, c, q, 0, acc[4 * q], acc[4 * q + 1]);
     f(r + 8, c, q, 1, acc[4 * q + 2], acc[4 * q + 3]);
+  }
+}
+
+// ------------------------------------------------- the forward's code
+
+// two f32 values rounded to bf16 (nearest even) and packed, lo in the
+// low half; and the f32 values of a packed pair's halves
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ float lo_f(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+
+// row `row` of the bf16 positional encoding block enc (ROWS x E, swizzled,
+// E a multiple of 64): [x, y, z, sin(2^j x..z), cos(2^j x..z) for j <
+// n_freqs], zeros up to E. Two threads a row: half 0 writes the identity,
+// the padding and the even frequencies, half 1 the odd ones. sincosf (one
+// argument reduction for both values), not __sinf: at 2^9 and above the
+// arguments reach hundreds of radians.
+__device__ __forceinline__ void encode_row(unsigned char* enc, int E,
+                                           int row, int half,
+                                           const float (&c3)[3],
+                                           int n_freqs) {
+  auto put = [&](int e, float v) {
+    *(__nv_bfloat16*)(enc + sw128(row, e, ROWS)) = __float2bfloat16_rn(v);
+  };
+  if (half == 0) {
+    for (int c = 0; c < 3; ++c) put(c, c3[c]);
+    for (int e = 3 + 6 * n_freqs; e < E; ++e) put(e, 0.0f);
+  }
+  for (int j = half; j < n_freqs; j += 2) {
+    const float f = (float)(1 << j);
+    for (int c = 0; c < 3; ++c) {
+      float sv, cv;
+      sincosf(f * c3[c], &sv, &cv);
+      put(3 + 6 * j + c, sv);
+      put(3 + 6 * j + 3 + c, cv);
+    }
+  }
+}
+
+// forward layer of N outputs (a multiple of 128) into the swizzled buffer
+// Y: bf16(bf16(acc) + bf16(b)), then ReLU with RELU, from the products of
+// kb 64-column blocks of A at a and kb2 of a2 (the skip layer's split
+// product) with the ring's next slabs; the warpgroup's rows from r0.
+// hook(part, parts) runs under each slab of the first tile, after the
+// slab before it is released: work there overlaps the products without
+// holding back the slab ring. Each tile's bias is loaded before its
+// products, which hide the latency; the tiles are unrolled, so the
+// epilogue's addresses fold to constants. The epilogue adds the bias with
+// one bf16x2 FMA (x * 1 + b), which rounds the exact sum of two bf16
+// values once, as rounding their f32 sum does (that sum is exact, or too
+// far from a bf16 tie for its own rounding to reach one); .relu clamps
+// at 0. (A second accumulator set, to run one tile's epilogue under the
+// next tile's products, does not fit the 168 registers a thread of these
+// blocks gets: it spills.)
+template <int N, bool RELU, class Hook>
+__device__ __forceinline__ void fwd_layer(Ring& ring, uint32_t a, int kb,
+                                          uint32_t a2, int kb2,
+                                          unsigned char* Y,
+                                          const float* __restrict__ bias,
+                                          int r0, const Hook& hook) {
+  static_assert(N % 128 == 0, "128-column tiles");
+#pragma unroll
+  for (int nt = 0; nt < N / 128; ++nt) {
+    uint32_t bb[16];  // bf16(b) of the thread's column pairs
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const float2 b =
+          *(const float2*)(bias + nt * 128 + 8 * q + pair_col());
+      bb[q] = pack_bf16x2(b.x, b.y);
+    }
+    float acc[64];
+    tile_mma<128>(acc, ring, a, kb, a2, kb2, [&](int s) {
+      if (nt == 0) hook(s, kb + kb2);
+    });
+    for_each_pair<128>(acc, r0, nt * 128, [&](int row, int c, int q, int,
+                                              float v0, float v1) {
+      const uint32_t ab = pack_bf16x2(v0, v1);
+      uint32_t y;
+      if (RELU)
+        asm("fma.rn.relu.bf16x2 %0, %1, %2, %3;"
+            : "=r"(y)
+            : "r"(ab), "r"(0x3F803F80u), "r"(bb[q]));
+      else
+        asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+            : "=r"(y)
+            : "r"(ab), "r"(0x3F803F80u), "r"(bb[q]));
+      *(uint32_t*)(Y + sw128(row, c, ROWS)) = y;
+    });
+  }
+}
+
+// acc[c] += the f32 dot of columns [k0, k1) (multiples of 8) of row `row`
+// of a swizzled bf16 activation buffer with those of bf16 weight row c
+// (rows ldw elements apart), for c < NR: one FMA at a time in column
+// order for each row, the NR rows interleaved
+template <int NR>
+__device__ __forceinline__ void dot_rows(const unsigned char* buf, int row,
+                                         const __nv_bfloat16* __restrict__ w,
+                                         int ldw, int k0, int k1,
+                                         float (&acc)[NR]) {
+  for (int k = k0; k < k1; k += 8) {
+    const uint4 hv = *(const uint4*)(buf + sw128(row, k, ROWS));
+    const uint32_t hw[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+    for (int c = 0; c < NR; ++c) {
+      const uint4 wv = *(const uint4*)(w + c * ldw + k);
+      const uint32_t ww[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[c] = fmaf(lo_f(hw[j]), lo_f(ww[j]), acc[c]);
+        acc[c] = fmaf(hi_f(hw[j]), hi_f(ww[j]), acc[c]);
+      }
+    }
   }
 }
 

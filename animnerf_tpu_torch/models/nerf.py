@@ -10,7 +10,8 @@ biases.
 
 ``forward`` / ``forward_rows`` run the fused encode+MLP: the CUDA kernels
 on the card, their plain versions on the CPU (``ops/fused_mlp.py``). Under
-``no_grad`` they read packed operands cached in the compute dtype, repacked
+``no_grad`` they read packed operands cached in the compute dtype (in
+bf16 on the card also their slab image, ``weight_image``), repacked
 whenever a parameter changed (an optimizer step, a load) or the module
 moved. With autograd on they pack from the live parameters inside
 autograd, so the packed gradients flow back through the packing's pads
@@ -38,6 +39,7 @@ from animnerf_tpu_torch.ops.fused_mlp import (
     WIDTH,
     fused_nerf_rows,
     pack_params,
+    weight_image,
 )
 
 # std of a unit normal truncated to [-2, 2] (flax's variance_scaling)
@@ -81,10 +83,18 @@ class NeRFMLP(nn.Module):
         packed again whenever a parameter changed since the last pack."""
         vers = self._versions()
         if self._packed is None or self._packed[0] != vers:
-            self._packed = (vers, pack_params(
+            self._packed = [vers, pack_params(
                 {k: v.detach() for k, v in self.state_dict().items()},
-                self.freqs_xyz, self.compute_dtype))
+                self.freqs_xyz, self.compute_dtype), None]
         return self._packed[1]
+
+    def packed_image(self):
+        """``weight_image`` of ``packed()``'s weights (the bf16 kernels'
+        slab image and its offsets), built once per pack."""
+        ws, _ = self.packed()
+        if self._packed[2] is None:
+            self._packed[2] = weight_image(ws)
+        return self._packed[2]
 
     def load_state_dict(self, *args, **kwargs):
         self._packed = None
@@ -102,10 +112,13 @@ class NeRFMLP(nn.Module):
             # compute dtype, so the weight gradients stay float32
             ws, bs = pack_params(dict(self.named_parameters()),
                                  self.freqs_xyz, "float32")
+            image = None
         else:
             ws, bs = self.packed()
+            image = (self.packed_image() if self.compute_dtype == "bfloat16"
+                     and ws[0].device.type != "cpu" else None)
         return fused_nerf_rows(rows, ws, bs, self.freqs_xyz,
-                               self.compute_dtype)
+                               self.compute_dtype, image)
 
     def forward(self, xyz: torch.Tensor):
         rows = torch.nn.functional.pad(xyz.transpose(1, 2), (0, 0, 0, 5))

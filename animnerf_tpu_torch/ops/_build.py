@@ -48,7 +48,8 @@ SIGNATURES = {
     "animnerf_knn_top4": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
     "animnerf_warp_blend_fwd": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    "animnerf_fused_mlp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "animnerf_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _P],
     "animnerf_gather_lanes": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "animnerf_weighted_scatter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "animnerf_fused_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

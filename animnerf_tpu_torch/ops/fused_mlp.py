@@ -36,11 +36,25 @@ N_W = DEPTH + 5  # trunk 0..7, skip-enc half, sigma, xyz_final, dir_0, rgb
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 BWD_E = 64  # the backward kernel's encoding block (n_freqs 9 or 10)
 BWD_CHUNK = 131072  # points per pass of its activation scratch
+SLAB_COLS = 64  # reduction columns of a weight slab: one 128-byte swizzle row
+# the bf16 kernels form 2^j as an int shift, and the forward's shared
+# memory holds up to 192 encoding columns: n_freqs 0..31
+MAX_FREQS = 31
 
 
 def enc_rows(n_freqs: int) -> int:
     """Padded row count of the encoding block (as the JAX package)."""
     return max(8, -(-(3 + 6 * n_freqs) // 8) * 8)
+
+
+def enc_cols(n_freqs: int) -> int:
+    """Encoding columns of the bf16 kernels: enc_rows(n_freqs) rounded up
+    to a multiple of 64 (their products read the encoding in 64-column
+    blocks), the padding zero; 64 for the flagship's 10 frequencies."""
+    if not 0 <= n_freqs <= MAX_FREQS:
+        raise ValueError(f"the bf16 kernels take n_freqs 0..{MAX_FREQS}, "
+                         f"got {n_freqs}")
+    return -(-enc_rows(n_freqs) // SLAB_COLS) * SLAB_COLS
 
 
 def _dtype(dtype) -> torch.dtype:
@@ -137,13 +151,26 @@ def fused_nerf_fwd_plain(xyz_t: torch.Tensor, ws, bs, n_freqs: int = 10,
     return out[None]
 
 
+def _check_image(image, ws):
+    """A prebuilt (image, offsets) of ws, as ``weight_image`` returns it."""
+    img, offs = image
+    parts, total = image_layout(_image_weights(ws))
+    if img.dtype != ws[0].dtype or img.device != ws[0].device \
+            or img.numel() != total or not img.is_contiguous() \
+            or list(offs) != _part_offsets(parts):
+        raise ValueError("the weight image does not match the packed "
+                         "weights (build it with weight_image(ws))")
+    return img, (ctypes.c_int * (2 * N_W))(*offs)
+
+
 def fused_nerf_fwd(xyz_t: torch.Tensor, ws, bs, n_freqs: int = 10,
-                   dtype="bfloat16") -> torch.Tensor:
+                   dtype="bfloat16", image=None) -> torch.Tensor:
     """xyz_t (1, 8, M) rows -> (1, 8, M) [r|g|b|sigma|0..]. Kernel on CUDA
     tensors, plain version on CPU tensors. ws / bs as ``pack_params``
-    returns them, in the compute dtype; the kernel reads them as they are
-    (the bf16 path needs the encoding block E = enc_rows(n_freqs) to be a
-    multiple of 16, as it is for the flagship's 10 frequencies)."""
+    returns them, in the compute dtype. The bf16 kernel reads the weights
+    from their slab image: ``image`` is ``weight_image(ws)`` built once by
+    a caller whose weights do not change (built here when None), and
+    takes n_freqs 0..31 (``enc_cols``)."""
     dt = _dtype(dtype)
     if xyz_t.dim() != 3 or xyz_t.shape[:2] != (1, 8) \
             or xyz_t.dtype != torch.float32:
@@ -153,25 +180,32 @@ def fused_nerf_fwd(xyz_t: torch.Tensor, ws, bs, n_freqs: int = 10,
         raise ValueError(f"expected {N_W} packed weights and biases")
     if xyz_t.device.type == "cpu":
         return fused_nerf_fwd_plain(xyz_t, ws, bs, n_freqs, dt)
-    E = enc_rows(n_freqs)
     if any(w.dtype != dt for w in ws) or any(b.dtype != torch.float32
                                             for b in bs):
         raise ValueError(f"packed weights must be {dt} and biases float32")
-    if dt == torch.bfloat16 and E % 16:
-        raise ValueError(f"the bf16 kernel takes a 16-aligned encoding "
-                         f"block; n_freqs={n_freqs} gives {E} rows")
+    bf16 = dt == torch.bfloat16
+    E = enc_cols(n_freqs) if bf16 else enc_rows(n_freqs)
+    if ws[0].shape[1] != enc_rows(n_freqs):
+        raise ValueError(f"n_freqs={n_freqs} gives {enc_rows(n_freqs)} "
+                         f"encoding rows, the weights have {ws[0].shape[1]}")
     M = xyz_t.shape[-1]
     out = torch.empty((1, 8, M), dtype=torch.float32, device=xyz_t.device)
     if M == 0:
         return out
     xyz_t = xyz_t.contiguous()
     _build.check_cuda("fused_nerf_fwd", xyz_t, *ws, *bs)
+    img, img_offs = None, None
+    if bf16:
+        img, img_offs = _check_image(image if image is not None
+                                     else weight_image(ws), ws)
     w_ptrs = (ctypes.c_void_p * N_W)(*[t.data_ptr() for t in ws])
     b_ptrs = (ctypes.c_void_p * N_W)(*[t.data_ptr() for t in bs])
     _build.kernel_library().call(
         "animnerf_fused_mlp_fwd", xyz_t.data_ptr(), ctypes.addressof(w_ptrs),
-        ctypes.addressof(b_ptrs), out.data_ptr(), M, n_freqs, E,
-        0 if dt == torch.bfloat16 else 1, _build.stream_of(xyz_t))
+        ctypes.addressof(b_ptrs), None if img is None else img.data_ptr(),
+        None if img_offs is None else ctypes.addressof(img_offs),
+        out.data_ptr(), M, n_freqs, E, 0 if bf16 else 1,
+        _build.stream_of(xyz_t))
     _build.LAUNCHES["fused_mlp"] += 1
     return out
 
@@ -259,16 +293,17 @@ def fused_nerf_bwd_plain(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
             tuple(g.reshape(x.shape) for g, x in zip(db, bs)))
 
 
-# The bf16 backward kernel's weight image: each weight it streams, as the
-# exact shared-memory bytes of the slabs its wgmma products read
+# The bf16 kernels' weight image: each weight they stream, as the exact
+# shared-memory bytes of the slabs their wgmma products read
 # (csrc/mlp_wgmma.cuh). A part is an (R x C) operand, R output rows by C
-# reduction columns: W_l itself (N x K) for the forward's out = in . W_l^T,
-# W_l^T (K x N) for the dgrad's d_in = d_out . W_l. The heads (layers 9 and
-# 12) run on the CUDA cores and are read from the packed weights as they are.
+# reduction columns: W_l itself (N x K) for the forward's out = in . W_l^T
+# (read by the forward and the backward's recompute), W_l^T (K x N) for the
+# dgrad's d_in = d_out . W_l. The encoding columns of layers 0 and 8 are
+# zero-padded to enc_cols. The heads (layers 9 and 12) run on the CUDA
+# cores and are read from the packed weights as they are.
 IMAGE_LAYERS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11)
 IMAGE_PARTS = tuple((l, False) for l in IMAGE_LAYERS) + tuple(
     (l, True) for l in IMAGE_LAYERS)  # (layer, transposed)
-SLAB_COLS = 64  # reduction columns of a slab: one 128-byte swizzle row
 
 
 def image_offset(R: int, C: int) -> torch.Tensor:
@@ -322,15 +357,32 @@ def _image_index(ws) -> torch.Tensor:
     return _IMAGE_INDEX[key]
 
 
+def _image_weights(ws):
+    """ws with the encoding columns of layers 0 and 8 zero-padded to a
+    multiple of 64."""
+    E = ws[0].shape[1]
+    pad = -(-E // SLAB_COLS) * SLAB_COLS - E
+    if pad == 0:
+        return tuple(ws)
+    return tuple(torch.nn.functional.pad(w, (0, pad)) if l in (0, DEPTH)
+                 else w for l, w in enumerate(ws))
+
+
+def _part_offsets(parts):
+    offs = [-1] * (2 * N_W)
+    for l, t, _, _, o in parts:
+        offs[N_W * t + l] = o
+    return offs
+
+
 def weight_image(ws):
     """(image (n,) in the weights' dtype, offsets): the packed weights
-    gathered into the backward kernel's slab image, and the element offset
-    of each layer's part, fwd[0..12] then bwd[0..12] (-1 where absent)."""
+    gathered into the bf16 kernels' slab image (layers 0 and 8 zero-padded
+    to a multiple of 64 columns), and the element offset of each layer's
+    part, fwd[0..12] then bwd[0..12] (-1 where absent)."""
+    ws = _image_weights(ws)
     image = torch.cat([w.reshape(-1) for w in ws])[_image_index(ws)]
-    offs = [-1] * (2 * N_W)
-    for l, t, _, _, o in image_layout(ws)[0]:
-        offs[N_W * t + l] = o
-    return image, offs
+    return image, _part_offsets(image_layout(ws)[0])
 
 
 def unpack_image(image: torch.Tensor, R: int, C: int,
@@ -350,12 +402,13 @@ def _offsets(ws, bs):
 
 
 def fused_nerf_bwd(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
-                   n_freqs: int = 10, dtype="bfloat16"):
+                   n_freqs: int = 10, dtype="bfloat16", image=None):
     """VJP of ``fused_nerf_fwd``: (d_xyz_t (1, 8, M) f32, d_ws, d_bs) f32,
     shaped like (ws, bs). Kernel on CUDA tensors (deterministic: per-split
     partial sums reduced in a fixed order), plain version on CPU tensors.
     The kernel takes the flagship's 64-row encoding block (n_freqs 9 or
-    10)."""
+    10); in bf16 it reads ``image`` (``weight_image(ws)``, built here when
+    None)."""
     dt = _dtype(dtype)
     if xyz_t.dim() != 3 or xyz_t.shape[:2] != (1, 8) \
             or dout.shape != xyz_t.shape:
@@ -394,9 +447,12 @@ def fused_nerf_bwd(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
         grads = torch.empty(total, dtype=torch.float32, device=dev)
         w_ptrs = (ctypes.c_void_p * N_W)(*[t.data_ptr() for t in ws])
         b_ptrs = (ctypes.c_void_p * N_W)(*[t.data_ptr() for t in bs])
-        image, img_offs = (weight_image(ws) if dt == torch.bfloat16
-                           else (None, [-1] * (2 * N_W)))
-        img_offs = (ctypes.c_int * (2 * N_W))(*img_offs)
+        if dt == torch.bfloat16:
+            image, img_offs = _check_image(image if image is not None
+                                           else weight_image(ws), ws)
+        else:
+            image = None
+            img_offs = (ctypes.c_int * (2 * N_W))(*([-1] * (2 * N_W)))
         lib.call(
             "animnerf_fused_mlp_bwd", xyz_t.data_ptr(), dout.data_ptr(),
             ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
@@ -420,7 +476,9 @@ class FusedNerf(torch.autograd.Function):
     """Differentiable fused MLP: forward ``fused_nerf_fwd``, backward
     ``fused_nerf_bwd``. The weights arrive in float32 (packed from the live
     parameters) and are cast to the compute dtype inside, so their
-    gradients stay unrounded float32, as the JAX custom VJP returns them."""
+    gradients stay unrounded float32, as the JAX custom VJP returns them.
+    In bf16 on the card the weight image is built once, here, and serves
+    both kernels."""
 
     @staticmethod
     def forward(ctx, xyz_t, n_freqs, dtype, *wb):
@@ -428,32 +486,36 @@ class FusedNerf(torch.autograd.Function):
         ws = tuple(w.detach().to(dt).contiguous() for w in wb[:N_W])
         bs = tuple(b.detach().contiguous() for b in wb[N_W:])
         ctx.n_freqs, ctx.dtype = n_freqs, dt
+        ctx.image = (weight_image(ws) if dt == torch.bfloat16
+                     and xyz_t.device.type != "cpu" else None)
         ctx.save_for_backward(xyz_t, *ws, *bs)
-        return fused_nerf_fwd(xyz_t.detach(), ws, bs, n_freqs, dt)
+        return fused_nerf_fwd(xyz_t.detach(), ws, bs, n_freqs, dt,
+                              ctx.image)
 
     @staticmethod
     def backward(ctx, dout):
         xyz_t, *wb = ctx.saved_tensors
         d_xyz, d_ws, d_bs = fused_nerf_bwd(xyz_t, wb[:N_W], wb[N_W:],
                                            dout.contiguous(), ctx.n_freqs,
-                                           ctx.dtype)
+                                           ctx.dtype, ctx.image)
         return (d_xyz, None, None, *d_ws, *d_bs)
 
 
 def fused_nerf(xyz_t: torch.Tensor, ws, bs, n_freqs: int = 10,
-               dtype="bfloat16") -> torch.Tensor:
-    """fused_nerf_fwd, through ``FusedNerf`` when autograd needs it."""
+               dtype="bfloat16", image=None) -> torch.Tensor:
+    """fused_nerf_fwd, through ``FusedNerf`` when autograd needs it (which
+    builds its own weight image; ``image`` serves the no-grad path)."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xyz_t, *ws, *bs)):
         return FusedNerf.apply(xyz_t, n_freqs, dtype, *ws, *bs)
-    return fused_nerf_fwd(xyz_t, ws, bs, n_freqs, dtype)
+    return fused_nerf_fwd(xyz_t, ws, bs, n_freqs, dtype, image)
 
 
 def fused_nerf_rows(rows: torch.Tensor, ws, bs, n_freqs: int = 10,
-                    dtype="bfloat16") -> torch.Tensor:
+                    dtype="bfloat16", image=None) -> torch.Tensor:
     """rows (B, 8, N) with xyz in rows 0..2 -> (B, 8, N) [r|g|b|sigma|0..];
     batch elements ride the point axis back to back. Differentiable."""
     B, _, N = rows.shape
     flat = rows.to(torch.float32).transpose(0, 1).reshape(1, 8, B * N)
-    out = fused_nerf(flat, ws, bs, n_freqs, dtype)
+    out = fused_nerf(flat, ws, bs, n_freqs, dtype, image)
     return out.reshape(8, B, N).transpose(0, 1)

@@ -13,14 +13,17 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      on the card beside the stated tolerance, kernel / plain /
      library-call times (median of CUDA-event timings after a warm-up)
      and the least time the card could take (bytes or operations over the
-     H100's peak); the scatter and the MLP backward also bit-equal across
-     two launches, and the bf16 MLP backward's main kernel (recompute +
-     dgrad, on wgmma) and weight-gradient kernels timed apart in one
-     profiled call;
+     H100's peak); the scatter and the MLP forward and backward also
+     bit-equal across two launches, the MLP forward (on wgmma) checked at
+     a second encoding width (n_freqs 7) and given its share of the bound,
+     the scatter beside the deterministic library scatter (and the atomic
+     one), and the bf16 MLP backward's main kernel (recompute + dgrad, on
+     wgmma) and weight-gradient kernels timed apart in one profiled call;
   4. serving: the trained scale512 checkpoint on the seed-3 SMPL rig, a
      512x512 turntable rendered through ``Renderer.render_stream``,
      launch counts reset just before and read just after; then one more
-     view under torch.profiler (device time by kernel, idle share);
+     view under torch.profiler (device time by kernel, the MLP forward's
+     share, idle share);
   5. serving parity: one view at 96x96 rendered on the card with the
      kernels and on the CPU with the plain versions;
   6. train: the flagship training step of ``bench.py`` (V=6890 / J=24
@@ -99,6 +102,9 @@ PARITY_BOUNDS = (("bfloat16", (5e-2, 40.0)), ("float32", (1e-3, 60.0)))
 # the bf16 MLP backward at 2^20 points before its main kernel moved to
 # wgmma (H100 80GB HBM3, 700 W): the kernel line's earlier time
 PREV_BWD_MS = 55.518
+# the bf16 MLP forward at 2^21 points on the wmma kernel it replaced
+# (H100 80GB HBM3, 700 W): the kernel line's earlier time
+PREV_FWD_MS = 20.327
 
 
 def emit(obj) -> None:
@@ -193,10 +199,45 @@ def frame_rays(H: int, W: int) -> np.ndarray:
 # ---------------------------------------------------------------- kernels
 
 
+def mlp_fwd_errors(o, op, what: str):
+    """The bf16 MLP forward against its plain version: same rounding
+    points, but tensor-core and cuBLAS accumulation orders differ, which
+    can flip a bf16 rounding between layers. rgb within 2e-2, sigma within
+    3e-2 + 2e-2 |sigma|, rows 4..7 exactly zero. Returns (max abs error,
+    rgb's, sigma's largest excess over its bound)."""
+    err_rgb = float((o[0, :3] - op[0, :3]).abs().max())
+    sig_excess = float(((o[0, 3] - op[0, 3]).abs()
+                        - (3e-2 + 2e-2 * op[0, 3].abs())).max())
+    check(err_rgb <= 2e-2 and sig_excess <= 0.0,
+          f"fused_mlp bf16 ({what}): rgb err {err_rgb}, sigma excess "
+          f"{sig_excess}")
+    check(bool((o[0, 4:] == 0).all()),
+          f"fused_mlp ({what}): rows 4..7 must be zero")
+    return (max(err_rgb, float((o[0, 3] - op[0, 3]).abs().max())), err_rgb,
+            sig_excess)
+
+
+def deterministic_scatter_ms(flat, rows, contrib, reps: int) -> float:
+    """The deterministic library scatter: ``index_put_`` with
+    accumulate=True under ``torch.use_deterministic_algorithms(True)`` (a
+    sort-based sum on CUDA; ``index_add_`` takes the same path there), on
+    the premultiplied contributions."""
+    import torch
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return time_ms(lambda: flat.zero_().index_put_(
+            (rows,), contrib, accumulate=True), reps)
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
 def kernel_lines(system, ctx):
     """Check and time each serving kernel at the serving path's shapes."""
     import torch
 
+    from animnerf_tpu_torch.models.nerf import NeRFMLP
     from animnerf_tpu_torch.ops.fused_mlp import (
         fused_nerf_fwd,
         fused_nerf_fwd_plain,
@@ -332,7 +373,8 @@ def kernel_lines(system, ctx):
         bound_by="bytes", library_ms=None)
     del d8, i8, dp8, ip8, table8, out8, outp8
 
-    # -- fused MLP: canonical points with the scale512 weights, bf16
+    # -- fused MLP: canonical points with the scale512 weights, bf16, from
+    # the weight image serving caches with the packed weights
     M = 1 << 21
     tv = ctx.verts_template[0]
     pick = torch.randint(0, tv.shape[0], (M,), generator=g, device=dev)
@@ -340,18 +382,27 @@ def kernel_lines(system, ctx):
     xrows = torch.nn.functional.pad(xyz.t(), (0, 0, 0, 5))[None].contiguous()
     nerf = system.scene.nerf_fine
     ws, bs = nerf.packed()
-    o = fused_nerf_fwd(xrows, ws, bs, 10, "bfloat16")
+    image = nerf.packed_image()
+    o = fused_nerf_fwd(xrows, ws, bs, 10, "bfloat16", image)
+    o2 = fused_nerf_fwd(xrows, ws, bs, 10, "bfloat16", image)
     op = fused_nerf_fwd_plain(xrows, ws, bs, 10, "bfloat16")
     torch.cuda.synchronize()
-    # same bf16 rounding points; tensor-core and cuBLAS accumulation
-    # orders differ, which can flip a bf16 rounding between layers
-    err_rgb = float((o[0, :3] - op[0, :3]).abs().max())
-    sig_excess = float(((o[0, 3] - op[0, 3]).abs()
-                        - (3e-2 + 2e-2 * op[0, 3].abs())).max())
-    err = max(err_rgb, float((o[0, 3] - op[0, 3]).abs().max()))
-    check(err_rgb <= 2e-2 and sig_excess <= 0.0,
-          f"fused_mlp bf16: rgb err {err_rgb}, sigma excess {sig_excess}")
-    check(bool((o[0, 4:] == 0).all()), "fused_mlp: rows 4..7 must be zero")
+    deterministic = bool(torch.equal(o, o2))
+    check(deterministic, "fused_mlp bf16: two launches differ")
+    err, err_rgb, sig_excess = mlp_fwd_errors(o, op, "scale512 weights")
+    # a narrower encoding (n_freqs 7: 45 rows, zero-padded to 64 columns)
+    # on random weights from a seed, biases drawn too
+    torch.manual_seed(7)
+    mlp7 = NeRFMLP(7, "bfloat16").to(dev)
+    for m in mlp7.children():
+        torch.nn.init.normal_(m.bias, std=0.1)
+    ws7, bs7 = mlp7.packed()
+    x7 = xrows[..., :65536].contiguous()
+    o7 = fused_nerf_fwd(x7, ws7, bs7, 7, "bfloat16", mlp7.packed_image())
+    op7 = fused_nerf_fwd_plain(x7, ws7, bs7, 7, "bfloat16")
+    torch.cuda.synchronize()
+    err7, _, _ = mlp_fwd_errors(o7, op7, "n_freqs 7")
+    del o2, o7, op7
     # f32 path on a slice of the points: no rounding, f32 accumulation
     ws32, bs32 = pack_params({k: v.detach() for k, v in
                               nerf.state_dict().items()}, 10, "float32")
@@ -365,15 +416,21 @@ def kernel_lines(system, ctx):
     enc = 3 + 6 * 10  # encoding width; xyz_0 and the skip's enc half
     flops = 2.0 * M * (enc * 256 * 2 + 7 * 256 * 256 + 256 * 1 + 256 * 256
                        + 256 * 128 + 128 * 3)
+    bound = max(flops / PEAK_BF16,
+                (M * (12 + 32) + sum(w.numel() * 2 for w in ws))
+                / PEAK_BYTES) * 1e3
+    ms = time_ms(lambda: fused_nerf_fwd(xrows, ws, bs, 10, "bfloat16", image),
+                 reps)
     lines["fused_mlp"] = dict(
         shape=f"rows (1,8,{M}) bf16 weights 13 packed", max_abs_err=err,
-        tolerance="rgb 2e-2; sigma 3e-2 + 2e-2*|sigma|", f32_rel_err=err32,
-        ms=time_ms(lambda: fused_nerf_fwd(xrows, ws, bs, 10, "bfloat16"), reps),
+        max_abs_err_rgb=err_rgb, sigma_excess_over_tolerance=sig_excess,
+        tolerance="rgb 2e-2; sigma 3e-2 + 2e-2*|sigma|; rows 4..7 zero",
+        deterministic=deterministic, n_freqs7_max_abs_err=err7,
+        n_freqs7_shape="rows (1,8,65536), random weights",
+        f32_rel_err=err32, ms=ms, prev_ms=PREV_FWD_MS,
         plain_ms=time_ms(lambda: fused_nerf_fwd_plain(xrows, ws, bs, 10,
                                                     "bfloat16"), preps),
-        bound_ms=max(flops / PEAK_BF16,
-                     (M * (12 + 32) + sum(w.numel() * 2 for w in ws))
-                     / PEAK_BYTES) * 1e3,
+        bound_ms=bound, pct_of_bound=100.0 * bound / ms,
         bound_by="operations", library_ms=None)
 
     # -- lane permute: the fine merge-sort payload, C=5, R=65536
@@ -510,8 +567,11 @@ def kernel_lines_train(dev):
         # idx, w and g read once, the table written once
         bound_ms=B * (N * (4 + 4 + 16) * 4 + V * 16 * 4) / PEAK_BYTES * 1e3,
         bound_by="bytes",
-        library_ms=time_ms(lambda: flat.zero_().index_add_(0, rows, contrib),
-                           reps))
+        # the same function, deterministic; and the atomic index_add_
+        library_ms=deterministic_scatter_ms(flat, rows, contrib, reps),
+        library_call="index_put_(accumulate=True), deterministic algorithms",
+        library_atomic_ms=time_ms(
+            lambda: flat.zero_().index_add_(0, rows, contrib), reps))
 
     # -- the same scatter at K = 8, on the packed kNN's 8 neighbours
     _, i8 = knn_packed(pts, verts, 8)
@@ -539,8 +599,10 @@ def kernel_lines_train(dev):
                          preps),
         bound_ms=B * (N * (8 + 8 + 16) * 4 + V * 16 * 4) / PEAK_BYTES * 1e3,
         bound_by="bytes",
-        library_ms=time_ms(lambda: flat.zero_().index_add_(0, rows8,
-                                                           contrib8), reps))
+        library_ms=deterministic_scatter_ms(flat, rows8, contrib8, reps),
+        library_call="index_put_(accumulate=True), deterministic algorithms",
+        library_atomic_ms=time_ms(
+            lambda: flat.zero_().index_add_(0, rows8, contrib8), reps))
     del i8, w8, contrib8, rows8, out2
 
     # -- fused MLP backward: bf16 over 2^20 points, f32 over 2^16
@@ -598,9 +660,14 @@ def kernel_lines_train(dev):
             # writes (9,856 B a point), the larger
             split = split_bwd_profile(
                 lambda: fused_nerf_bwd(xyz, ws, bs, dout, 10, dt))
+            # the rest's own bound: the products dW_l = G_l^T H_l (the
+            # forward's flops) or one read of the scratch and the head
+            # cotangents (9,856 + 16 B a point), the larger
             split.update(
                 bound_main_ms=max(2.0 * fwd_flops * M / peak,
                                   M * 9856 / PEAK_BYTES) * 1e3,
+                bound_wgrad_ms=max(fwd_flops * M / peak,
+                                   M * (9856 + 16) / PEAK_BYTES) * 1e3,
                 prev_ms=PREV_BWD_MS)
         lines[name] = dict(
             shape=f"rows (1,8,{M}) dout (1,8,{M}) {dt} weights 13 packed",
@@ -893,8 +960,11 @@ def profile_call(fn, what: str):
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in events) / 1e3
     split = bwd_split(events)
+    fwd = sum(e.self_device_time_total for e in events
+              if "mlp_fwd_bf16" in e.key) / 1e3
     return {f"{what}_ms_profiled": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
+            "mlp_fwd_ms": fwd, "mlp_fwd_share_of_busy": fwd / max(busy, 1e-9),
             "mlp_bwd_main_ms": split["main_ms"],
             "mlp_bwd_wgrad_ms": split["wgrad_ms"],
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]

@@ -301,3 +301,145 @@ def test_weight_image_holds_each_weight_once_at_its_swizzled_offset(
             np.testing.assert_array_equal(
                 TF.image_offset(R, C).numpy(), _swizzle_offsets(R, C))
     assert (covered == 1).all()
+
+
+# ------------------------------------------- the forward's weight image
+
+
+def _state(n_freqs, seed=0):
+    mlp = NeRFMLP(n_freqs, "float32",
+                  generator=torch.Generator().manual_seed(seed))
+    return {k: v.detach() for k, v in mlp.state_dict().items()}
+
+
+@pytest.mark.parametrize("n_freqs", [4, 7, 10])
+def test_weight_image_pads_encoding_columns_to_64(n_freqs):
+    """The bf16 kernels read the encoding in 64-column blocks: the image's
+    parts of layers 0 and 8 (the encoding halves) unpack to ws[l] followed
+    by zero columns up to enc_cols(n_freqs); every other part is the
+    unpadded weight. At the flagship's 10 frequencies (E = 64) nothing is
+    padded and the whole image is the slab layout restated in numpy, part
+    after part in IMAGE_PARTS order."""
+    ws, _ = TF.pack_params(_state(n_freqs), n_freqs, "bfloat16")
+    E = TF.enc_rows(n_freqs)
+    Ep = TF.enc_cols(n_freqs)
+    assert Ep % 64 == 0 and E <= Ep < E + 64
+    image, offs = TF.weight_image(ws)
+    for l in (0, TF.DEPTH):
+        got = TF.unpack_image(image, 256, Ep, offs[l])
+        np.testing.assert_array_equal(got[:, :E].float().numpy(),
+                                      ws[l].float().numpy())
+        np.testing.assert_array_equal(got[:, E:].float().numpy(), 0.0)
+        got_t = TF.unpack_image(image, Ep, 256, offs[TF.N_W + l])
+        np.testing.assert_array_equal(got_t.float().numpy(),
+                                      got.t().float().numpy())
+    for l in (1, 2, 3, 4, 5, 6, 7, 10, 11):
+        N, K = ws[l].shape
+        np.testing.assert_array_equal(
+            TF.unpack_image(image, N, K, offs[l]).float().numpy(),
+            ws[l].float().numpy())
+    if n_freqs == 10:
+        want = np.zeros(image.numel(), np.float32)
+        o = 0
+        for l, t in TF.IMAGE_PARTS:
+            x = ws[l].float().numpy()
+            x = x.T if t else x
+            want[o + _swizzle_offsets(*x.shape)] = x
+            assert offs[TF.N_W * t + l] == o
+            o += x.size
+        assert o == image.numel()
+        np.testing.assert_array_equal(image.float().numpy(), want)
+
+
+def test_enc_cols_takes_every_n_freqs_the_16_aligned_kernel_took():
+    """The wmma forward took a bf16 encoding block E = enc_rows(n_freqs)
+    that is a multiple of 16, with 2^j formed as an int shift (right up to
+    n_freqs 31). enc_cols takes each of those, and the n_freqs between
+    (their encoding is zero-padded alike), up to 192 columns; past 31 it
+    raises."""
+    old = [f for f in range(32) if TF.enc_rows(f) % 16 == 0]
+    assert {1, 2, 4, 7, 9, 10, 31} <= set(old)
+    for f in range(TF.MAX_FREQS + 1):
+        Ep = TF.enc_cols(f)
+        assert Ep % 64 == 0 and 3 + 6 * f <= Ep <= 192
+        assert Ep == -(-TF.enc_rows(f) // 64) * 64
+    assert TF.enc_cols(10) == TF.BWD_E
+    for f in (-1, TF.MAX_FREQS + 1):
+        with pytest.raises(ValueError, match="n_freqs"):
+            TF.enc_cols(f)
+
+
+def test_prebuilt_image_must_match_the_weights():
+    """A caller's cached image is checked against the weights it is
+    handed with: its length, dtype and part offsets must be those of
+    weight_image(ws) (n_freqs 4 and 10 pad to the same layout)."""
+    ws4, _ = TF.pack_params(_state(4), 4, "bfloat16")
+    ws10, _ = TF.pack_params(_state(10), 10, "bfloat16")
+    img, offs = TF.weight_image(ws10)
+    got, c_offs = TF._check_image((img, offs), ws10)
+    assert got is img and list(c_offs) == offs
+    assert TF.weight_image(ws4)[1] == offs
+    bad_offs = list(offs)
+    bad_offs[0], bad_offs[1] = bad_offs[1], bad_offs[0]
+    for bad in ((img[:-64], offs), (img.float(), offs), (img, bad_offs)):
+        with pytest.raises(ValueError, match="weight image"):
+            TF._check_image(bad, ws10)
+
+
+@pytest.mark.parametrize("n_freqs", [4, 10])
+def test_fused_forward_bf16_matches_kernel_at_n_freqs(n_freqs):
+    """The bf16 plain forward (the kernel's math, zero-padded encoding
+    included) against the TPU kernel in interpret mode at a narrow and the
+    flagship encoding: the same rounding points, the f32 accumulation
+    order differs, which can flip a bf16 rounding between layers (rgb atol
+    2e-2, sigma atol 3e-2 + rtol 2e-2, as the flagship test)."""
+    mod = FlaxNeRF(freqs_xyz=n_freqs, freqs_dir=0, use_view=False,
+                   compute_dtype=jnp.float32)
+    params = jax.tree.map(np.asarray, mod.init(jax.random.PRNGKey(3),
+                                               jnp.zeros((2, 3))))
+    rows = _rows(256, seed=5)
+    jws, jbs = JF.pack_params(params, n_freqs, dtype=jnp.bfloat16)
+    with jax.disable_jit():
+        ref = np.asarray(JF.fused_nerf_fwd(
+            jnp.asarray(rows), jws, jbs, n_freqs=n_freqs, tile=256,
+            dtype=jnp.bfloat16, interpret=True))
+    ws, bs = TF.pack_params(nerf_params_from_flax(params), n_freqs,
+                            "bfloat16")
+    out = TF.fused_nerf_fwd(torch.from_numpy(rows), ws, bs, n_freqs,
+                            "bfloat16").numpy()
+    np.testing.assert_allclose(out[0, 0:3], ref[0, 0:3], atol=2e-2)
+    np.testing.assert_allclose(out[0, 3], ref[0, 3], atol=3e-2, rtol=2e-2)
+    np.testing.assert_array_equal(out[0, 4:], 0.0)
+
+
+def test_packed_image_is_built_once_until_reloaded_moved_or_stepped():
+    """Serving's cached weight image lives as long as the packed weights:
+    the same object across forwards, rebuilt after load_state_dict, a
+    device move and an optimizer step, and always the image of the
+    current packed weights."""
+    m = NeRFMLP(10, "bfloat16")
+
+    def fresh():
+        img = m.packed_image()
+        want, offs = TF.weight_image(m.packed()[0])
+        assert img[1] == offs
+        np.testing.assert_array_equal(img[0].float().numpy(),
+                                      want.float().numpy())
+        return img
+
+    first = fresh()
+    assert m.packed_image() is first
+    m.load_state_dict(_state(10, seed=1))
+    second = fresh()
+    assert second is not first
+    assert not torch.equal(second[0], first[0])
+    assert m.packed_image() is second
+    m.to("cpu")
+    third = fresh()
+    assert third is not second
+    opt = torch.optim.SGD(m.parameters(), lr=0.1)
+    m.forward_rows(torch.from_numpy(_rows(50))).sum().backward()
+    opt.step()
+    fourth = fresh()
+    assert fourth is not third
+    assert not torch.equal(fourth[0], third[0])
