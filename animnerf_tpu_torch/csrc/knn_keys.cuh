@@ -1,6 +1,6 @@
 // Packed kNN keys, shared by knn.cu (kernel 1, the tournament kernel's
-// counterpart) and knn_packed.cu (kernel 8, the extract-min kernel's), so
-// that the two cannot drift apart.
+// counterpart) and knn_packed.cu (kernel 8, the extract-min kernel's)
+// through knn_sweep.cuh, so that the two cannot drift apart.
 //
 // Contract (bit-identical keys to the TPU kernels and to the plain version
 // in ops/knn_kernel.py): for point p and vertex v,
@@ -38,13 +38,18 @@ __device__ __forceinline__ float4 vertex_row(const float* v) {
                      -__fadd_rn(vz, vz), vq);
 }
 
-__device__ __forceinline__ int packed_key(float4 v, float px, float py,
-                                          float pz, float pp, int index) {
-  float d2 = __fadd_rn(
-      pp, __fadd_rn(__fmul_rn(v.z, pz),
-                    __fadd_rn(__fmul_rn(v.y, py),
-                              __fadd_rn(__fmul_rn(v.x, px), v.w))));
-  d2 = fmaxf(d2, 0.0f);
+// the dot form's sum below pp: m2z*pz + (m2y*py + (m2x*px + vq)), for the
+// staged row v = (m2x, m2y, m2z, vq)
+__device__ __forceinline__ float row_dot(float4 v, float px, float py,
+                                         float pz) {
+  return __fadd_rn(__fmul_rn(v.z, pz),
+                   __fadd_rn(__fmul_rn(v.y, py),
+                             __fadd_rn(__fmul_rn(v.x, px), v.w)));
+}
+
+// the key of the vertex at index, from pp and its row_dot s
+__device__ __forceinline__ int key_of(float pp, float s, int index) {
+  const float d2 = fmaxf(__fadd_rn(pp, s), 0.0f);
   return (__float_as_int(d2) & KEY_MASK) | index;
 }
 

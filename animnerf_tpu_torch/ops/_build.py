@@ -34,7 +34,8 @@ SOURCES = ("knn.cu", "warp_blend.cu", "fused_mlp.cu", "sort_lanes.cu",
            "scatter.cu", "fused_mlp_bwd.cu", "knn_exact.cu", "min_dist.cu",
            "knn_packed.cu", "knn_mxu.cu")
 # device code the sources include (hashed with them)
-HEADERS = ("knn_keys.cuh", "knn_slots.cuh", "mlp_wgmma.cuh")
+HEADERS = ("knn_keys.cuh", "knn_slots.cuh", "knn_sweep.cuh",
+           "mlp_wgmma.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
@@ -45,7 +46,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: every function returns cudaGetLastError() as an int
 SIGNATURES = {
-    "animnerf_knn_top4": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "animnerf_knn_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "animnerf_knn_top4": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                          _P],
     "animnerf_warp_blend_fwd": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "animnerf_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -57,7 +60,7 @@ SIGNATURES = {
     "animnerf_fused_mlp_bwd_sizes": [_I, _P],
     "animnerf_knn_exact": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "animnerf_min_dist": [_P, _P, _P, _I, _I, _I, _P],
-    "animnerf_knn_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "animnerf_knn_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "animnerf_knn_mxu": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 

@@ -24,7 +24,10 @@ k smallest keys win (ties go to the smaller index) and the distances are
 relative on d2). Both versions compute every key bit for bit as the TPU
 kernels do; the vertex index field limits V to 8192. Keys are unique, so
 kernel 1's tournament, kernel 8's extract-min passes and a plain top-k
-select the same keys: at k=4 the two kernels agree bit for bit.
+select the same keys: at k=4 the two kernels agree bit for bit. On the
+card both sweep vertex rows that ``vertex_rows`` builds once per call
+(``csrc/knn_sweep.cuh``): (m2x, m2y, m2z, vq) in a visiting order, padded
+to whole ``TILE_V`` tiles with rows whose key sorts above every real one.
 
 Exact (``knn_exact``): d2 = ((vx-px)^2 + (vy-py)^2) + (vz-pz)^2 with every
 operation rounded on its own, as ``_knn_kernel`` computes it, and the TPU
@@ -47,7 +50,8 @@ K = 4  # knn_top4's k
 MAX_K = 16  # the kernels' template instantiations
 KEY_MASK = ~0x1FFF
 MAX_VERTS = 8192
-TILE_V = 1024  # the top-4 kernel's vertex tile (csrc/knn.cu)
+TILE_V = 256  # the sweep's staged vertex tile (csrc/knn_sweep.cuh)
+TILE_BITS = 8
 SLOT_TILE = 512  # the TPU kernels' vertex tile, which the top-k rule follows
 _PAD_KEY = (0x7F800000 << 32) | 0x7FFFFFFF  # d2 = +inf: never merged
 
@@ -72,6 +76,64 @@ def check_points_verts(points: torch.Tensor, verts: torch.Tensor,
     if not min_verts <= verts.shape[1] <= max_verts:
         raise ValueError(f"needs {min_verts} <= V <= {max_verts}, "
                          f"got V={verts.shape[1]}")
+
+
+def padded_count(V: int) -> int:
+    """V rounded up to whole vertex tiles (the sweep's row count)."""
+    return -(-V // TILE_V) * TILE_V
+
+
+def visit_order(V: int, stratified: bool, device=None) -> torch.Tensor:
+    """(Vp,) int32: the vertex index the sweep visits at each position of
+    the cloud padded to whole tiles (indices >= V are padding). Rows are
+    bit-reversed within a tile; ``stratified`` interleaves the tiles
+    (position j * n_tiles + t holds row bitrev(j) of tile t), so that each
+    staged tile samples the whole cloud; otherwise the tiles stay in index
+    order (the tile skip's Morton tiles). As ``knn_sweep::visit_index``."""
+    Vp = padded_count(V)
+    nt = Vp // TILE_V
+    pos = torch.arange(Vp, device=device)
+    t, j = (pos % nt, pos // nt) if stratified else (pos // TILE_V,
+                                                       pos % TILE_V)
+    rev = torch.zeros_like(j)
+    for bit in range(TILE_BITS):
+        rev |= ((j >> bit) & 1) << (TILE_BITS - 1 - bit)
+    return (t * TILE_V + rev).to(torch.int32)
+
+
+def vertex_rows(verts: torch.Tensor, stratified: bool = True):
+    """(B, V, 3) verts -> the rows the packed kernels sweep, (B, Vp, 4)
+    float32 (-2vx, -2vy, -2vz, |v|^2) in ``visit_order``, (0, 0, 0, +inf)
+    at padding positions, and that order (Vp,) int32: the rows kernel in
+    ``csrc/knn.cu`` on CUDA tensors, ``vertex_rows_plain`` on CPU
+    tensors."""
+    check_points_verts(verts, verts, min_verts=1)
+    if verts.device.type == "cpu":
+        return vertex_rows_plain(verts, stratified)
+    verts = verts.detach().contiguous()
+    _build.check_cuda("vertex_rows", verts)
+    B, V, _ = verts.shape
+    Vp = padded_count(V)
+    rows = torch.empty((B, Vp, 4), dtype=torch.float32, device=verts.device)
+    order = torch.empty(Vp, dtype=torch.int32, device=verts.device)
+    _build.kernel_library().call(
+        "animnerf_knn_rows", verts.data_ptr(), rows.data_ptr(),
+        order.data_ptr(), B, V, Vp, int(stratified), _build.stream_of(verts))
+    return rows, order
+
+
+def vertex_rows_plain(verts: torch.Tensor, stratified: bool = True):
+    """``vertex_rows`` in plain torch: every product and sum its own
+    operation, as ``knn_keys::vertex_row`` rounds them."""
+    B, V, _ = verts.shape
+    order = visit_order(V, stratified, verts.device)
+    v = verts.detach()[:, order.clamp(max=V - 1).long()]     # (B, Vp, 3)
+    vx, vy, vz = v.unbind(-1)
+    vq = (vx * vx + vy * vy) + vz * vz
+    rows = torch.stack([-(vx + vx), -(vy + vy), -(vz + vz), vq], dim=-1)
+    rows[:, order >= V] = torch.tensor([0.0, 0.0, 0.0, float("inf")],
+                                       device=verts.device)
+    return rows.contiguous(), order
 
 
 def tile_boxes(verts: torch.Tensor) -> torch.Tensor:
@@ -112,16 +174,19 @@ def knn_top4(points: torch.Tensor, verts: torch.Tensor,
     d, i = _outputs(points, K)
     if N == 0:
         return d, i
-    vbox = tile_boxes(verts) if tile_skip else None
     if stats is not None and (stats.dtype != torch.int64
                               or stats.numel() != 2
                               or stats.device != points.device):
         raise ValueError("stats must be an int64 tensor of 2 on the device")
+    # the tile skip sweeps the Morton tiles its boxes bound
+    rows, order = vertex_rows(verts, stratified=not tile_skip)
+    vbox = tile_boxes(verts) if tile_skip else None
     _build.kernel_library().call(
-        "animnerf_knn_top4", points.data_ptr(), verts.data_ptr(),
-        vbox.data_ptr() if tile_skip else None, int(bool(tile_skip)),
+        "animnerf_knn_top4", points.data_ptr(), rows.data_ptr(),
+        order.data_ptr(), vbox.data_ptr() if tile_skip else None,
+        int(bool(tile_skip)),
         stats.data_ptr() if stats is not None else None, d.data_ptr(),
-        i.data_ptr(), B, N, V, _build.stream_of(points))
+        i.data_ptr(), B, N, V, rows.shape[1], _build.stream_of(points))
     _build.LAUNCHES["knn"] += 1
     if tile_skip:
         _build.LAUNCHES["knn_tile_skip"] += 1
@@ -149,10 +214,11 @@ def knn_packed(points: torch.Tensor, verts: torch.Tensor, k: int):
     d, i = _outputs(points, k)
     if N == 0:
         return d, i
+    rows, order = vertex_rows(verts)
     _build.kernel_library().call(
-        "animnerf_knn_packed", points.data_ptr(), verts.data_ptr(),
-        d.data_ptr(), i.data_ptr(), B, N, verts.shape[1], k,
-        _build.stream_of(points))
+        "animnerf_knn_packed", points.data_ptr(), rows.data_ptr(),
+        order.data_ptr(), d.data_ptr(), i.data_ptr(), B, N, verts.shape[1],
+        rows.shape[1], k, _build.stream_of(points))
     _build.LAUNCHES["knn_packed"] += 1
     return d, i
 

@@ -19,11 +19,15 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      the scatter beside the deterministic library scatter (and the atomic
      one), and the bf16 MLP backward's main kernel (recompute + dgrad, on
      wgmma) and weight-gradient kernels timed apart in one profiled call;
+     the kNN lines of kernels 1 and 8 with their share of the bound, their
+     sweep's points per thread and its SASS instructions per pair; then
+     kernels 1 and 8 at edge shapes (N = 2^20 - 37, V in {K, 1025, 8192},
+     K in {1, 4, 8, 16}), each bit-equal to its plain version;
   4. serving: the trained scale512 checkpoint on the seed-3 SMPL rig, a
      512x512 turntable rendered through ``Renderer.render_stream``,
      launch counts reset just before and read just after; then one more
      view under torch.profiler (device time by kernel, the MLP forward's
-     share, idle share);
+     and the kNN's shares, idle share);
   5. serving parity: one view at 96x96 rendered on the card with the
      kernels and on the CPU with the plain versions;
   6. train: the flagship training step of ``bench.py`` (V=6890 / J=24
@@ -94,6 +98,16 @@ PEAK_F32 = 67e12
 # half the FMA peak, which counts an FMA as two
 PEAK_F32_NONFMA = PEAK_F32 / 2
 PEAK_BYTES = 3.35e12
+# kernels 1 and 8: the non-FMA f32 operations that any exact sweep must do
+# per (point, vertex) pair, over PEAK_F32_NONFMA: the 3 multiplies and 3
+# adds of the dot form (csrc/knn_keys.cuh row_dot, each rounded on its own,
+# so none is an FMA). The add of |p|^2, the clamp and the key are needed
+# only by the pairs that can enter the top-K (knn_sweep.cuh's filter), and
+# the compare that decides that need not be f32 work (an integer key
+# compare does it as well), so none of them is counted
+KNN_PAIR_OPS = 6.0
+# kernels 1, 8 (the sweep and its rows kernel) and 9, by profiler name
+KNN_KERNEL_NAMES = ("knn_sweep::", "knn_rows_kernel", "knn_exact_kernel")
 # chunk size of the plain kNN versions on the card (a (chunk x V) matrix):
 # large chunks keep their per-chunk launches few
 PLAIN_MAX_ELEMS = 1 << 26
@@ -217,6 +231,113 @@ def mlp_fwd_errors(o, op, what: str):
             sig_excess)
 
 
+def sass_functions(text: str) -> dict:
+    """cuobjdump -sass output -> {mangled name: [(address, instruction)]}."""
+    import re
+
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if cur is not None and m:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def sweep_path(ins) -> dict:
+    """The instructions a kNN sweep issues per row when no key enters: of
+    the innermost loops that hold broadcast row loads (LDS.128), the one
+    whose walk loads the most rows, walked from its head, taking every
+    forward branch that stays inside the loop (the branch past the insert)
+    until the back edge. Returns its instruction and row counts."""
+    import re
+
+    addr = [a for a, _ in ins]
+    loops = []
+    for a, t in ins:
+        m = re.match(r"(@!?U?P\w+ )?BRA(\.\w+)* (0x[0-9a-f]+)$", t)
+        if m and int(m.group(3), 16) < a and any(
+                "LDS" in u and ".128" in u
+                for b, u in ins if int(m.group(3), 16) <= b <= a):
+            loops.append((int(m.group(3), 16), a))
+    best = {}
+    for head, back in loops:
+        if any((h, b) != (head, back) and head <= h and b <= back
+               for h, b in loops):
+            continue  # not innermost
+        i, count, rows = addr.index(head), 0, 0
+        while True:
+            a, t = ins[i]
+            count += 1
+            rows += "LDS" in t and ".128" in t
+            m = re.match(r"@!?U?P\w+ BRA(\.\w+)* (0x[0-9a-f]+)$", t)
+            if a == back:
+                break
+            if m and a < int(m.group(2), 16) <= back:
+                i = addr.index(int(m.group(2), 16))
+            else:
+                i += 1
+        key = (rows, head - back)
+        if rows and (not best or key > best["key"]):
+            best = {"key": key, "loop_instructions": count,
+                    "rows_per_iteration": rows}
+    best.pop("key", None)
+    return best
+
+
+def sweep_sass(lib_path: str) -> dict:
+    """{(K, skip, insert): {points_per_thread, sass_per_pair, ...}} for the
+    sweep kernels of kernels 1 and 8 in the built library (cuobjdump
+    -sass); insert is "top4" for kernel 1's Top4Insert, "packed" for
+    kernel 8's PackedInsert<K>."""
+    import re
+
+    from animnerf_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300).stdout
+    out = {}
+    for name, ins in sass_functions(text).items():
+        m = re.search(r"sweep_kernelILi(\d+)ELi(\d+)ELb([01])E.*?"
+                      r"(Top4Insert|PackedInsert)", name)
+        if not m:
+            continue
+        K, P, skip = int(m.group(1)), int(m.group(2)), m.group(3) == "1"
+        insert = "top4" if m.group(4) == "Top4Insert" else "packed"
+        check((K, skip, insert) not in out,
+              f"two sweep kernels for {(K, skip, insert)} in the SASS")
+        path = sweep_path(ins)
+        if path:
+            out[(K, skip, insert)] = dict(
+                points_per_thread=P, sass_loop_instructions=path[
+                    "loop_instructions"],
+                sass_rows_per_iteration=path["rows_per_iteration"],
+                sass_per_pair=path["loop_instructions"]
+                / (path["rows_per_iteration"] * P))
+    return out
+
+
+def knn_bound_ms(pairs: float, nbytes: float) -> float:
+    """Kernels 1 and 8: KNN_PAIR_OPS non-FMA f32 operations per swept
+    (point, vertex) pair over their peak, or the bytes read and written
+    once over the memory rate, the larger."""
+    return max(KNN_PAIR_OPS * pairs / PEAK_F32_NONFMA,
+               nbytes / PEAK_BYTES) * 1e3
+
+
+def add_sweep_fields(line: dict, sass: dict, k: int, insert: str,
+                     skip: bool = False) -> None:
+    """A kernel 1 or 8 line's share of its bound, and its sweep's points
+    per thread and SASS instructions per pair (sweep_sass's entry for
+    (k, skip, insert))."""
+    line["pct_of_bound"] = 100.0 * line["bound_ms"] / line["ms"]
+    line.update(sass[(k, skip, insert)])
+
+
 def deterministic_scatter_ms(flat, rows, contrib, reps: int) -> float:
     """The deterministic library scatter: ``index_put_`` with
     accumulate=True under ``torch.use_deterministic_algorithms(True)`` (a
@@ -233,8 +354,9 @@ def deterministic_scatter_ms(flat, rows, contrib, reps: int) -> float:
         torch.use_deterministic_algorithms(was)
 
 
-def kernel_lines(system, ctx):
-    """Check and time each serving kernel at the serving path's shapes."""
+def kernel_lines(system, ctx, sass):
+    """Check and time each serving kernel at the serving path's shapes
+    (sass: sweep_sass of the built library)."""
     import torch
 
     from animnerf_tpu_torch.models.nerf import NeRFMLP
@@ -284,9 +406,7 @@ def kernel_lines(system, ctx):
         tolerance=0.0, idx_mismatch=idx_mismatch,
         ms=time_ms(lambda: knn_top4(pts, verts), reps),
         plain_ms=time_ms(lambda: knn_top4_plain(pts, verts), preps),
-        # 3 mul + 4 add in f32 per (point, vertex) pair
-        bound_ms=max(7.0 * N * V / PEAK_F32,
-                     (N * 12 + V * 12 + N * 32) / PEAK_BYTES) * 1e3,
+        bound_ms=knn_bound_ms(N * V, N * 12 + V * 12 + N * 32),
         bound_by="operations", library_ms=None)
 
     # -- warp-blend on the same points
@@ -328,9 +448,7 @@ def kernel_lines(system, ctx):
         tolerance=0.0, idx_mismatch=mism,
         ms=time_ms(lambda: knn_packed(pts, verts, 8), reps),
         plain_ms=time_ms(lambda: knn_packed_plain(pts, verts, 8), preps),
-        # kernel 1's operation count: 3 mul + 4 add in f32 per pair
-        bound_ms=max(7.0 * N * V / PEAK_F32,
-                     (N * 12 + V * 12 + N * 64) / PEAK_BYTES) * 1e3,
+        bound_ms=knn_bound_ms(N * V, N * 12 + V * 12 + N * 64),
         bound_by="operations", library_ms=None)
     d4, i4 = knn_packed(pts, verts, 4)
     torch.cuda.synchronize()
@@ -339,11 +457,14 @@ def kernel_lines(system, ctx):
     lines["knn_packed_k4"] = dict(
         shape=f"points (1,{N},3) verts (1,{V},3) K=4",
         max_abs_err=float((d4 - dp).abs().max()), tolerance=0.0,
-        bit_equal_to_knn_top4=same,
+        idx_mismatch=int((i4 != ip).sum()), bit_equal_to_knn_top4=same,
         ms=time_ms(lambda: knn_packed(pts, verts, 4), reps),
         plain_ms=time_ms(lambda: knn_packed_plain(pts, verts, 4), preps),
         bound_ms=lines["knn"]["bound_ms"], bound_by="operations",
         library_ms=None)
+    for name, k, insert in (("knn", 4, "top4"), ("knn_packed", 8, "packed"),
+                            ("knn_packed_k4", 4, "packed")):
+        add_sweep_fields(lines[name], sass, k, insert)
 
     # -- warp-blend on the K = 8 neighbours, with one-hot LBS columns so
     # that the confidence gate passes several of them (as rigid_lbs)
@@ -455,13 +576,13 @@ def kernel_lines(system, ctx):
     return lines
 
 
-def kernel_lines_train(dev):
+def kernel_lines_train(dev, sass):
     """Check and time the training step's kernels at its shapes: the kNN
     with the tile skip on Morton-ordered points of 16 frames (32,768
     coarse survivors each, as a 16 x 1024-ray step keeps), the weighted
     scatter of those neighbours, and the MLP backward over 2^20 points
     (the fine MLP's coarse survivors + fine samples) in bf16, and over
-    2^16 points in f32."""
+    2^16 points in f32 (sass: sweep_sass of the built library)."""
     import torch
 
     from animnerf_tpu_torch.data.synthetic import (
@@ -524,16 +645,18 @@ def kernel_lines_train(dev):
     swept_share = swept / max(swept + skipped, 1)
     lines["knn_tile_skip"] = dict(
         shape=f"points ({B},{N},3) Morton-ordered verts ({B},{V},3)",
-        max_abs_err=err, tolerance=0.0, bit_equal_to_no_skip=bit_equal,
+        max_abs_err=err, tolerance=0.0, idx_mismatch=mism,
+        bit_equal_to_no_skip=bit_equal,
         warp_tiles_swept=swept, warp_tiles_skipped=skipped,
         skipped_share=1.0 - swept_share,
         ms=time_ms(lambda: knn_top4(pts, verts, tile_skip=True), reps),
         ms_no_skip=time_ms(lambda: knn_top4(pts, verts), reps),
         plain_ms=time_ms(lambda: knn_top4_plain(pts, verts), preps),
-        # the pairs this run's skip left to sweep, 7 f32 ops each
-        bound_ms=max(7.0 * B * N * V * swept_share / PEAK_F32,
-                     B * (N * 12 + V * 12 + N * 32) / PEAK_BYTES) * 1e3,
+        # the pairs this run's skip left to sweep
+        bound_ms=knn_bound_ms(B * N * V * swept_share,
+                              B * (N * 12 + V * 12 + N * 32)),
         bound_by="operations", library_ms=None)
+    add_sweep_fields(lines["knn_tile_skip"], sass, 4, "top4", skip=True)
 
     # -- weighted scatter of those neighbours (the warp-blend backward)
     w = torch.rand(B, 4, N, generator=g, device=dev)
@@ -683,6 +806,66 @@ def kernel_lines_train(dev):
                          M * (12 + 16 + 12) / PEAK_BYTES) * 1e3,
             bound_by="operations", library_ms=None, **split)
         del a, a2, b
+    return lines
+
+
+EDGE_POINTS = (1 << 20) - 37  # a whole number of no block's points
+
+
+def kernel_lines_edge(dev):
+    """Kernels 1 and 8 at the shapes their sweep's tiling stresses:
+    N = 2^20 - 37 points, V in {K, 1025, 8192} vertices (one padded tile;
+    one real row in the last tile; the index field's limit), K in {1, 4,
+    8, 16}, kernel 1 (K = 4) with and without its tile skip; seeded clouds
+    (normal, 0.3 m) and points near them (0.05 m). Each output bit-equal
+    to its plain version, and the rows kernel's rows and visiting order
+    (both layouts) to ``vertex_rows_plain``'s."""
+    import torch
+
+    from animnerf_tpu_torch.ops.knn_kernel import (
+        knn_packed,
+        knn_packed_plain,
+        knn_top4,
+        vertex_rows,
+        vertex_rows_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    N = EDGE_POINTS
+    lines = {}
+    for V in (1, 4, 8, 16, 1025, 8192):
+        verts = 0.3 * torch.randn(1, V, 3, generator=g, device=dev)
+        pick = torch.randint(0, V, (N,), generator=g, device=dev)
+        pts = (verts[0, pick]
+               + 0.05 * torch.randn(N, 3, generator=g, device=dev))[None]
+        rows_equal = all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for st in (True, False)
+            for a, b in zip(vertex_rows(verts, st),
+                            vertex_rows_plain(verts, st)))
+        check(rows_equal, f"edge V={V}: rows kernel differs from plain")
+        for K in (1, 4, 8, 16):
+            if V != K and V < 1025:
+                continue
+            dp, ip = knn_packed_plain(pts, verts, K,
+                                      max_elems=PLAIN_MAX_ELEMS)
+            runs = [("knn_packed", lambda: knn_packed(pts, verts, K))]
+            if K == 4:
+                runs += [("knn", lambda: knn_top4(pts, verts)),
+                         ("knn_tile_skip",
+                          lambda: knn_top4(pts, verts, tile_skip=True))]
+            for kname, fn in runs:
+                d, i = fn()
+                torch.cuda.synchronize()
+                mism = int((i != ip).sum())
+                err = float((d - dp).abs().max())
+                check(mism == 0 and err == 0.0,
+                      f"edge {kname} K={K} V={V}: {mism} index mismatches, "
+                      f"max err {err}")
+                lines[f"{kname}_k{K}_v{V}"] = dict(
+                    shape=f"points (1,{N},3) verts (1,{V},3) K={K}",
+                    max_abs_err=err, tolerance=0.0, idx_mismatch=mism,
+                    rows_bit_equal=rows_equal)
     return lines
 
 
@@ -962,9 +1145,12 @@ def profile_call(fn, what: str):
     split = bwd_split(events)
     fwd = sum(e.self_device_time_total for e in events
               if "mlp_fwd_bf16" in e.key) / 1e3
+    knn = sum(e.self_device_time_total for e in events
+              if any(k in e.key for k in KNN_KERNEL_NAMES)) / 1e3
     return {f"{what}_ms_profiled": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "mlp_fwd_ms": fwd, "mlp_fwd_share_of_busy": fwd / max(busy, 1e-9),
+            "knn_ms": knn, "knn_share_of_busy": knn / max(busy, 1e-9),
             "mlp_bwd_main_ms": split["main_ms"],
             "mlp_bwd_wgrad_ms": split["wgrad_ms"],
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
@@ -1362,17 +1548,28 @@ def main() -> int:
     lib = _build.kernel_library()
     ptxas = [ln.strip() for ln in lib.log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    sass = sweep_sass(str(lib.path))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "cached": lib.cached, "library": os.path.relpath(lib.path, ROOT),
-          "ptxas": ptxas})
+          "ptxas": ptxas,
+          "sweep_sass": {f"K={k} {insert}{' tile_skip' if skip else ''}": v
+                         for (k, skip, insert), v in sorted(sass.items())}})
+    check(all((k, False, "packed") in sass for k in range(1, 17))
+          and (4, False, "top4") in sass and (4, True, "top4") in sass,
+          f"sweep kernels missing from the SASS: {sorted(sass)}")
 
     ck, system, bp, tmpl, ctx = scale512("cuda")
     t0 = time.perf_counter()
-    lines = kernel_lines(system, ctx)
-    lines.update(kernel_lines_train("cuda"))
+    lines = kernel_lines(system, ctx, sass)
+    lines.update(kernel_lines_train("cuda", sass))
     for name, line in lines.items():
         emit(dict(phase="kernel", name=name, **line))
     emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    for name, line in kernel_lines_edge("cuda").items():
+        emit(dict(phase="kernel_edge", name=name, **line))
+    emit({"phase": "edge_done", "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
     angles = [3, 17, 29, 41, 55]

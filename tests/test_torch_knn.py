@@ -83,11 +83,66 @@ def test_tile_skip_is_ignored_by_the_plain_version_and_boxes_bound_tiles():
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     box = tile_boxes(tv).numpy()
-    assert box.shape == (1, 3, 8)
-    for t in range(3):
+    nt = -(-2500 // TILE_V)
+    assert box.shape == (1, nt, 8)
+    for t in range(nt):
         v = verts[0, t * TILE_V:(t + 1) * TILE_V]
         np.testing.assert_array_equal(box[0, t, :3], v.min(0))
         np.testing.assert_array_equal(box[0, t, 3:6], v.max(0))
+
+
+@pytest.mark.parametrize("stratified", [True, False])
+@pytest.mark.parametrize("V", [4, 1025, 8192])
+def test_vertex_rows_match_numpy_and_padding_never_enters(V, stratified):
+    """The rows the packed kernels sweep (``vertex_rows``, on the CPU its
+    plain version) against a numpy restatement, bit for bit: the visiting
+    order (tiles interleaved or in index order, rows bit-reversed within a
+    256-row tile), each row (-2v, |v|^2) rounded per operation, and the
+    padding rows (0, 0, 0, +inf). Keys computed from those rows as the
+    kernels do, padding included, give the plain top-k: a padded row never
+    enters it."""
+    from animnerf_tpu_torch.ops.knn_kernel import (
+        TILE_V,
+        knn_packed_plain,
+        vertex_rows,
+    )
+
+    pts, verts = _cloud(V=V, N=259, seed=20)
+    rows, order = vertex_rows(torch.from_numpy(verts), stratified)
+    nt = -(-V // TILE_V)
+    pos = np.arange(nt * TILE_V)
+    t, j = (pos % nt, pos // nt) if stratified else (pos // TILE_V,
+                                                       pos % TILE_V)
+    rev = np.array([int(format(x, "08b")[::-1], 2) for x in j])
+    want_order = (t * TILE_V + rev).astype(np.int32)
+    np.testing.assert_array_equal(order.numpy(), want_order)
+    assert np.array_equal(np.sort(want_order), pos)
+    real = want_order < V
+    vv = verts[0][want_order[real]]
+    want = np.zeros((nt * TILE_V, 4), np.float32)
+    want[~real, 3] = np.inf
+    want[real, :3] = -(vv + vv)
+    want[real, 3] = (vv[:, 0] * vv[:, 0] + vv[:, 1] * vv[:, 1]) \
+        + vv[:, 2] * vv[:, 2]
+    assert rows.shape == (1, nt * TILE_V, 4)
+    np.testing.assert_array_equal(rows.numpy()[0].view(np.int32),
+                                  want.view(np.int32))
+    p = pts[0]
+    pp = (p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1]) + p[:, 2] * p[:, 2]
+    s = want[None, :, 2] * p[:, 2:3] + (
+        want[None, :, 1] * p[:, 1:2]
+        + (want[None, :, 0] * p[:, 0:1] + want[None, :, 3]))
+    d2 = np.maximum(pp[:, None] + s, np.float32(0))
+    key = (d2.view(np.int32) & ~0x1FFF) | want_order[None]
+    for k in sorted({1, 4, min(16, V)}):
+        top = np.sort(key, axis=1)[:, :k]
+        assert np.all(top & 0x1FFF < V)
+        d, i = knn_packed_plain(torch.from_numpy(pts),
+                                torch.from_numpy(verts), k)
+        np.testing.assert_array_equal(i.numpy()[0], (top & 0x1FFF).T)
+        want_d = np.sqrt((top & ~0x1FFF).view(np.float32).astype(np.float64))
+        np.testing.assert_array_equal(d.numpy()[0],
+                                      want_d.astype(np.float32).T)
 
 
 def test_keep_rows_within_boxes_matches_jax():

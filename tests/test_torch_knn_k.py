@@ -78,6 +78,43 @@ def test_knn_packed_plain_matches_extract_min_kernel(k):
     assert np.all(np.diff(dt, axis=1) >= 0)
 
 
+def _grid_cloud(V, N, seed):
+    """Seeded vertices and points on a 1/64 grid (|x| <= 0.875): every
+    product and sum of the dot form is then exact in f32, so XLA:CPU's FMA
+    contraction changes no rounding and the keys are the TPU kernels'. d2
+    takes few distinct values, so many keys share a quantum and the index
+    bits break the ties."""
+    rng = np.random.default_rng(seed)
+    verts = (rng.integers(-48, 49, size=(1, V, 3)) / 64).astype(np.float32)
+    pts = (rng.integers(-56, 57, size=(1, N, 3)) / 64).astype(np.float32)
+    return pts, verts
+
+
+@pytest.mark.parametrize("V", ["k", 1025, 8192])
+@pytest.mark.parametrize("k", [1, 4, 8, 16])
+def test_packed_plain_is_knn_pallas_bit_for_bit_at_edge_shapes(k, V):
+    """The plain versions chip_smoke.py holds kernels 1 and 8 against,
+    against knn_pallas in interpret mode at the shapes the sweep's tiling
+    stresses: N = 259 (a multiple of no block's point count), V = k (one
+    padded tile), 1025 (one real row in the last tile) and 8192 (the index
+    field's limit). At k=4 the reference is the tournament kernel with its
+    tile skip (kernel 1's), otherwise the extract-min kernel (kernel 8's).
+    Distances and indices bit for bit (see _grid_cloud)."""
+    V = k if V == "k" else V
+    pts, verts = _grid_cloud(V, 259, seed=30 + k)
+    dj, ij = knn_pallas(jnp.asarray(pts), jnp.asarray(verts), k=k,
+                        packed=True, tournament=k == 4, tile_skip=k == 4,
+                        transposed_out=True, interpret=True)
+    tp, tv = torch.from_numpy(pts), torch.from_numpy(verts)
+    d, i = knn_packed_plain(tp, tv, k)
+    assert d.shape == (1, k, 259)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(d.numpy(), np.asarray(dj))
+    if k == 4:
+        for a, b in zip(knn_top4_plain(tp, tv), (d, i)):
+            assert torch.equal(a, b)
+
+
 def test_knn_packed_at_k4_is_the_top4():
     """Keys are unique, so the extract-min top-k at k=4 selects what the
     tournament's plain version selects: bit-equal, over several chunks."""
