@@ -55,98 +55,45 @@
 //      a warpgroup). Shared memory: 2 x 64 KB activations + 16 KB encoding
 //      (later the heads) + 48 KB slab ring + 32 KB ReLU bits (later d_enc).
 //      f32 (not on the main path): a SIMT block per 32 points.
-//   2. weight gradients, dW_l = G_l^T H_l over the chunk's points: a
-//      hand-written split-K wmma kernel (128x128 output tile per block,
-//      operands staged in shared memory, 64 point splits); each block
-//      adds its tile into its own split's f32
-//      partial, which only that block writes. The sigma / rgb heads
-//      (N = 1, 3) and the bias sums use a small SIMT kernel each, again
-//      one partial per split.
+//   2. weight gradients (bf16), dW_l = G_l^T H_l over the chunk's points,
+//      the head weight gradients and every bias sum, in one pass that
+//      reads each scratch byte from device memory once (a layer's two
+//      output halves share their H read through L2): mlp_wgrad_prep, then
+//      mlp_wgrad_bf16 on wgmma with MN-major operands staged by TMA
+//      (csrc/mlp_wgrad.cu). Bound: one read of the scratch and the f32
+//      head cotangents, 9,872 B a point: 3.09 ms per 2^20 points
+//      (products 1.25). Every block stores (first chunk) or adds
+//      its tiles into its own split's f32 partial, which only that block
+//      writes. f32: a SIMT kernel per layer, the heads and the bias sums.
 //   3. after the last chunk, one kernel sums the splits' partials in a
 //      fixed order.
 // No atomics anywhere, and no sum crosses a block in the main kernel: the
 // gradients are deterministic, bit for bit from run to run. The
 // activations go through device memory once (written by 1, read by 2);
 // keeping them on chip would need the dW accumulators spread over a
-// cluster's shared memory, left to a later revision, as is wgmma for 2.
+// cluster's shared memory, left to a later revision.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <initializer_list>
-#include <type_traits>
 
+#include "mlp_bwd_layout.cuh"
 #include "mlp_wgmma.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int WIDTH = 256;
-constexpr int DIR_W = 128;
 constexpr int DEPTH = 8;
 constexpr int SKIP = 4;
-constexpr int N_W = 13;
-constexpr int E = 64;       // encoding block rows: enc_rows(n_freqs <= 10)
-constexpr int SPLITS = 64;  // point splits of the weight-gradient sums
-constexpr int HEAD_COLS = 4;  // d_rgb_raw[0..2], d_sigma (f32)
 
 typedef __nv_bfloat16 bf16;
+using namespace mlpb;
 
 struct MlpWeights {
   const void* w[N_W];   // (N, K) row-major, bf16 or f32 (pack_params)
   const float* b[N_W];  // f32 biases (N,)
 };
-
-// ------------------------------------------------------- scratch layout
-// H (layer inputs): 0 enc (E) | 1..8 h0..h7 (256) | 9 hf (256) | 10 hd (128)
-// G (layer output cotangents): 0..7 d0..d7 (256) | 8 d_hf (256) | 9 d_hd (128)
-// Each array is a (chunk, width) point-major block of the scratch.
-__host__ __device__ __forceinline__ int h_col(int h) {
-  return h == 0 ? 0 : E + (h - 1) * WIDTH;
-}
-__host__ __device__ __forceinline__ int g_width(int g) {
-  return g == 9 ? DIR_W : WIDTH;
-}
-__host__ __device__ __forceinline__ int g_col(int g) { return g * WIDTH; }
-constexpr int HW = E + 9 * WIDTH + DIR_W;  // 2496
-constexpr int GW = 9 * WIDTH + DIR_W;      // 2432
-
-// flat f32 gradient layout: dW_0..12 then db_0..12, pack_params' shapes
-struct GradLayout {
-  size_t w[N_W], b[N_W], total;
-  int wr[N_W], wc[N_W], br[N_W];
-};
-__host__ __device__ inline GradLayout grad_layout() {
-  GradLayout L;
-  for (int i = 0; i < N_W; ++i) {
-    L.wr[i] = WIDTH;
-    L.wc[i] = WIDTH;
-    L.br[i] = WIDTH;
-  }
-  L.wc[0] = E;
-  L.wc[8] = E;
-  L.wr[9] = 8;
-  L.wr[11] = DIR_W;
-  L.wr[12] = 8;
-  L.wc[12] = DIR_W;
-  L.br[9] = 8;
-  L.br[11] = DIR_W;
-  L.br[12] = 8;
-  size_t o = 0;
-  for (int i = 0; i < N_W; ++i) {
-    L.w[i] = o;
-    o += (size_t)L.wr[i] * L.wc[i];
-  }
-  for (int i = 0; i < N_W; ++i) {
-    L.b[i] = o;
-    o += (size_t)L.br[i];
-  }
-  L.total = (o + 63) / 64 * 64;  // keeps every split's partial 256 B aligned
-  return L;
-}
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -159,8 +106,6 @@ __device__ __forceinline__ float sigmoidf(float x) {
 // ================================================================ bf16 path
 
 constexpr int T = mlpw::ROWS;  // points per block
-constexpr int WARPS = 8;       // the weight-gradient kernel's block
-constexpr int THREADS = WARPS * 32;
 constexpr int CONSUMERS = 256;  // two warpgroups of 64 points each
 constexpr int MAIN_THREADS = CONSUMERS + 32;  // + the producer warp
 constexpr int WG_ROWS = 64;
@@ -527,118 +472,9 @@ mlp_bwd_main_bf16(const float* __restrict__ xyz,   // (8, M) rows
   }
 }
 
-// dW (N x K) += G^T H over rows [s * rps, min(rows, (s + 1) * rps)) of
-// the chunk, into split s's partial. A block owns a 128 x TK output tile
-// (TK = 128, or 64 for the encoding's K = 64); its 8 warps form a 2 x 4
-// grid of 64 x TK/4 sub-tiles. 32 points at a time, the G and H rows are
-// staged in shared memory with 16-byte loads (the next 32 rows are loaded
-// into registers while the current ones are multiplied), and each warp
-// runs its wmma fragments from there.
-constexpr int WG_TN = 128;
-constexpr int WG_TT = 32;  // points per stage
-constexpr int WG_PAD = 8;
-
-// 32 rows of the G (128 columns from n0) and H (TK columns from k0)
-// arrays into registers, 16 bytes a load
-template <int TK, int GC, int HC>
-__device__ __forceinline__ void wgrad_load(const bf16* __restrict__ g, int N,
-                                           int n0, const bf16* __restrict__ h,
-                                           int K, int k0, int t0,
-                                           uint4 (&rg)[GC], uint4 (&rh)[HC]) {
-#pragma unroll
-  for (int q = 0; q < GC; ++q) {
-    const int c = threadIdx.x + q * THREADS;  // 16 per row
-    rg[q] = *(const uint4*)(g + (size_t)(t0 + c / 16) * N + n0 + (c % 16) * 8);
-  }
-#pragma unroll
-  for (int q = 0; q < HC; ++q) {
-    const int c = threadIdx.x + q * THREADS;  // TK / 8 per row
-    rh[q] = *(const uint4*)(h + (size_t)(t0 + c / (TK / 8)) * K + k0 +
-                            (c % (TK / 8)) * 8);
-  }
-}
-
-template <int TK>
-__global__ void __launch_bounds__(THREADS)
-wgrad_bf16(const bf16* __restrict__ g, int N, const bf16* __restrict__ h,
-           int K, int rows, int rps, float* __restrict__ part,
-           size_t part_stride, size_t w_off) {
-  constexpr int LG = WG_TN + WG_PAD;
-  constexpr int LH = TK + WG_PAD;
-  constexpr int FK = TK / 4 / 16;  // k fragments per warp
-  constexpr int G_CHUNKS = WG_TT * WG_TN / 8 / THREADS;  // uint4 per thread
-  constexpr int H_CHUNKS = WG_TT * TK / 8 / THREADS;
-  __shared__ __align__(128) bf16 sg[WG_TT * LG];
-  __shared__ __align__(128) bf16 sh[WG_TT * LH];
-  const int tiles_k = K / TK;
-  const int n0 = (blockIdx.x / tiles_k) * WG_TN;
-  const int k0 = (blockIdx.x % tiles_k) * TK;
-  const int s = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int wn = (warp & 1) * 64;
-  const int wk = (warp >> 1) * (TK / 4);
-  float* out = part + (size_t)s * part_stride + w_off;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][FK];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < FK; ++j)
-      wmma::load_matrix_sync(
-          acc[i][j], out + (size_t)(n0 + wn + 16 * i) * K + k0 + wk + 16 * j,
-          K, wmma::mem_row_major);
-
-  const int t_begin = s * rps;
-  const int t_end = min(rows, (s + 1) * rps);
-  uint4 rg[G_CHUNKS], rh[H_CHUNKS];
-  if (t_begin < t_end)
-    wgrad_load<TK>(g, N, n0, h, K, k0, t_begin, rg, rh);
-  for (int t0 = t_begin; t0 < t_end; t0 += WG_TT) {
-#pragma unroll
-    for (int q = 0; q < G_CHUNKS; ++q) {
-      const int c = threadIdx.x + q * THREADS;
-      *(uint4*)(sg + (c / 16) * LG + (c % 16) * 8) = rg[q];
-    }
-#pragma unroll
-    for (int q = 0; q < H_CHUNKS; ++q) {
-      const int c = threadIdx.x + q * THREADS;
-      *(uint4*)(sh + (c / (TK / 8)) * LH + (c % (TK / 8)) * 8) = rh[q];
-    }
-    __syncthreads();
-    if (t0 + WG_TT < t_end)
-      wgrad_load<TK>(g, N, n0, h, K, k0, t0 + WG_TT, rg, rh);
-#pragma unroll
-    for (int kk = 0; kk < WG_TT; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-          b[FK];
-#pragma unroll
-      for (int j = 0; j < FK; ++j)
-        wmma::load_matrix_sync(b[j], sh + kk * LH + wk + 16 * j, LH);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-        wmma::load_matrix_sync(a, sg + kk * LG + wn + 16 * i, LG);
-#pragma unroll
-        for (int j = 0; j < FK; ++j) wmma::mma_sync(acc[i][j], a, b[j],
-                                                    acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < FK; ++j)
-      wmma::store_matrix_sync(
-          out + (size_t)(n0 + wn + 16 * i) * K + k0 + wk + 16 * j, acc[i][j],
-          K, wmma::mem_row_major);
-}
-
 // ================================================================= f32 path
 
 constexpr int TF = 32;  // points per block
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 // forward layer, thread n: out[n][t] = epi(sum_k in[k][t] W[n][k] (+ in2 .
 // W2) + b[n]); activations feature-major (K x TF); also writes H rows
@@ -931,20 +767,16 @@ wgrad_f32(const float* __restrict__ g, int N, const float* __restrict__ h,
       out[(size_t)(n0 + tn * 4 + i) * K + k0 + tk * 4 + j] += acc[i][j];
 }
 
-// ============================================================ both paths
-
 // sigma / rgb head weight gradients over split s, by HEAD_GROUPS row
 // groups of 256 threads combined in a fixed order; thread k: dW9[0][k]
-// over h7 and, for k < 128, dW12[0..2][k] over hd. The cotangent is
-// rounded to bf16 when RB (the TPU kernel's d_sig_b / d_rgb_b).
+// over h7 and, for k < 128, dW12[0..2][k] over hd
 constexpr int HEAD_GROUPS = 4;
 
-template <typename TT, bool RB>
 __global__ void __launch_bounds__(WIDTH * HEAD_GROUPS)
-wgrad_heads(const float* __restrict__ heads, const TT* __restrict__ h7,
-            const TT* __restrict__ hd, int rows, int rps,
-            float* __restrict__ part, size_t part_stride, size_t off9,
-            size_t off12) {
+wgrad_heads_f32(const float* __restrict__ heads, const float* __restrict__ h7,
+                const float* __restrict__ hd, int rows, int rps,
+                float* __restrict__ part, size_t part_stride, size_t off9,
+                size_t off12) {
   __shared__ float red[HEAD_GROUPS][4][WIDTH];
   const int s = blockIdx.x;
   const int k = threadIdx.x % WIDTH;
@@ -952,17 +784,13 @@ wgrad_heads(const float* __restrict__ heads, const TT* __restrict__ h7,
   float a9 = 0.0f, a12[3] = {0.0f, 0.0f, 0.0f};
   const int t_end = min(rows, (s + 1) * rps);
   for (int t = s * rps + grp; t < t_end; t += HEAD_GROUPS) {
-    float ds = heads[(size_t)t * HEAD_COLS + 3];
-    if (RB) ds = bf16r(ds);
-    a9 = fmaf(ds, to_f(h7[(size_t)t * WIDTH + k]), a9);
+    a9 = fmaf(heads[(size_t)t * HEAD_COLS + 3], h7[(size_t)t * WIDTH + k],
+              a9);
     if (k < DIR_W) {
-      const float hv = to_f(hd[(size_t)t * DIR_W + k]);
+      const float hv = hd[(size_t)t * DIR_W + k];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float dr = heads[(size_t)t * HEAD_COLS + c];
-        if (RB) dr = bf16r(dr);
-        a12[c] = fmaf(dr, hv, a12[c]);
-      }
+      for (int c = 0; c < 3; ++c)
+        a12[c] = fmaf(heads[(size_t)t * HEAD_COLS + c], hv, a12[c]);
     }
   }
   red[grp][0][k] = a9;
@@ -979,17 +807,12 @@ wgrad_heads(const float* __restrict__ heads, const TT* __restrict__ h7,
     for (int c = 0; c < 3; ++c) out[off12 + (size_t)c * DIR_W + k] += a12[c];
 }
 
-struct BiasOffsets {
-  size_t b[N_W];
-};
-
 // bias gradients: column j < GW of the G scratch, or one of the 4 head
-// columns (f32, unrounded), summed in point order over split s
-template <typename TT>
+// columns, summed in point order over split s
 __global__ void __launch_bounds__(256)
-bias_sums(const TT* __restrict__ gs, const float* __restrict__ heads,
-          int chunk, int rows, int rps, float* __restrict__ part,
-          size_t part_stride, BiasOffsets bo) {
+bias_sums_f32(const float* __restrict__ gs, const float* __restrict__ heads,
+              int chunk, int rows, int rps, float* __restrict__ part,
+              GradLayout L) {
   const int j = blockIdx.x * 256 + threadIdx.x;
   const int s = blockIdx.y;
   if (j >= GW + HEAD_COLS) return;
@@ -1000,27 +823,17 @@ bias_sums(const TT* __restrict__ gs, const float* __restrict__ heads,
     const int g = j < 9 * WIDTH ? j / WIDTH : 9;
     const int col = j - g_col(g);
     const int gw = g_width(g);
-    const TT* src = gs + (size_t)g_col(g) * chunk + col;
-    for (int t = s * rps; t < t_end; ++t) acc += to_f(src[(size_t)t * gw]);
+    const float* src = gs + (size_t)g_col(g) * chunk + col;
+    for (int t = s * rps; t < t_end; ++t) acc += src[(size_t)t * gw];
     const int layer = g < 8 ? g : (g == 8 ? 10 : 11);
-    dst = bo.b[layer] + col;
+    dst = L.b[layer] + col;
   } else {
     const int hc = j - GW;
     for (int t = s * rps; t < t_end; ++t)
       acc += heads[(size_t)t * HEAD_COLS + hc];
-    dst = hc < 3 ? bo.b[12] + hc : bo.b[9];
+    dst = hc < 3 ? L.b[12] + hc : L.b[9];
   }
-  part[(size_t)s * part_stride + dst] += acc;
-}
-
-__global__ void __launch_bounds__(256)
-reduce_splits(const float* __restrict__ part, size_t total,
-              float* __restrict__ out) {
-  const size_t e = (size_t)blockIdx.x * 256 + threadIdx.x;
-  if (e >= total) return;
-  float acc = 0.0f;
-  for (int s = 0; s < SPLITS; ++s) acc += part[(size_t)s * total + e];
-  out[e] = acc;
+  part[(size_t)s * L.total + dst] += acc;
 }
 
 // (layer, G array, H array) of the weight gradients with N, K >= 64
@@ -1031,58 +844,44 @@ constexpr WgradLayer WG_LAYERS[11] = {
     {0, 0, 0}, {1, 1, 1}, {2, 2, 2},  {3, 3, 3},  {4, 4, 4},  {5, 5, 5},
     {6, 6, 6}, {7, 7, 7}, {8, 4, 0},  {10, 8, 8}, {11, 9, 9}};
 
-template <typename TT>
-int run_wgrad(const TT* hs, const TT* gs, const float* heads, int chunk,
-              int rows, float* part, const GradLayout& L,
-              cudaStream_t stream) {
-  // a multiple of 32 points: the bf16 kernel stages 32 rows at a time
+// the f32 path's weight gradients, added into the (zeroed) partials
+int run_wgrad_f32(const float* hs, const float* gs, const float* heads,
+                  int chunk, int rows, float* part, const GradLayout& L,
+                  cudaStream_t stream) {
   const int rps = ((rows + SPLITS - 1) / SPLITS + 31) / 32 * 32;
   for (const WgradLayer& wl : WG_LAYERS) {
     const int N = L.wr[wl.layer];
     const int K = L.wc[wl.layer];
-    const TT* g = gs + (size_t)g_col(wl.g) * chunk;
-    const TT* h = hs + (size_t)h_col(wl.h) * chunk;
-    if (std::is_same<TT, bf16>::value && K % 128 == 0)
-      wgrad_bf16<128><<<dim3((N / WG_TN) * (K / 128), SPLITS), THREADS, 0,
-                         stream>>>((const bf16*)g, N, (const bf16*)h, K,
-                                   rows, rps, part, L.total, L.w[wl.layer]);
-    else if (std::is_same<TT, bf16>::value)
-      wgrad_bf16<64><<<dim3((N / WG_TN) * (K / 64), SPLITS), THREADS, 0,
-                        stream>>>((const bf16*)g, N, (const bf16*)h, K, rows,
-                                  rps, part, L.total, L.w[wl.layer]);
-    else
-      wgrad_f32<<<dim3((N / 64) * (K / 64), SPLITS), 256, 0, stream>>>(
-          (const float*)g, N, (const float*)h, K, rows, rps, part, L.total,
-          L.w[wl.layer]);
+    wgrad_f32<<<dim3((N / 64) * (K / 64), SPLITS), 256, 0, stream>>>(
+        gs + (size_t)g_col(wl.g) * chunk, N, hs + (size_t)h_col(wl.h) * chunk,
+        K, rows, rps, part, L.total, L.w[wl.layer]);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  wgrad_heads<TT, std::is_same<TT, bf16>::value>
-      <<<SPLITS, WIDTH * HEAD_GROUPS, 0, stream>>>(heads, hs + (size_t)h_col(8) * chunk,
-                                     hs + (size_t)h_col(10) * chunk, rows,
-                                     rps, part, L.total, L.w[9], L.w[12]);
+  wgrad_heads_f32<<<SPLITS, WIDTH * HEAD_GROUPS, 0, stream>>>(
+      heads, hs + (size_t)h_col(8) * chunk, hs + (size_t)h_col(10) * chunk,
+      rows, rps, part, L.total, L.w[9], L.w[12]);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  BiasOffsets bo;
-  for (int i = 0; i < N_W; ++i) bo.b[i] = L.b[i];
-  bias_sums<TT><<<dim3((GW + HEAD_COLS + 255) / 256, SPLITS), 256, 0,
-                  stream>>>(gs, heads, chunk, rows, rps, part, L.total, bo);
-  err = cudaGetLastError();
-  return (int)err;
+  bias_sums_f32<<<dim3((GW + HEAD_COLS + 255) / 256, SPLITS), 256, 0,
+                  stream>>>(gs, heads, chunk, rows, rps, part, L);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // The buffers animnerf_fused_mlp_bwd takes for a chunk of `chunk` points
 // (a multiple of 128): sizes[0] scratch elements of the compute type (the
-// H and G arrays), sizes[1] head floats, sizes[2] partial floats (one flat
-// gradient per split, zeroed by the caller), sizes[3] gradient floats
-// (dW_0..12 then db_0..12 in pack_params' shapes, padded to 64).
+// H and G arrays), sizes[1] head floats (the (chunk, 4) f32 head
+// cotangents, then the bf16 pass's head tiles, 16 B a point), sizes[2]
+// partial floats (one flat gradient per split; the kernels set them, the
+// caller need not), sizes[3] gradient floats (dW_0..12 then db_0..12 in
+// pack_params' shapes, padded to 64).
 extern "C" int animnerf_fused_mlp_bwd_sizes(int chunk, void* sizes) {
   const GradLayout L = grad_layout();
   long long* out = (long long*)sizes;
   out[0] = (long long)chunk * (HW + GW);
-  out[1] = (long long)chunk * HEAD_COLS;
+  out[1] = (long long)chunk * 2 * HEAD_COLS;
   out[2] = (long long)SPLITS * L.total;
   out[3] = (long long)L.total;
   return 0;
@@ -1123,6 +922,10 @@ extern "C" int animnerf_fused_mlp_bwd(const void* xyz, const void* dout,
   }
   const GradLayout L = grad_layout();
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype != 0 && cudaMemsetAsync(partials, 0,
+                                    sizeof(float) * SPLITS * L.total,
+                                    st) != cudaSuccess)
+    return (int)cudaGetLastError();
   for (int m_start = 0; m_start < M; m_start += chunk) {
     const int Mc = min(chunk, M - m_start);
     if (dtype == 0) {
@@ -1138,8 +941,8 @@ extern "C" int animnerf_fused_mlp_bwd(const void* xyz, const void* dout,
           chunk, n_freqs);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
-      const int rc = run_wgrad<bf16>(hs, gs, (const float*)heads, chunk,
-                                     rows, (float*)partials, L, st);
+      const int rc = animnerf_mlp_wgrad_chunk(hs, heads, partials, rows,
+                                              chunk, m_start == 0, st);
       if (rc != 0) return rc;
     } else {
       const int rows = (Mc + TF - 1) / TF * TF;
@@ -1153,8 +956,8 @@ extern "C" int animnerf_fused_mlp_bwd(const void* xyz, const void* dout,
           (float*)heads, M, m_start, Mc, chunk, n_freqs);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
-      const int rc = run_wgrad<float>(hs, gs, (const float*)heads, chunk,
-                                      rows, (float*)partials, L, st);
+      const int rc = run_wgrad_f32(hs, gs, (const float*)heads, chunk, rows,
+                                   (float*)partials, L, st);
       if (rc != 0) return rc;
     }
   }

@@ -32,10 +32,10 @@ BUILD_ROOT = _PKG.parent / "build" / "animnerf_tpu_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 SOURCES = ("knn.cu", "warp_blend.cu", "fused_mlp.cu", "sort_lanes.cu",
            "scatter.cu", "fused_mlp_bwd.cu", "knn_exact.cu", "min_dist.cu",
-           "knn_packed.cu", "knn_mxu.cu")
+           "knn_packed.cu", "knn_mxu.cu", "mlp_wgrad.cu")
 # device code the sources include (hashed with them)
 HEADERS = ("knn_keys.cuh", "knn_slots.cuh", "knn_sweep.cuh",
-           "mlp_wgmma.cuh")
+           "mlp_wgmma.cuh", "mlp_bwd_layout.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
@@ -58,6 +58,7 @@ SIGNATURES = {
     "animnerf_fused_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _I, _I, _I, _I, _I, _P],
     "animnerf_fused_mlp_bwd_sizes": [_I, _P],
+    "animnerf_mlp_wgrad": [_P, _P, _P, _P, _I, _I, _P],
     "animnerf_knn_exact": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "animnerf_min_dist": [_P, _P, _P, _I, _I, _I, _P],
     "animnerf_knn_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -65,9 +66,12 @@ SIGNATURES = {
 }
 
 # "knn_tile_skip" counts the kNN launches with the tile skip on (they also
-# count under "knn", the kernel's total)
+# count under "knn", the kernel's total); "fused_mlp_wgrad" the bf16 MLP
+# backward's weight-gradient pass, launched by fused_nerf_bwd (which also
+# counts under "fused_mlp_bwd") or alone by fused_nerf_wgrad
 LAUNCHES = {"knn": 0, "knn_tile_skip": 0, "warp_blend": 0, "scatter": 0,
-            "fused_mlp": 0, "fused_mlp_bwd": 0, "permute_lanes": 0,
+            "fused_mlp": 0, "fused_mlp_bwd": 0, "fused_mlp_wgrad": 0,
+            "permute_lanes": 0,
             "knn_exact": 0, "min_dist": 0, "knn_packed": 0, "knn_mxu": 0}
 
 

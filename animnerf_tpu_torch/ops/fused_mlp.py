@@ -35,7 +35,10 @@ DIR_W = 128
 N_W = DEPTH + 5  # trunk 0..7, skip-enc half, sigma, xyz_final, dir_0, rgb
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 BWD_E = 64  # the backward kernel's encoding block (n_freqs 9 or 10)
-BWD_CHUNK = 131072  # points per pass of its activation scratch
+# points per pass of its activation scratch (5.2 GB in bf16): large enough
+# that the weight-gradient pass's per-split partials (105 MB a chunk) stay
+# a few percent of the scratch it reads
+BWD_CHUNK = 1 << 19
 SLAB_COLS = 64  # reduction columns of a weight slab: one 128-byte swizzle row
 # the bf16 kernels form 2^j as an int shift, and the forward's shared
 # memory holds up to 192 encoding columns: n_freqs 0..31
@@ -216,20 +219,57 @@ def _rounder(dt: torch.dtype):
     return lambda t: t
 
 
-def fused_nerf_bwd_plain(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
-                         n_freqs: int = 10, dtype="bfloat16"):
-    """The backward kernel's math in plain PyTorch (f32 matmuls on values
-    rounded where the TPU kernel rounds): the recomputed forward, the f32
-    ReLU masks of the bf16 activations, dgrad rounded to the compute dtype
-    after every product, weight gradients from the rounded operands, bias
-    gradients of the f32 head cotangents, and the encoding chain rule.
-    Returns (d_xyz_t (1, 8, M), d_ws, d_bs), all float32, shaped like
-    (ws, bs)."""
-    r = _rounder(_dtype(dtype))
+# The backward kernel's activation scratch, per chunk of `chunk` points:
+# the H arrays (each layer's bf16 input: 0 enc (E) | 1..8 h0..h7 | 9 hf |
+# 10 hd) then the G arrays (each layer's output cotangent: 0..7 d0..d7 |
+# 8 d_hf | 9 d_hd), each a point-major (chunk, width) block, in the
+# compute dtype (csrc/fused_mlp_bwd.cu, "scratch layout"). The head
+# cotangents are a (chunk, 4) f32 block [d_rgb_raw 0..2 | d_sigma].
+HEAD_COLS = 4
+# (layer, G array, H array) of the weight gradients dW_l = G^T H
+WGRAD_LAYERS = ((0, 0, 0), (1, 1, 1), (2, 2, 2), (3, 3, 3), (4, 4, 4),
+                (5, 5, 5), (6, 6, 6), (7, 7, 7), (8, 4, 0), (10, 8, 8),
+                (11, 9, 9))
+# the layer whose bias gradient each G array sums
+BIAS_OF_G = (0, 1, 2, 3, 4, 5, 6, 7, 10, 11)
+
+
+def scratch_views(scratch: torch.Tensor, chunk: int, E: int):
+    """(H, G): the (chunk, width) views of a flat scratch's 11 + 10
+    arrays."""
+    views, o = [], 0
+    for w in (E,) + (WIDTH,) * 9 + (DIR_W,) + (WIDTH,) * 9 + (DIR_W,):
+        views.append(scratch[o:o + chunk * w].view(chunk, w))
+        o += chunk * w
+    return views[:11], views[11:]
+
+
+def grad_shapes(E: int):
+    """Shapes of dW_0..12 then db_0..12, as pack_params' (ws, bs)."""
+    ws = ([(WIDTH, E)] + [(WIDTH, WIDTH)] * (DEPTH - 1)
+          + [(WIDTH, E), (8, WIDTH), (WIDTH, WIDTH), (DIR_W, WIDTH),
+             (8, DIR_W)])
+    bs = [(WIDTH, 1)] * (DEPTH + 1) + [(8, 1), (WIDTH, 1), (DIR_W, 1),
+                                       (8, 1)]
+    return ws + bs
+
+
+def bwd_scratch_plain(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
+                      n_freqs: int = 10, dtype="bfloat16"):
+    """The backward kernel's main part in plain PyTorch (f32 matmuls on
+    values rounded where the TPU kernel rounds): the recomputed forward,
+    the f32 ReLU masks of the bf16 activations, dgrad rounded to the
+    compute dtype after every product, and the encoding chain rule.
+    Returns (d_xyz_t (1, 8, M) f32, scratch, heads): the H/G scratch of the
+    M points in the compute dtype and their (M, 4) f32 head cotangents, in
+    the kernel's layout with chunk = M."""
+    dt = _dtype(dtype)
+    r = _rounder(dt)
     w = [x.to(torch.float32) for x in ws]
     b = [x.to(torch.float32) for x in bs]
+    M = xyz_t.shape[-1]
     coords = xyz_t[0, 0:3].to(torch.float32)
-    M = coords.shape[-1]
+    d = dout[0].to(torch.float32)
     enc_b = r(encode_rows(coords, n_freqs))
     acts = []
     h = enc_b
@@ -243,39 +283,24 @@ def fused_nerf_bwd_plain(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
     hf = r(r(w[DEPTH + 2] @ h7) + r(b[DEPTH + 2]))
     hd = torch.relu(r(r(w[DEPTH + 3] @ hf) + r(b[DEPTH + 3])))
     s = torch.sigmoid(w[DEPTH + 4] @ hd + b[DEPTH + 4])        # (8, M)
-    d = dout[0].to(torch.float32)
     row = torch.arange(8, device=d.device)[:, None]
     d_rgb_raw = torch.where(row < 3, d, 0.0) * s * (1.0 - s)
     d_sigma8 = torch.where(row == 0, d[3:4], 0.0)
 
-    dw = [None] * N_W
-    db = [None] * N_W
+    G = [None] * 10
     d_rgb_b = r(d_rgb_raw)
-    dw[DEPTH + 4] = d_rgb_b @ hd.t()
-    db[DEPTH + 4] = d_rgb_raw.sum(1)
     d_hd = r(w[DEPTH + 4].t() @ d_rgb_b)
-    d_hd = torch.where(hd > 0, d_hd, 0.0)
-    dw[DEPTH + 3] = d_hd @ hf.t()
-    db[DEPTH + 3] = d_hd.sum(1)
-    d_hf = r(w[DEPTH + 3].t() @ d_hd)
-    dw[DEPTH + 2] = d_hf @ h7.t()
-    db[DEPTH + 2] = d_hf.sum(1)
+    G[9] = d_hd = torch.where(hd > 0, d_hd, 0.0)
+    G[8] = d_hf = r(w[DEPTH + 3].t() @ d_hd)
     d_sig_b = r(d_sigma8)
-    dw[DEPTH + 1] = d_sig_b @ h7.t()
-    db[DEPTH + 1] = d_sigma8.sum(1)
     d_h = r(w[DEPTH + 1].t() @ d_sig_b + w[DEPTH + 2].t() @ d_hf)
     d_enc = torch.zeros_like(enc_b)
     for i in range(DEPTH - 1, -1, -1):
-        h_in = acts[i - 1] if i > 0 else enc_b
-        d_h = torch.where(acts[i] > 0, d_h, 0.0)
-        dw[i] = d_h @ h_in.t()
-        db[i] = d_h.sum(1)
+        G[i] = d_h = torch.where(acts[i] > 0, d_h, 0.0)
         if i == SKIP:
-            dw[DEPTH] = d_h @ enc_b.t()
             d_enc = d_enc + w[DEPTH].t() @ d_h
         d_h = r(w[i].t() @ d_h)
     d_enc = d_enc + d_h
-    db[DEPTH] = torch.zeros_like(b[DEPTH][:, 0])
 
     # encoding chain rule: d_x = d_enc[x] + sum_j f_j (cos(f_j x) d_sin
     # - sin(f_j x) d_cos)
@@ -289,8 +314,79 @@ def fused_nerf_bwd_plain(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
                            - torch.sin(f * x) * d_enc[3 + 6 * j + 3 + c])
         rows.append(dc)
     d_xyz = torch.cat([torch.stack(rows), coords.new_zeros(5, M)])[None]
-    return (d_xyz, tuple(g.reshape(x.shape) for g, x in zip(dw, ws)),
-            tuple(g.reshape(x.shape) for g, x in zip(db, bs)))
+    H = [enc_b] + acts + [hf, hd]
+    scratch = torch.cat([t.t().reshape(-1) for t in H + G]).to(dt)
+    heads = torch.cat([d_rgb_raw[0:3], d[3:4]]).t().contiguous()
+    return d_xyz, scratch, heads
+
+
+def wgrad_from_scratch_plain(scratch: torch.Tensor, heads: torch.Tensor,
+                             rows: int, chunk: int,
+                             acc_dtype=torch.float32) -> torch.Tensor:
+    """The weight-gradient pass in plain PyTorch: the flat gradients (f32,
+    dW_0..12 then db_0..12 in pack_params' shapes, padded to a multiple of
+    64 as the kernel's) over points [0, rows) of a chunk's scratch and head
+    cotangents (``heads``: at least chunk * 4 floats). dW_l = G_l^T H_l,
+    db_l = the sum of G_l; the heads from their cotangents, rounded to bf16
+    for a bf16 scratch (the TPU kernel's d_rgb_b, d_sig_b), their bias
+    gradients from the f32 values; matmuls and sums in acc_dtype."""
+    E = scratch.numel() // chunk - 2 * (9 * WIDTH + DIR_W)
+    H, G = scratch_views(scratch, chunk, E)
+    hc = heads.reshape(-1)[:chunk * HEAD_COLS].view(chunk, HEAD_COLS)
+    hc = hc[:rows].to(acc_dtype)
+    if scratch.dtype == torch.bfloat16:
+        def rb(t):
+            return t.to(torch.bfloat16).to(acc_dtype)
+    else:
+        def rb(t):
+            return t
+
+    def f(t):
+        return t[:rows].to(acc_dtype)
+
+    shapes = grad_shapes(E)
+    out = [torch.zeros(sh, dtype=acc_dtype, device=scratch.device)
+           for sh in shapes]
+    for l, g, h in WGRAD_LAYERS:
+        out[l] = f(G[g]).t() @ f(H[h])
+    for g, l in enumerate(BIAS_OF_G):
+        out[N_W + l][:, 0] = f(G[g]).sum(0)
+    out[DEPTH + 1][0] = rb(hc[:, 3]) @ f(H[8])
+    out[DEPTH + 4][0:3] = rb(hc[:, 0:3]).t() @ f(H[10])
+    out[N_W + DEPTH + 1][0, 0] = hc[:, 3].sum()
+    out[N_W + DEPTH + 4][0:3, 0] = hc[:, 0:3].sum(0)
+    flat = torch.cat([t.reshape(-1) for t in out]).to(torch.float32)
+    return torch.nn.functional.pad(flat, (0, (-flat.numel()) % 64))
+
+
+def _split_grads(flat: torch.Tensor, ws, bs):
+    """The flat gradients as (d_ws, d_bs) views shaped like (ws, bs)."""
+    offs = _offsets(ws, bs)
+    if offs[-1] + bs[-1].numel() > flat.numel():
+        raise ValueError("packed weight shapes do not match the backward "
+                         "kernel's gradient layout")
+    parts = [flat[o:o + t.numel()].view(t.shape)
+             for o, t in zip(offs, tuple(ws) + tuple(bs))]
+    return tuple(parts[:N_W]), tuple(parts[N_W:])
+
+
+def fused_nerf_bwd_plain(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
+                         n_freqs: int = 10, dtype="bfloat16"):
+    """The backward kernel's math in plain PyTorch: ``bwd_scratch_plain``
+    (the recomputed forward, dgrad and the encoding chain rule into the
+    kernel's scratch) then ``wgrad_from_scratch_plain`` (weight gradients
+    from the rounded operands, bias gradients of the f32 head cotangents).
+    Returns (d_xyz_t (1, 8, M), d_ws, d_bs), all float32, shaped like
+    (ws, bs)."""
+    M = xyz_t.shape[-1]
+    d_xyz, scratch, heads = bwd_scratch_plain(xyz_t, ws, bs, dout, n_freqs,
+                                              dtype)
+    if M == 0:
+        flat = torch.zeros(sum(t.numel() for t in tuple(ws) + tuple(bs)),
+                           device=xyz_t.device)
+    else:
+        flat = wgrad_from_scratch_plain(scratch, heads, M, M)
+    return (d_xyz, *_split_grads(flat, ws, bs))
 
 
 # The bf16 kernels' weight image: each weight they stream, as the exact
@@ -401,23 +497,32 @@ def _offsets(ws, bs):
     return offs
 
 
-def fused_nerf_bwd(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
-                   n_freqs: int = 10, dtype="bfloat16", image=None):
-    """VJP of ``fused_nerf_fwd``: (d_xyz_t (1, 8, M) f32, d_ws, d_bs) f32,
-    shaped like (ws, bs). Kernel on CUDA tensors (deterministic: per-split
-    partial sums reduced in a fixed order), plain version on CPU tensors.
-    The kernel takes the flagship's 64-row encoding block (n_freqs 9 or
-    10); in bf16 it reads ``image`` (``weight_image(ws)``, built here when
-    None)."""
-    dt = _dtype(dtype)
+def _bwd_sizes(chunk: int):
+    """(scratch elements, head floats, partial floats, gradient floats) of
+    the backward kernel at `chunk` points."""
+    sizes = (ctypes.c_longlong * 4)()
+    _build.kernel_library().call("animnerf_fused_mlp_bwd_sizes", chunk,
+                                 ctypes.addressof(sizes))
+    return tuple(sizes)
+
+
+def _check_bwd_args(xyz_t, ws, bs, dout) -> None:
     if xyz_t.dim() != 3 or xyz_t.shape[:2] != (1, 8) \
             or dout.shape != xyz_t.shape:
         raise ValueError(f"xyz_t and dout must be (1, 8, M), got "
                          f"{tuple(xyz_t.shape)} and {tuple(dout.shape)}")
     if len(ws) != N_W or len(bs) != N_W:
         raise ValueError(f"expected {N_W} packed weights and biases")
-    if xyz_t.device.type == "cpu":
-        return fused_nerf_bwd_plain(xyz_t, ws, bs, dout, n_freqs, dt)
+
+
+def fused_nerf_bwd_buffers(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
+                           n_freqs: int = 10, dtype="bfloat16", image=None):
+    """The backward kernel on CUDA tensors (``fused_nerf_bwd`` without its
+    CPU path): (d_xyz_t, grads, scratch, heads, chunk), grads the flat f32
+    gradients, scratch and heads the buffers as the last chunk of `chunk`
+    points left them (with M <= chunk, all of M's points)."""
+    dt = _dtype(dtype)
+    _check_bwd_args(xyz_t, ws, bs, dout)
     if enc_rows(n_freqs) != BWD_E:
         raise ValueError(f"the backward kernel takes a {BWD_E}-row encoding "
                          f"block; n_freqs={n_freqs} gives {enc_rows(n_freqs)}")
@@ -432,44 +537,87 @@ def fused_nerf_bwd(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
     _build.check_cuda("fused_nerf_bwd", xyz_t, dout, *ws, *bs)
     dev = xyz_t.device
     M = xyz_t.shape[-1]
-    d_xyz = torch.zeros((1, 8, M), dtype=torch.float32, device=dev)
-    lib = _build.kernel_library()
     chunk = min(-(-max(M, 1) // 128) * 128, BWD_CHUNK)
-    sizes = (ctypes.c_longlong * 4)()
-    lib.call("animnerf_fused_mlp_bwd_sizes", chunk, ctypes.addressof(sizes))
-    n_scratch, n_heads, n_part, total = sizes
+    n_scratch, n_heads, n_part, total = _bwd_sizes(chunk)
+    # every row of d_xyz, every partial entry and every gradient is written
+    # by the kernels
+    d_xyz = torch.empty((1, 8, M), dtype=torch.float32, device=dev)
+    scratch = torch.empty(n_scratch, dtype=dt, device=dev)
+    heads = torch.empty(n_heads, dtype=torch.float32, device=dev)
     if M == 0:
-        grads = torch.zeros(total, dtype=torch.float32, device=dev)
+        return (d_xyz, torch.zeros(total, dtype=torch.float32, device=dev),
+                scratch, heads, chunk)
+    partials = torch.empty(n_part, dtype=torch.float32, device=dev)
+    grads = torch.empty(total, dtype=torch.float32, device=dev)
+    w_ptrs = (ctypes.c_void_p * N_W)(*[t.data_ptr() for t in ws])
+    b_ptrs = (ctypes.c_void_p * N_W)(*[t.data_ptr() for t in bs])
+    if dt == torch.bfloat16:
+        image, img_offs = _check_image(image if image is not None
+                                       else weight_image(ws), ws)
     else:
-        scratch = torch.empty(n_scratch, dtype=dt, device=dev)
-        heads = torch.empty(n_heads, dtype=torch.float32, device=dev)
-        partials = torch.zeros(n_part, dtype=torch.float32, device=dev)
-        grads = torch.empty(total, dtype=torch.float32, device=dev)
-        w_ptrs = (ctypes.c_void_p * N_W)(*[t.data_ptr() for t in ws])
-        b_ptrs = (ctypes.c_void_p * N_W)(*[t.data_ptr() for t in bs])
-        if dt == torch.bfloat16:
-            image, img_offs = _check_image(image if image is not None
-                                           else weight_image(ws), ws)
-        else:
-            image = None
-            img_offs = (ctypes.c_int * (2 * N_W))(*([-1] * (2 * N_W)))
-        lib.call(
-            "animnerf_fused_mlp_bwd", xyz_t.data_ptr(), dout.data_ptr(),
-            ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
-            None if image is None else image.data_ptr(),
-            ctypes.addressof(img_offs),
-            d_xyz.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
-            heads.data_ptr(), partials.data_ptr(), M, chunk, n_freqs,
-            enc_rows(n_freqs), 0 if dt == torch.bfloat16 else 1,
-            _build.stream_of(xyz_t))
-        _build.LAUNCHES["fused_mlp_bwd"] += 1
-    offs = _offsets(ws, bs)
-    if offs[-1] + bs[-1].numel() > total:
-        raise ValueError("packed weight shapes do not match the backward "
-                         "kernel's gradient layout")
-    parts = [grads[o:o + t.numel()].view(t.shape)
-             for o, t in zip(offs, tuple(ws) + tuple(bs))]
-    return d_xyz, tuple(parts[:N_W]), tuple(parts[N_W:])
+        image = None
+        img_offs = (ctypes.c_int * (2 * N_W))(*([-1] * (2 * N_W)))
+    _build.kernel_library().call(
+        "animnerf_fused_mlp_bwd", xyz_t.data_ptr(), dout.data_ptr(),
+        ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
+        None if image is None else image.data_ptr(),
+        ctypes.addressof(img_offs),
+        d_xyz.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
+        heads.data_ptr(), partials.data_ptr(), M, chunk, n_freqs,
+        enc_rows(n_freqs), 0 if dt == torch.bfloat16 else 1,
+        _build.stream_of(xyz_t))
+    _build.LAUNCHES["fused_mlp_bwd"] += 1
+    if dt == torch.bfloat16:  # its weight gradients: the wgmma pass
+        _build.LAUNCHES["fused_mlp_wgrad"] += 1
+    return d_xyz, grads, scratch, heads, chunk
+
+
+def fused_nerf_bwd(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
+                   n_freqs: int = 10, dtype="bfloat16", image=None):
+    """VJP of ``fused_nerf_fwd``: (d_xyz_t (1, 8, M) f32, d_ws, d_bs) f32,
+    shaped like (ws, bs). Kernel on CUDA tensors (deterministic: per-split
+    partial sums reduced in a fixed order), plain version on CPU tensors.
+    The kernel takes the flagship's 64-row encoding block (n_freqs 9 or
+    10); in bf16 it reads ``image`` (``weight_image(ws)``, built here when
+    None)."""
+    _check_bwd_args(xyz_t, ws, bs, dout)
+    if xyz_t.device.type == "cpu":
+        return fused_nerf_bwd_plain(xyz_t, ws, bs, dout, n_freqs,
+                                    _dtype(dtype))
+    d_xyz, grads, *_ = fused_nerf_bwd_buffers(xyz_t, ws, bs, dout, n_freqs,
+                                              dtype, image)
+    return (d_xyz, *_split_grads(grads, ws, bs))
+
+
+def fused_nerf_wgrad(scratch: torch.Tensor, heads: torch.Tensor, rows: int,
+                     chunk: int) -> torch.Tensor:
+    """The bf16 weight-gradient pass alone: the flat f32 gradients over
+    points [0, rows) of a chunk's scratch (bf16, the kernel's layout with
+    the flagship's 64-column encoding) and head cotangents (the first chunk
+    * 4 floats of ``heads``; on the card a buffer of the kernel's head
+    size, as ``fused_nerf_bwd_buffers`` returns it, whose tail the pass
+    writes). Kernel on CUDA tensors, plain version on CPU tensors."""
+    if not 0 < rows <= chunk:
+        raise ValueError(f"rows must be in 1..chunk, got {rows} of {chunk}")
+    if scratch.device.type == "cpu":
+        return wgrad_from_scratch_plain(scratch, heads, rows, chunk)
+    if chunk % 128:
+        raise ValueError(f"chunk must be a multiple of 128, got {chunk}")
+    n_scratch, n_heads, n_part, total = _bwd_sizes(chunk)
+    if scratch.dtype != torch.bfloat16 or scratch.numel() != n_scratch:
+        raise ValueError(f"scratch must be {n_scratch} bf16 elements "
+                         f"(chunk {chunk}, encoding {BWD_E})")
+    if heads.dtype != torch.float32 or heads.numel() != n_heads:
+        raise ValueError(f"heads must be {n_heads} float32 values")
+    _build.check_cuda("fused_nerf_wgrad", scratch, heads)
+    partials = torch.empty(n_part, dtype=torch.float32, device=scratch.device)
+    grads = torch.empty(total, dtype=torch.float32, device=scratch.device)
+    _build.kernel_library().call(
+        "animnerf_mlp_wgrad", scratch.data_ptr(), heads.data_ptr(),
+        partials.data_ptr(), grads.data_ptr(), rows, chunk,
+        _build.stream_of(scratch))
+    _build.LAUNCHES["fused_mlp_wgrad"] += 1
+    return grads
 
 
 class FusedNerf(torch.autograd.Function):

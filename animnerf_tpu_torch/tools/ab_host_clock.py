@@ -7,8 +7,9 @@ Each run is a fresh process in one checkout, on that checkout's own
 ``chip_smoke.py``, package and kernel build: the 512x512 turntable views
 of its serving phase (``render_turntable`` on the scale512 checkpoint) and
 its flagship training step (``train_phase``), each with the profiled
-view's or step's device-busy time and kNN time beside the host-clock
-median. The runs go A, B, B, A, so that drift over the call shows as the
+view's or step's device-busy time and kNN time (the step's also its MLP
+backward's main and other kernels' time and launches, where that
+checkout's profile reports them) beside the host-clock median. The runs go A, B, B, A, so that drift over the call shows as the
 difference between the two runs of one checkout. Prints one JSON line a
 run, then one summary line of the medians per checkout.
 """
@@ -52,7 +53,10 @@ def run_one(root: str) -> dict:
             "median_step_ms": summary["median_step_ms"],
             "step_busy_ms": sprof["device_busy_ms"],
             "step_idle_share": sprof["idle_share"],
-            "step_knn_ms": sprof.get("knn_ms")}
+            "step_knn_ms": sprof.get("knn_ms"),
+            "step_bwd_main_ms": sprof.get("mlp_bwd_main_ms"),
+            "step_bwd_rest_ms": sprof.get("mlp_bwd_wgrad_ms"),
+            "step_bwd_launches": sprof.get("mlp_bwd_launches")}
 
 
 def main() -> int:
@@ -83,7 +87,8 @@ def main() -> int:
             key: [x[key] for x in runs]
             for key in ("median_view_ms", "view_busy_ms", "view_idle_share",
                         "view_knn_ms", "median_step_ms", "step_busy_ms",
-                        "step_idle_share", "step_knn_ms")}
+                        "step_idle_share", "step_knn_ms", "step_bwd_main_ms",
+                        "step_bwd_rest_ms", "step_bwd_launches")}
     print(json.dumps({"ab_host_clock": summary}), flush=True)
     return 0
 

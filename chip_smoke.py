@@ -5,7 +5,12 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each printed as a JSON line; any failed check raises (exit != 0):
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: the CUDA kernels from ``animnerf_tpu_torch/csrc``;
+  2. build: the CUDA kernels from ``animnerf_tpu_torch/csrc``; then the
+     bf16 MLP backward's weight-gradient pass alone (``fused_mlp_wgrad``,
+     on wgmma with MN-major operands) on scratches the main kernel wrote,
+     at a full chunk, 128 points and a ragged 131,072 - 37, against its
+     plain version in f64, bit-equal across two runs, timed beside the
+     same products and sums as PyTorch calls, with its SASS's wgmma count;
   3. one line per kernel, at the serving path's shapes (kNN, warp-blend,
      fused MLP, lane permute) and at the training step's (kNN with the
      tile skip, weighted scatter, fused MLP backward in bf16 and f32),
@@ -116,6 +121,10 @@ PARITY_BOUNDS = (("bfloat16", (5e-2, 40.0)), ("float32", (1e-3, 60.0)))
 # the bf16 MLP backward at 2^20 points before its main kernel moved to
 # wgmma (H100 80GB HBM3, 700 W): the kernel line's earlier time
 PREV_BWD_MS = 55.518
+# the bf16 MLP backward's weight gradients, head and bias sums and split
+# reduction at 2^20 points on the split-K wmma kernels they replaced, in a
+# profiled call (H100 80GB HBM3, 700 W)
+PREV_WGRAD_MS = 13.204
 # the bf16 MLP forward at 2^21 points on the wmma kernel it replaced
 # (H100 80GB HBM3, 700 W): the kernel line's earlier time
 PREV_FWD_MS = 20.327
@@ -288,20 +297,25 @@ def sweep_path(ins) -> dict:
     return best
 
 
-def sweep_sass(lib_path: str) -> dict:
-    """{(K, skip, insert): {points_per_thread, sass_per_pair, ...}} for the
-    sweep kernels of kernels 1 and 8 in the built library (cuobjdump
-    -sass); insert is "top4" for kernel 1's Top4Insert, "packed" for
-    kernel 8's PackedInsert<K>."""
-    import re
-
+def library_sass(lib_path: str) -> dict:
+    """sass_functions of the built library (cuobjdump -sass)."""
     from animnerf_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
-                          text=True, timeout=300).stdout
+    return sass_functions(subprocess.run(
+        [cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+        timeout=300).stdout)
+
+
+def sweep_sass(funcs: dict) -> dict:
+    """{(K, skip, insert): {points_per_thread, sass_per_pair, ...}} for the
+    sweep kernels of kernels 1 and 8 among the library's SASS functions;
+    insert is "top4" for kernel 1's Top4Insert, "packed" for kernel 8's
+    PackedInsert<K>."""
+    import re
+
     out = {}
-    for name, ins in sass_functions(text).items():
+    for name, ins in funcs.items():
         m = re.search(r"sweep_kernelILi(\d+)ELi(\d+)ELb([01])E.*?"
                       r"(Top4Insert|PackedInsert)", name)
         if not m:
@@ -319,6 +333,16 @@ def sweep_sass(lib_path: str) -> dict:
                 sass_per_pair=path["loop_instructions"]
                 / (path["rows_per_iteration"] * P))
     return out
+
+
+def wgrad_sass(funcs: dict) -> dict:
+    """Instruction counts of the bf16 weight-gradient kernel's SASS: its
+    products (HGMMA, wgmma), tensor loads (UTMALDG) and local-memory
+    spills (STL / LDL)."""
+    ins = [t for name, f in funcs.items() if "mlp_wgrad_bf16" in name
+           for _, t in f]
+    return {op: sum(t.split()[0].split(".")[0] == op for t in ins)
+            for op in ("HGMMA", "UTMALDG", "UBLKCP", "STL", "LDL")}
 
 
 def knn_bound_ms(pairs: float, nbytes: float) -> float:
@@ -599,6 +623,7 @@ def kernel_lines_train(dev, sass):
         fused_nerf_bwd,
         fused_nerf_bwd_plain,
         pack_params,
+        weight_image,
     )
     from animnerf_tpu_torch.ops.knn_kernel import (
         knn_packed,
@@ -781,8 +806,17 @@ def kernel_lines_train(dev, sass):
             # in one profiled call; the main kernel's own bound: its
             # products (2x the forward's flops) or the H and G scratch it
             # writes (9,856 B a point), the larger
+            # (the weight image prebuilt, as the training step passes it:
+            # the call then launches only the backward's own kernels, which
+            # must account for its whole device-busy time)
+            image = weight_image(ws)
             split = split_bwd_profile(
-                lambda: fused_nerf_bwd(xyz, ws, bs, dout, 10, dt))
+                lambda: fused_nerf_bwd(xyz, ws, bs, dout, 10, dt, image))
+            split["accounted_share"] = ((split["main_ms"] + split["wgrad_ms"])
+                                        / split["busy_ms"])
+            check(abs(split["accounted_share"] - 1.0) <= 0.02,
+                  f"fused_mlp_bwd: main + rest {split['main_ms']} + "
+                  f"{split['wgrad_ms']} ms of {split['busy_ms']} ms busy")
             # the rest's own bound: the products dW_l = G_l^T H_l (the
             # forward's flops) or one read of the scratch and the head
             # cotangents (9,856 + 16 B a point), the larger
@@ -804,9 +838,169 @@ def kernel_lines_train(dev, sass):
             # recomputed forward + dgrad + wgrad: 3x the forward's flops
             bound_ms=max(3.0 * fwd_flops * M / peak,
                          M * (12 + 16 + 12) / PEAK_BYTES) * 1e3,
-            bound_by="operations", library_ms=None, **split)
+            bound_by="operations", **split, **(dict(
+                library_ms=time_ms(lambda: library_mlp_vjp(state, xyz, dout),
+                                   3, warmup=1),
+                library_call="library_mlp_vjp: F.linear forward in bf16 "
+                             "(cuBLAS) + torch.autograd.grad")
+                if dt == "bfloat16" else dict(library_ms=None)))
         del a, a2, b
     return lines
+
+
+def library_mlp_vjp(state: dict, xyz, dout):
+    """One call of the MLP's VJP as PyTorch's own ops: the forward as
+    ``torch.nn.functional.linear`` on point-major bf16 activations
+    (cuBLAS; the sigma and rgb heads in f32), then ``torch.autograd.grad``
+    to the coordinates and every weight and bias. The library yardstick of
+    the fused backward; its rounding points are cuBLAS's, not the TPU
+    kernel's."""
+    import torch
+
+    from animnerf_tpu_torch.models.embedding import positional_encoding
+
+    bf = torch.bfloat16
+    names = [f"xyz_{i}" for i in range(8)] + ["sigma", "xyz_final", "dir_0",
+                                              "rgb"]
+    p = {n: (state[f"{n}.weight"].detach().requires_grad_(),
+             state[f"{n}.bias"].detach().requires_grad_()) for n in names}
+    x = xyz[0, 0:3].t().detach().requires_grad_()
+    enc = positional_encoding(x, 10).to(bf)
+
+    def lin(h, n, dt=bf):
+        return torch.nn.functional.linear(h.to(dt), p[n][0].to(dt),
+                                          p[n][1].to(dt))
+
+    h = enc
+    for i in range(8):
+        h = torch.relu(lin(torch.cat([enc, h], -1) if i == 4 else h,
+                           f"xyz_{i}"))
+    hd = torch.relu(lin(lin(h, "xyz_final"), "dir_0"))
+    out = torch.cat([torch.sigmoid(lin(hd, "rgb", torch.float32)),
+                     lin(h, "sigma", torch.float32)], -1)
+    return torch.autograd.grad(out, [x] + [t for n in names for t in p[n]],
+                               dout[0, 0:4].t())
+
+
+def kernel_line_wgrad(dev, sass: dict):
+    """The bf16 MLP backward's weight-gradient pass alone (the C entry
+    animnerf_mlp_wgrad: mlp_wgrad_prep, mlp_wgrad_bf16, reduce_splits)
+    through fused_nerf_wgrad, on scratches the main kernel wrote: a full
+    chunk (BWD_CHUNK points), 128 points, and 131,072 - 37 points of a
+    131,072-point chunk (a ragged edge: the rows past it read as zeros).
+    Each against wgrad_from_scratch_plain in f64: rel-L2 of every gradient
+    <= 1e-4 (the products of bf16 operands are exact, the f32 sums run in
+    another order), bit-equal across two runs and, where fused_nerf_bwd ran
+    the pass over the same rows, equal to its gradients. It is the probe of
+    the pass's MN-major wgmma descriptors: an error there is garbage and
+    fails it. Timed at the full chunk, per 2^20 points; the library
+    yardstick is the same products and sums as PyTorch calls on the
+    point-major arrays (sass: library_sass of the built library)."""
+    import torch
+
+    from animnerf_tpu_torch.models.nerf import NeRFMLP
+    from animnerf_tpu_torch.ops.fused_mlp import (
+        BWD_CHUNK,
+        BWD_E,
+        HEAD_COLS,
+        WGRAD_LAYERS,
+        fused_nerf_bwd_buffers,
+        fused_nerf_wgrad,
+        pack_params,
+        scratch_views,
+        weight_image,
+        wgrad_from_scratch_plain,
+    )
+
+    torch.manual_seed(0)
+    mlp = NeRFMLP(10, "float32").to(dev)
+    ws, bs = pack_params({k: v.detach() for k, v in mlp.state_dict().items()},
+                         10, "bfloat16")
+    image = weight_image(ws)
+    sizes = [t.numel() for t in ws + bs]
+    names = [f"dW{i}" for i in range(13)] + [f"db{i}" for i in range(13)]
+    g = torch.Generator(device=dev).manual_seed(5)
+    tol = 1e-4
+    cases, line = [], {}
+    for M, rows in ((BWD_CHUNK, BWD_CHUNK), (128, 128),
+                    (131072, 131072 - 37)):
+        xyz = torch.zeros(1, 8, M, device=dev)
+        xyz[0, :3] = 0.3 * torch.randn(3, M, generator=g, device=dev)
+        dout = torch.zeros(1, 8, M, device=dev)
+        dout[0, :4] = 1e-3 * torch.randn(4, M, generator=g, device=dev)
+        _, grads, scratch, heads, chunk = fused_nerf_bwd_buffers(
+            xyz, ws, bs, dout, 10, "bfloat16", image)
+        a = fused_nerf_wgrad(scratch, heads, rows, chunk)
+        a2 = fused_nerf_wgrad(scratch, heads, rows, chunk)
+        ref = wgrad_from_scratch_plain(scratch, heads, rows, chunk,
+                                       torch.float64)
+        torch.cuda.synchronize()
+        rel, o = {}, 0
+        for n, k in zip(names, sizes):
+            x, y = a[o:o + k].double(), ref[o:o + k]
+            rel[n] = float((x - y).norm() / max(float(y.norm()), 1e-30))
+            o += k
+        case = dict(points=rows, chunk=chunk, max_rel_l2=max(rel.values()),
+                    worst=max(rel, key=rel.get),
+                    max_abs_err=float((a[:o].double() - ref[:o]).abs().max()),
+                    deterministic=bool(torch.equal(a, a2)),
+                    equal_to_bwd=bool(torch.equal(a, grads))
+                    if rows == M else None)
+        cases.append(case)
+        check(case["max_rel_l2"] <= tol and case["deterministic"]
+              and case["equal_to_bwd"] is not False,
+              f"fused_mlp_wgrad at {rows} points: {case} {rel}")
+        if M == BWD_CHUNK:
+            scale = (1 << 20) / rows
+            H, G = scratch_views(scratch, chunk, BWD_E)
+            hc = heads[:chunk * HEAD_COLS].view(chunk, HEAD_COLS)
+            d_sig_b = hc[:, 3:4].to(torch.bfloat16)
+            d_rgb_b = hc[:, 0:3].to(torch.bfloat16)
+
+            def library():
+                for _, gi, hi in WGRAD_LAYERS:
+                    torch.matmul(G[gi].t(), H[hi])
+                torch.matmul(d_sig_b.t(), H[8])
+                torch.matmul(d_rgb_b.t(), H[10])
+                for gi in range(len(G)):
+                    G[gi].sum(0, dtype=torch.float32)
+                hc.sum(0)
+
+            # the products dW_l = G_l^T H_l and the heads, 2 flops a
+            # multiply-add, or one read of the scratch and the head
+            # cotangents (9,872 B a point), the larger
+            flops = 2.0 * (sum(ws[l].numel() for l, _, _ in WGRAD_LAYERS)
+                           + 256 + 3 * 128) * (1 << 20)
+            bound = max(flops / PEAK_BF16,
+                        (1 << 20) * 9872 / PEAK_BYTES) * 1e3
+            ms = time_ms(lambda: fused_nerf_wgrad(scratch, heads, rows,
+                                                  chunk), 10) * scale
+            line = dict(
+                shape=f"scratch of {rows} points (bf16, 9,856 B a point) + "
+                      f"head cotangents (16 B), from the main kernel",
+                max_abs_err=case["max_abs_err"], ms=ms,
+                ms_chunk=ms / scale, plain_ms=time_ms(
+                    lambda: wgrad_from_scratch_plain(scratch, heads, rows,
+                                                     chunk), 3,
+                    warmup=1) * scale,
+                bound_ms=bound, bound_by="bytes", pct_of_bound=bound / ms,
+                achieved_tb_s=(1 << 20) * 9872 / (ms / 1e3) / 1e12,
+                prev_ms=PREV_WGRAD_MS,
+                library_ms=time_ms(library, 10) * scale,
+                library_call="torch.matmul(G_l.t(), H_l) in bf16 for the 11 "
+                             "layers, the two head products on the bf16 "
+                             "head cotangents, G.sum(0, f32) for the 10 G "
+                             "arrays and the f32 head sums, on the same "
+                             "point-major arrays",
+                ms_basis="per 2^20 points, from the chunk's time")
+        del scratch, heads, grads, a, a2, ref
+    torch.cuda.empty_cache()
+    hg = wgrad_sass(sass)
+    check(hg["HGMMA"] > 0, f"no wgmma in mlp_wgrad_bf16's SASS: {hg}")
+    line.update(tolerance=dict(rel_l2=tol), max_rel_l2=max(
+        c["max_rel_l2"] for c in cases), deterministic=all(
+        c["deterministic"] for c in cases), cases=cases, sass=hg)
+    return line
 
 
 EDGE_POINTS = (1 << 20) - 37  # a whole number of no block's points
@@ -1032,6 +1226,8 @@ KERNELS = {
                   "animnerf_tpu/ops/fused_mlp.py:182"),
     "fused_mlp_bwd": ("animnerf_tpu_torch/csrc/fused_mlp_bwd.cu",
                       "animnerf_tpu/ops/fused_mlp.py:227"),
+    "fused_mlp_wgrad": ("animnerf_tpu_torch/csrc/mlp_wgrad.cu",
+                        "animnerf_tpu/ops/fused_mlp.py:227"),
     "permute_lanes": ("animnerf_tpu_torch/csrc/sort_lanes.cu",
                       "animnerf_tpu/ops/sort_lanes.py:29"),
     "knn_exact": ("animnerf_tpu_torch/csrc/knn_exact.cu",
@@ -1056,13 +1252,14 @@ KERNELS = {
 SERVE_KERNELS = ("knn", "warp_blend", "fused_mlp", "permute_lanes")
 K8_SERVE_KERNELS = ("knn_packed", "warp_blend", "fused_mlp", "permute_lanes")
 K8_TRAIN_KERNELS = ("knn_packed", "warp_blend", "scatter", "fused_mlp",
-                    "fused_mlp_bwd", "permute_lanes")
+                    "fused_mlp_bwd", "fused_mlp_wgrad", "permute_lanes")
 TRAIN_KERNELS = ("knn", "knn_tile_skip", "warp_blend", "scatter",
-                 "fused_mlp", "fused_mlp_bwd", "permute_lanes")
+                 "fused_mlp", "fused_mlp_bwd", "fused_mlp_wgrad",
+                 "permute_lanes")
 SMPLX_SERVE_KERNELS = ("min_dist", "knn_exact", "warp_blend", "fused_mlp",
                        "permute_lanes")
 SMPLX_TRAIN_KERNELS = ("knn_exact", "warp_blend", "scatter", "fused_mlp",
-                       "fused_mlp_bwd", "permute_lanes")
+                       "fused_mlp_bwd", "fused_mlp_wgrad", "permute_lanes")
 
 
 # ------------------------------------------------------------------ slice
@@ -1153,24 +1350,34 @@ def profile_call(fn, what: str):
             "knn_ms": knn, "knn_share_of_busy": knn / max(busy, 1e-9),
             "mlp_bwd_main_ms": split["main_ms"],
             "mlp_bwd_wgrad_ms": split["wgrad_ms"],
+            "mlp_bwd_launches": split["main_launches"]
+            + split["rest_launches"],
+            "mlp_bwd_main_launches": split["main_launches"],
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
                     for e in events[:15]]}
 
 
+# the MLP backward's kernels other than its main kernel: the bf16 weight-
+# gradient pass (mlp_wgrad_prep, mlp_wgrad_bf16), the split reduction and
+# the f32 path's weight-gradient, head and bias kernels
+BWD_REST_NAMES = ("mlp_wgrad", "reduce_splits", "wgrad_f32", "wgrad_heads",
+                  "bias_sums")
+
+
 def bwd_split(events) -> dict:
-    """Device ms of the MLP backward's main kernel and of its other
-    kernels (weight gradients, head and bias sums, split reduction) among
-    profiler events."""
-    main = sum(e.self_device_time_total for e in events
-               if "mlp_bwd_main" in e.key) / 1e3
-    rest = sum(e.self_device_time_total for e in events
-               if any(k in e.key for k in ("wgrad", "bias_sums",
-                                           "reduce_splits"))) / 1e3
-    return {"main_ms": main, "wgrad_ms": rest}
+    """Device ms and launches of the MLP backward's main kernel and of its
+    other kernels (BWD_REST_NAMES) among profiler events."""
+    main = [e for e in events if "mlp_bwd_main" in e.key]
+    rest = [e for e in events if any(k in e.key for k in BWD_REST_NAMES)]
+    return {"main_ms": sum(e.self_device_time_total for e in main) / 1e3,
+            "wgrad_ms": sum(e.self_device_time_total for e in rest) / 1e3,
+            "main_launches": sum(e.count for e in main),
+            "rest_launches": sum(e.count for e in rest)}
 
 
 def split_bwd_profile(fn) -> dict:
-    """bwd_split over one profiled call of fn (after a warm-up)."""
+    """bwd_split over one profiled call of fn (after a warm-up), with the
+    call's device-busy time (every device event)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1181,8 +1388,11 @@ def split_bwd_profile(fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return bwd_split([e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA])
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    split = bwd_split(events)
+    split["busy_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+    return split
 
 
 def slice_parity(ck, bp, tmpl, H=96, W=96, rigid=False, bounds=PARITY_BOUNDS,
@@ -1548,7 +1758,8 @@ def main() -> int:
     lib = _build.kernel_library()
     ptxas = [ln.strip() for ln in lib.log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    sass = sweep_sass(str(lib.path))
+    funcs = library_sass(str(lib.path))
+    sass = sweep_sass(funcs)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "cached": lib.cached, "library": os.path.relpath(lib.path, ROOT),
           "ptxas": ptxas,
@@ -1558,12 +1769,21 @@ def main() -> int:
           and (4, False, "top4") in sass and (4, True, "top4") in sass,
           f"sweep kernels missing from the SASS: {sorted(sass)}")
 
+    # the MLP backward's weight-gradient pass first: it also probes the
+    # MN-major wgmma descriptors
+    t0 = time.perf_counter()
+    wline = kernel_line_wgrad("cuda", funcs)
+    emit(dict(phase="kernel", name="fused_mlp_wgrad", **wline,
+              seconds=time.perf_counter() - t0))
+
     ck, system, bp, tmpl, ctx = scale512("cuda")
     t0 = time.perf_counter()
     lines = kernel_lines(system, ctx, sass)
+    lines["fused_mlp_wgrad"] = wline
     lines.update(kernel_lines_train("cuda", sass))
     for name, line in lines.items():
-        emit(dict(phase="kernel", name=name, **line))
+        if name != "fused_mlp_wgrad":
+            emit(dict(phase="kernel", name=name, **line))
     emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()

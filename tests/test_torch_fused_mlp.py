@@ -196,6 +196,158 @@ def test_fused_backward_matches_kernel(name, M, tol):
             assert _rel_l2(a.numpy(), b) < tol, f"gradient {i}"
 
 
+# -------------------------------------- the backward's two plain pieces
+
+# the kernel's scratch layout restated (csrc/fused_mlp_bwd.cu h_col, g_col):
+# H arrays 0 enc (E) | 1..8 h0..h7 (256) | 9 hf (256) | 10 hd (128), then G
+# arrays 0..7 d0..d7 (256) | 8 d_hf (256) | 9 d_hd (128), each a
+# point-major (chunk, width) block
+def _np_scratch(scratch, chunk, E):
+    hw = [E] + [256] * 9 + [128]
+    gw = [256] * 9 + [128]
+    HW = sum(hw)
+    h_col = [0] + [E + (h - 1) * 256 for h in range(1, 11)]
+    g_col = [g * 256 for g in range(10)]
+    H = [scratch[h_col[h] * chunk:(h_col[h] + hw[h]) * chunk].reshape(
+        chunk, hw[h]) for h in range(11)]
+    G = [scratch[(HW + g_col[g]) * chunk:(HW + g_col[g] + gw[g]) * chunk]
+         .reshape(chunk, gw[g]) for g in range(10)]
+    return H, G
+
+
+def _np_bf16(x):
+    return np.asarray(np.asarray(x, np.float32).astype(jnp.bfloat16),
+                      np.float64)
+
+
+def _np_wgrad(scratch, heads, rows, chunk, E, bf16):
+    """wgrad_from_scratch_plain restated in numpy f64: the flat gradients
+    dW_0..12, db_0..12 (pack_params' shapes), padded to a multiple of 64."""
+    H, G = _np_scratch(np.asarray(scratch, np.float64), chunk, E)
+    H = [h[:rows] for h in H]
+    G = [g[:rows] for g in G]
+    hc = np.asarray(heads, np.float64).reshape(-1)[:chunk * 4].reshape(
+        chunk, 4)[:rows]
+    hb = _np_bf16(hc) if bf16 else hc
+    dw = [np.einsum("pn,pk->nk", G[g], H[h]) for g, h in
+          [(0, 0), (1, 1), (2, 2), (3, 3), (4, 4), (5, 5), (6, 6), (7, 7),
+           (4, 0)]]
+    dw9 = np.zeros((8, 256))
+    dw9[0] = np.einsum("p,pk->k", hb[:, 3], H[8])
+    dw12 = np.zeros((8, 128))
+    dw12[:3] = np.einsum("pc,pk->ck", hb[:, :3], H[10])
+    dw += [dw9, np.einsum("pn,pk->nk", G[8], H[8]),
+           np.einsum("pn,pk->nk", G[9], H[9]), dw12]
+    db = [G[g].sum(0) for g in range(8)] + [np.zeros(256)]
+    db9 = np.zeros(8)
+    db9[0] = hc[:, 3].sum()
+    db12 = np.zeros(8)
+    db12[:3] = hc[:, :3].sum(0)
+    db += [db9, G[8].sum(0), G[9].sum(0), db12]
+    flat = np.concatenate([t.ravel() for t in dw + db])
+    return np.pad(flat, (0, (-flat.size) % 64))
+
+
+def _scratch_case(name, M, chunk):
+    """bwd_scratch_plain over M points padded to `chunk` as the kernel pads
+    a chunk: zero coordinates, zero output cotangents."""
+    _, params = _flax()
+    ws, bs = TF.pack_params(nerf_params_from_flax(params), 10, name)
+    pad = ((0, 0), (0, 0), (0, chunk - M))
+    d_xyz, scratch, heads = TF.bwd_scratch_plain(
+        torch.from_numpy(np.pad(_rows(M), pad)), ws, bs,
+        torch.from_numpy(np.pad(_dout(M), pad)), 10, name)
+    return d_xyz[..., :M], scratch, heads
+
+
+def test_scratch_views_follow_the_kernel_layout():
+    """scratch_views cuts a flat scratch at the kernel's offsets (the
+    numpy restatement above), widths from the encoding block E."""
+    chunk, E = 8, 64
+    n = chunk * 2 * (9 * 256 + 128) + chunk * E
+    flat = torch.arange(n, dtype=torch.float64)
+    H, G = TF.scratch_views(flat, chunk, E)
+    Hn, Gn = _np_scratch(flat.numpy(), chunk, E)
+    assert len(H) == 11 and len(G) == 10
+    for a, b in zip(H + G, Hn + Gn):
+        np.testing.assert_array_equal(a.numpy(), b)
+    assert G[-1][-1, -1] == n - 1
+
+
+@pytest.mark.parametrize("name,M", [("bfloat16", 200), ("bfloat16", 256),
+                                    ("float32", 300)])
+def test_wgrad_from_scratch_plain_matches_numpy_f64(name, M):
+    """wgrad_from_scratch_plain (f64 accumulation) against the numpy f64
+    restatement over a chunk padded to a multiple of 128; the padded rows
+    carry zero cotangents, so taking them in changes nothing, even with
+    garbage in their H rows."""
+    chunk = -(-M // 128) * 128
+    _, scratch, heads = _scratch_case(name, M, chunk)
+    assert scratch.dtype == TF._dtype(name) and heads.shape == (chunk, 4)
+    want = _np_wgrad(scratch.float().numpy(), heads.numpy(), M, chunk, 64,
+                     name == "bfloat16")
+    got = TF.wgrad_from_scratch_plain(scratch, heads, M, chunk,
+                                      torch.float64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-9)
+    got32 = TF.wgrad_from_scratch_plain(scratch, heads, M, chunk)
+    assert got32.dtype == torch.float32
+    assert _rel_l2(got32.numpy(), want) < 1e-6
+    # the padded rows: zero cotangents, nothing added
+    H, G = TF.scratch_views(scratch, chunk, 64)
+    for g in G:
+        assert torch.count_nonzero(g[M:]) == 0
+    assert torch.count_nonzero(heads[M:]) == 0
+    junk = scratch.clone()
+    for h in TF.scratch_views(junk, chunk, 64)[0]:
+        h[M:] = 1e3
+    padded = TF.wgrad_from_scratch_plain(junk, heads, chunk, chunk,
+                                         torch.float64)
+    np.testing.assert_allclose(padded.numpy(), got.numpy(), rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("name,M,tol", [("float32", 200, 1e-5),
+                                        ("bfloat16", 200, 2e-2)])
+def test_plain_pieces_compose_to_the_tpu_kernel(name, M, tol):
+    """bwd_scratch_plain over a padded chunk, then wgrad_from_scratch_plain
+    over its M rows, against the TPU kernel's fused_nerf_bwd in interpret
+    mode (the tolerances of test_fused_backward_matches_kernel), and the
+    same flat gradients as fused_nerf_bwd_plain."""
+    _, params = _flax()
+    rows, dout = _rows(M), _dout(M)
+    ref = _jax_bwd(params, rows, dout, jnp.dtype(name))
+    chunk = -(-M // 128) * 128
+    d_xyz, scratch, heads = _scratch_case(name, M, chunk)
+    flat = TF.wgrad_from_scratch_plain(scratch, heads, M, chunk)
+    ws, bs = TF.pack_params(nerf_params_from_flax(params), 10, name)
+    d_ws, d_bs = TF._split_grads(flat, ws, bs)
+    assert d_xyz.shape == (1, 8, M)
+    assert _rel_l2(d_xyz.numpy(), ref[0]) < tol, "d_xyz"
+    for i, (a, b) in enumerate(zip(d_ws + d_bs, ref[1] + ref[2])):
+        assert a.shape == b.shape
+        if np.abs(b).max() == 0:
+            np.testing.assert_array_equal(a.numpy(), 0.0)
+        else:
+            assert _rel_l2(a.numpy(), b) < tol, f"gradient {i}"
+    whole = TF.fused_nerf_bwd_plain(torch.from_numpy(rows), ws, bs,
+                                    torch.from_numpy(dout), 10, name)
+    for a, b in zip(d_ws + d_bs, whole[1] + whole[2]):
+        assert _rel_l2(a.numpy(), b.numpy()) < 1e-6
+
+
+def test_fused_nerf_wgrad_takes_the_plain_version_on_the_cpu():
+    """The wgrad pass's wrapper: the plain version for CPU tensors, rows in
+    1..chunk."""
+    M, chunk = 130, 256
+    _, scratch, heads = _scratch_case("bfloat16", M, chunk)
+    got = TF.fused_nerf_wgrad(scratch, heads, M, chunk)
+    want = TF.wgrad_from_scratch_plain(scratch, heads, M, chunk)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for bad in (0, chunk + 1):
+        with pytest.raises(ValueError):
+            TF.fused_nerf_wgrad(scratch, heads, bad, chunk)
+
+
 def test_autograd_function_matches_autograd_of_plain_forward():
     """FusedNerf's backward (fused_nerf_bwd) against torch autograd through
     the plain forward, f32, from the module's live parameters: the plain
