@@ -1,11 +1,11 @@
 // Exact, unquantised top-k nearest vertices, any k in 1..16, for Hopper
-// (sm_90a).
+// (sm_90a), with the TPU kernel's exact AABB cull.
 //
 // Replaces: animnerf_tpu/ops/knn_pallas.py::_knn_kernel (knn_pallas with
 // packed=False, or with a padded vertex cloud above the packed key's
 // 8192-vertex index field, such as SMPL-X's 10475) at its default
-// tile_v = 512, with cull=False and far2=0: the only setting any caller
-// uses. The AABB cull and the all-far skip are not ported.
+// tile_v = 512, with and without its cull. Its all-far skip (far2) is not
+// ported: no config key of either package reaches it.
 //
 // Contract (bit-identical to the plain version in ops/knn_kernel.py): for
 // point p and vertex v,
@@ -15,20 +15,64 @@
 // a*a + b into an FMA, which the TPU kernel does not). The K smallest d2
 // come out ascending with their vertex indices and sqrtf (IEEE) of d2,
 // chosen and ordered by the TPU kernel's rule (knn_slots.cuh: per
-// 512-vertex tile, replace the first slot holding the maximum, then its
-// sorting network), which decides exact ties as the TPU does. Any V >= K:
-// there is no index field.
+// 512-vertex tile in index order, replace the first slot holding the
+// maximum, then its sorting network), which decides exact ties as the TPU
+// does. Any V >= K: there is no index field. The output does not depend
+// on cull.
 //
-// Bound on the H100: operations. Per (point, vertex) pair: 3 f32
+// Bound on the H100: operations. Per swept (point, vertex) pair: 3 f32
 // subtractions, 3 multiplies, 2 adds and a compare, none of them an FMA,
 // so the card's non-FMA f32 rate (half its 67 TFLOP/s FMA peak) bounds
-// it; the per-tile merge adds ~3K^2 operations per 512 vertices (under 5%
-// at K = 8); bytes are negligible (12 B in and 8K B out per point, the
-// vertices stay on chip). Design: one thread per point, its K slots and
-// the current 512-vertex tile's sorted K pairs in registers (K a template
-// argument); the block stages the vertices as float4 (x, y, z, 0) in
-// shared memory, TILE_V at a time (four of the TPU's tiles), so the sweep
-// reads one broadcast float4 per pair.
+// it; bytes are negligible (12 B in and 8K B out per point; the vertices
+// stay on chip). The design takes the rest off the per-pair path and,
+// with cull, sweeps fewer pairs:
+// - Vertex rows once per call. knn_exact_rows writes (B, Vp, 4) rows
+//   (x, y, z, 0), Vp = V padded to whole 512-vertex tiles with rows at
+//   +inf (d2 = +inf is never below a slot: as if not visited), and the
+//   AABBs of every 512-vertex tile and of its eight 64-vertex sub-tiles.
+// - Double-buffered staging. Each tile's rows and sub-tile boxes are
+//   copied into shared memory by cp.async while the block sweeps the
+//   previous tile.
+// - P query points per thread (a template argument): 2 up to K = 4, 1
+//   above. At P = 2 one broadcast float4 row load, the loop counter and a
+//   warp vote serve two pairs, and the next row's d2 is computed ahead of
+//   the vote (the compare waits on the inserts, the d2 does not); the
+//   inserts run only on rows where some point of the warp takes one.
+//   Above K = 4 the insert is long, and a vote over more points takes it
+//   on more rows: each thread branches on its own point. On incoherent
+//   (random-order) points a warp's points enter their lists on different
+//   rows, and those inserts, not the 9 operations, set the time.
+// - The cull (the TPU kernel's, knn_pallas.py:103-121, made per point and
+//   finer). A point's d2 to any vertex of a box is at least lb2, the
+//   squared distance from the point to the box. When the tile's turn
+//   comes, a warp skips it if, for every live point of the warp, lb2 to
+//   the tile's box exceeds that point's current slot maximum; inside a
+//   tile it skips a 64-vertex sub-tile if lb2 to the sub-tile's box
+//   exceeds every point's current K-th entry of the tile list (at most the
+//   slot maximum: the tile list starts full of it). A pair above either
+//   bound would replace no slot and enter no tile list, so every skipped
+//   pair is one that changes nothing: the slot history, and with it the
+//   output, ties included, is that of the full sweep. The block stages a
+//   tile only if one of its warps may need it, judged by the same test on
+//   the thresholds before the previous tile (they only fall, so every
+//   tile a warp needs is staged). This skips a superset of what the TPU's
+//   AABB-to-AABB test skips.
+//
+// Two traps, each of which would break the tie rule bit for bit:
+// - Never change the order in which tiles are visited, and never skip
+//   against a bound from elsewhere (a nearest tile first, as kernel 1's
+//   tile skip does; a pre-pass bound; the final K-th distance). Such a
+//   skip drops pairs that would have entered a slot and been evicted
+//   later, which moves the slot a tied neighbour lands in, and so the
+//   output order among exact ties (tests/test_torch_knn.py's tie cloud:
+//   v520 evicts v3's slot and v7 survives).
+// - lb2 must never exceed a rounded d2 of a vertex in the box. It is
+//   computed with the same separately rounded operations in the same
+//   association as d2, from the gap fmaxf(fmaxf(lo - p, p - hi), 0) per
+//   axis: |fl(v - p)| >= gap and rounding is monotone, so lb2 <= d2.
+//   knn_sweep.cuh's box_lb2 is written gx*gx + gy*gy + gz*gz, which nvcc
+//   contracts into FMAs under -O3; kernel 1 survives that only through its
+//   deflated, quantised bound.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,86 +81,344 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TILE_V = 2048;  // 32 KB of float4 per stage
+constexpr int THREADS = 128;
+constexpr int TILE = knn_slots::TILE;  // 512 rows: the top-k rule's tile
+constexpr int SUB = 64;                // rows a sub-tile box bounds
+constexpr int SUBS = TILE / SUB;
 constexpr int MAX_K = 16;
-static_assert(TILE_V % knn_slots::TILE == 0, "stages hold whole tiles");
+constexpr unsigned FULL = 0xFFFFFFFFu;
+static_assert(SUB == 64, "a sub-tile is two warps of the rows kernel");
 
+// query points a thread at K slots
 template <int K>
-__global__ void __launch_bounds__(THREADS)
-knn_exact_kernel(const float* __restrict__ points,  // (B, N, 3)
-                 const float* __restrict__ verts,   // (B, V, 3)
-                 float* __restrict__ out_d,         // (B, K, N)
-                 int* __restrict__ out_i,           // (B, K, N)
-                 int N, int V) {
-  __shared__ float4 sv[TILE_V];
-  const int b = blockIdx.y;
-  const int n = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = n < N;
-  const float* p = points + ((size_t)b * N + (live ? n : 0)) * 3;
-  const float px = p[0], py = p[1], pz = p[2];
-  float sd[K], td[K];
-  int si[K], ti[K];
-  knn_slots::fill<K>(sd, si, INFINITY);
-  const float* vb = verts + (size_t)b * V * 3;
+constexpr int points_per_thread() {
+  return K <= 4 ? 2 : 1;
+}
 
-  for (int base = 0; base < V; base += TILE_V) {
-    const int cnt = min(TILE_V, V - base);
-    __syncthreads();  // the previous stage is fully consumed
-    for (int j = threadIdx.x; j < cnt; j += THREADS)
-      sv[j] = make_float4(vb[(size_t)(base + j) * 3 + 0],
-                          vb[(size_t)(base + j) * 3 + 1],
-                          vb[(size_t)(base + j) * 3 + 2], 0.0f);
-    __syncthreads();
-    for (int t0 = 0; t0 < cnt; t0 += knn_slots::TILE) {
-      const int t1 = min(t0 + knn_slots::TILE, cnt);
-      knn_slots::fill<K>(td, ti, knn_slots::max_of<K>(sd));
+__device__ __forceinline__ float pair_d2(const float4 v, float px, float py,
+                                         float pz) {
+  const float ex = __fsub_rn(v.x, px);
+  const float ey = __fsub_rn(v.y, py);
+  const float ez = __fsub_rn(v.z, pz);
+  return __fadd_rn(__fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)),
+                   __fmul_rn(ez, ez));
+}
+
+// squared distance from p to the box [lo xyz, hi xyz], rounded as pair_d2
+// rounds: never above pair_d2 of a vertex inside the box
+__device__ __forceinline__ float rounded_lb2(const float* box, float px,
+                                             float py, float pz) {
+  const float gx =
+      fmaxf(fmaxf(__fsub_rn(box[0], px), __fsub_rn(px, box[3])), 0.0f);
+  const float gy =
+      fmaxf(fmaxf(__fsub_rn(box[1], py), __fsub_rn(py, box[4])), 0.0f);
+  const float gz =
+      fmaxf(fmaxf(__fsub_rn(box[2], pz), __fsub_rn(pz, box[5])), 0.0f);
+  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
+                   __fmul_rn(gz, gz));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// one tile's rows and sub-tile boxes into shared memory (not committed)
+__device__ __forceinline__ void stage(float4* rows_s, float* box_s,
+                                      const float4* rows, const float* box) {
+  for (int r = threadIdx.x; r < TILE; r += THREADS)
+    cp_async16(rows_s + r, rows + r);
+  for (int r = threadIdx.x; r < SUBS * 2; r += THREADS)
+    cp_async16(box_s + 4 * r, box + 4 * r);
+}
+
+// a thread's P points: coordinates, K slots and the current tile's list
+template <int K, int P>
+struct Points {
+  float x[P], y[P], z[P];
+  float sd[P][K], td[P][K];
+  int si[P][K], ti[P][K];
+  bool live[P];
+};
+
+// sweep SUB staged rows (vertex indices id0..): every point's d2 per row
+// against its tile list's K-th entry, the insert where below. P = 1: each
+// thread branches on its own point (the insert's own test). P > 1: one
+// warp vote per row, the next row's d2 computed before it (the compare
+// waits on the inserts, the d2 does not), the inserts only on rows where
+// some point of the warp takes one.
+template <int K, int P>
+__device__ __forceinline__ void sweep_rows(const float4* __restrict__ rows,
+                                           int id0, Points<K, P>& st) {
+  if constexpr (P == 1) {
 #pragma unroll 4
-      for (int j = t0; j < t1; ++j) {
-        const float4 v = sv[j];
-        const float ex = __fsub_rn(v.x, px);
-        const float ey = __fsub_rn(v.y, py);
-        const float ez = __fsub_rn(v.z, pz);
-        const float d = __fadd_rn(
-            __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)),
-            __fmul_rn(ez, ez));
-        knn_slots::insert<K>(td, ti, d, base + j);
+    for (int j = 0; j < SUB; ++j)
+      knn_slots::insert<K>(st.td[0], st.ti[0],
+                           pair_d2(rows[j], st.x[0], st.y[0], st.z[0]),
+                           id0 + j);
+  } else {
+    float dn[P];
+    {
+      const float4 v = rows[0];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        dn[p] = pair_d2(v, st.x[p], st.y[p], st.z[p]);
+    }
+#pragma unroll 4
+    for (int j = 0; j < SUB; ++j) {
+      float d[P];
+      bool hit = false;
+      const float4 vn = rows[(j + 1) & (SUB - 1)];  // row 0 again at the end
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        d[p] = dn[p];
+        dn[p] = pair_d2(vn, st.x[p], st.y[p], st.z[p]);
+        hit |= d[p] < st.td[p][K - 1];
       }
-      knn_slots::merge<K>(sd, si, td, ti);
+      if (__any_sync(FULL, hit)) {
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          knn_slots::insert<K>(st.td[p], st.ti[p], d[p], id0 + j);
+      }
     }
   }
-  if (!live) return;
-  knn_slots::sort<K>(sd, si);
+}
+
+// Block: THREADS threads, THREADS * P points; lane l of warp w takes points
+// w * 32P + 32p + l (p < P), so a warp's points are one run of 32P
+// consecutive points (ray-ordered or Morton-ordered on the main paths).
+// grid (ceil(N / (THREADS P)), B). stats: null, or two u64 counters the
+// kernel adds the (point slot, vertex) pairs it swept and skipped to (a
+// warp's 32P point slots times each tile's or sub-tile's real vertices).
+template <int K, int P>
+__global__ void __launch_bounds__(THREADS)
+knn_exact_kernel(const float* __restrict__ points,  // (B, N, 3)
+                 const float4* __restrict__ rows,   // (B, Vp, 4)
+                 const float* __restrict__ sbox,    // (B, Vp / SUB, 8)
+                 const float* __restrict__ tbox,    // (B, Vp / TILE, 8)
+                 float* __restrict__ out_d,         // (B, K, N)
+                 int* __restrict__ out_i,           // (B, K, N)
+                 unsigned long long* __restrict__ stats, int N, int V,
+                 int Vp, int cull) {
+  __shared__ __align__(16) float4 s_rows[2][TILE];
+  __shared__ __align__(16) float s_box[2][SUBS * 8];
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int first = blockIdx.x * (THREADS * P) + warp * (32 * P) + lane;
+  const int n_tiles = Vp / TILE;
+
+  Points<K, P> st;
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    const size_t o = ((size_t)b * K + s) * N + n;
-    out_d[o] = sqrtf(sd[s]);
-    out_i[o] = si[s];
+  for (int p = 0; p < P; ++p) {
+    const int n = first + 32 * p;
+    st.live[p] = n < N;
+    const float* q = points + ((size_t)b * N + (st.live[p] ? n : N - 1)) * 3;
+    st.x[p] = q[0];
+    st.y[p] = q[1];
+    st.z[p] = q[2];
+    knn_slots::fill<K>(st.sd[p], st.si[p], INFINITY);
   }
+  const float4* rb = rows + (size_t)b * Vp;
+  const float* sb = sbox + (size_t)b * (Vp / SUB) * 8;
+  const float* tb = tbox + (size_t)b * n_tiles * 8;
+  unsigned long long swept = 0, skipped = 0;
+
+  stage(s_rows[0], s_box[0], rb, sb);  // tile 0: every slot is empty
+  cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    float smax[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) smax[p] = knn_slots::max_of<K>(st.sd[p]);
+    // does this warp need tile t; may a warp of the block need tile t + 1
+    bool mine = !cull, next = !cull;
+    if (cull) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (!st.live[p]) continue;
+        mine |= !(rounded_lb2(tb + 8 * t, st.x[p], st.y[p], st.z[p]) >
+                  smax[p]);
+        if (t + 1 < n_tiles)
+          next |= !(rounded_lb2(tb + 8 * (t + 1), st.x[p], st.y[p],
+                                st.z[p]) > smax[p]);
+      }
+    }
+    const bool need = __any_sync(FULL, mine);
+    // also the barrier after which buffer (t + 1) & 1 is free
+    if (__syncthreads_or(next) && t + 1 < n_tiles)
+      stage(s_rows[(t + 1) & 1], s_box[(t + 1) & 1], rb + (t + 1) * TILE,
+            sb + (t + 1) * SUBS * 8);
+    cp_async_commit();  // possibly empty: one group per tile
+    cp_async_wait1();   // tile t's group has landed
+    __syncthreads();
+    const int rows_t = min(TILE, V - t * TILE);
+    if (!need) {
+      skipped += rows_t;
+      continue;
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) knn_slots::fill<K>(st.td[p], st.ti[p], smax[p]);
+    const float4* rs = s_rows[t & 1];
+    const float* bs = s_box[t & 1];
+    for (int s = 0; s * SUB < rows_t; ++s) {
+      bool sub = !cull;
+      if (cull) {
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          sub |= st.live[p] &&
+                 !(rounded_lb2(bs + 8 * s, st.x[p], st.y[p], st.z[p]) >
+                   st.td[p][K - 1]);
+      }
+      const int rows_s = min(SUB, rows_t - s * SUB);
+      if (__any_sync(FULL, sub)) {
+        sweep_rows<K, P>(rs + s * SUB, t * TILE + s * SUB, st);
+        swept += rows_s;
+      } else {
+        skipped += rows_s;
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      knn_slots::merge<K>(st.sd[p], st.si[p], st.td[p], st.ti[p]);
+  }
+  if (stats != nullptr && lane == 0) {
+    atomicAdd(stats, swept * (32ull * P));
+    atomicAdd(stats + 1, skipped * (32ull * P));
+  }
+
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (!st.live[p]) continue;
+    knn_slots::sort<K>(st.sd[p], st.si[p]);
+    const int n = first + 32 * p;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const size_t o = ((size_t)b * K + s) * N + n;
+      out_d[o] = sqrtf(st.sd[p][s]);
+      out_i[o] = st.si[p][s];
+    }
+  }
+}
+
+// rows (B, Vp, 4): (x, y, z, 0) of vertex v < V, (+inf, +inf, +inf, 0)
+// beyond; sbox (B, Vp / SUB, 8) and tbox (B, Vp / TILE, 8): [lo xyz, hi xyz,
+// 0, 0] over the real vertices of each sub-tile and tile (lo +inf, hi -inf
+// where it holds none). Block: one tile, TILE threads; grid (Vp / TILE, B).
+__global__ void __launch_bounds__(TILE)
+knn_exact_rows(const float* __restrict__ verts,  // (B, V, 3)
+               float4* __restrict__ rows, float* __restrict__ sbox,
+               float* __restrict__ tbox, int V, int Vp) {
+  __shared__ float s_part[TILE / 32][6];
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int v = blockIdx.x * TILE + threadIdx.x;
+  const bool real = v < V;
+  float c[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    c[a] = real ? verts[((size_t)b * V + v) * 3 + a] : INFINITY;
+  rows[(size_t)b * Vp + v] = make_float4(c[0], c[1], c[2], 0.0f);
+  float lo[3], hi[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = c[a];
+    hi[a] = real ? c[a] : -INFINITY;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo[a] = fminf(lo[a], __shfl_xor_sync(FULL, lo[a], o));
+      hi[a] = fmaxf(hi[a], __shfl_xor_sync(FULL, hi[a], o));
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      s_part[warp][a] = lo[a];
+      s_part[warp][3 + a] = hi[a];
+    }
+  }
+  __syncthreads();
+  // threads 0..SUBS-1: a sub-tile (two warps); thread SUBS: the tile
+  const int t = threadIdx.x;
+  if (t > SUBS) return;
+  const int w0 = t < SUBS ? 2 * t : 0;
+  const int w1 = t < SUBS ? 2 * t + 2 : TILE / 32;
+  float box[8] = {INFINITY, INFINITY, INFINITY,
+                  -INFINITY, -INFINITY, -INFINITY, 0.0f, 0.0f};
+  for (int w = w0; w < w1; ++w) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      box[a] = fminf(box[a], s_part[w][a]);
+      box[3 + a] = fmaxf(box[3 + a], s_part[w][3 + a]);
+    }
+  }
+  float* out = t < SUBS
+      ? sbox + ((size_t)b * (Vp / SUB) + blockIdx.x * SUBS + t) * 8
+      : tbox + ((size_t)b * (Vp / TILE) + blockIdx.x) * 8;
+#pragma unroll
+  for (int a = 0; a < 8; ++a) out[a] = box[a];
 }
 
 // launch the instantiation for k (1..MAX_K)
 template <int K>
-void launch(int k, dim3 grid, cudaStream_t stream, const float* points,
-            const float* verts, float* out_d, int* out_i, int N, int V) {
+void launch(int k, int B, cudaStream_t stream, const float* points,
+            const float4* rows, const float* sbox, const float* tbox,
+            int cull, unsigned long long* stats, float* out_d, int* out_i,
+            int N, int V, int Vp) {
   if (k == K) {
-    knn_exact_kernel<K><<<grid, THREADS, 0, stream>>>(points, verts, out_d,
-                                                      out_i, N, V);
+    constexpr int P = points_per_thread<K>();
+    const dim3 grid((N + THREADS * P - 1) / (THREADS * P), B);
+    knn_exact_kernel<K, P><<<grid, THREADS, 0, stream>>>(
+        points, rows, sbox, tbox, out_d, out_i, stats, N, V, Vp, cull);
   } else if constexpr (K < MAX_K) {
-    launch<K + 1>(k, grid, stream, points, verts, out_d, out_i, N, V);
+    launch<K + 1>(k, B, stream, points, rows, sbox, tbox, cull, stats,
+                  out_d, out_i, N, V, Vp);
   }
 }
 
 }  // namespace
 
-extern "C" int animnerf_knn_exact(const void* points, const void* verts,
-                                  void* out_d, void* out_i, int B, int N,
-                                  int V, int k, void* stream) {
-  if (k < 1 || k > MAX_K || V < k) return (int)cudaErrorInvalidValue;
-  if (N > 0 && B > 0) {
-    dim3 grid((N + THREADS - 1) / THREADS, B);
-    launch<1>(k, grid, (cudaStream_t)stream, (const float*)points,
-              (const float*)verts, (float*)out_d, (int*)out_i, N, V);
+// Vp = V rounded up to whole 512-vertex tiles
+extern "C" int animnerf_knn_exact_rows(const void* verts, void* rows,
+                                       void* sbox, void* tbox, int B, int V,
+                                       int Vp, void* stream) {
+  if (V < 1 || Vp < V || Vp % TILE != 0 || Vp - V >= TILE)
+    return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    const dim3 grid(Vp / TILE, B);
+    knn_exact_rows<<<grid, TILE, 0, (cudaStream_t)stream>>>(
+        (const float*)verts, (float4*)rows, (float*)sbox, (float*)tbox, V,
+        Vp);
   }
+  return (int)cudaGetLastError();
+}
+
+// rows, sbox, tbox: animnerf_knn_exact_rows's for V vertices padded to Vp;
+// cull: skip the tiles and sub-tiles that cannot change a point's slots
+// (the output is the same either way); stats: null, or two u64 counters
+// of (point slot, vertex) pairs [swept, skipped] that the kernel adds to.
+extern "C" int animnerf_knn_exact(const void* points, const void* rows,
+                                  const void* sbox, const void* tbox,
+                                  int cull, void* stats, void* out_d,
+                                  void* out_i, int B, int N, int V, int Vp,
+                                  int k, void* stream) {
+  if (k < 1 || k > MAX_K || V < k || Vp < V || Vp % TILE != 0 ||
+      Vp - V >= TILE)
+    return (int)cudaErrorInvalidValue;
+  if (N > 0 && B > 0)
+    launch<1>(k, B, (cudaStream_t)stream, (const float*)points,
+              (const float4*)rows, (const float*)sbox, (const float*)tbox,
+              cull, (unsigned long long*)stats, (float*)out_d, (int*)out_i,
+              N, V, Vp);
   return (int)cudaGetLastError();
 }

@@ -59,20 +59,23 @@ SIGNATURES = {
                                _P, _I, _I, _I, _I, _I, _P],
     "animnerf_fused_mlp_bwd_sizes": [_I, _P],
     "animnerf_mlp_wgrad": [_P, _P, _P, _P, _I, _I, _P],
-    "animnerf_knn_exact": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "animnerf_knn_exact_rows": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "animnerf_knn_exact": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _P],
     "animnerf_min_dist": [_P, _P, _P, _I, _I, _I, _P],
     "animnerf_knn_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "animnerf_knn_mxu": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # "knn_tile_skip" counts the kNN launches with the tile skip on (they also
-# count under "knn", the kernel's total); "fused_mlp_wgrad" the bf16 MLP
-# backward's weight-gradient pass, launched by fused_nerf_bwd (which also
-# counts under "fused_mlp_bwd") or alone by fused_nerf_wgrad
+# count under "knn", the kernel's total), "knn_exact_cull" the exact kNN's
+# launches with the cull on (also under "knn_exact"); "fused_mlp_wgrad"
+# the bf16 MLP backward's weight-gradient pass, launched by fused_nerf_bwd
+# (which also counts under "fused_mlp_bwd") or alone by fused_nerf_wgrad
 LAUNCHES = {"knn": 0, "knn_tile_skip": 0, "warp_blend": 0, "scatter": 0,
             "fused_mlp": 0, "fused_mlp_bwd": 0, "fused_mlp_wgrad": 0,
-            "permute_lanes": 0,
-            "knn_exact": 0, "min_dist": 0, "knn_packed": 0, "knn_mxu": 0}
+            "permute_lanes": 0, "knn_exact": 0, "knn_exact_cull": 0,
+            "min_dist": 0, "knn_packed": 0, "knn_mxu": 0}
 
 
 def reset_launches() -> None:

@@ -13,7 +13,7 @@ as ``knn_pallas`` does (``knn_pallas.py:554-607``) at its default
 - ``packed`` and V <= 8192, k != 4: ``knn_packed`` (kernel 8, the
   extract-min kernel's counterpart; no tile skip, as in JAX);
 - otherwise (SMPL-X's V=10475, or ``packed=False``): ``knn_exact``
-  (kernel 9, ``_knn_kernel``'s counterpart).
+  (kernel 9, ``_knn_kernel``'s counterpart), with its ``cull``.
 
 Packed keys (``knn_top4``, ``knn_packed``):
 
@@ -35,9 +35,14 @@ kernel's top-k rule (``tile_slots_topk``): per 512-vertex tile its k
 smallest (d2, index) pairs, each replacing the first slot that holds the
 slots' maximum when strictly smaller, then its sorting network. Where
 distinct vertices tie exactly this keeps and orders them as the TPU
-kernel does. Any V >= k. Of ``_knn_kernel``'s options only ``cull=False,
-far_skip=0`` is ported (no caller of the JAX package sets either); the
-AABB cull and the all-far skip are not.
+kernel does. Any V >= k. On the card the kernel sweeps vertex rows and
+per-tile and per-sub-tile AABBs that ``exact_rows`` builds once per call
+(``csrc/knn_exact.cu``). ``_knn_kernel``'s ``cull`` is ported and on in
+``knn``: a warp skips a tile, or a 64-vertex sub-tile, whose box lies
+farther from every one of its points than that point's current slot
+maximum (or tile list's K-th entry), when the tile's turn comes in index
+order; the output is the same with or without it, ties included. Its
+all-far skip (``far_skip``) is not ported: no config key reaches it.
 """
 
 from __future__ import annotations
@@ -53,6 +58,8 @@ MAX_VERTS = 8192
 TILE_V = 256  # the sweep's staged vertex tile (csrc/knn_sweep.cuh)
 TILE_BITS = 8
 SLOT_TILE = 512  # the TPU kernels' vertex tile, which the top-k rule follows
+SUB_TILE = 64  # the exact kernel's sub-tile boxes (csrc/knn_exact.cu)
+EXACT_MAX_VERTS = 2**31 - SLOT_TILE  # the padded count fits an int
 _PAD_KEY = (0x7F800000 << 32) | 0x7FFFFFFF  # d2 = +inf: never merged
 
 
@@ -149,6 +156,13 @@ def tile_boxes(verts: torch.Tensor) -> torch.Tensor:
                       verts.new_zeros(B, nt, 2)], dim=-1).contiguous()
 
 
+def _check_stats(stats, points: torch.Tensor) -> None:
+    if stats is not None and (stats.dtype != torch.int64
+                              or stats.numel() != 2
+                              or stats.device != points.device):
+        raise ValueError("stats must be an int64 tensor of 2 on the device")
+
+
 def _outputs(points: torch.Tensor, k: int):
     B, N, _ = points.shape
     return (torch.empty((B, k, N), dtype=torch.float32, device=points.device),
@@ -174,10 +188,7 @@ def knn_top4(points: torch.Tensor, verts: torch.Tensor,
     d, i = _outputs(points, K)
     if N == 0:
         return d, i
-    if stats is not None and (stats.dtype != torch.int64
-                              or stats.numel() != 2
-                              or stats.device != points.device):
-        raise ValueError("stats must be an int64 tensor of 2 on the device")
+    _check_stats(stats, points)
     # the tile skip sweeps the Morton tiles its boxes bound
     rows, order = vertex_rows(verts, stratified=not tile_skip)
     vbox = tile_boxes(verts) if tile_skip else None
@@ -254,11 +265,64 @@ def knn_packed_plain(points: torch.Tensor, verts: torch.Tensor, k: int,
     return d, top & 0x1FFF
 
 
-def knn_exact(points: torch.Tensor, verts: torch.Tensor, k: int = K):
+def exact_rows(verts: torch.Tensor):
+    """(B, V, 3) verts -> what the exact kernel sweeps: rows (B, Vp, 4)
+    float32 (x, y, z, 0), Vp = V padded to whole 512-vertex tiles with rows
+    (+inf, +inf, +inf, 0), and the AABBs [lo xyz, hi xyz, 0, 0] of the real
+    vertices of each 64-vertex sub-tile (B, Vp / 64, 8) and each tile
+    (B, Vp / 512, 8) (lo +inf, hi -inf where there are none): the rows
+    kernel in ``csrc/knn_exact.cu`` on CUDA tensors, ``exact_rows_plain``
+    on CPU tensors."""
+    check_points_verts(verts, verts, min_verts=1, max_verts=EXACT_MAX_VERTS)
+    if verts.device.type == "cpu":
+        return exact_rows_plain(verts)
+    verts = verts.detach().contiguous()
+    _build.check_cuda("exact_rows", verts)
+    B, V, _ = verts.shape
+    Vp = -(-V // SLOT_TILE) * SLOT_TILE
+    rows = torch.empty((B, Vp, 4), dtype=torch.float32, device=verts.device)
+    sbox = torch.empty((B, Vp // SUB_TILE, 8), dtype=torch.float32,
+                       device=verts.device)
+    tbox = torch.empty((B, Vp // SLOT_TILE, 8), dtype=torch.float32,
+                       device=verts.device)
+    _build.kernel_library().call(
+        "animnerf_knn_exact_rows", verts.data_ptr(), rows.data_ptr(),
+        sbox.data_ptr(), tbox.data_ptr(), B, V, Vp, _build.stream_of(verts))
+    return rows, sbox, tbox
+
+
+def exact_rows_plain(verts: torch.Tensor):
+    """``exact_rows`` in plain torch."""
+    B, V, _ = verts.shape
+    Vp = -(-V // SLOT_TILE) * SLOT_TILE
+    rows = verts.new_zeros((B, Vp, 4))
+    rows[:, :, :3] = float("inf")
+    rows[:, :V, :3] = verts.detach()
+    real = (torch.arange(Vp, device=verts.device) < V)[None, :, None]
+    lo = torch.where(real, rows[..., :3], float("inf"))
+    hi = torch.where(real, rows[..., :3], float("-inf"))
+
+    def boxes(n):
+        return torch.cat([lo.reshape(B, Vp // n, n, 3).amin(dim=2),
+                          hi.reshape(B, Vp // n, n, 3).amax(dim=2),
+                          verts.new_zeros((B, Vp // n, 2))], dim=-1)
+
+    return rows, boxes(SUB_TILE), boxes(SLOT_TILE)
+
+
+def knn_exact(points: torch.Tensor, verts: torch.Tensor, k: int = K,
+              cull: bool = True, stats: torch.Tensor = None):
     """The exact kNN (kernel 9): kernel on CUDA tensors, plain version on
-    CPU tensors. Any V >= k."""
+    CPU tensors (which ignores ``cull``: the output is the same either
+    way). Any V >= k. ``cull`` lets a warp skip the vertex tiles and
+    sub-tiles that cannot change any of its points' slots (exact; pays on
+    spatially coherent points). ``stats``: an optional int64 CUDA tensor
+    of 2 the kernel adds its [swept, skipped] (point, vertex) pair counts
+    to (a warp's point slots, dead ones included, times each tile's or
+    sub-tile's vertices)."""
     check_k(k)
-    check_points_verts(points, verts, min_verts=k, max_verts=2**31 - 1)
+    check_points_verts(points, verts, min_verts=k,
+                       max_verts=EXACT_MAX_VERTS)
     if points.device.type == "cpu":
         return knn_exact_plain(points, verts, k)
     points = points.detach().contiguous()
@@ -268,11 +332,17 @@ def knn_exact(points: torch.Tensor, verts: torch.Tensor, k: int = K):
     d, i = _outputs(points, k)
     if N == 0:
         return d, i
+    _check_stats(stats, points)
+    rows, sbox, tbox = exact_rows(verts)
     _build.kernel_library().call(
-        "animnerf_knn_exact", points.data_ptr(), verts.data_ptr(),
-        d.data_ptr(), i.data_ptr(), B, N, verts.shape[1], k,
+        "animnerf_knn_exact", points.data_ptr(), rows.data_ptr(),
+        sbox.data_ptr(), tbox.data_ptr(), int(bool(cull)),
+        stats.data_ptr() if stats is not None else None, d.data_ptr(),
+        i.data_ptr(), B, N, verts.shape[1], rows.shape[1], k,
         _build.stream_of(points))
     _build.LAUNCHES["knn_exact"] += 1
+    if cull:
+        _build.LAUNCHES["knn_exact_cull"] += 1
     return d, i
 
 
@@ -376,11 +446,11 @@ def knn(points: torch.Tensor, verts: torch.Tensor, k: int = K,
         tile_skip: bool = False, packed: bool = True):
     """The top-k kNN as ``knn_pallas`` picks its kernel: packed keys when
     ``packed`` and V <= 8192 (``knn_top4`` with ``tile_skip`` at k=4,
-    ``knn_packed`` otherwise), the exact kernel otherwise. As in the JAX
-    package only the k=4 packed kernel has the tile skip; the others
-    ignore it."""
+    ``knn_packed`` otherwise), the exact kernel with its cull otherwise.
+    As in the JAX package only the k=4 packed kernel has the tile skip;
+    the others ignore it."""
     if packed and verts.shape[1] <= MAX_VERTS:
         if k == K:
             return knn_top4(points, verts, tile_skip=tile_skip)
         return knn_packed(points, verts, k)
-    return knn_exact(points, verts, k)
+    return knn_exact(points, verts, k, cull=True)

@@ -4,7 +4,8 @@ The counterpart of ``tools/bench_knn.py``: 16 x 65536 ray-like query
 points against a body-like cloud of V=6890 vertices, k=4, drawn from numpy
 seed 0 exactly as that tool draws them. One row per variant:
 
-- exact kNN (kernel 9, ``knn_exact``),
+- exact kNN (kernel 9, ``knn_exact`` without its cull, as the JAX tool's
+  row),
 - min distance (kernel 7, ``min_vertex_distance``),
 - packed extract-min (kernel 8, ``knn_packed`` at k=4),
 - packed tournament (kernel 1, ``knn_top4``),
@@ -97,7 +98,8 @@ def run(device: str = "cuda", B: int = 16, N: int = 65536, reps: int = 8):
     pts_list = [torch.from_numpy(p).to(dev) for p in sets]
     name = torch.cuda.get_device_name(dev) if cuda else "cpu"
     variants = [
-        ("exact kNN", 9, lambda p, v: knn_exact(p, v, 4)),
+        # as the JAX tool's knn_pallas default: no cull
+        ("exact kNN", 9, lambda p, v: knn_exact(p, v, 4, cull=False)),
         ("min distance", 7, min_vertex_distance),
         ("packed extract-min", 8, lambda p, v: knn_packed(p, v, 4)),
         ("packed tournament", 1, knn_top4),

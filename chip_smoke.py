@@ -5,7 +5,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each printed as a JSON line; any failed check raises (exit != 0):
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: the CUDA kernels from ``animnerf_tpu_torch/csrc``; then the
+  2. build: the CUDA kernels from ``animnerf_tpu_torch/csrc`` (with the
+     kNN sweeps' SASS instructions per pair: kernels 1, 8 and 9); then the
      bf16 MLP backward's weight-gradient pass alone (``fused_mlp_wgrad``,
      on wgmma with MN-major operands) on scratches the main kernel wrote,
      at a full chunk, 128 points and a ragged 131,072 - 37, against its
@@ -47,20 +48,31 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      (kernels) and on the CPU (plain versions) from the same parameters
      and noise, in f32 and in bf16: loss terms, gradients per parameter
      group and the parameters after one SGD-momentum step;
-  8. SMPL-X kernel lines: the exact kNN and the nearest-vertex distance
-     against the seed-0 SMPL-X rig (V=10475, J=55), each bit-equal to its
-     plain version on the card;
+  8. SMPL-X kernel lines: the exact kNN (kernel 9, with and without its
+     cull, at K = 4 and 8, random-order points: the swept share, both
+     bounds, SASS per pair) and the nearest-vertex distance against the
+     seed-0 SMPL-X rig (V=10475, J=55), each bit-equal to its plain
+     version on the card; then kernel 9 at edge shapes (N = 2^20 - 37,
+     V in {K, 513, 8193, 10475}, K in {1, 4, 8, 16}, and a tie-rich 1/64
+     grid cloud), with and without its cull, each bit-equal to its plain
+     version, and its rows kernel to its plain version;
   9. smplx_serve: the flagship field with random weights from a seed (the
      sigma heads' biases raised so the 0.2 m shell is opaque) on that rig,
      a 512x512 turntable through ``Renderer.render_stream`` with
      ``prepass="exact"``, launch counts reset just before and read just
-     after (the packed kNN must not launch), one profiled view, and the
-     same views with ``prepass="boxes"``, whose images must agree;
+     after (the packed kNN must not launch, kernel 9 launches with its
+     cull), two profiled views whose device-busy times must agree within
+     10%, the kNN calls of one more view (kernel 9's launches and points
+     per launch), and the same views with ``prepass="boxes"``, whose
+     images must agree; then kernel 9's lines on the points that view's
+     coarse warp passed to it, at K = 4 and 8 (as in phase 8);
  10. smplx_serve_parity: one 64x64 view with prepass="exact" on the card
      and on the CPU, bf16 and f32;
  11. smplx_train: the bench.py step on the SMPL-X rig with every SMPL-X
      body parameter optimised: one warm-up step, 10 timed steps, one
-     profiled step, 20 steps on one fixed batch whose loss must fall;
+     profiled step, the kNN calls of one more step (kernel 9's launches
+     and points per launch), 20 steps on one fixed batch whose loss must
+     fall;
  12. smplx_train_parity: phase 7 on the SMPL-X rig;
  13. k_neigh = 8 (kernel 8, the packed extract-min kNN, in place of kernel
      1; kernels 2, 5 and 9 at K = 8): kernel lines for ``knn_packed`` at
@@ -111,11 +123,22 @@ PEAK_BYTES = 3.35e12
 # the compare that decides that need not be f32 work (an integer key
 # compare does it as well), so none of them is counted
 KNN_PAIR_OPS = 6.0
-# kernels 1, 8 (the sweep and its rows kernel) and 9, by profiler name
-KNN_KERNEL_NAMES = ("knn_sweep::", "knn_rows_kernel", "knn_exact_kernel")
+# kernel 9: the non-FMA f32 operations its rounding demands per swept
+# (point, vertex) pair, over PEAK_F32_NONFMA: 3 subtractions, 3 multiplies,
+# 2 adds (each rounded on its own) and the compare against the tile list
+EXACT_PAIR_OPS = 9.0
+# kernels 1, 8 (the sweep and its rows kernel) and 9 (its sweep and rows
+# kernel, knn_exact_kernel and knn_exact_rows), by profiler name
+KNN_KERNEL_NAMES = ("knn_sweep::", "knn_rows_kernel", "knn_exact")
 # chunk size of the plain kNN versions on the card (a (chunk x V) matrix):
 # large chunks keep their per-chunk launches few
 PLAIN_MAX_ELEMS = 1 << 26
+# the exact kNN's plain version: its per-tile rule loops k x V / 512 times
+# a chunk, so it takes larger chunks (~6 GB of d2 and keys)
+PLAIN_EXACT_MAX_ELEMS = 1 << 28
+# kernel 9 at (1, 2^20) x 10,475 before its redesign (H100 80GB HBM3,
+# 700 W): the kernel lines' earlier times by K
+PREV_EXACT_MS = {4: 6.431, 8: 10.489}
 # card vs CPU image bounds per compute dtype: (max |img| difference, PSNR)
 PARITY_BOUNDS = (("bfloat16", (5e-2, 40.0)), ("float32", (1e-3, 60.0)))
 # the bf16 MLP backward at 2^20 points before its main kernel moved to
@@ -333,6 +356,140 @@ def sweep_sass(funcs: dict) -> dict:
                 sass_per_pair=path["loop_instructions"]
                 / (path["rows_per_iteration"] * P))
     return out
+
+
+def exact_sass(funcs: dict) -> dict:
+    """{K: {points_per_thread, sass_per_pair, ...}} for kernel 9's sweep
+    (csrc/knn_exact.cu knn_exact_kernel<K, P>) among the library's SASS
+    functions: sweep_path's walk of its row loop, past the insert."""
+    import re
+
+    out = {}
+    for name, ins in funcs.items():
+        m = re.search(r"knn_exact_kernelILi(\d+)ELi(\d+)E", name)
+        if not m:
+            continue
+        K, P = int(m.group(1)), int(m.group(2))
+        check(K not in out, f"two exact kNN kernels for K={K} in the SASS")
+        path = sweep_path(ins)
+        if path:
+            out[K] = dict(points_per_thread=P, sass_loop_instructions=path[
+                "loop_instructions"],
+                sass_rows_per_iteration=path["rows_per_iteration"],
+                sass_per_pair=path["loop_instructions"]
+                / (path["rows_per_iteration"] * P))
+    return out
+
+
+def exact_check(pts, verts, k: int) -> dict:
+    """Kernel 9 on points (1, N, 3) against verts (1, V, 3) at k, with and
+    without its cull: each output must be bit-equal to knn_exact_plain's
+    (timed on its one call). Returns the errors, the plain version's ms and
+    the share of (point, vertex) pairs the cull swept (the kernel's
+    stats)."""
+    import torch
+
+    from animnerf_tpu_torch.ops.knn_kernel import knn_exact, knn_exact_plain
+
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    dp, ip = knn_exact_plain(pts, verts, k, max_elems=PLAIN_EXACT_MAX_ELEMS)
+    e.record()
+    e.synchronize()
+    stats = torch.zeros(2, dtype=torch.int64, device=pts.device)
+    err, mism = 0.0, 0
+    for cull in (True, False):
+        d, i = knn_exact(pts, verts, k, cull=cull,
+                         stats=stats if cull else None)
+        torch.cuda.synchronize()
+        mism += int((i != ip).sum())
+        err = max(err, float((d - dp).abs().max()))
+        check(mism == 0 and torch.equal(d, dp),
+              f"knn_exact K={k} points {tuple(pts.shape)} verts "
+              f"{tuple(verts.shape)} cull={cull}: {mism} index mismatches, "
+              f"max err {err}")
+    swept, skipped = (int(x) for x in stats.tolist())
+    return dict(max_abs_err=err, tolerance=0.0, idx_mismatch=mism,
+                bit_equal_cull_and_nocull=True, plain_ms=s.elapsed_time(e),
+                swept_share=swept / max(swept + skipped, 1))
+
+
+def exact_line(pts, verts, k: int, exact: dict, reps: int = 20) -> dict:
+    """exact_check, then kernel 9's times with and without its cull, both
+    bounds: EXACT_PAIR_OPS per swept pair (bound_ms, what this call's
+    culled sweep needs) and per pair (bound_all_ms, the full sweep's), and
+    the sweep's points per thread and SASS per pair."""
+    from animnerf_tpu_torch.ops.knn_kernel import knn_exact
+
+    N, V = pts.shape[1], verts.shape[1]
+    line = exact_check(pts, verts, k)
+    share = line["swept_share"]
+    ms = time_ms(lambda: knn_exact(pts, verts, k), reps)
+    ms_nocull = time_ms(lambda: knn_exact(pts, verts, k, cull=False), reps)
+    nbytes = N * 12 + V * 12 + N * 8 * k
+    bound = max(EXACT_PAIR_OPS * share * N * V / PEAK_F32_NONFMA,
+                nbytes / PEAK_BYTES) * 1e3
+    bound_all = max(EXACT_PAIR_OPS * N * V / PEAK_F32_NONFMA,
+                    nbytes / PEAK_BYTES) * 1e3
+    return dict(shape=f"points (1,{N},3) verts (1,{V},3) K={k}", **line,
+                ms=ms, ms_nocull=ms_nocull, bound_ms=bound,
+                bound_by="operations", bound_all_ms=bound_all,
+                pct_of_bound=100.0 * bound / ms,
+                pct_of_bound_nocull=100.0 * bound_all / ms_nocull,
+                library_ms=None, **exact[k])
+
+
+def view_calls(calls: list) -> list:
+    """Each captured kNN call again with the exact kernel and its cull:
+    points, time (CUDA events, median of 5) and swept share."""
+    import torch
+
+    from animnerf_tpu_torch.ops.knn_kernel import knn_exact
+
+    out = []
+    for c in calls:
+        stats = torch.zeros(2, dtype=torch.int64, device=c["points"].device)
+        knn_exact(c["points"], c["verts"], c["k"], stats=stats)
+        swept, skipped = (int(x) for x in stats.tolist())
+        out.append({"N": c["N"], "k": c["k"], "ms": time_ms(
+            lambda: knn_exact(c["points"], c["verts"], c["k"]), 5),
+            "swept_share": swept / max(swept + skipped, 1)})
+    return out
+
+
+def capture_knn(fn, keep: bool = False) -> list:
+    """The calls fn makes to the warp's kNN entry
+    (``animnerf_tpu_torch.models.warp.knn``, wrapped for the call and
+    restored after): [{N, V, k}] and, with keep, each call's points and
+    vertices (copies)."""
+    from animnerf_tpu_torch.models import warp
+
+    calls, orig = [], warp.knn
+
+    def record(points, verts, k=4, **kw):
+        c = {"N": int(points.shape[1]), "V": int(verts.shape[1]), "k": k}
+        if keep:
+            c.update(points=points.detach().clone(),
+                     verts=verts.detach().clone())
+        calls.append(c)
+        return orig(points, verts, k, **kw)
+
+    warp.knn = record
+    try:
+        fn()
+    finally:
+        warp.knn = orig
+    return calls
+
+
+def exact_calls(calls: list) -> dict:
+    """Kernel 9's launches and points per launch among captured kNN calls
+    (those above the packed kernels' 8192 vertices)."""
+    from animnerf_tpu_torch.ops.knn_kernel import MAX_VERTS
+
+    n = [c["N"] for c in calls if c["V"] > MAX_VERTS]
+    return {"knn_exact_launches": len(n), "knn_exact_points": n,
+            "knn_exact_points_per_launch": float(np.mean(n)) if n else 0.0}
 
 
 def wgrad_sass(funcs: dict) -> dict:
@@ -1063,19 +1220,74 @@ def kernel_lines_edge(dev):
     return lines
 
 
+def morton_sorted(x):
+    """(1, n, 3) points or vertices in Morton order (the order of the
+    training step's rows and of the warp's cloud)."""
+    import torch
+
+    from animnerf_tpu_torch.ops.warp_blend import morton_codes
+
+    order = torch.argsort(morton_codes(x), dim=1, stable=True)
+    return torch.gather(x, 1, order[..., None].expand(-1, -1, 3)).contiguous()
+
+
+def kernel_lines_edge_exact(dev, exact: dict):
+    """Kernel 9 at the shapes its tiling stresses: N = 2^20 - 37 points,
+    V in {K, 513, 8193, 10475} (one padded tile; one real vertex in the
+    last tile; just above the packed kernels' limit; SMPL-X), K in {1, 4,
+    8, 16}, seeded Morton-sorted clouds (normal, 0.3 m) and Morton-ordered
+    points near them (0.05 m), so that the cull skips; then a tie-rich
+    cloud, vertices and points on a 1/64 grid, at K = 4 and 16. Each
+    output, with and without the cull, bit-equal to knn_exact_plain, and
+    the rows kernel's rows and boxes to exact_rows_plain's."""
+    import torch
+
+    from animnerf_tpu_torch.ops.knn_kernel import exact_rows, exact_rows_plain
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    N = EDGE_POINTS
+    clouds = []
+    for V in (1, 4, 8, 16, 513, 8193, 10475):
+        verts = morton_sorted(0.3 * torch.randn(1, V, 3, generator=g,
+                                                device=dev))
+        pick = torch.randint(0, V, (N,), generator=g, device=dev)
+        pts = morton_sorted((verts[0, pick] + 0.05 * torch.randn(
+            N, 3, generator=g, device=dev))[None])
+        ks = [k for k in (1, 4, 8, 16) if k == V or V > 16]
+        clouds.append(("normal", V, verts, pts, ks))
+    grid_v = morton_sorted(torch.randint(-48, 49, (1, 10475, 3), generator=g,
+                                         device=dev).float() / 64)
+    grid_p = morton_sorted(torch.randint(-56, 57, (1, N, 3), generator=g,
+                                         device=dev).float() / 64)
+    clouds.append(("grid", 10475, grid_v, grid_p, [4, 16]))
+    lines = {}
+    for cloud, V, verts, pts, ks in clouds:
+        rows_equal = all(torch.equal(a, b) for a, b in
+                         zip(exact_rows(verts), exact_rows_plain(verts)))
+        check(rows_equal, f"edge V={V}: exact rows kernel differs from plain")
+        for K in ks:
+            lines[f"knn_exact_{cloud}_k{K}_v{V}"] = dict(
+                shape=f"points (1,{N},3) verts (1,{V},3) K={K}",
+                **exact_check(pts, verts, K), rows_bit_equal=rows_equal,
+                **exact[K])
+    return lines
+
+
 SMPLX_KNN_POINTS = 1 << 20
 SMPLX_MIN_DIST_POINTS = 1 << 22
 
 
-def kernel_lines_smplx(dev):
+def kernel_lines_smplx(dev, exact: dict):
     """Check and time the SMPL-X kernels at their main-path widths against
     the posed seed-0 SMPL-X cloud (V=10475, Morton order as the warp sees
-    it): the exact kNN over 2^20 points and the nearest-vertex distance
-    over 2^22 points (a slab of the serving pre-pass), and the exact kNN
-    at K = 8. Both versions round every operation alike, follow the same
-    top-k rule and take IEEE square roots, so the outputs must be
-    bit-equal. Neither has a one-call PyTorch counterpart (cdist then
-    topk / amin is two calls), so library_ms is null."""
+    it): the exact kNN over 2^20 points near the cloud in random order
+    (exact_line: with and without its cull, which skips little on such
+    points) at K = 4 and 8, and the nearest-vertex distance over 2^22
+    points (a slab of the serving pre-pass). Both versions round every
+    operation alike, follow the same top-k rule and take IEEE square
+    roots, so the outputs must be bit-equal. Neither has a one-call
+    PyTorch counterpart (cdist then topk / amin is two calls), so
+    library_ms is null."""
     import torch
 
     from animnerf_tpu_torch.models.warp import prepare_frame
@@ -1083,7 +1295,6 @@ def kernel_lines_smplx(dev):
         min_vertex_distance,
         min_vertex_distance_plain,
     )
-    from animnerf_tpu_torch.ops.knn_kernel import knn_exact, knn_exact_plain
 
     g = torch.Generator(device=dev).manual_seed(2)
     with torch.no_grad():
@@ -1102,23 +1313,8 @@ def kernel_lines_smplx(dev):
     N = SMPLX_KNN_POINTS
     pts = points(N).contiguous()
     for k, name in ((4, "knn_exact"), (8, "knn_exact_k8")):
-        d, i = knn_exact(pts, verts, k)
-        dp, ip = knn_exact_plain(pts, verts, k, max_elems=PLAIN_MAX_ELEMS)
-        torch.cuda.synchronize()
-        mism = int((i != ip).sum())
-        err = float((d - dp).abs().max())
-        check(mism == 0 and torch.equal(d, dp),
-              f"{name}: {mism} index mismatches, max err {err}")
-        lines[name] = dict(
-            shape=f"points (1,{N},3) verts (1,{V},3) K={k}",
-            max_abs_err=err, tolerance=0.0, idx_mismatch=mism,
-            ms=time_ms(lambda: knn_exact(pts, verts, k), 20),
-            plain_ms=time_ms(lambda: knn_exact_plain(
-                pts, verts, k, max_elems=PLAIN_MAX_ELEMS), 1, warmup=0),
-            # 3 sub, 3 mul, 2 add and a compare per pair, none an FMA
-            bound_ms=max(9.0 * N * V / PEAK_F32_NONFMA,
-                         (N * 12 + V * 12 + N * 8 * k) / PEAK_BYTES) * 1e3,
-            bound_by="operations", library_ms=None)
+        lines[name] = dict(exact_line(pts, verts, k, exact),
+                           prev_ms=PREV_EXACT_MS[k])
 
     N = SMPLX_MIN_DIST_POINTS
     pts = points(N).contiguous()
@@ -1240,6 +1436,12 @@ KERNELS = {
                       "animnerf_tpu/ops/knn_pallas.py:161"),
     "knn_exact_k8": ("animnerf_tpu_torch/csrc/knn_exact.cu",
                      "animnerf_tpu/ops/knn_pallas.py:35"),
+    "knn_exact_nocull": ("animnerf_tpu_torch/csrc/knn_exact.cu",
+                         "animnerf_tpu/ops/knn_pallas.py:35"),
+    "knn_exact_view": ("animnerf_tpu_torch/csrc/knn_exact.cu",
+                       "animnerf_tpu/ops/knn_pallas.py:35"),
+    "knn_exact_view_k8": ("animnerf_tpu_torch/csrc/knn_exact.cu",
+                          "animnerf_tpu/ops/knn_pallas.py:35"),
     "warp_blend_k8": ("animnerf_tpu_torch/csrc/warp_blend.cu",
                       "animnerf_tpu/ops/warp_blend.py:48"),
     "scatter_k8": ("animnerf_tpu_torch/csrc/scatter.cu",
@@ -1256,10 +1458,11 @@ K8_TRAIN_KERNELS = ("knn_packed", "warp_blend", "scatter", "fused_mlp",
 TRAIN_KERNELS = ("knn", "knn_tile_skip", "warp_blend", "scatter",
                  "fused_mlp", "fused_mlp_bwd", "fused_mlp_wgrad",
                  "permute_lanes")
-SMPLX_SERVE_KERNELS = ("min_dist", "knn_exact", "warp_blend", "fused_mlp",
-                       "permute_lanes")
-SMPLX_TRAIN_KERNELS = ("knn_exact", "warp_blend", "scatter", "fused_mlp",
-                       "fused_mlp_bwd", "fused_mlp_wgrad", "permute_lanes")
+SMPLX_SERVE_KERNELS = ("min_dist", "knn_exact", "knn_exact_cull",
+                       "warp_blend", "fused_mlp", "permute_lanes")
+SMPLX_TRAIN_KERNELS = ("knn_exact", "knn_exact_cull", "warp_blend",
+                       "scatter", "fused_mlp", "fused_mlp_bwd",
+                       "fused_mlp_wgrad", "permute_lanes")
 
 
 # ------------------------------------------------------------------ slice
@@ -1344,10 +1547,17 @@ def profile_call(fn, what: str):
               if "mlp_fwd_bf16" in e.key) / 1e3
     knn = sum(e.self_device_time_total for e in events
               if any(k in e.key for k in KNN_KERNEL_NAMES)) / 1e3
+    exact = [e for e in events if "knn_exact_kernel" in e.key]
+    exact_rows = sum(e.self_device_time_total for e in events
+                     if "knn_exact_rows" in e.key) / 1e3
     return {f"{what}_ms_profiled": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "mlp_fwd_ms": fwd, "mlp_fwd_share_of_busy": fwd / max(busy, 1e-9),
             "knn_ms": knn, "knn_share_of_busy": knn / max(busy, 1e-9),
+            "knn_exact_ms": sum(e.self_device_time_total
+                                for e in exact) / 1e3,
+            "knn_exact_rows_ms": exact_rows,
+            "knn_exact_launches": sum(e.count for e in exact),
             "mlp_bwd_main_ms": split["main_ms"],
             "mlp_bwd_wgrad_ms": split["wgrad_ms"],
             "mlp_bwd_launches": split["main_launches"]
@@ -1445,26 +1655,60 @@ def opaque_shell(system) -> None:
             net.sigma.bias += 30.0
 
 
+def view_fn(system, bp, tmpl, angle, H=512, W=512, prepass="boxes"):
+    """A function that renders turntable view ``angle`` through
+    ``Renderer.render_stream``."""
+    from animnerf_tpu_torch.render.inference import (
+        Renderer,
+        turntable_rotation,
+    )
+
+    renderer = Renderer(system, prepass=prepass)
+    frame = dict(body_params=bp, body_tmpl=tmpl, rays=frame_rays(H, W),
+                 P=turntable_rotation(angle, 64), img_wh=(W, H))
+
+    def view():
+        for _ in renderer.render_stream([frame]):
+            pass
+
+    return view
+
+
+# the SMPL-X view's two profiles: busy times within this ratio
+PROFILE_SPREAD = 1.10
+
+
 def smplx_serve(angles):
-    """The SMPL-X turntable with the exact pre-pass (launches, profile),
-    then the same views with the box pre-pass: the two images agree."""
+    """The SMPL-X turntable with the exact pre-pass (launches: kernel 9
+    with its cull on every call), two profiled views of angles[0] (their
+    device-busy times within PROFILE_SPREAD) and the kNN calls of one more
+    (captured with their points), then the same views with the box
+    pre-pass: the two images agree."""
     from animnerf_tpu_torch.system import AnimNeRFSystem
 
     system = AnimNeRFSystem(SMPLX_CFG, smplx_rig(), device="cuda", seed=0)
     opaque_shell(system)
     bp, tmpl = smplx_params(1, 1), smplx_params(1, 2, zero_transl=True)
-    views, launches, prof, imgs = render_turntable(
-        system, bp, tmpl, angles, prepass="exact")
+    views, launches, _, imgs = render_turntable(
+        system, bp, tmpl, angles, prepass="exact", profile=False)
     check(all(launches[k] > 0 for k in SMPLX_SERVE_KERNELS)
+          and launches["knn_exact_cull"] == launches["knn_exact"]
           and launches["knn"] == launches["knn_packed"] == 0,
           f"SMPL-X serving launched the wrong kernels: {launches}")
+    view = view_fn(system, bp, tmpl, angles[0], prepass="exact")
+    view()  # the new renderer's first view
+    profs = [profile_call(view, "view") for _ in range(2)]
+    busy = [p["device_busy_ms"] for p in profs]
+    check(max(busy) <= PROFILE_SPREAD * min(busy),
+          f"the SMPL-X view's two profiles disagree: busy {busy} ms")
+    calls = capture_knn(view, keep=True)
     bviews, _, _, bimgs = render_turntable(system, bp, tmpl, angles,
                                            prepass="boxes", profile=False)
     # both pre-passes are exact end to end: a kept sample that is not
     # valid gets the outside-shell sigma, and every kernel works per point
     agree = max(float(np.abs(a - b).max()) for a, b in zip(imgs, bimgs))
     check(agree <= 1e-5, f"exact vs boxes pre-pass images: {agree}")
-    return views, launches, prof, bviews, agree
+    return views, launches, profs, bviews, agree, calls
 
 
 def smplx_serve_parity(H=64, W=64, cfg=None, bounds=PARITY_BOUNDS):
@@ -1602,11 +1846,13 @@ def finite(trainer, details) -> bool:
 def train_phase(dev, cfg=FLAGSHIP_CFG, make_rig=smpl_rig,
                 model_type: str = "smpl", n_timed: int = 20,
                 n_fixed: int = 30, need=TRAIN_KERNELS, absent=(),
-                B: int = 16, R: int = 1024):
+                B: int = 16, R: int = 1024, capture: bool = False):
     """The bench.py step: warm-up, ``n_timed`` timed steps (launch counts
     reset just before and read just after: every kernel of ``need``
-    launched, none of ``absent``), one profiled step, then ``n_fixed``
-    steps on one fixed batch."""
+    launched, none of ``absent``), one profiled step, (``capture``) the
+    kNN calls of one more step (exact_calls: the summary's kernel 9
+    launches and points per launch), then ``n_fixed`` steps on one fixed
+    batch."""
     import torch
 
     from animnerf_tpu_torch.ops import _build
@@ -1636,6 +1882,7 @@ def train_phase(dev, cfg=FLAGSHIP_CFG, make_rig=smpl_rig,
     check(all(launches[k] == 0 for k in absent),
           f"a kernel off the train path was launched: {launches}")
     prof = profile_call(lambda: trainer.step(batches[0]), "step")
+    calls = capture_knn(lambda: trainer.step(batches[0])) if capture else []
 
     losses = []
     for s in range(n_fixed):  # one fixed batch: the loss must fall
@@ -1657,6 +1904,9 @@ def train_phase(dev, cfg=FLAGSHIP_CFG, make_rig=smpl_rig,
                                      for k, v in launches.items()},
                "fixed_batch_loss_first": losses[0],
                "fixed_batch_loss_last": losses[-1]}
+    if capture:
+        summary["knn_calls"] = [[c["N"], c["V"], c["k"]] for c in calls]
+        summary.update(exact_calls(calls))
     return steps, summary, prof, losses
 
 
@@ -1760,14 +2010,18 @@ def main() -> int:
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     funcs = library_sass(str(lib.path))
     sass = sweep_sass(funcs)
+    exact = exact_sass(funcs)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "cached": lib.cached, "library": os.path.relpath(lib.path, ROOT),
           "ptxas": ptxas,
           "sweep_sass": {f"K={k} {insert}{' tile_skip' if skip else ''}": v
-                         for (k, skip, insert), v in sorted(sass.items())}})
+                         for (k, skip, insert), v in sorted(sass.items())},
+          "exact_sass": {f"K={k}": v for k, v in sorted(exact.items())}})
     check(all((k, False, "packed") in sass for k in range(1, 17))
           and (4, False, "top4") in sass and (4, True, "top4") in sass,
           f"sweep kernels missing from the SASS: {sorted(sass)}")
+    check(sorted(exact) == list(range(1, 17)),
+          f"exact kNN kernels missing from the SASS: {sorted(exact)}")
 
     # the MLP backward's weight-gradient pass first: it also probes the
     # MN-major wgmma descriptors
@@ -1832,16 +2086,21 @@ def main() -> int:
 
     # ---- SMPL-X: the exact kNN and the min-distance pre-pass
     t0 = time.perf_counter()
-    xlines = kernel_lines_smplx("cuda")
+    xlines = kernel_lines_smplx("cuda", exact)
     for name, line in xlines.items():
         emit(dict(phase="kernel", name=name, **line))
     lines.update(xlines)
+    for name, line in kernel_lines_edge_exact("cuda", exact).items():
+        emit(dict(phase="kernel_edge", name=name, **line))
+    emit({"phase": "edge_exact_done", "seconds": time.perf_counter() - t0})
 
+    t0 = time.perf_counter()
     angles = [3, 29, 55]
-    xviews, xserve, prof, bviews, agree = smplx_serve(angles)
+    xviews, xserve, profs, bviews, agree, calls = smplx_serve(angles)
     for v in xviews:
         emit(dict(phase="smplx_view", **v))
-    emit(dict(phase="smplx_profile", **prof))
+    for prof in profs:
+        emit(dict(phase="smplx_profile", **prof))
     emit({"phase": "smplx_serve", "views": len(xviews),
           "median_view_ms": float(np.median([v["ms"] for v in xviews])),
           "median_view_ms_boxes": float(np.median([v["ms"]
@@ -1850,7 +2109,23 @@ def main() -> int:
           "max_abs_img_exact_vs_boxes": agree, "launches": xserve,
           "launches_per_view": {k: v / len(xviews)
                                 for k, v in xserve.items()},
+          "profiled_busy_ms": [p["device_busy_ms"] for p in profs],
+          "profile_spread_bound": PROFILE_SPREAD,
+          "knn_calls": [[c["N"], c["V"], c["k"]] for c in calls],
+          **exact_calls(calls), "seconds": time.perf_counter() - t0})
+
+    # kernel 9 on the points the view's coarse warp passed to it (its first
+    # kNN call), at K = 4 and 8
+    t0 = time.perf_counter()
+    check(calls and calls[0]["V"] == 10475,
+          f"the SMPL-X view's first kNN call: {calls[:1]}")
+    for k, name in ((4, "knn_exact_view"), (8, "knn_exact_view_k8")):
+        lines[name] = exact_line(calls[0]["points"], calls[0]["verts"], k,
+                                 exact)
+        emit(dict(phase="kernel", name=name, **lines[name]))
+    emit({"phase": "view_lines_done", "view_calls": view_calls(calls),
           "seconds": time.perf_counter() - t0})
+    del calls
 
     t0 = time.perf_counter()
     emit({"phase": "smplx_serve_parity", **smplx_serve_parity(),
@@ -1859,7 +2134,8 @@ def main() -> int:
     t0 = time.perf_counter()
     steps, xsummary, prof, losses = train_phase(
         "cuda", SMPLX_CFG, smplx_rig, "smplx", n_timed=10, n_fixed=20,
-        need=SMPLX_TRAIN_KERNELS, absent=("knn", "min_dist", "knn_packed"))
+        need=SMPLX_TRAIN_KERNELS, absent=("knn", "min_dist", "knn_packed"),
+        capture=True)
     for st in steps:
         emit(dict(phase="smplx_train_step", **st))
     emit(dict(phase="smplx_train_profile", **prof))
@@ -1924,8 +2200,8 @@ def main() -> int:
     xparity8 = smplx_serve_parity(cfg=dict(SMPLX_CFG, k_neigh=8),
                                   bounds=PARITY_BOUNDS[1:])
     x8launches = dict(_build.LAUNCHES)
-    check(x8launches["knn_exact"] > 0 and x8launches["knn"]
-          == x8launches["knn_packed"] == 0,
+    check(x8launches["knn_exact"] == x8launches["knn_exact_cull"] > 0
+          and x8launches["knn"] == x8launches["knn_packed"] == 0,
           f"SMPL-X k_neigh 8 launched the wrong kNN: {x8launches}")
     emit({"phase": "smplx_k8_parity", **xparity8, "launches": x8launches,
           "seconds": time.perf_counter() - t0})
@@ -1946,9 +2222,10 @@ def main() -> int:
     # train phase's for kernels 1-6; the SMPL-X serve and train phases'
     # (summed) for kernels 7 and 9; the k_neigh 8 serve and train phases'
     # (summed) for kernel 8 and kernels 2 and 5 at K = 8; the SMPL-X
-    # k_neigh 8 parity view's (card side) for kernel 9 at K = 8; the kNN
-    # tool's for kernel 8 at K = 4 and kernel 10 (one count for both
-    # precisions)
+    # k_neigh 8 parity view's (card side) for kernel 9 at K = 8; the SMPL-X
+    # serve phase's for kernel 9 on the view's points; the kNN tool's for
+    # kernel 9 without its cull, kernel 8 at K = 4 and kernel 10 (one count
+    # for both precisions)
     k8 = {k: k8serve[k] + k8summary["launches"][k]
           for k in ("knn_packed", "warp_blend", "scatter")}
     row_launches = dict(
@@ -1957,8 +2234,14 @@ def main() -> int:
         min_dist=xserve["min_dist"] + xsummary["launches"]["min_dist"],
         knn_packed=k8["knn_packed"], warp_blend_k8=k8["warp_blend"],
         scatter_k8=k8["scatter"], knn_exact_k8=x8launches["knn_exact"],
+        knn_exact_view=xserve["knn_exact_cull"],
+        knn_exact_view_k8=x8launches["knn_exact_cull"],
+        knn_exact_nocull=blaunches["knn_exact"] - blaunches["knn_exact_cull"],
         knn_packed_k4=blaunches["knn_packed"], knn_mxu=blaunches["knn_mxu"],
         knn_mxu_default=blaunches["knn_mxu"])
+    lines["knn_exact_nocull"] = dict(lines["knn_exact"],
+                                     ms=lines["knn_exact"]["ms_nocull"],
+                                     bound_ms=lines["knn_exact"]["bound_all_ms"])
     rows = []
     for name, (src, replaces) in KERNELS.items():
         ln = lines[name]
