@@ -16,8 +16,11 @@
 // points a thread, double-buffered staged rows, a filter in front of the
 // key) with kernel 1's nested 4-slot insert after the first tile; with
 // tile_skip, its per-warp skip of Morton tiles and nearest-tile-first
-// order. The TPU's lane tournament and far skip are not carried over (the
-// far skip is off on every path of the port).
+// order. The TPU's lane tournament is not carried over (keys are unique, so
+// any exact top-4 selects the same keys). Its all-far skip (far2) is
+// knn_far.cu's pass, whose flags the sweep reads; with tile_skip, the
+// all-far test comes first and the groups it keeps take the tile skip, as
+// in the TPU kernel.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,16 +88,18 @@ extern "C" int animnerf_knn_rows(const void* verts, void* rows, void* index,
 // (stratified iff tile_skip == 0); vbox:
 // (B, Vp / TILE, 8) f32 per-tile [lo xyz, hi xyz, 0, 0], read only when
 // tile_skip != 0; stats: null, or two u64 counters of warp-tile visits
-// [swept, skipped] that the kernel adds to.
+// [swept, skipped] that the kernel adds to; far: null, or the flags of
+// animnerf_knn_far (which wrote the skipped groups' outputs).
 extern "C" int animnerf_knn_top4(const void* points, const void* rows,
                                  const void* index, const void* vbox,
-                                 int tile_skip, void* stats, void* out_d,
-                                 void* out_i, int B, int N, int V, int Vp,
-                                 void* stream) {
+                                 int tile_skip, void* stats, const void* far,
+                                 void* out_d, void* out_i, int B, int N,
+                                 int V, int Vp, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (tile_skip)
     return knn_sweep::launch<4, P_SKIP, true, Top4Insert>(
-        points, rows, index, vbox, stats, out_d, out_i, B, N, V, Vp, s);
+        points, rows, index, vbox, stats, far, out_d, out_i, B, N, V, Vp, s);
   return knn_sweep::launch<4, P, false, Top4Insert>(
-      points, rows, index, nullptr, nullptr, out_d, out_i, B, N, V, Vp, s);
+      points, rows, index, nullptr, nullptr, far, out_d, out_i, B, N, V, Vp,
+      s);
 }

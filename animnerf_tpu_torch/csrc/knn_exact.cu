@@ -4,8 +4,10 @@
 // Replaces: animnerf_tpu/ops/knn_pallas.py::_knn_kernel (knn_pallas with
 // packed=False, or with a padded vertex cloud above the packed key's
 // 8192-vertex index field, such as SMPL-X's 10475) at its default
-// tile_v = 512, with and without its cull. Its all-far skip (far2) is not
-// ported: no config key of either package reaches it.
+// tile_v = 512, with and without its cull. Its all-far skip (far2 > 0) is
+// knn_far.cu's pass over this file's tile boxes: the sweep reads its flags,
+// and a block whose points lie in a skipped group returns at once (its
+// points' outputs are the pass's).
 //
 // Contract (bit-identical to the plain version in ops/knn_kernel.py): for
 // point p and vertex v,
@@ -87,6 +89,7 @@ constexpr int SUB = 64;                // rows a sub-tile box bounds
 constexpr int SUBS = TILE / SUB;
 constexpr int MAX_K = 16;
 constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int FAR_GROUP = 1024;  // the all-far skip's point group
 static_assert(SUB == 64, "a sub-tile is two warps of the rows kernel");
 
 // query points a thread at K slots
@@ -200,6 +203,8 @@ __device__ __forceinline__ void sweep_rows(const float4* __restrict__ rows,
 // grid (ceil(N / (THREADS P)), B). stats: null, or two u64 counters the
 // kernel adds the (point slot, vertex) pairs it swept and skipped to (a
 // warp's 32P point slots times each tile's or sub-tile's real vertices).
+// far: null, or knn_far.cu's flags (B, ceil(N / FAR_GROUP)); a block's
+// points lie in one group, and a block of a skipped group returns at once.
 template <int K, int P>
 __global__ void __launch_bounds__(THREADS)
 knn_exact_kernel(const float* __restrict__ points,  // (B, N, 3)
@@ -208,8 +213,15 @@ knn_exact_kernel(const float* __restrict__ points,  // (B, N, 3)
                  const float* __restrict__ tbox,    // (B, Vp / TILE, 8)
                  float* __restrict__ out_d,         // (B, K, N)
                  int* __restrict__ out_i,           // (B, K, N)
-                 unsigned long long* __restrict__ stats, int N, int V,
-                 int Vp, int cull) {
+                 unsigned long long* __restrict__ stats,
+                 const int* __restrict__ far, int N, int V, int Vp,
+                 int cull) {
+  static_assert(FAR_GROUP % (THREADS * P) == 0,
+                "a block's points lie in one far-skip group");
+  if (far != nullptr &&
+      far[(size_t)blockIdx.y * ((N + FAR_GROUP - 1) / FAR_GROUP) +
+          blockIdx.x * (THREADS * P) / FAR_GROUP])
+    return;  // knn_far.cu wrote this group's outputs
   __shared__ __align__(16) float4 s_rows[2][TILE];
   __shared__ __align__(16) float s_box[2][SUBS * 8];
   const int b = blockIdx.y;
@@ -373,15 +385,15 @@ knn_exact_rows(const float* __restrict__ verts,  // (B, V, 3)
 template <int K>
 void launch(int k, int B, cudaStream_t stream, const float* points,
             const float4* rows, const float* sbox, const float* tbox,
-            int cull, unsigned long long* stats, float* out_d, int* out_i,
-            int N, int V, int Vp) {
+            int cull, unsigned long long* stats, const int* far,
+            float* out_d, int* out_i, int N, int V, int Vp) {
   if (k == K) {
     constexpr int P = points_per_thread<K>();
     const dim3 grid((N + THREADS * P - 1) / (THREADS * P), B);
     knn_exact_kernel<K, P><<<grid, THREADS, 0, stream>>>(
-        points, rows, sbox, tbox, out_d, out_i, stats, N, V, Vp, cull);
+        points, rows, sbox, tbox, out_d, out_i, stats, far, N, V, Vp, cull);
   } else if constexpr (K < MAX_K) {
-    launch<K + 1>(k, B, stream, points, rows, sbox, tbox, cull, stats,
+    launch<K + 1>(k, B, stream, points, rows, sbox, tbox, cull, stats, far,
                   out_d, out_i, N, V, Vp);
   }
 }
@@ -406,19 +418,21 @@ extern "C" int animnerf_knn_exact_rows(const void* verts, void* rows,
 // rows, sbox, tbox: animnerf_knn_exact_rows's for V vertices padded to Vp;
 // cull: skip the tiles and sub-tiles that cannot change a point's slots
 // (the output is the same either way); stats: null, or two u64 counters
-// of (point slot, vertex) pairs [swept, skipped] that the kernel adds to.
+// of (point slot, vertex) pairs [swept, skipped] that the kernel adds to;
+// far: null, or the flags of animnerf_knn_far (which wrote the skipped
+// groups' outputs).
 extern "C" int animnerf_knn_exact(const void* points, const void* rows,
                                   const void* sbox, const void* tbox,
-                                  int cull, void* stats, void* out_d,
-                                  void* out_i, int B, int N, int V, int Vp,
-                                  int k, void* stream) {
+                                  int cull, void* stats, const void* far,
+                                  void* out_d, void* out_i, int B, int N,
+                                  int V, int Vp, int k, void* stream) {
   if (k < 1 || k > MAX_K || V < k || Vp < V || Vp % TILE != 0 ||
       Vp - V >= TILE)
     return (int)cudaErrorInvalidValue;
   if (N > 0 && B > 0)
     launch<1>(k, B, (cudaStream_t)stream, (const float*)points,
               (const float4*)rows, (const float*)sbox, (const float*)tbox,
-              cull, (unsigned long long*)stats, (float*)out_d, (int*)out_i,
-              N, V, Vp);
+              cull, (unsigned long long*)stats, (const int*)far,
+              (float*)out_d, (int*)out_i, N, V, Vp);
   return (int)cudaGetLastError();
 }

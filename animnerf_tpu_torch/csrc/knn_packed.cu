@@ -2,8 +2,8 @@
 // Hopper (sm_90a).
 //
 // Replaces: animnerf_tpu/ops/knn_pallas.py::_packed_knn_kernel (the packed
-// path of knn_pallas when k != 4, or with tournament=False), with
-// far2 = 0: the all-far skip (knn_far_skip) is not ported.
+// path of knn_pallas when k != 4, or with tournament=False). Its all-far
+// skip (far2 > 0) is knn_far.cu's pass, whose flags the sweep reads.
 //
 // Contract: the packed keys of knn_keys.cuh, bit-identical to the TPU
 // kernel and to the plain version in ops/knn_kernel.py. The K smallest
@@ -71,28 +71,29 @@ struct PackedInsert {
 // launch the instantiation for k (1..MAX_K)
 template <int K>
 int launch(int k, const void* points, const void* rows, const void* index,
-           void* out_d, void* out_i, int B, int N, int V, int Vp,
-           cudaStream_t stream) {
+           const void* far, void* out_d, void* out_i, int B, int N, int V,
+           int Vp, cudaStream_t stream) {
   if (k == K)
     return knn_sweep::launch<K, points_per_thread<K>(), false,
                              PackedInsert<K>>(points, rows, index, nullptr,
-                                              nullptr, out_d, out_i, B, N,
-                                              V, Vp, stream);
+                                              nullptr, far, out_d, out_i, B,
+                                              N, V, Vp, stream);
   if constexpr (K < MAX_K)
-    return launch<K + 1>(k, points, rows, index, out_d, out_i, B, N, V, Vp,
-                         stream);
+    return launch<K + 1>(k, points, rows, index, far, out_d, out_i, B, N, V,
+                         Vp, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // rows, index: animnerf_knn_rows's for V vertices padded to Vp, stratified
-// (knn.cu); V >= k
+// (knn.cu); V >= k; far: null, or the flags of animnerf_knn_far (which
+// wrote the skipped groups' outputs)
 extern "C" int animnerf_knn_packed(const void* points, const void* rows,
-                                   const void* index, void* out_d,
-                                   void* out_i, int B, int N, int V, int Vp,
-                                   int k, void* stream) {
+                                   const void* index, const void* far,
+                                   void* out_d, void* out_i, int B, int N,
+                                   int V, int Vp, int k, void* stream) {
   if (k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
-  return launch<1>(k, points, rows, index, out_d, out_i, B, N, V, Vp,
+  return launch<1>(k, points, rows, index, far, out_d, out_i, B, N, V, Vp,
                    (cudaStream_t)stream);
 }

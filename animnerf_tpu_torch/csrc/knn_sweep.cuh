@@ -52,6 +52,7 @@ constexpr int TILE = 256;  // rows per staged tile: 4 KB of float4 + 1 KB
 constexpr int TILE_BITS = 8;
 constexpr int MAX_TILES = knn_keys::MAX_VERTS / TILE;
 constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int FAR_GROUP = 1024;  // the all-far skip's point group
 static_assert((1 << TILE_BITS) == TILE, "TILE is 2^TILE_BITS");
 
 // the vertex index at visiting position pos of a cloud padded to n_tiles
@@ -186,6 +187,10 @@ __device__ __forceinline__ void sweep_tile(const float4* __restrict__ rows,
 // rows (B, Vp, 4), idx (Vp,) from knn.cu's rows kernel (stratified unless
 // SKIP). SKIP: vbox (B, Vp / TILE, 8) per-tile AABBs [lo xyz, hi xyz, 0, 0];
 // stats null or two u64 counters of warp-tile visits [swept, skipped].
+// far: null, or the all-far skip's flags (B, ceil(N / FAR_GROUP)) from
+// knn_far.cu, which has written the outputs of the skipped groups' points:
+// a block's points lie in one group, and a block of a skipped group
+// returns before it sweeps or writes anything.
 //
 // The tile skip: a point's squared distance to any vertex of tile t is at
 // least lb2(t), the squared distance to the tile's box. The deflated bound
@@ -204,7 +209,14 @@ sweep_kernel(const float* __restrict__ points,  // (B, N, 3)
              const float* __restrict__ vbox,    // (B, Vp / TILE, 8) or null
              float* __restrict__ out_d,         // (B, K, N)
              int* __restrict__ out_i,           // (B, K, N)
-             unsigned long long* __restrict__ stats, int N, int Vp) {
+             unsigned long long* __restrict__ stats,
+             const int* __restrict__ far, int N, int Vp) {
+  static_assert(FAR_GROUP % (THREADS * P) == 0,
+                "a block's points lie in one far-skip group");
+  if (far != nullptr &&
+      far[(size_t)blockIdx.y * ((N + FAR_GROUP - 1) / FAR_GROUP) +
+          blockIdx.x * (THREADS * P) / FAR_GROUP])
+    return;  // knn_far.cu wrote this group's outputs
   __shared__ __align__(16) float4 s_rows[2][TILE];
   __shared__ __align__(16) int s_idx[2][TILE];
   __shared__ float s_box[SKIP ? MAX_TILES * 8 : 1];
@@ -313,11 +325,12 @@ sweep_kernel(const float* __restrict__ points,  // (B, N, 3)
 }
 
 // launch the sweep over rows staged by knn.cu's rows kernel for V
-// vertices padded to Vp: V >= K keeps the padding rows out of the top-K
+// vertices padded to Vp: V >= K keeps the padding rows out of the top-K;
+// far: null or knn_far.cu's flags
 template <int K, int P, bool SKIP, class Insert>
 int launch(const void* points, const void* rows, const void* index,
-           const void* vbox, void* stats, void* out_d, void* out_i, int B,
-           int N, int V, int Vp, cudaStream_t stream) {
+           const void* vbox, void* stats, const void* far, void* out_d,
+           void* out_i, int B, int N, int V, int Vp, cudaStream_t stream) {
   if (V < K || Vp < V || Vp % TILE != 0 || Vp > knn_keys::MAX_VERTS ||
       (SKIP && vbox == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -326,7 +339,7 @@ int launch(const void* points, const void* rows, const void* index,
     sweep_kernel<K, P, SKIP, Insert><<<grid, THREADS, 0, stream>>>(
         (const float*)points, (const float4*)rows, (const int*)index,
         (const float*)vbox, (float*)out_d, (int*)out_i,
-        (unsigned long long*)stats, N, Vp);
+        (unsigned long long*)stats, (const int*)far, N, Vp);
   }
   return (int)cudaGetLastError();
 }

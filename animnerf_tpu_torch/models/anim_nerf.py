@@ -34,6 +34,9 @@ class AnimNeRFConfig:
     dis_threshold: float = 0.2
     k_neigh: int = 4
     query_inside: bool = False
+    # the kNN's all-far skip at dis_threshold (ops/knn_kernel.py), exact
+    # end to end; no system config key sets it, as in the JAX package
+    knn_far_skip: bool = False
     compute_dtype: str = "float32"
 
 
@@ -59,7 +62,8 @@ class AnimNeRFModel(nn.Module):
     def warp_points(self, ctx: FrameContext, xyz: torch.Tensor):
         """Observed -> canonical warp; returns (xyz_cano, valid)."""
         return unpose(ctx, xyz, k=self.cfg.k_neigh,
-                      dis_threshold=self.cfg.dis_threshold)
+                      dis_threshold=self.cfg.dis_threshold,
+                      far_skip=self.cfg.knn_far_skip)
 
     def field_points(self, xyz: torch.Tensor, valid=None,
                      use_fine: bool = False):
@@ -76,8 +80,10 @@ class AnimNeRFModel(nn.Module):
     def warp_rows(self, ctx: FrameContext, xyz_t: torch.Tensor,
                   tile_skip: bool = False) -> torch.Tensor:
         """(B, 8, N) rows -> (B, 8, N) rows [x'|y'|z'|bd|0..]."""
-        return unpose_rows(ctx, xyz_t, k=self.cfg.k_neigh,
-                           tile_skip=tile_skip)
+        c = self.cfg
+        return unpose_rows(ctx, xyz_t, k=c.k_neigh,
+                           far_skip=c.dis_threshold if c.knn_far_skip
+                           else 0.0, tile_skip=tile_skip)
 
     def field_rows(self, rows: torch.Tensor, use_fine: bool) -> torch.Tensor:
         """rows (B, 8, N) [x'|y'|z'|bd|..] -> (B, 8, N) [r|g|b|sigma|0..]

@@ -189,28 +189,34 @@ def rays_to_root_frame(ctx: FrameContext, rays: torch.Tensor) -> torch.Tensor:
 
 
 def unpose(ctx: FrameContext, xyz: torch.Tensor, k: int = 4,
-           dis_threshold: float = 0.2, weight_std: float = 0.1):
+           dis_threshold: float = 0.2, weight_std: float = 0.1,
+           far_skip: bool = False):
     """Warp (B, N, 3) observed points into canonical space on the fused
     path (``unpose_rows``) with k neighbours. Returns (xyz_canonical
     (B, N, 3), valid (B, N, 1)) with valid in {0., 1.} (reference
-    anim_nerf.py:180-192; view directions are not warped on this path)."""
+    anim_nerf.py:180-192; view directions are not warped on this path).
+    ``far_skip`` (``AnimNeRFConfig.knn_far_skip``): the kNN's all-far skip
+    at dis_threshold, exact end to end (such points are invalid)."""
     rows = torch.nn.functional.pad(xyz.transpose(1, 2), (0, 0, 0, 5))
-    out = unpose_rows(ctx, rows, k=k, weight_std=weight_std)
+    out = unpose_rows(ctx, rows, k=k, weight_std=weight_std,
+                      far_skip=dis_threshold if far_skip else 0.0)
     xyz_cano = out[:, 0:3].transpose(1, 2)
     valid = (out[:, 3:4] < dis_threshold).to(xyz.dtype).transpose(1, 2)
     return xyz_cano, valid
 
 
 def unpose_rows(ctx: FrameContext, xyz_t: torch.Tensor, k: int = 4,
-                weight_std: float = 0.1,
+                weight_std: float = 0.1, far_skip: float = 0.0,
                 tile_skip: bool = False) -> torch.Tensor:
     """Rows-native unpose: xyz_t (B, 8, N) rows [x|y|z|..] -> (B, 8, N)
     rows [x'|y'|z'|blended_dist|0..]: the top-k kNN of the detached points
     against the Morton-sorted cloud (``ops/knn_kernel.py::knn``: packed
     keys up to 8192 vertices, with ``tile_skip`` on Morton-ordered points
-    at k=4, the exact kernel above), then the differentiable warp-blend."""
+    at k=4, the exact kernel above; ``far_skip`` > 0, the dis_threshold,
+    turns on its all-far skip), then the differentiable warp-blend."""
     J = ctx.lbs_weights.shape[1]
     pts = xyz_t[:, 0:3].detach().transpose(1, 2).contiguous()
-    dists, idx = knn(pts, ctx.verts_morton, k, tile_skip=tile_skip)
+    dists, idx = knn(pts, ctx.verts_morton, k, tile_skip=tile_skip,
+                     far_skip=far_skip)
     return warp_blend_rows(xyz_t, dists, idx, ctx.table_morton, J,
                            float(weight_std), 0.9)

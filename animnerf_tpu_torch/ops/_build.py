@@ -32,7 +32,7 @@ BUILD_ROOT = _PKG.parent / "build" / "animnerf_tpu_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 SOURCES = ("knn.cu", "warp_blend.cu", "fused_mlp.cu", "sort_lanes.cu",
            "scatter.cu", "fused_mlp_bwd.cu", "knn_exact.cu", "min_dist.cu",
-           "knn_packed.cu", "knn_mxu.cu", "mlp_wgrad.cu")
+           "knn_packed.cu", "knn_mxu.cu", "mlp_wgrad.cu", "knn_far.cu")
 # device code the sources include (hashed with them)
 HEADERS = ("knn_keys.cuh", "knn_slots.cuh", "knn_sweep.cuh",
            "mlp_wgmma.cuh", "mlp_bwd_layout.cuh")
@@ -47,8 +47,8 @@ _F = ctypes.c_float
 # C signatures: every function returns cudaGetLastError() as an int
 SIGNATURES = {
     "animnerf_knn_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "animnerf_knn_top4": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                          _P],
+    "animnerf_knn_top4": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _P],
     "animnerf_warp_blend_fwd": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "animnerf_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -60,10 +60,12 @@ SIGNATURES = {
     "animnerf_fused_mlp_bwd_sizes": [_I, _P],
     "animnerf_mlp_wgrad": [_P, _P, _P, _P, _I, _I, _P],
     "animnerf_knn_exact_rows": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "animnerf_knn_exact": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _P],
+    "animnerf_knn_exact": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _P],
     "animnerf_min_dist": [_P, _P, _P, _I, _I, _I, _P],
-    "animnerf_knn_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "animnerf_knn_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P],
+    "animnerf_knn_far": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "animnerf_knn_mxu": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -71,11 +73,13 @@ SIGNATURES = {
 # count under "knn", the kernel's total), "knn_exact_cull" the exact kNN's
 # launches with the cull on (also under "knn_exact"); "fused_mlp_wgrad"
 # the bf16 MLP backward's weight-gradient pass, launched by fused_nerf_bwd
-# (which also counts under "fused_mlp_bwd") or alone by fused_nerf_wgrad
+# (which also counts under "fused_mlp_bwd") or alone by fused_nerf_wgrad;
+# "knn_far" the all-far skip's pass, launched by a kNN wrapper in front of
+# its sweep when far_skip > 0
 LAUNCHES = {"knn": 0, "knn_tile_skip": 0, "warp_blend": 0, "scatter": 0,
             "fused_mlp": 0, "fused_mlp_bwd": 0, "fused_mlp_wgrad": 0,
             "permute_lanes": 0, "knn_exact": 0, "knn_exact_cull": 0,
-            "min_dist": 0, "knn_packed": 0, "knn_mxu": 0}
+            "min_dist": 0, "knn_packed": 0, "knn_mxu": 0, "knn_far": 0}
 
 
 def reset_launches() -> None:

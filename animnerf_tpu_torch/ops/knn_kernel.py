@@ -41,8 +41,29 @@ per-tile and per-sub-tile AABBs that ``exact_rows`` builds once per call
 ``knn``: a warp skips a tile, or a 64-vertex sub-tile, whose box lies
 farther from every one of its points than that point's current slot
 maximum (or tile list's K-th entry), when the tile's turn comes in index
-order; the output is the same with or without it, ties included. Its
-all-far skip (``far_skip``) is not ported: no config key reaches it.
+order; the output is the same with or without it, ties included.
+
+The all-far skip (``far_skip`` = dis_threshold > 0, the TPU kernels'
+``far2``; ``AnimNeRFConfig.knn_far_skip`` turns it on), in all three. As
+the TPU kernels' code does it (``knn_pallas.py:69-81, 126-135, 206-216,
+246-257, 336-345, 437-445``), at ``knn_pallas``'s default tiles: point n
+of a batch element belongs to group n // 1024 (``FAR_GROUP``; the last
+group padded with points at the origin, which take part in its minimum);
+each point's bound g_lb2 is the minimum over the 512-vertex tiles of the
+squared distance to the tile's box of real vertices, ((0 + gx*gx) + gy*gy)
++ gz*gz with gap = max(max(lo - p, p - hi), 0), each operation rounded on
+its own; a group whose smallest bound exceeds far2 = float32(thr ** 2)
+(squared in double, rounded once) skips the sweep. Its points get index 0
+in every slot and the distance sqrt(g_lb2) (exact kernel) or the square
+root of the bound's key rounded up one quantum, ((bits(g_lb2) & ~0x1FFF)
++ 0x2000) & ~0x1FFF (packed kernels): not the true distance to vertex 0
+that ``knn_pallas``'s docstring names. Each exceeds dis_threshold, so the
+warp marks the point invalid, its sigma becomes the outside-shell fill
+and the render is unchanged. On the card a far pass (``csrc/knn_far.cu``)
+decides the groups and writes the skipped points' outputs, and the sweep
+returns at once from a block of a skipped group; with ``tile_skip`` the
+all-far test comes first. The plain versions sweep only the points of
+the groups kept.
 """
 
 from __future__ import annotations
@@ -60,6 +81,7 @@ TILE_BITS = 8
 SLOT_TILE = 512  # the TPU kernels' vertex tile, which the top-k rule follows
 SUB_TILE = 64  # the exact kernel's sub-tile boxes (csrc/knn_exact.cu)
 EXACT_MAX_VERTS = 2**31 - SLOT_TILE  # the padded count fits an int
+FAR_GROUP = 1024  # the all-far skip's point group (knn_pallas's tile_n)
 _PAD_KEY = (0x7F800000 << 32) | 0x7FFFFFFF  # d2 = +inf: never merged
 
 
@@ -170,16 +192,18 @@ def _outputs(points: torch.Tensor, k: int):
 
 
 def knn_top4(points: torch.Tensor, verts: torch.Tensor,
-             tile_skip: bool = False, stats: torch.Tensor = None):
+             tile_skip: bool = False, stats: torch.Tensor = None,
+             far_skip: float = 0.0):
     """Kernel on CUDA tensors, plain version on CPU tensors (which ignores
     ``tile_skip``: the output is the same either way). ``tile_skip`` lets a
     warp skip vertex tiles that cannot hold any of its points' top-4 (exact;
     pays when the points are Morton-ordered). ``stats``: an optional int64
     CUDA tensor of 2 the kernel adds its warp-tile [swept, skipped] counts
-    to."""
+    to. ``far_skip`` > 0: the all-far skip at that threshold (the module
+    docstring), the far pass first."""
     check_points_verts(points, verts)
     if points.device.type == "cpu":
-        return knn_top4_plain(points, verts)
+        return knn_top4_plain(points, verts, far_skip=far_skip)
     points = points.detach().contiguous()
     verts = verts.detach().contiguous()
     _build.check_cuda("knn_top4", points, verts)
@@ -189,6 +213,7 @@ def knn_top4(points: torch.Tensor, verts: torch.Tensor,
     if N == 0:
         return d, i
     _check_stats(stats, points)
+    flags = _far_pass(points, verts, far_skip, d, i, packed=True)
     # the tile skip sweeps the Morton tiles its boxes bound
     rows, order = vertex_rows(verts, stratified=not tile_skip)
     vbox = tile_boxes(verts) if tile_skip else None
@@ -196,7 +221,8 @@ def knn_top4(points: torch.Tensor, verts: torch.Tensor,
         "animnerf_knn_top4", points.data_ptr(), rows.data_ptr(),
         order.data_ptr(), vbox.data_ptr() if tile_skip else None,
         int(bool(tile_skip)),
-        stats.data_ptr() if stats is not None else None, d.data_ptr(),
+        stats.data_ptr() if stats is not None else None,
+        flags.data_ptr() if flags is not None else None, d.data_ptr(),
         i.data_ptr(), B, N, V, rows.shape[1], _build.stream_of(points))
     _build.LAUNCHES["knn"] += 1
     if tile_skip:
@@ -205,19 +231,21 @@ def knn_top4(points: torch.Tensor, verts: torch.Tensor,
 
 
 def knn_top4_plain(points: torch.Tensor, verts: torch.Tensor,
-                   max_elems: int = 1 << 24):
+                   max_elems: int = 1 << 24, far_skip: float = 0.0):
     """``knn_packed_plain`` at k=4."""
-    return knn_packed_plain(points, verts, K, max_elems)
+    return knn_packed_plain(points, verts, K, max_elems, far_skip)
 
 
-def knn_packed(points: torch.Tensor, verts: torch.Tensor, k: int):
+def knn_packed(points: torch.Tensor, verts: torch.Tensor, k: int,
+               far_skip: float = 0.0):
     """The packed-key top-k, any k in 1..16 (kernel 8): kernel on CUDA
     tensors, plain version on CPU tensors. At k=4 it selects what
-    ``knn_top4`` selects, bit for bit."""
+    ``knn_top4`` selects, bit for bit. ``far_skip`` > 0: the all-far skip
+    at that threshold, the far pass first."""
     check_k(k)
     check_points_verts(points, verts, min_verts=k)
     if points.device.type == "cpu":
-        return knn_packed_plain(points, verts, k)
+        return knn_packed_plain(points, verts, k, far_skip=far_skip)
     points = points.detach().contiguous()
     verts = verts.detach().contiguous()
     _build.check_cuda("knn_packed", points, verts)
@@ -225,21 +253,29 @@ def knn_packed(points: torch.Tensor, verts: torch.Tensor, k: int):
     d, i = _outputs(points, k)
     if N == 0:
         return d, i
+    flags = _far_pass(points, verts, far_skip, d, i, packed=True)
     rows, order = vertex_rows(verts)
     _build.kernel_library().call(
         "animnerf_knn_packed", points.data_ptr(), rows.data_ptr(),
-        order.data_ptr(), d.data_ptr(), i.data_ptr(), B, N, verts.shape[1],
-        rows.shape[1], k, _build.stream_of(points))
+        order.data_ptr(), flags.data_ptr() if flags is not None else None,
+        d.data_ptr(), i.data_ptr(), B, N, verts.shape[1], rows.shape[1], k,
+        _build.stream_of(points))
     _build.LAUNCHES["knn_packed"] += 1
     return d, i
 
 
 def knn_packed_plain(points: torch.Tensor, verts: torch.Tensor, k: int,
-                     max_elems: int = 1 << 24):
+                     max_elems: int = 1 << 24, far_skip: float = 0.0):
     """The packed keys in chunks over N, so the (chunk x V) key matrix
-    stays below ``max_elems``; then an int top-k (smallest k, sorted)."""
+    stays below ``max_elems``; then an int top-k (smallest k, sorted).
+    ``far_skip`` > 0: only the points of the groups the all-far skip keeps
+    are swept (``far_plain``)."""
     check_k(k)
     check_points_verts(points, verts, min_verts=k)
+    if far_skip > 0:
+        return far_plain(points, verts, k, far_skip, packed=True,
+                         sweep=lambda p, v: knn_packed_plain(p, v, k,
+                                                             max_elems))
     B, N, _ = points.shape
     V = verts.shape[1]
     if N == 0:
@@ -311,7 +347,8 @@ def exact_rows_plain(verts: torch.Tensor):
 
 
 def knn_exact(points: torch.Tensor, verts: torch.Tensor, k: int = K,
-              cull: bool = True, stats: torch.Tensor = None):
+              cull: bool = True, stats: torch.Tensor = None,
+              far_skip: float = 0.0):
     """The exact kNN (kernel 9): kernel on CUDA tensors, plain version on
     CPU tensors (which ignores ``cull``: the output is the same either
     way). Any V >= k. ``cull`` lets a warp skip the vertex tiles and
@@ -319,12 +356,14 @@ def knn_exact(points: torch.Tensor, verts: torch.Tensor, k: int = K,
     spatially coherent points). ``stats``: an optional int64 CUDA tensor
     of 2 the kernel adds its [swept, skipped] (point, vertex) pair counts
     to (a warp's point slots, dead ones included, times each tile's or
-    sub-tile's vertices)."""
+    sub-tile's vertices; blocks of skipped far groups add nothing).
+    ``far_skip`` > 0: the all-far skip at that threshold, the far pass
+    first."""
     check_k(k)
     check_points_verts(points, verts, min_verts=k,
                        max_verts=EXACT_MAX_VERTS)
     if points.device.type == "cpu":
-        return knn_exact_plain(points, verts, k)
+        return knn_exact_plain(points, verts, k, far_skip=far_skip)
     points = points.detach().contiguous()
     verts = verts.detach().contiguous()
     _build.check_cuda("knn_exact", points, verts)
@@ -334,10 +373,13 @@ def knn_exact(points: torch.Tensor, verts: torch.Tensor, k: int = K,
         return d, i
     _check_stats(stats, points)
     rows, sbox, tbox = exact_rows(verts)
+    flags = _far_pass(points, verts, far_skip, d, i, packed=False,
+                      tbox=tbox)
     _build.kernel_library().call(
         "animnerf_knn_exact", points.data_ptr(), rows.data_ptr(),
         sbox.data_ptr(), tbox.data_ptr(), int(bool(cull)),
-        stats.data_ptr() if stats is not None else None, d.data_ptr(),
+        stats.data_ptr() if stats is not None else None,
+        flags.data_ptr() if flags is not None else None, d.data_ptr(),
         i.data_ptr(), B, N, verts.shape[1], rows.shape[1], k,
         _build.stream_of(points))
     _build.LAUNCHES["knn_exact"] += 1
@@ -423,12 +465,18 @@ def tile_slots_topk(d2: torch.Tensor, k: int):
 
 
 def knn_exact_plain(points: torch.Tensor, verts: torch.Tensor, k: int = K,
-                    max_elems: int = 1 << 22):
+                    max_elems: int = 1 << 22, far_skip: float = 0.0):
     """The exact kNN in chunks over N (a (chunk x V) matrix below
-    ``max_elems``): d2 as ``exact_d2``, then ``tile_slots_topk``."""
+    ``max_elems``): d2 as ``exact_d2``, then ``tile_slots_topk``.
+    ``far_skip`` > 0: only the points of the groups the all-far skip keeps
+    are swept (``far_plain``)."""
     check_k(k)
     check_points_verts(points, verts, min_verts=k, max_verts=2**31 - 1)
     points, verts = points.detach(), verts.detach()
+    if far_skip > 0:
+        return far_plain(points, verts, k, far_skip, packed=False,
+                         sweep=lambda p, v: knn_exact_plain(p, v, k,
+                                                            max_elems))
     B, N, _ = points.shape
     V = verts.shape[1]
     if N == 0:
@@ -443,14 +491,142 @@ def knn_exact_plain(points: torch.Tensor, verts: torch.Tensor, k: int = K,
 
 
 def knn(points: torch.Tensor, verts: torch.Tensor, k: int = K,
-        tile_skip: bool = False, packed: bool = True):
+        tile_skip: bool = False, packed: bool = True,
+        far_skip: float = 0.0):
     """The top-k kNN as ``knn_pallas`` picks its kernel: packed keys when
     ``packed`` and V <= 8192 (``knn_top4`` with ``tile_skip`` at k=4,
     ``knn_packed`` otherwise), the exact kernel with its cull otherwise.
     As in the JAX package only the k=4 packed kernel has the tile skip;
-    the others ignore it."""
+    the others ignore it. All three take the all-far skip (``far_skip``)."""
     if packed and verts.shape[1] <= MAX_VERTS:
         if k == K:
-            return knn_top4(points, verts, tile_skip=tile_skip)
-        return knn_packed(points, verts, k)
-    return knn_exact(points, verts, k, cull=True)
+            return knn_top4(points, verts, tile_skip=tile_skip,
+                            far_skip=far_skip)
+        return knn_packed(points, verts, k, far_skip=far_skip)
+    return knn_exact(points, verts, k, cull=True, far_skip=far_skip)
+
+
+# ------------------------------------------------------------ all-far skip
+
+
+def far_threshold(far_skip: float) -> float:
+    """far2: ``float(far_skip) ** 2`` squared in double and rounded once to
+    float32 (``knn_pallas.py:603-615``), which is not float32(thr) squared
+    in float32."""
+    return torch.tensor(float(far_skip) ** 2, dtype=torch.float32).item()
+
+
+def far_bound_plain(points: torch.Tensor, tbox: torch.Tensor,
+                    max_elems: int = 1 << 24) -> torch.Tensor:
+    """(B, N, 3) points and (B, T, 8) tile boxes [lo xyz, hi xyz, ..] ->
+    g_lb2 (B, N): per point the minimum over the tiles of ((0 + gx*gx) +
+    gy*gy) + gz*gz, gap = max(max(lo - p, p - hi), 0) per axis, each
+    operation its own (separately rounded) elementwise op."""
+    B, N, _ = points.shape
+    T = tbox.shape[1]
+    lo = [tbox[:, None, :, a] for a in range(3)]              # (B, 1, T)
+    hi = [tbox[:, None, :, 3 + a] for a in range(3)]
+    chunk = max(1, max_elems // max(T, 1))
+    out = []
+    for s in range(0, N, chunk):
+        p = points[:, s:s + chunk]
+        lb2 = None
+        for a in range(3):
+            pa = p[..., a:a + 1]                              # (B, c, 1)
+            gap = torch.clamp_min(torch.maximum(lo[a] - pa, pa - hi[a]), 0.0)
+            sq = gap * gap
+            lb2 = sq if lb2 is None else lb2 + sq
+        out.append(lb2.amin(dim=-1))
+    return torch.cat(out, dim=1) if out else points.new_empty((B, 0))
+
+
+def far_groups_plain(points: torch.Tensor, verts: torch.Tensor,
+                     far_skip: float):
+    """The far pass in plain torch: (g_lb2 (B, N), skip (B, G) bool) for
+    G = ceil(N / FAR_GROUP) groups; the last group is padded with points
+    at the origin, whose bound takes part in its minimum, as
+    ``knn_pallas`` pads N with zeros."""
+    B, N, _ = points.shape
+    tbox = exact_rows_plain(verts)[2]
+    g = far_bound_plain(points.detach(), tbox)
+    G = -(-N // FAR_GROUP)
+    pad = G * FAR_GROUP - N
+    full = g
+    if pad:
+        g0 = far_bound_plain(points.new_zeros((B, 1, 3)), tbox)
+        full = torch.cat([g, g0.expand(B, pad)], dim=1)
+    gmin = full.reshape(B, G, FAR_GROUP).amin(dim=-1)
+    return g, gmin > far_threshold(far_skip)
+
+
+def far_outputs(g_lb2: torch.Tensor, k: int, packed: bool):
+    """A skipped point's outputs from its bound g_lb2 (B, N): distances
+    (B, k, N), sqrt(g_lb2) (exact) or the square root of the key rounded
+    up one quantum (packed), and index 0."""
+    if packed:
+        bits = ((g_lb2.contiguous().view(torch.int32) & KEY_MASK)
+                + 0x2000) & KEY_MASK
+        g_lb2 = bits.view(torch.float32)
+    d = ieee_sqrt(g_lb2)[:, None].expand(-1, k, -1).contiguous()
+    return d, torch.zeros(d.shape, dtype=torch.int32, device=d.device)
+
+
+def far_plain(points, verts, k: int, far_skip: float, packed: bool, sweep):
+    """The all-far skip around a plain sweep: the skipped groups' points
+    get ``far_outputs``, ``sweep`` ((1, n, 3) points, (1, V, 3) verts ->
+    (d, i)) runs on the points of each batch element's kept groups."""
+    B, N, _ = points.shape
+    g, skip = far_groups_plain(points, verts, far_skip)
+    d, i = far_outputs(g, k, packed)
+    keep = ~skip.repeat_interleave(FAR_GROUP, dim=1)[:, :N]
+    for b in range(B):
+        n = torch.nonzero(keep[b])[:, 0]
+        if len(n):
+            ds, is_ = sweep(points[b:b + 1, n], verts[b:b + 1])
+            d[b, :, n], i[b, :, n] = ds[0], is_[0]
+    return d, i
+
+
+# per CUDA device: int64 [groups, skipped] that every far pass adds to
+_FAR_COUNTS: dict = {}
+
+
+def far_counts(device) -> torch.Tensor:
+    """The far passes' [groups, skipped] counts on ``device`` since the
+    last ``reset_far_counts`` (an int64 tensor of 2 on the device; reading
+    it synchronises)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _FAR_COUNTS:
+        _FAR_COUNTS[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _FAR_COUNTS[device]
+
+
+def reset_far_counts() -> None:
+    for c in _FAR_COUNTS.values():
+        c.zero_()
+
+
+def _far_pass(points, verts, far_skip: float, d, i, packed: bool,
+              tbox=None):
+    """Launch the far pass (``csrc/knn_far.cu``) when far_skip > 0: it
+    writes the skipped groups' outputs into d, i, adds to ``far_counts``
+    and returns the flags (B, G) int32 the sweep reads; None when far_skip
+    == 0. tbox: the 512-vertex tile boxes of ``exact_rows`` (computed when
+    not given)."""
+    if not far_skip > 0:
+        return None
+    B, N, _ = points.shape
+    if tbox is None:
+        tbox = exact_rows(verts)[2]
+    flags = torch.empty((B, -(-N // FAR_GROUP)), dtype=torch.int32,
+                        device=points.device)
+    _build.kernel_library().call(
+        "animnerf_knn_far", points.data_ptr(), tbox.data_ptr(),
+        flags.data_ptr(), far_counts(points.device).data_ptr(),
+        d.data_ptr(), i.data_ptr(), B, N, tbox.shape[1],
+        far_threshold(far_skip), d.shape[1], int(packed),
+        _build.stream_of(points))
+    _build.LAUNCHES["knn_far"] += 1
+    return flags

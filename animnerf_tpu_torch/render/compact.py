@@ -21,13 +21,13 @@ from typing import Optional
 import torch
 
 from animnerf_tpu_torch.models.anim_nerf import SIGMA_OUTSIDE
-from animnerf_tpu_torch.ops.perm_sort import inverse_permutation
-from animnerf_tpu_torch.ops.sort_lanes import LANES, permute_lanes
 from animnerf_tpu_torch.render.volume_renderer import (
     RendererConfig,
+    check_lanes,
     composite,
     composite_rows,
     composite_weights,
+    sort_by_depth,
 )
 
 
@@ -123,9 +123,7 @@ def compact_fine(cfg: RendererConfig, warp_fn, field_fn, rays: torch.Tensor,
     B, R, Kc = z_c.shape
     Kf = z_f.shape[-1]
     Kall = Kc + Kf
-    if Kall > LANES:
-        raise NotImplementedError(
-            f"{Kall} samples per ray: the merge-sort works on {LANES} lanes")
+    check_lanes(Kall)
 
     xyz_f, _ = gather_samples(rays, z_f.reshape(B, -1), sel_f, Kf)
     cano_f, valid_f = warp_fn(xyz_f)
@@ -149,12 +147,6 @@ def compact_fine(cfg: RendererConfig, warp_fn, field_fn, rays: torch.Tensor,
                             SIGMA_OUTSIDE))
     pay = torch.stack([r.reshape(B, R, Kall) for r in rows]
                       + [z_all.to(rows[0].dtype)], dim=1)   # (B, 5, R, Kall)
-    padK = LANES - Kall
-    z_pad = torch.nn.functional.pad(z_all, (0, padK), value=float("inf"))
-    pay = torch.nn.functional.pad(pay, (0, padK))
-    order = torch.argsort(z_pad, dim=-1, stable=True)
-    sp = permute_lanes(pay.to(torch.float32).contiguous(),
-                       order.to(torch.int32),
-                       inverse_permutation(order).to(torch.int32))[..., :Kall]
+    sp = sort_by_depth(pay, z_all)
     _, rgb_f, depth_f, alpha_f = composite_rows(cfg, sp, rays, sp[:, 4])
     return {"rgbs": rgb_f, "alphas": alpha_f, "depths": depth_f}

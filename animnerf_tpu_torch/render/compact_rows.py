@@ -31,15 +31,15 @@ from animnerf_tpu_torch.ops.perm_sort import (
     compact_channels,
     compaction_ranks,
     expand_channels,
-    inverse_permutation,
 )
-from animnerf_tpu_torch.ops.sort_lanes import LANES, permute_lanes
 from animnerf_tpu_torch.render.volume_renderer import (
     RendererConfig,
     _rows_from_z,
+    check_lanes,
     composite_rows,
     sample_coarse,
     sample_fine,
+    sort_by_depth,
 )
 from animnerf_tpu_torch.utils.rng import TrainNoise
 
@@ -113,23 +113,12 @@ def render_rays_rows_compact(cfg: RendererConfig, warp_rows_fn: Callable,
     f_mc, f_mf = f_m[:, :, :cap], f_m[:, :, cap:]
     cols_c = expand_cols(f_mc, o, inv, Kc)
     cols_f = expand_cols(f_mf, o_f, inv_f, Kf)
-    K = Kc + Kf
-    if K > LANES:
-        raise NotImplementedError(
-            f"{K} samples per ray: the merge-sort works on {LANES} lanes")
+    check_lanes(Kc + Kf)
     z_all = torch.cat([z_coarse, z_fine], dim=-1)
     pay = torch.stack([torch.cat([c, f], dim=-1)
                        for c, f in zip(cols_c, cols_f)] + [z_all], dim=1)
 
-    # lane merge-sort: +inf pad depths sort last, lanes [:K] are the real
-    # samples in depth order
-    padK = LANES - K
-    z_pad = torch.nn.functional.pad(z_all.detach(), (0, padK),
-                                    value=float("inf"))
-    pay = torch.nn.functional.pad(pay, (0, padK)).contiguous()
-    order = torch.argsort(z_pad, dim=-1, stable=True)
-    sp = permute_lanes(pay, order.to(torch.int32),
-                       inverse_permutation(order).to(torch.int32))[..., :K]
+    sp = sort_by_depth(pay, z_all)
     _, rgb_f, depth_f, alpha_f = composite_rows(
         cfg, sp, rays, sp[:, 4], noise.sigma_f if noise is not None else None)
     out.update({"rgbs_fine": rgb_f, "alphas_fine": alpha_f,

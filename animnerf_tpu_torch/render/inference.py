@@ -1,21 +1,32 @@
 """Novel-view rendering of a trained model — counterpart of
-``animnerf_tpu/render/inference.py::Renderer`` on its compacted path.
+``animnerf_tpu/render/inference.py::Renderer``, on its compacted route
+and on its dense route.
 
 Per frame: the body geometry once (``prepare_frame``), a conservative
-ray cull (``_maybe_hit_fn``: rays whose segment passes no inflated vertex
-box composite to exact background), then the compacted render of the
-surviving rays: coarse samples, the validity pre-pass (``prepass``:
-"boxes", inflated vertex-chunk boxes, or "exact", the nearest-vertex
-distance below ``dis_threshold``), the kNN + warp-blend
-and the coarse MLP on the survivors only, deterministic fine sampling,
-its pre-pass, the fine warp, one fine MLP over coarse and fine survivors,
-the per-ray depth merge-sort and the composite.
+ray cull (``cull_rays``, frames above ``max_rays_per_call`` rays;
+``_maybe_hit_fn``: rays whose segment passes no inflated vertex box
+composite to exact background), then the surviving rays in slabs.
+
+- Compacted (``compact_samples``, the default): coarse samples, the
+  validity pre-pass (``prepass``: "boxes", inflated vertex-chunk boxes,
+  or "exact", the nearest-vertex distance below ``dis_threshold``), the
+  kNN + warp-blend and the coarse MLP on the survivors only,
+  deterministic fine sampling, its pre-pass, the fine warp, one fine MLP
+  over coarse and fine survivors, the per-ray depth merge-sort and the
+  composite; slabs of 8 x ``max_rays_per_call`` rays.
+- Dense (``compact_samples=False``): ``render_rays_rows`` on every sample
+  of every ray (the JAX package's ``_render_fn`` on its rows path), slabs
+  of ``max_rays_per_call`` rays; the image is the fine pass's. Here most
+  kNN point groups of a slab are background, which the kNN's all-far
+  skip (``AnimNeRFConfig.knn_far_skip``) skips; the image is the same
+  with it on or off.
 
 The JAX package's capacity rungs, overflow ratchet and ray padding
-(``_quantize``, ``_prime_caps``, ``_fetch_ratchet``, the 32768-ray
-quantum) exist only because XLA compiles static shapes. Eager PyTorch
-selects the survivors exactly (``torch.nonzero``) and renders the active
-rays as they are, so they are dropped here; the outputs are the same.
+(``_quantize``, ``_prime_caps``, ``_fetch_ratchet``, ``_pad_ray_ids`` and
+the 32768- and 8192-ray quanta) exist only because XLA compiles static
+shapes. Eager PyTorch selects the survivors exactly (``torch.nonzero``)
+and renders the active rays as they are, so they are dropped here; the
+outputs are the same.
 """
 
 from __future__ import annotations
@@ -33,7 +44,11 @@ from animnerf_tpu_torch.render.compact import (
     compact_fine,
     select_indices,
 )
-from animnerf_tpu_torch.render.volume_renderer import sample_coarse, sample_fine
+from animnerf_tpu_torch.render.volume_renderer import (
+    render_rays_rows,
+    sample_coarse,
+    sample_fine,
+)
 from animnerf_tpu_torch.system import AnimNeRFSystem
 from animnerf_tpu_torch.utils.device import (
     DeviceLike,
@@ -57,9 +72,9 @@ def turntable_rotation(i: int, n_views: int,
 
 
 # as in the JAX package: frames above MAX_RAYS_PER_CALL rays are
-# ray-culled, and the compacted render takes up to 8x that per slab
+# ray-culled; the dense render takes that many rays per slab, the
+# compacted render 8x that
 MAX_RAYS_PER_CALL = 32768
-SLAB_RAYS = 8 * MAX_RAYS_PER_CALL
 
 
 PREPASSES = ("boxes", "exact")
@@ -75,17 +90,31 @@ class Renderer:
     it when its nearest-vertex distance is below dis_threshold
     (``min_vertex_distance``, the min-distance kernel), the tightest
     survivor set. Both give the same image: a kept sample that is not
-    valid gets the outside-shell sigma in the warp."""
+    valid gets the outside-shell sigma in the warp.
+
+    ``compact_samples=False`` takes the dense route (every sample through
+    the warp and the MLP); ``cull_rays=False`` renders every ray of a
+    large frame (both exact: the image is the same). ``max_rays_per_call``
+    (a class attribute, as in the JAX package) sets the cull's threshold
+    and the slab sizes."""
+
+    max_rays_per_call: int = MAX_RAYS_PER_CALL
 
     def __init__(self, system: AnimNeRFSystem, device: DeviceLike = None,
-                 prepass: str = "boxes"):
+                 prepass: str = "boxes", compact_samples: bool = True,
+                 cull_rays: bool = True):
         if prepass not in PREPASSES:
             raise ValueError(f"prepass {prepass!r}: one of {PREPASSES}")
         self.prepass = prepass
+        self.compact_samples = compact_samples
+        self.cull_rays = cull_rays
         self.device = resolve_device(device)
         pin_fp32_geometry()
         self.system = system.to_device(self.device)
-        self.last_counts = (0, 0)  # coarse / fine survivors of the last frame
+        # coarse / fine samples through the kNN and the MLP in the last
+        # frame: the survivors (compacted), every sample of the rendered
+        # rays (dense)
+        self.last_counts = (0, 0)
 
     # -------------------------------------------------------------- inputs
 
@@ -183,11 +212,33 @@ class Renderer:
         return (out["rgbs"], out["alphas"][..., 0], out["depths"][..., 0],
                 n_c, sel_f.shape[1])
 
+    # ---------------------------------------------------------- dense path
+
+    def _render_dense(self, ctx, rays_root: torch.Tensor):
+        """Dense render of (1, R, 8) root-frame rays -> (rgb (1, R, 3),
+        alpha (1, R), depth (1, R), coarse and fine sample counts): the
+        fine pass's outputs where there is one."""
+        cfg = self.system.renderer_cfg
+        scene = self.system.scene
+        out = render_rays_rows(cfg, lambda rows: scene.warp_rows(ctx, rows),
+                               scene.field_rows, rays_root)
+        sfx = "_fine" if "rgbs_fine" in out else ""
+        R = rays_root.shape[1]
+        return (out["rgbs" + sfx], out["alphas" + sfx][..., 0],
+                out["depths" + sfx][..., 0], R * cfg.n_coarse,
+                R * cfg.n_fine)
+
     def _render_slabs(self, ctx, rays_root: torch.Tensor):
+        # the JAX package's other conditions for compaction (no latent
+        # codes, no depth-guided samples) hold for every config the port
+        # takes: system.py rejects the others
+        if self.compact_samples:
+            render, slab = self._render_compact, 8 * self.max_rays_per_call
+        else:
+            render, slab = self._render_dense, self.max_rays_per_call
         parts, n_c, n_f = [], 0, 0
-        for s in range(0, rays_root.shape[1], SLAB_RAYS):
-            *out, c, f = self._render_compact(
-                ctx, rays_root[:, s:s + SLAB_RAYS])
+        for s in range(0, rays_root.shape[1], slab):
+            *out, c, f = render(ctx, rays_root[:, s:s + slab])
             parts.append(out)
             n_c, n_f = n_c + c, n_f + f
         img, mask, depth = (torch.cat([p[i] for p in parts], dim=1)
@@ -210,7 +261,7 @@ class Renderer:
             n = rays_t.shape[1]
             rays_root = self._rays_root_rotated(ctx, rays_t, self._tensor(P))
             active = None
-            if n > MAX_RAYS_PER_CALL:
+            if self.cull_rays and n > self.max_rays_per_call:
                 maybe, fars = self._maybe_hit_ctx(ctx, rays_root)
                 active = torch.nonzero(maybe[0], as_tuple=False)[:, 0]
                 if len(active) == n:

@@ -13,16 +13,26 @@ up front: the stratified jitter ``u`` of ``sample_coarse``, the
 importance-sample ``u`` of ``sample_fine`` and the N(0, 1) sigma noise of
 the composites (scaled by ``noise_std``). Without them these functions are
 the deterministic serving path (``perturb=0``).
+
+``render_rays_rows`` is the dense two-pass render with samples on the
+lane axis (every sample of every ray through the warp and the MLP): what
+``AnimNeRFSystem.render``, the evaluation step and the renderer's dense
+route run.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
-from animnerf_tpu_torch.ops.sort_lanes import gather_lanes
+from animnerf_tpu_torch.ops.perm_sort import inverse_permutation
+from animnerf_tpu_torch.ops.sort_lanes import (
+    LANES,
+    gather_lanes,
+    permute_lanes,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +41,9 @@ class RendererConfig:
     n_fine: int = 32
     white_bkgd: bool = True
     noise_std: float = 1.0
+    # the fine pass queries the coarse field and its outputs replace the
+    # coarse ones (render_rays_rows)
+    share_fine: bool = False
 
 
 def linspace(start: float, stop: float, num: int,
@@ -149,6 +162,29 @@ def composite_rows(cfg: RendererConfig, frows: torch.Tensor,
     return weights, rgb, depth, weights_sum
 
 
+def check_lanes(K: int) -> None:
+    """Raise unless K samples a ray fit the merge-sort's 128 lanes."""
+    if K > LANES:
+        raise NotImplementedError(
+            f"{K} samples per ray: the merge-sort works on {LANES} lanes")
+
+
+def sort_by_depth(pay: torch.Tensor, z_all: torch.Tensor) -> torch.Tensor:
+    """The per-ray depth merge-sort: pay (B, C, R, K) channel-leading
+    samples ordered by their depths z_all (B, R, K), K <= 128, on the lane
+    permute kernel (differentiable in pay). K is padded to 128 lanes with
+    +inf depths, which sort last (a stable sort), so lanes [:K] of the
+    result are the real samples in depth order."""
+    K = z_all.shape[-1]
+    padK = LANES - K
+    z_pad = torch.nn.functional.pad(z_all.detach(), (0, padK),
+                                    value=float("inf"))
+    pay = torch.nn.functional.pad(pay.to(torch.float32), (0, padK))
+    order = torch.argsort(z_pad, dim=-1, stable=True)
+    return permute_lanes(pay.contiguous(), order.to(torch.int32),
+                         inverse_permutation(order).to(torch.int32))[..., :K]
+
+
 def _rows_from_z(rays: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """(B, R, 8) rays x (B, R, K) depths -> (B, 8, R*K) rows [x|y|z|0..],
     the input form of the warp and MLP kernels."""
@@ -157,3 +193,58 @@ def _rows_from_z(rays: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
              ).reshape(B, 1, R * K) for c in range(3)]
     rows.append(z.new_zeros(B, 5, R * K))
     return torch.cat(rows, dim=1)
+
+
+def render_rays_rows(cfg: RendererConfig, warp_rows_fn: Callable,
+                     field_rows_fn: Callable, rays: torch.Tensor,
+                     perturb: float = 0.0) -> dict:
+    """The dense two-pass render of (B, R, 8) root-frame rays with samples
+    on the lane axis (``animnerf_tpu/render/volume_renderer.py::
+    render_rays_rows``). warp_rows_fn(rows) and field_rows_fn(rows,
+    use_fine) are the rows-native model hooks: coarse rows through the
+    warp and the coarse field, the composite, deterministic fine samples,
+    their warp, then the warped rows of both passes with the depth in row
+    4 as one (B, 8, R, 128) payload sorted by depth per ray (the lane
+    permute kernel; +inf pad depths sort last), one fine-field pass over
+    the sorted samples and the fine composite. Returns rgbs (B, R, 3),
+    alphas and depths (B, R, 1), and the same keys with ``_fine`` (under
+    ``share_fine`` the fine outputs replace the coarse ones).
+
+    Serving and evaluation only: ``perturb`` > 0 (stratified jitter and
+    sigma noise) belongs to the dense training loss, which is not ported,
+    and more than 128 samples a ray need the split renderer."""
+    if perturb > 0:
+        raise NotImplementedError(
+            "render_rays_rows renders with perturb=0 only: the perturbed "
+            "samples and sigma noise belong to the dense training loss, "
+            "which is not ported")
+    B, R = rays.shape[:2]
+    z_coarse = sample_coarse(cfg, rays)
+    Kc = z_coarse.shape[-1]
+    if cfg.n_fine > 0:
+        check_lanes(Kc + cfg.n_fine)
+    wout_c = warp_rows_fn(_rows_from_z(rays, z_coarse))       # (B, 8, R*Kc)
+    f = field_rows_fn(wout_c, False).reshape(B, 8, R, Kc)
+    weights, rgb_c, depth_c, alpha_c = composite_rows(cfg, f, rays, z_coarse)
+    out = {"rgbs": rgb_c, "alphas": alpha_c, "depths": depth_c}
+    if cfg.n_fine <= 0:
+        return out
+
+    mids = 0.5 * (z_coarse[..., :-1] + z_coarse[..., 1:])
+    z_fine = sample_fine(cfg, mids, weights[..., 1:-1])
+    Kf = z_fine.shape[-1]
+    wout_f = warp_rows_fn(_rows_from_z(rays, z_fine)).reshape(B, 8, R, Kf)
+    z_all = torch.cat([z_coarse, z_fine], dim=-1)             # (B, R, K)
+    pay = torch.cat([wout_c.reshape(B, 8, R, Kc), wout_f], dim=3)
+    # the depth rides spare row 4, so it sorts with the rest
+    pay = torch.cat([pay[:, 0:4], z_all[:, None], pay[:, 5:]], dim=1)
+    sp = sort_by_depth(pay, z_all)
+    K = Kc + Kf
+    f = field_rows_fn(sp.reshape(B, 8, R * K), True)
+    _, rgb_f, depth_f, alpha_f = composite_rows(
+        cfg, f.reshape(B, 8, R, K), rays, sp[:, 4])
+    if cfg.share_fine:
+        return {"rgbs": rgb_f, "alphas": alpha_f, "depths": depth_f}
+    out.update({"rgbs_fine": rgb_f, "alphas_fine": alpha_f,
+                "depths_fine": depth_f})
+    return out

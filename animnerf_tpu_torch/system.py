@@ -7,8 +7,10 @@ Builds ``scene_cfg`` (``AnimNeRFConfig``), ``renderer_cfg``
 reference's keys (a checkpoint's ``meta.json["cfg"]`` is one), and holds
 the body model and the learnable per-frame body parameters. Parameters
 live in the ``nn.Module`` tree; load them with ``load_anim_nerf`` or
-``load_params`` (see ``utils/convert.py``). The training step's functions
-take the system: ``training/system.py``.
+``load_params`` (see ``utils/convert.py``). ``render`` is the dense
+rows render of a ray batch (``AnimNeRFSystem.render`` of the JAX package
+on its rows path). The training and evaluation steps take the system:
+``training/system.py``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,12 @@ from torch import nn
 
 from animnerf_tpu_torch.models.anim_nerf import AnimNeRFConfig, AnimNeRFModel
 from animnerf_tpu_torch.models.body_params import init_body_params
-from animnerf_tpu_torch.render.volume_renderer import RendererConfig
+from animnerf_tpu_torch.models.warp import prepare_frame, rays_to_root_frame
+from animnerf_tpu_torch.ops.sort_lanes import LANES
+from animnerf_tpu_torch.render.volume_renderer import (
+    RendererConfig,
+    render_rays_rows,
+)
 from animnerf_tpu_torch.smpl.body_model import BodyModel
 from animnerf_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -109,7 +116,8 @@ class AnimNeRFSystem(nn.Module):
         )
         self.renderer_cfg = RendererConfig(
             n_coarse=int(g("n_samples", 64)), n_fine=n_fine,
-            white_bkgd=bool(g("white_bkgd", True)))
+            white_bkgd=bool(g("white_bkgd", True)),
+            share_fine=self.scene_cfg.share_fine)
         self.cfg = dict(cfg)
         self.train_cfg = train_config(cfg)
         self.model_type = str(g("model_type", "smpl"))
@@ -146,3 +154,31 @@ class AnimNeRFSystem(nn.Module):
                     raise ValueError(f"body param {k}: {tuple(v.shape)} "
                                      f"for {tuple(p.shape)}")
                 p.copy_(v)
+
+    def rows_renderable(self) -> bool:
+        """The rows render sorts each ray's coarse and fine samples on
+        the lane permute's 128 lanes; configs with more samples a ray need
+        the split renderer, which is not ported."""
+        r = self.renderer_cfg
+        return r.n_coarse + r.n_fine <= LANES
+
+    def render(self, body_params: dict, body_params_template: dict,
+               rays: torch.Tensor, perturb: float = 0.0):
+        """Render a ray batch (B, R, 8) -> (dict of (B, R, C) outputs, the
+        frame context): the body model for both param sets, the rays in the
+        root frame, then ``render_rays_rows`` through the scene's warp and
+        field (every sample of every ray). Serving and evaluation:
+        ``perturb`` must be 0."""
+        if not self.rows_renderable():
+            r = self.renderer_cfg
+            raise NotImplementedError(
+                f"{r.n_coarse} + {r.n_fine} samples per ray: the rows "
+                f"render takes up to {LANES}; the split renderer is not "
+                "ported")
+        ctx = prepare_frame(self.body_model, body_params,
+                            body_params_template)
+        rays_root = rays_to_root_frame(ctx, rays)
+        out = render_rays_rows(
+            self.renderer_cfg, lambda rows: self.scene.warp_rows(ctx, rows),
+            self.scene.field_rows, rays_root, perturb)
+        return out, ctx

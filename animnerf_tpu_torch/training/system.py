@@ -1,7 +1,7 @@
-"""Training step of the flagship model — counterpart of
+"""Training and evaluation steps of the flagship model — counterpart of
 ``animnerf_tpu/training/system.py`` (``psnr``, ``_safe_normalize``,
 ``compute_loss``, ``rows_compact_loss_fn``, ``make_optimizer``,
-``RowsCompactTrainer``).
+``RowsCompactTrainer``, ``make_eval_step``).
 
 The JAX functions take a params pytree; here the parameters live in the
 ``AnimNeRFSystem`` (``system.py``), so the functions take the system.
@@ -238,3 +238,34 @@ class RowsCompactTrainer:
         self.steps += 1
         return {k: v.detach() if torch.is_tensor(v) else v
                 for k, v in details.items()}
+
+
+def make_eval_step(system: AnimNeRFSystem):
+    """The evaluation step: eval_step(batch) -> the dense render's outputs
+    (``AnimNeRFSystem.render``, perturb 0, no gradient). batch: tensors on
+    the system's device (``frame_idx`` (B,), ``rays`` (B, R, 8), the
+    ``*_template`` body params and the observed ones). With body params
+    optimised, a frame of the training set (frame_idx >= 0) takes its
+    stored params and any other (frame_idx == -1) the batch's, blended as
+    sel * stored + (1 - sel) * given as the JAX step does."""
+
+    def eval_step(batch: dict) -> dict:
+        with torch.no_grad():
+            frame_idx = batch["frame_idx"]
+            given = batch_params_from_data(batch, system.model_type)
+            if system.optim_body_params:
+                stored = lookup_body_params(dict(system.body_params),
+                                            frame_idx)
+                sel = (frame_idx >= 0).to(torch.float32)
+                body_params = {}
+                for k, v in stored.items():
+                    s = sel.reshape((-1,) + (1,) * (v.ndim - 1))
+                    body_params[k] = s * v + (1 - s) * given[k]
+            else:
+                body_params = given
+            body_tmpl = batch_params_from_data(batch, system.model_type,
+                                               template=True)
+            results, _ = system.render(body_params, body_tmpl, batch["rays"])
+        return results
+
+    return eval_step

@@ -36,6 +36,33 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      and the kNN's shares, idle share);
   5. serving parity: one view at 96x96 rendered on the card with the
      kernels and on the CPU with the plain versions;
+  5a. dense_serve: the same system through the dense route
+     (``Renderer(compact_samples=False)``: every sample of every culled
+     ray through the kNN, warp-blend and MLP kernels, 32,768-ray slabs)
+     on views 3, 29 and 55, with the kNN's all-far skip
+     (``knn_far_skip``) off, then on: per view the host-clock time, the
+     rays rendered and the share of 1024-point kNN groups the far pass
+     skipped; the launch counts of each mode; one profiled view each way;
+     the images with the skip off and on bit-equal, and within the bf16
+     parity bounds of the compacted image of the same view;
+  5b. dense_eval: ``make_eval_step`` on the 262,144 rays of one 512x512
+     frame (no ray cull: most kNN groups are background) in 32,768-ray
+     slabs, the skip off, then on: frame time, launches, skipped share,
+     one profiled frame each way; outputs off and on bit-equal, the fine
+     image within the bf16 bounds of the compacted renderer's frame;
+  5c. the far-skip kernel lines on the points of one dense view's first
+     kNN call (its first slab's coarse samples): the far pass alone
+     (``csrc/knn_far.cu``: flags and skipped outputs bit-equal to the
+     plain version), kernels 1, 8 (K = 8) and 9 (K = 4) with the far
+     skip (bit-equal to their plain versions, the same validity as
+     without it; times with and without the skip; the bound from the
+     pairs the kept groups sweep plus the far pass), kernel 1 with the
+     tile skip and the far skip on the training step's Morton-ordered
+     points; one training step with the skip off and on (loss terms and
+     gradients bit-equal); then edge shapes (N = 2^20 - 37, the last
+     group partial, its padding at the origin keeping it from skipping
+     or, with the cloud moved away, not; K in {1, 4, 8, 16}), each
+     bit-equal to its plain version;
   6. train: the flagship training step of ``bench.py`` (V=6890 / J=24
      seed-0 rig, 8x256 coarse + fine MLPs in bf16, 64 + 32 samples,
      16 x 1024 rays, six-term loss, Adam) through
@@ -67,7 +94,9 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      images must agree; then kernel 9's lines on the points that view's
      coarse warp passed to it, at K = 4 and 8 (as in phase 8);
  10. smplx_serve_parity: one 64x64 view with prepass="exact" on the card
-     and on the CPU, bf16 and f32;
+     and on the CPU, bf16 and f32; smplx_dense: a dense 64x64 view with
+     the far skip off and on (kernel 9 and the far pass; images
+     bit-equal);
  11. smplx_train: the bench.py step on the SMPL-X rig with every SMPL-X
      body parameter optimised: one warm-up step, 10 timed steps, one
      profiled step, the kNN calls of one more step (kernel 9's launches
@@ -83,7 +112,9 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      seeded rigs' smooth weights let the confidence gate keep neighbour 0
      alone. k8_serve (the scale512 weights with k_neigh 8, views 3,
      29, 55, launch counts: kernel 8 launched, kernels 1, 7 and 9 not, one
-     profiled view); k8_serve_parity (phase 5 at k_neigh 8); k8_train (the
+     profiled view); k8_dense (a dense 64x64 view with the far skip off
+     and on: kernel 8 and the far pass, images bit-equal);
+     k8_serve_parity (phase 5 at k_neigh 8); k8_train (the
      bench.py step with k_neigh 8: warm-up, 10 timed steps, one profiled,
      20 on one batch whose loss must fall); k8_train_parity (phase 7 at
      k_neigh 8); smplx_k8_parity (phase 10 at k_neigh 8 in f32, launching
@@ -128,8 +159,10 @@ KNN_PAIR_OPS = 6.0
 # 2 adds (each rounded on its own) and the compare against the tile list
 EXACT_PAIR_OPS = 9.0
 # kernels 1, 8 (the sweep and its rows kernel) and 9 (its sweep and rows
-# kernel, knn_exact_kernel and knn_exact_rows), by profiler name
-KNN_KERNEL_NAMES = ("knn_sweep::", "knn_rows_kernel", "knn_exact")
+# kernel, knn_exact_kernel and knn_exact_rows), and the far pass of their
+# all-far skip, by profiler name
+KNN_KERNEL_NAMES = ("knn_sweep::", "knn_rows_kernel", "knn_exact",
+                    "knn_far_kernel")
 # chunk size of the plain kNN versions on the card (a (chunk x V) matrix):
 # large chunks keep their per-chunk launches few
 PLAIN_MAX_ELEMS = 1 << 26
@@ -1450,6 +1483,18 @@ KERNELS = {
                 "tools/bench_knn.py:29"),
     "knn_mxu_default": ("animnerf_tpu_torch/csrc/knn_mxu.cu",
                         "tools/bench_knn.py:29"),
+    # the all-far skip (far2 > 0): its far pass (the bound of
+    # _knn_kernel, :69-81, and its twins), then kernels 1, 8, 9 with it
+    "knn_far": ("animnerf_tpu_torch/csrc/knn_far.cu",
+                "animnerf_tpu/ops/knn_pallas.py:69"),
+    "knn_far2": ("animnerf_tpu_torch/csrc/knn.cu",
+                 "animnerf_tpu/ops/knn_pallas.py:268"),
+    "knn_tile_skip_far2": ("animnerf_tpu_torch/csrc/knn.cu",
+                           "animnerf_tpu/ops/knn_pallas.py:268"),
+    "knn_packed_far2": ("animnerf_tpu_torch/csrc/knn_packed.cu",
+                        "animnerf_tpu/ops/knn_pallas.py:161"),
+    "knn_exact_far2": ("animnerf_tpu_torch/csrc/knn_exact.cu",
+                       "animnerf_tpu/ops/knn_pallas.py:35"),
 }
 SERVE_KERNELS = ("knn", "warp_blend", "fused_mlp", "permute_lanes")
 K8_SERVE_KERNELS = ("knn_packed", "warp_blend", "fused_mlp", "permute_lanes")
@@ -1550,6 +1595,7 @@ def profile_call(fn, what: str):
     exact = [e for e in events if "knn_exact_kernel" in e.key]
     exact_rows = sum(e.self_device_time_total for e in events
                      if "knn_exact_rows" in e.key) / 1e3
+    far = [e for e in events if "knn_far_kernel" in e.key]
     return {f"{what}_ms_profiled": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "mlp_fwd_ms": fwd, "mlp_fwd_share_of_busy": fwd / max(busy, 1e-9),
@@ -1558,6 +1604,8 @@ def profile_call(fn, what: str):
                                 for e in exact) / 1e3,
             "knn_exact_rows_ms": exact_rows,
             "knn_exact_launches": sum(e.count for e in exact),
+            "knn_far_ms": sum(e.self_device_time_total for e in far) / 1e3,
+            "knn_far_launches": sum(e.count for e in far),
             "mlp_bwd_main_ms": split["main_ms"],
             "mlp_bwd_wgrad_ms": split["wgrad_ms"],
             "mlp_bwd_launches": split["main_launches"]
@@ -1684,10 +1732,7 @@ def smplx_serve(angles):
     device-busy times within PROFILE_SPREAD) and the kNN calls of one more
     (captured with their points), then the same views with the box
     pre-pass: the two images agree."""
-    from animnerf_tpu_torch.system import AnimNeRFSystem
-
-    system = AnimNeRFSystem(SMPLX_CFG, smplx_rig(), device="cuda", seed=0)
-    opaque_shell(system)
+    system = smplx_system()
     bp, tmpl = smplx_params(1, 1), smplx_params(1, 2, zero_transl=True)
     views, launches, _, imgs = render_turntable(
         system, bp, tmpl, angles, prepass="exact", profile=False)
@@ -1980,6 +2025,556 @@ def train_parity(dev, cfg=FLAGSHIP_CFG, make_rig=smpl_rig,
     return out
 
 
+# ----------------------------------------------------- the all-far skip
+
+# the far pass's non-FMA f32 operations per (point, 512-vertex tile) pair:
+# per axis two subtractions, two maxima and the clamp at 0, then three
+# multiplies, two adds and the running minimum (csrc/knn_far.cu far_lb2)
+FAR_PAIR_OPS = 18.0
+# the SMPL views' dense phases: views of the serving turntable (a subset
+# of its angles, whose compacted images the slice phase keeps)
+DENSE_ANGLES = (3, 29, 55)
+
+
+def set_far_skip(system, on: bool) -> None:
+    """Turn the kNN's all-far skip on or off by replacing the scene config
+    (``AnimNeRFConfig.knn_far_skip``; no system config key sets it)."""
+    import dataclasses
+
+    system.scene_cfg = dataclasses.replace(system.scene_cfg,
+                                           knn_far_skip=on)
+    system.scene.cfg = system.scene_cfg
+
+
+def far_share() -> dict:
+    """The far passes' group counts since the last reset_far_counts."""
+    from animnerf_tpu_torch.ops.knn_kernel import far_counts
+
+    groups, skipped = (int(x) for x in far_counts("cuda").tolist())
+    return {"far_groups": groups, "far_groups_skipped": skipped,
+            "far_skipped_share": skipped / max(groups, 1)}
+
+
+def reset_counts() -> None:
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.ops.knn_kernel import reset_far_counts
+
+    _build.reset_launches()
+    reset_far_counts()
+
+
+def dense_views(system, bp, tmpl, angles, H=512, W=512, profile=True):
+    """The dense route (``Renderer(compact_samples=False)``) on turntable
+    views, with the far skip off, then on: per mode a warm-up view, the
+    views with the launch counts reset just before and read just after
+    (each view's skipped share of kNN point groups from the far passes'
+    counts), then (``profile``) one more view under torch.profiler. The
+    images with the skip off and on must be bit-equal."""
+    import torch
+
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.ops.knn_kernel import reset_far_counts
+    from animnerf_tpu_torch.render.inference import (
+        Renderer,
+        turntable_rotation,
+    )
+
+    rays = frame_rays(H, W)
+    out = {}
+    for on in (False, True):
+        set_far_skip(system, on)
+        r = Renderer(system, compact_samples=False)
+
+        def view(a):
+            return r.render_frame(bp, tmpl, rays, turntable_rotation(a, 64),
+                                  (W, H))
+
+        view(angles[0])  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        views, images, total = [], [], {"far_groups": 0,
+                                        "far_groups_skipped": 0}
+        for a in angles:
+            reset_far_counts()
+            t0 = time.perf_counter()
+            img, mask, depth = view(a)  # host arrays: the device is done
+            ms = (time.perf_counter() - t0) * 1e3
+            share = far_share()
+            for k in total:
+                total[k] += share[k]
+            finite = bool(np.isfinite(img).all() and np.isfinite(mask).all()
+                          and np.isfinite(depth).all())
+            check(finite, f"dense view {a}: non-finite output")
+            check((mask > 0.5).sum() > 500, f"dense view {a}: no body")
+            views.append(dict(view=a, far_skip=on, ms=ms,
+                              rays=r.last_counts[0] // system.renderer_cfg
+                              .n_coarse, body_px=int((mask > 0.5).sum()),
+                              **(share if on else {})))
+            images.append((img, mask, depth))
+        launches = dict(_build.LAUNCHES)
+        prof = profile_call(lambda: view(angles[0]), "view") if profile \
+            else None
+        out[on] = dict(views=views, images=images, launches=launches,
+                       profile=prof,
+                       far_skipped_share=total["far_groups_skipped"]
+                       / max(total["far_groups"], 1))
+    set_far_skip(system, False)
+    for a, x, y in zip(angles, out[False]["images"], out[True]["images"]):
+        same = all(np.array_equal(u, v) for u, v in zip(x, y))
+        diff = max(float(np.abs(u - v).max()) for u, v in zip(x, y))
+        check(same, f"dense view {a}: the far skip changed the image "
+              f"(max diff {diff})")
+    check(out[True]["launches"]["knn_far"] > 0
+          and out[False]["launches"]["knn_far"] == 0,
+          f"far pass launches off/on: {out[False]['launches']['knn_far']}, "
+          f"{out[True]['launches']['knn_far']}")
+    return out
+
+
+def image_diff(a, b) -> dict:
+    mse = float(np.mean((a - b) ** 2))
+    return {"max_abs": float(np.abs(a - b).max()),
+            "psnr_db": 10 * math.log10(1.0 / max(mse, 1e-20))}
+
+
+def dense_serve(system, bp, tmpl, compact_images):
+    """dense_views on the SMPL turntable at 512x512, each image held
+    against the compacted renderer's image of the same view (from the
+    slice phase) within the bf16 bounds of the parity checks."""
+    out = dense_views(system, bp, tmpl, DENSE_ANGLES)
+    bound = dict(PARITY_BOUNDS)["bfloat16"]
+    agree = []
+    for a, (img, _, _) in zip(DENSE_ANGLES, out[True]["images"]):
+        d = image_diff(img, compact_images[a])
+        agree.append(dict(view=a, **d))
+        check(d["max_abs"] <= bound[0] and d["psnr_db"] >= bound[1],
+              f"dense vs compacted view {a}: {d}")
+    for on in (False, True):
+        check(all(out[on]["launches"][k] > 0 for k in SERVE_KERNELS)
+              and out[on]["launches"]["knn_exact"]
+              == out[on]["launches"]["knn_packed"]
+              == out[on]["launches"]["min_dist"] == 0,
+              f"dense serving launched the wrong kernels: "
+              f"{out[on]['launches']}")
+    return out, agree
+
+
+def dense_eval(system, bp, tmpl, H=512, W=512):
+    """``make_eval_step`` on the H x W rays of one frame (no rotation, no
+    ray cull), in slabs of ``MAX_RAYS_PER_CALL`` rays, with the far skip
+    off, then on: the host-clock time of the frame, its launches and
+    skipped share, one profiled frame; the outputs off and on bit-equal,
+    and the fine image within the bf16 bounds of the compacted renderer's
+    image of the same frame."""
+    import torch
+
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.render.inference import MAX_RAYS_PER_CALL, Renderer
+    from animnerf_tpu_torch.training.system import make_eval_step
+
+    rays = torch.tensor(frame_rays(H, W), device="cuda")
+    base = {"frame_idx": torch.tensor([-1], device="cuda"),
+            **tensors(bp, "cuda"),
+            **{k + "_template": v for k, v in tensors(tmpl, "cuda").items()}}
+    step = make_eval_step(system)
+
+    def frame():
+        parts = [step(dict(base, rays=rays[None, s:s + MAX_RAYS_PER_CALL]))
+                 for s in range(0, rays.shape[0], MAX_RAYS_PER_CALL)]
+        return {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
+
+    out = {}
+    for on in (False, True):
+        set_far_skip(system, on)
+        frame()  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = frame()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.LAUNCHES)
+        share = far_share()
+        out[on] = dict(ms=ms, launches=launches, **share,
+                       profile=profile_call(frame, "frame"),
+                       res={k: v.cpu().numpy() for k, v in res.items()})
+    set_far_skip(system, False)
+    same = all(np.array_equal(out[True]["res"][k], out[False]["res"][k])
+               for k in out[False]["res"])
+    check(same, "dense eval: the far skip changed the outputs")
+    img = out[True]["res"]["rgbs_fine"][0].reshape(H, W, 3)
+    check(np.isfinite(img).all(), "dense eval: non-finite output")
+    ref, _, _ = Renderer(system).render_frame(bp, tmpl, frame_rays(H, W),
+                                              img_wh=(W, H))
+    agree = image_diff(img, ref)
+    bound = dict(PARITY_BOUNDS)["bfloat16"]
+    check(agree["max_abs"] <= bound[0] and agree["psnr_db"] >= bound[1],
+          f"dense eval vs compacted frame: {agree}")
+    for on in (False, True):
+        del out[on]["res"]
+    return out, agree
+
+
+def dense_view_calls(system, bp, tmpl, angle, H=512, W=512) -> list:
+    """The kNN calls (with their points) of one dense view with the far
+    skip on."""
+    from animnerf_tpu_torch.render.inference import (
+        Renderer,
+        turntable_rotation,
+    )
+
+    set_far_skip(system, True)
+    r = Renderer(system, compact_samples=False)
+    try:
+        return capture_knn(lambda: r.render_frame(
+            bp, tmpl, frame_rays(H, W), turntable_rotation(angle, 64)),
+            keep=True)
+    finally:
+        set_far_skip(system, False)
+
+
+def smplx_system():
+    """The flagship field at random weights (seed 0, an opaque shell) on
+    the seed-0 SMPL-X rig."""
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+
+    system = AnimNeRFSystem(SMPLX_CFG, smplx_rig(), device="cuda", seed=0)
+    opaque_shell(system)
+    return system
+
+
+def dense_small(system, bp, tmpl, kernels, H=64, W=64, angle=17):
+    """One dense H x W view with the far skip off and on (images
+    bit-equal; every kernel of ``kernels`` launched with the skip on)."""
+    out = dense_views(system, bp, tmpl, (angle,), H, W, profile=False)
+    launches = out[True]["launches"]
+    check(all(launches[k] > 0 for k in kernels + ("knn_far",)),
+          f"dense {H}x{W} launched too few kernels: {launches}")
+    return {"view": angle, "shape": [H, W], "bit_equal_off_on": True,
+            "ms_off": out[False]["views"][0]["ms"],
+            "ms_on": out[True]["views"][0]["ms"],
+            "far_skipped_share": out[True]["far_skipped_share"],
+            "launches_on": launches}
+
+
+def far_bound_ms(N: int, V: int, pairs: float, pair_ops: float,
+                 nbytes: float) -> float:
+    """A kNN call with the far skip: the far pass's FAR_PAIR_OPS per
+    (point, 512-vertex tile) pair plus pair_ops per (point, vertex) pair
+    the kept groups sweep, over the non-FMA f32 peak, or the bytes read
+    and written once over the memory rate, the larger."""
+    ops = FAR_PAIR_OPS * N * -(-V // 512) + pair_ops * pairs
+    return max(ops / PEAK_F32_NONFMA, nbytes / PEAK_BYTES) * 1e3
+
+
+def far_pass_line(pts, verts, thr: float, reps: int = 20) -> dict:
+    """The far pass alone (``csrc/knn_far.cu``, packed outputs at K=4):
+    its flags equal far_groups_plain's decisions and the skipped points'
+    outputs far_outputs', bit for bit; its time beside the plain
+    version's and its bound (FAR_PAIR_OPS per point and tile, or 12 B a
+    point in, the flags and the skipped points' 32 B out)."""
+    import torch
+
+    from animnerf_tpu_torch.ops.knn_kernel import (
+        FAR_GROUP,
+        _far_pass,
+        exact_rows,
+        far_groups_plain,
+        far_outputs,
+    )
+
+    N, V = pts.shape[1], verts.shape[1]
+    tbox = exact_rows(verts)[2]
+    d = torch.zeros((1, 4, N), device="cuda")
+    i = torch.full((1, 4, N), -1, dtype=torch.int32, device="cuda")
+    flags = _far_pass(pts, verts, thr, d, i, packed=True, tbox=tbox)
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    g, skip = far_groups_plain(pts, verts, thr)
+    e.record()
+    e.synchronize()
+    dp, ip = far_outputs(g, 4, True)
+    sk = skip.repeat_interleave(FAR_GROUP, dim=1)[:, :N]
+    m = sk[:, None].expand(-1, 4, -1)
+    same = bool(torch.equal(flags.bool(), skip) and torch.equal(d[m], dp[m])
+                and torch.equal(i[m], ip[m]))
+    check(same, "far pass: flags or skipped outputs differ from the plain "
+          "version")
+    n_skip = int(sk.sum())
+    return dict(shape=f"points (1,{N},3) verts (1,{V},3) K=4 packed",
+                max_abs_err=float((d[m] - dp[m]).abs().max())
+                if n_skip else 0.0, tolerance=0.0, bit_equal=same,
+                skipped_share=float(skip.float().mean()),
+                ms=time_ms(lambda: _far_pass(pts, verts, thr, d, i, True,
+                                             tbox=tbox), reps),
+                plain_ms=s.elapsed_time(e),
+                bound_ms=far_bound_ms(N, V, 0, 0.0, N * 12 + skip.numel() * 4
+                                      + n_skip * 32),
+                bound_by="operations", library_ms=None)
+
+
+def far_kernel_line(name, fn, plain, pts, verts, k: int, thr: float,
+                    pair_ops: float, packed: bool, reps: int = 10) -> dict:
+    """Kernel fn(pts, verts, far_skip) with the far skip, bit-equal to its
+    plain version with it and with the same validity (d < thr) as
+    without; its times with and without the skip, the skipped share and
+    the bound: the far pass plus pair_ops per pair the kept groups sweep
+    (all V vertices a kept point, or kernel 9's swept pairs from its
+    stats, passed by fn as stats when it takes them)."""
+    import torch
+
+    from animnerf_tpu_torch.ops.knn_kernel import FAR_GROUP, far_groups_plain
+
+    N, V = pts.shape[1], verts.shape[1]
+    stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    d, i = fn(pts, verts, thr, stats)
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    dp, ip = plain(pts, verts, thr)
+    e.record()
+    e.synchronize()
+    mism = int((i != ip).sum())
+    err = float((d - dp).abs().max())
+    check(mism == 0 and torch.equal(d, dp),
+          f"{name}: {mism} index mismatches, max err {err} against plain")
+    d0, _ = fn(pts, verts, 0.0, None)
+    check(torch.equal(d0 < thr, d < thr),
+          f"{name}: the far skip changed a point's validity")
+    _, skip = far_groups_plain(pts, verts, thr)
+    kept = N - int(skip.repeat_interleave(FAR_GROUP, dim=1)[:, :N].sum())
+    swept, skipped = (int(x) for x in stats.tolist())
+    pairs = swept if swept else kept * V
+    nbytes = N * 12 + V * 12 + N * 8 * k
+    return dict(shape=f"points (1,{N},3) verts (1,{V},3) K={k}",
+                max_abs_err=err, tolerance=0.0, idx_mismatch=mism,
+                skipped_share=float(skip.float().mean()), kept_points=kept,
+                swept_pairs=pairs,
+                ms=time_ms(lambda: fn(pts, verts, thr, None), reps),
+                ms_no_far_skip=time_ms(lambda: fn(pts, verts, 0.0, None),
+                                       reps),
+                plain_ms=s.elapsed_time(e),
+                bound_ms=far_bound_ms(N, V, pairs, pair_ops, nbytes),
+                bound_no_far_skip_ms=knn_bound_ms(N * V, nbytes)
+                if packed else max(EXACT_PAIR_OPS * N * V / PEAK_F32_NONFMA,
+                                   nbytes / PEAK_BYTES) * 1e3,
+                bound_by="operations", library_ms=None)
+
+
+def far_kernel_lines(pts, verts, thr: float) -> dict:
+    """The far pass and kernels 1, 8 (K=8) and 9 (K=4, with its cull)
+    with the far skip on points (1, N, 3) against verts (1, V, 3)."""
+    from animnerf_tpu_torch.ops.knn_kernel import (
+        knn_exact,
+        knn_exact_plain,
+        knn_packed,
+        knn_packed_plain,
+        knn_top4,
+        knn_top4_plain,
+    )
+
+    lines = {"knn_far": far_pass_line(pts, verts, thr)}
+    lines["knn_far2"] = far_kernel_line(
+        "knn_far2", lambda p, v, fs, st: knn_top4(p, v, far_skip=fs),
+        lambda p, v, fs: knn_top4_plain(p, v, PLAIN_MAX_ELEMS, fs),
+        pts, verts, 4, thr, KNN_PAIR_OPS, True)
+    lines["knn_packed_far2"] = far_kernel_line(
+        "knn_packed_far2", lambda p, v, fs, st: knn_packed(p, v, 8, fs),
+        lambda p, v, fs: knn_packed_plain(p, v, 8, PLAIN_MAX_ELEMS, fs),
+        pts, verts, 8, thr, KNN_PAIR_OPS, True)
+    lines["knn_exact_far2"] = far_kernel_line(
+        "knn_exact_far2",
+        lambda p, v, fs, st: knn_exact(p, v, 4, stats=st, far_skip=fs),
+        lambda p, v, fs: knn_exact_plain(p, v, 4, PLAIN_EXACT_MAX_ELEMS, fs),
+        pts, verts, 4, thr, EXACT_PAIR_OPS, False)
+    return lines
+
+
+def far_train_step(dev):
+    """One bench.py training step with the far skip off and with it on,
+    from the same parameters, batch and noise: loss terms and gradients
+    bit-equal (the skip is exact for gradients too: a skipped point's
+    sigma is the constant fill); the launch counts of the step with the
+    skip on (kernel 1 with the tile skip and the far pass)."""
+    import torch
+
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+    from animnerf_tpu_torch.training.system import RowsCompactTrainer
+    from animnerf_tpu_torch.utils.rng import draw_noise
+
+    batch = train_batches(16, 1024, [3], dev)[0]
+    res = {}
+    for on in (False, True):
+        system = AnimNeRFSystem(FLAGSHIP_CFG, smpl_rig(), device=dev, seed=0)
+        set_far_skip(system, on)
+        trainer = RowsCompactTrainer(system, steps_per_epoch=100)
+        noise = draw_noise(torch.Generator().manual_seed(7), 16, 1024,
+                           system.renderer_cfg,
+                           system.body_model.num_verts).to(dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        d = trainer.step(batch, noise)
+        torch.cuda.synchronize()
+        res[on] = (d, dict(_build.LAUNCHES), far_share(),
+                   _grad_groups(system))
+    (d0, _, _, g0), (d1, launches, share, g1) = res[False], res[True]
+    same_loss = all(bool(torch.equal(d0[k], d1[k])) if torch.is_tensor(d0[k])
+                    else d0[k] == d1[k] for k in d0)
+    same_grad = all(torch.equal(g0[k], g1[k]) for k in g0)
+    check(same_loss and same_grad,
+          f"train step: far skip changed loss ({same_loss}) or gradients "
+          f"({same_grad})")
+    check(launches["knn_far"] > 0 and launches["knn_tile_skip"] > 0,
+          f"train step with the far skip: {launches}")
+    return {"loss": float(d1["loss"]), "bit_equal_loss": same_loss,
+            "bit_equal_grads": same_grad, "launches": launches, **share}
+
+
+def tile_skip_far_line(dev, thr: float = 0.2) -> dict:
+    """Kernel 1 with the tile skip and the far skip on the training
+    step's Morton-ordered points (kernel_lines_train's: 16 posed frames,
+    32,768 points each, 0.1 m around the cloud), bit-equal to its plain
+    version and to the tile skip alone; times with and without the far
+    skip and the bound from the warp tiles the kept groups sweep."""
+    import torch
+
+    from animnerf_tpu_torch.data.synthetic import (
+        make_body_model,
+        random_pose_params,
+    )
+    from animnerf_tpu_torch.models.warp import prepare_frame
+    from animnerf_tpu_torch.ops.knn_kernel import (
+        knn_top4,
+        knn_top4_plain,
+        reset_far_counts,
+    )
+    from animnerf_tpu_torch.ops.perm_sort import _morton_rows
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, N = 16, 32768
+    bm = make_body_model(6890, 24, seed=0).to(dev)
+    pose = random_pose_params(24, batch=B, seed=4)
+    tmpl = random_pose_params(24, batch=B, seed=2)
+    tmpl["transl"] = np.zeros_like(tmpl["transl"])
+    with torch.no_grad():
+        ctx = prepare_frame(bm, tensors(pose, dev), tensors(tmpl, dev))
+    verts = ctx.verts_morton.contiguous()
+    V = verts.shape[1]
+    pick = torch.randint(0, V, (B, N), generator=g, device=dev)
+    pts = torch.gather(verts, 1, pick[..., None].expand(B, N, 3)) \
+        + 0.1 * torch.randn(B, N, 3, generator=g, device=dev)
+    order = torch.argsort(_morton_rows(pts[..., 0], pts[..., 1],
+                                       pts[..., 2]), dim=1, stable=True)
+    pts = torch.gather(pts, 1, order[..., None].expand(B, N, 3)).contiguous()
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    reset_far_counts()
+    d, i = knn_top4(pts, verts, tile_skip=True, stats=stats, far_skip=thr)
+    share = far_share()
+    d0, i0 = knn_top4(pts, verts, tile_skip=True)
+    dp, ip = knn_top4_plain(pts, verts, PLAIN_MAX_ELEMS, thr)
+    torch.cuda.synchronize()
+    mism = int((i != ip).sum())
+    err = float((d - dp).abs().max())
+    check(mism == 0 and torch.equal(d, dp),
+          f"knn_tile_skip_far2: {mism} index mismatches, max err {err}")
+    check(torch.equal(d0 < thr, d < thr),
+          "knn_tile_skip_far2: the far skip changed a point's validity")
+    swept, skipped = (int(x) for x in stats.tolist())
+    share_swept = swept / max(swept + skipped, 1)
+    kept = B * N * (1.0 - share["far_skipped_share"])
+    nbytes = B * (N * 12 + V * 12 + N * 32)
+    return dict(shape=f"points ({B},{N},3) Morton-ordered verts ({B},{V},3)",
+                max_abs_err=err, tolerance=0.0, idx_mismatch=mism,
+                skipped_share=share["far_skipped_share"],
+                warp_tiles_swept=swept, warp_tiles_skipped=skipped,
+                ms=time_ms(lambda: knn_top4(pts, verts, tile_skip=True,
+                                            far_skip=thr), 20),
+                ms_no_far_skip=time_ms(lambda: knn_top4(
+                    pts, verts, tile_skip=True), 20),
+                plain_ms=time_ms(lambda: knn_top4_plain(
+                    pts, verts, PLAIN_MAX_ELEMS, thr), 1, warmup=1),
+                # the far pass over all points, the pairs the tile skip
+                # left to sweep in the kept groups
+                bound_ms=max((FAR_PAIR_OPS * B * N * -(-V // 512)
+                              + KNN_PAIR_OPS * kept * V * share_swept)
+                             / PEAK_F32_NONFMA, nbytes / PEAK_BYTES) * 1e3,
+                bound_by="operations", library_ms=None)
+
+
+def kernel_lines_edge_far(dev, thr: float = 0.2) -> dict:
+    """Kernels 1 (with and without the tile skip), 8 and 9 with the far
+    skip at N = 2^20 - 37 points (the last group partial), K in {1, 4, 8,
+    16}: half the points near a seeded cloud (0.3 m) around the origin,
+    the other half (the last group's among them) 5 m away; the last
+    group's padding points at the origin keep it from skipping. Then the
+    cloud moved 3 m from the origin, where the last group skips. Each
+    output bit-equal to its plain version with the far skip."""
+    import torch
+
+    from animnerf_tpu_torch.ops.knn_kernel import (
+        FAR_GROUP,
+        far_groups_plain,
+        knn_exact,
+        knn_exact_plain,
+        knn_packed,
+        knn_packed_plain,
+        knn_top4,
+        knn_top4_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    N = EDGE_POINTS
+    lines = {}
+    for cloud, shift in (("origin", 0.0), ("away", 3.0)):
+        for V in (6890, 10475):
+            verts = morton_sorted(0.3 * torch.randn(1, V, 3, generator=g,
+                                                    device=dev) + shift)
+            pick = torch.randint(0, V, (N,), generator=g, device=dev)
+            pts = (verts[0, pick] + 0.05 * torch.randn(
+                N, 3, generator=g, device=dev))[None].contiguous()
+            pts[:, N // 2:] += 5.0
+            _, skip = far_groups_plain(pts, verts, thr)
+            last = bool(skip[0, -1])
+            check(last == (cloud == "away") and bool(skip[0, -2]),
+                  f"edge far {cloud}: last group skip {last}")
+            runs = []
+            if V <= 8192:
+                runs += [("knn", 4, lambda K: knn_top4(pts, verts,
+                                                       far_skip=thr),
+                          lambda K: knn_top4_plain(pts, verts,
+                                                   PLAIN_MAX_ELEMS, thr)),
+                         ("knn_tile_skip", 4,
+                          lambda K: knn_top4(pts, verts, tile_skip=True,
+                                             far_skip=thr),
+                          lambda K: knn_top4_plain(pts, verts,
+                                                   PLAIN_MAX_ELEMS, thr))]
+                runs += [("knn_packed", K, lambda K: knn_packed(
+                    pts, verts, K, far_skip=thr), lambda K: knn_packed_plain(
+                        pts, verts, K, PLAIN_MAX_ELEMS, thr))
+                    for K in ((1, 4, 8, 16) if cloud == "origin" else (8,))]
+            else:
+                runs += [("knn_exact", K, lambda K: knn_exact(
+                    pts, verts, K, far_skip=thr), lambda K: knn_exact_plain(
+                        pts, verts, K, PLAIN_EXACT_MAX_ELEMS, thr))
+                    for K in ((1, 4, 8, 16) if cloud == "origin" else (4,))]
+            for kname, K, fn, plain in runs:
+                d, i = fn(K)
+                dp, ip = plain(K)
+                torch.cuda.synchronize()
+                mism = int((i != ip).sum())
+                err = float((d - dp).abs().max())
+                check(mism == 0 and torch.equal(d, dp),
+                      f"edge far {kname} K={K} V={V} {cloud}: {mism} index "
+                      f"mismatches, max err {err}")
+                lines[f"{kname}_far2_{cloud}_k{K}_v{V}"] = dict(
+                    shape=f"points (1,{N},3) verts (1,{V},3) K={K}",
+                    max_abs_err=err, tolerance=0.0, idx_mismatch=mism,
+                    skipped_share=float(skip.float().mean()),
+                    last_group_skipped=last,
+                    last_group_points=N - (skip.shape[1] - 1) * FAR_GROUP)
+    return lines
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -2047,8 +2642,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     angles = [3, 17, 29, 41, 55]
-    views, serve_launches, prof, _ = render_turntable(system, bp, tmpl,
-                                                      angles)
+    views, serve_launches, prof, images = render_turntable(system, bp, tmpl,
+                                                           angles)
     for v in views:
         emit(dict(phase="view", **v))
     emit(dict(phase="profile", **prof))
@@ -2067,6 +2662,60 @@ def main() -> int:
     parity = slice_parity(ck, bp, tmpl)
     emit({"phase": "slice_parity", **parity,
           "seconds": time.perf_counter() - t0})
+
+    # ---- the dense rows render, with the kNN's all-far skip off and on
+    t0 = time.perf_counter()
+    dense, dense_agree = dense_serve(system, bp, tmpl, dict(zip(angles,
+                                                                images)))
+    del images
+    for on in (False, True):
+        for v in dense[on]["views"]:
+            emit(dict(phase="dense_view", **v))
+        emit(dict(phase="dense_profile", far_skip=on,
+                  **dense[on]["profile"]))
+    emit({"phase": "dense_serve", "views": list(DENSE_ANGLES),
+          "bit_equal_off_on": True,
+          "median_view_ms_off": float(np.median(
+              [v["ms"] for v in dense[False]["views"]])),
+          "median_view_ms_on": float(np.median(
+              [v["ms"] for v in dense[True]["views"]])),
+          "far_skipped_share": dense[True]["far_skipped_share"],
+          "dense_vs_compacted": dense_agree,
+          "bound_vs_compacted": dict(PARITY_BOUNDS)["bfloat16"],
+          "launches_off": dense[False]["launches"],
+          "launches_on": dense[True]["launches"],
+          "seconds": time.perf_counter() - t0})
+    dense_launches = dense[True]["launches"]
+    del dense
+
+    t0 = time.perf_counter()
+    evals, eval_agree = dense_eval(system, bp, tmpl)
+    for on in (False, True):
+        emit(dict(phase="dense_eval_profile", far_skip=on,
+                  **evals[on].pop("profile")))
+    emit({"phase": "dense_eval", "rays": 512 * 512, "bit_equal_off_on": True,
+          "off": evals[False], "on": evals[True],
+          "vs_compacted_frame": eval_agree,
+          "seconds": time.perf_counter() - t0})
+
+    # the far-skip kernel lines on the points the dense view's coarse warp
+    # passed to the kNN (its first call: the first slab's coarse samples)
+    t0 = time.perf_counter()
+    calls = dense_view_calls(system, bp, tmpl, DENSE_ANGLES[0])
+    thr = system.scene_cfg.dis_threshold
+    check(calls and calls[0]["V"] == 6890 and calls[0]["k"] == 4,
+          f"the dense view's first kNN call: {calls[:1]}")
+    flines = far_kernel_lines(calls[0]["points"], calls[0]["verts"], thr)
+    del calls
+    flines["knn_tile_skip_far2"] = tile_skip_far_line("cuda", thr)
+    for name, line in flines.items():
+        emit(dict(phase="kernel", name=name, **line))
+    lines.update(flines)
+    ftrain = far_train_step("cuda")
+    emit({"phase": "far_train_step", **ftrain})
+    for name, line in kernel_lines_edge_far("cuda", thr).items():
+        emit(dict(phase="kernel_edge", name=name, **line))
+    emit({"phase": "far_lines_done", "seconds": time.perf_counter() - t0})
     del system, ctx
 
     t0 = time.perf_counter()
@@ -2131,6 +2780,19 @@ def main() -> int:
     emit({"phase": "smplx_serve_parity", **smplx_serve_parity(),
           "seconds": time.perf_counter() - t0})
 
+    # one dense 64x64 SMPL-X view, the far skip off and on (kernel 9)
+    t0 = time.perf_counter()
+    xsystem = smplx_system()
+    xdense = dense_small(xsystem, smplx_params(1, 1),
+                         smplx_params(1, 2, zero_transl=True),
+                         ("knn_exact", "warp_blend", "fused_mlp",
+                          "permute_lanes"))
+    check(xdense["launches_on"]["knn"] == xdense["launches_on"][
+        "knn_packed"] == 0, f"SMPL-X dense view: {xdense['launches_on']}")
+    del xsystem
+    emit({"phase": "smplx_dense", **xdense,
+          "seconds": time.perf_counter() - t0})
+
     t0 = time.perf_counter()
     steps, xsummary, prof, losses = train_phase(
         "cuda", SMPLX_CFG, smplx_rig, "smplx", n_timed=10, n_fixed=20,
@@ -2167,6 +2829,15 @@ def main() -> int:
     check(all(k8serve[k] > 0 for k in K8_SERVE_KERNELS)
           and k8serve["knn"] == k8serve["knn_exact"] == k8serve["min_dist"]
           == 0, f"k_neigh 8 serving launched the wrong kernels: {k8serve}")
+
+    # one dense 64x64 view at k_neigh 8, the far skip off and on (kernel 8)
+    t0 = time.perf_counter()
+    k8dense = dense_small(system8, bp, tmpl, ("knn_packed", "warp_blend",
+                                              "fused_mlp", "permute_lanes"))
+    check(k8dense["launches_on"]["knn"] == k8dense["launches_on"][
+        "knn_exact"] == 0, f"k_neigh 8 dense view: {k8dense['launches_on']}")
+    emit({"phase": "k8_dense", **k8dense,
+          "seconds": time.perf_counter() - t0})
     del system8
 
     t0 = time.perf_counter()
@@ -2238,7 +2909,14 @@ def main() -> int:
         knn_exact_view_k8=x8launches["knn_exact_cull"],
         knn_exact_nocull=blaunches["knn_exact"] - blaunches["knn_exact_cull"],
         knn_packed_k4=blaunches["knn_packed"], knn_mxu=blaunches["knn_mxu"],
-        knn_mxu_default=blaunches["knn_mxu"])
+        knn_mxu_default=blaunches["knn_mxu"],
+        # the far skip: the dense SMPL views with it on (the far pass and
+        # kernel 1), the dense k_neigh 8 and SMPL-X views (kernels 8 and
+        # 9), the training step with it on (kernel 1 with the tile skip)
+        knn_far=dense_launches["knn_far"], knn_far2=dense_launches["knn"],
+        knn_packed_far2=k8dense["launches_on"]["knn_packed"],
+        knn_exact_far2=xdense["launches_on"]["knn_exact"],
+        knn_tile_skip_far2=ftrain["launches"]["knn_tile_skip"])
     lines["knn_exact_nocull"] = dict(lines["knn_exact"],
                                      ms=lines["knn_exact"]["ms_nocull"],
                                      bound_ms=lines["knn_exact"]["bound_all_ms"])

@@ -379,7 +379,8 @@ def test_knn_reaches_the_exact_kernel_with_its_cull(monkeypatch, V, packed):
     packed=False) and asks for its cull, at every k."""
     calls = []
 
-    def spy(points, verts, k=4, cull=None, stats=None):
+    def spy(points, verts, k=4, cull=None, stats=None, far_skip=0.0):
+        assert far_skip == 0.0  # knn passes its (default) all-far skip on
         calls.append((k, cull, stats))
         return knn_exact_plain(points, verts, k)
 
