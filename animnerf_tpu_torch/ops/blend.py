@@ -65,6 +65,102 @@ def _check(idx_t, w_t, g, num_rows):
         raise ValueError(f"num_rows must be positive, got {num_rows}")
 
 
+# the kernel's radix passes (csrc/scatter.cu): digits, tiles of ROUNDS x
+# THREADS entries, each round ranked warp by warp
+RADIX_BITS = 9
+RADIX = 1 << RADIX_BITS
+THREADS = 256
+ROUNDS = 16
+TILE = THREADS * ROUNDS
+
+
+def radix_passes(num_keys: int) -> int:
+    """The kernel's passes for keys in [0, num_keys): one per 9-bit digit
+    of num_keys - 1, at least one."""
+    bits = max(num_keys - 1, 0).bit_length()
+    return max(1, -(-bits // RADIX_BITS))
+
+
+def scatter_workspace_words(B: int, k: int, N: int, num_rows: int) -> int:
+    """The kernel's scratch in 4-byte words (csrc/scatter.cu make_plan):
+    prep keys, two ping-pong (key, n, w) buffers, the transposed
+    cotangents, the digit counts and totals, the live count and each
+    row's [begin, end), each region rounded up to 16 bytes."""
+    def up4(x):
+        return (x + 3) & ~3
+
+    M = B * k * N
+    tiles = -(-M // TILE)
+    words = 0
+    for size in (M, 2 * M, 4 * M, B * N * F, RADIX * tiles,
+                 RADIX * radix_passes(B * num_rows), 1, 2 * B * num_rows):
+        words = up4(words + size)
+    return words
+
+
+def scatter_order_plain(keys: torch.Tensor, num_keys: int):
+    """Model of the kernel's placement: keys (M,) int, -1 for a dead
+    entry, live keys in [0, num_keys). Each LSD pass over a 9-bit digit
+    places an entry at the digit's base (the exclusive scan of the digit
+    totals) + the tile's offset within the digit (the exclusive scan of
+    the digit's per-tile counts) + the entries of that digit in the tile's
+    earlier rounds + those in the round's earlier warps + those in earlier
+    lanes of its warp, as scatter_place_kernel computes it. The first pass
+    drops dead entries. Returns (the entry numbers in placed order, each
+    key's [begin, end) in it, as scatter_bounds_kernel writes them: 0, 0
+    for a key without entries)."""
+    keys = keys.to(torch.int64).reshape(-1)
+    ent = torch.arange(keys.numel(), dtype=torch.int64)
+    for p in range(radix_passes(num_keys)):
+        M = keys.numel()
+        tiles = -(-M // TILE)
+        pad = tiles * TILE - M
+        kp = torch.cat([keys, keys.new_full((pad,), -1)])
+        d = torch.where(kp >= 0, (kp >> (RADIX_BITS * p)) & (RADIX - 1),
+                        RADIX)                      # RADIX: no slot
+        dd = d.reshape(tiles, ROUNDS, THREADS // 32, 32)
+        warp_id = torch.arange(tiles * ROUNDS * THREADS // 32)
+        per_warp = torch.bincount(
+            warp_id.repeat_interleave(32) * (RADIX + 1) + d,
+            minlength=warp_id.numel() * (RADIX + 1)).reshape(
+            tiles, ROUNDS, THREADS // 32, RADIX + 1)[..., :RADIX]
+        lane_rank = ((dd[..., :, None] == dd[..., None, :])
+                     & torch.ones(32, 32, dtype=torch.bool).tril(-1)
+                     ).sum(-1)                      # earlier lanes, same d
+        warp_pre = per_warp.cumsum(2) - per_warp
+        per_round = per_warp.sum(2)
+        round_pre = per_round.cumsum(1) - per_round
+        hist = per_round.sum(1)                     # (tiles, R)
+        tile_pre = hist.cumsum(0) - hist
+        total = hist.sum(0)
+        base = total.cumsum(0) - total
+        live = d < RADIX
+        dl = d[live]
+        t, r, wp, ln = (torch.arange(tiles * TILE)[live] // TILE,
+                        torch.arange(tiles * TILE)[live] % TILE // THREADS,
+                        torch.arange(tiles * TILE)[live] % THREADS // 32,
+                        torch.arange(tiles * TILE)[live] % 32)
+        pos = (base[dl] + tile_pre[t, dl] + round_pre[t, r, dl]
+               + warp_pre[t, r, wp, dl] + lane_rank[t, r, wp, ln])
+        nk = torch.empty(int(live.sum()), dtype=torch.int64)
+        ne = torch.empty_like(nk)
+        nk[pos] = kp[live]
+        ne[pos] = torch.cat([ent, ent.new_zeros(pad)])[live]
+        keys, ent = nk, ne
+    begin = torch.zeros(num_keys, dtype=torch.int64)
+    end = torch.zeros(num_keys, dtype=torch.int64)
+    L = keys.numel()
+    if L:
+        i = torch.arange(L)
+        first = torch.ones(L, dtype=torch.bool)
+        first[1:] = keys[1:] != keys[:-1]
+        last = torch.ones(L, dtype=torch.bool)
+        last[:-1] = keys[:-1] != keys[1:]
+        begin[keys[first]] = i[first]
+        end[keys[last]] = i[last] + 1
+    return ent, begin, end
+
+
 def sort_entries(idx_t: torch.Tensor, w_t: torch.Tensor, g: torch.Tensor,
                  num_rows: int):
     """The flattened keys b * num_rows + idx of the entries e = (b * k + j)
@@ -88,8 +184,9 @@ def weighted_scatter_rows(idx_t: torch.Tensor, w_t: torch.Tensor,
     (B, k, N) as the kNN emits them, g (B, 16, N) rows-native ->
     (B, num_rows, 16) float32. Kernel on CUDA tensors, plain version on CPU
     tensors; both sum each row's contributions in the stable order of
-    ``sort_entries``, so the result is bit-equal from run to run and
-    between the two."""
+    ``sort_entries`` (the kernel places the entries in that order with its
+    own radix passes, modelled by ``scatter_order_plain``), so the result
+    is bit-equal from run to run and between the two."""
     _check(idx_t, w_t, g, num_rows)
     if idx_t.device.type == "cpu":
         return weighted_scatter_rows_plain(idx_t, w_t, g, num_rows)
@@ -100,11 +197,15 @@ def weighted_scatter_rows(idx_t: torch.Tensor, w_t: torch.Tensor,
                       device=idx_t.device)
     if N == 0:
         return out.zero_()
-    keys, perm = sort_entries(idx_t, w_t, g, num_rows)
+    words = scatter_workspace_words(B, k, N, num_rows)
+    if words >= 2 ** 31:
+        raise ValueError(f"weighted scatter: a workspace of {words} words "
+                         "is past the kernel's int32 sizes")
+    ws = torch.empty(words, dtype=torch.int32, device=idx_t.device)
     _build.kernel_library().call(
-        "animnerf_weighted_scatter", keys.data_ptr(), perm.data_ptr(),
-        w_t.data_ptr(), g.data_ptr(), out.data_ptr(), B, N, num_rows, k,
-        _build.stream_of(idx_t))
+        "animnerf_weighted_scatter", idx_t.data_ptr(), w_t.data_ptr(),
+        g.data_ptr(), out.data_ptr(), ws.data_ptr(), words, B, N, num_rows,
+        k, _build.stream_of(idx_t))
     _build.LAUNCHES["scatter"] += 1
     return out
 

@@ -65,29 +65,58 @@ def _check(xyz_rows, dists, idx, table, num_lbs):
                          "int32 idx")
 
 
+def warp_blend_row_layout(num_lbs: int) -> int:
+    """Lp, the LBS part of a row as the CUDA kernel reads it: num_lbs
+    rounded up to 4 floats, so that its rows [lbs | 0 .. | T] of Lp + 16
+    floats and their transform part lie on 16 bytes (csrc/warp_blend.cu);
+    a table whose num_lbs is already a multiple of 4 is read in place."""
+    return -(-num_lbs // 4) * 4
+
+
+def pad_table_plain(table: torch.Tensor, num_lbs: int) -> torch.Tensor:
+    """The kernel's padded rows (warp_blend_pad_kernel): (B, V, num_lbs +
+    16) -> (B, V, Lp + 16), the LBS part zero-padded to Lp floats."""
+    Lp = warp_blend_row_layout(num_lbs)
+    return torch.cat([torch.nn.functional.pad(table[..., :num_lbs],
+                                              (0, Lp - num_lbs)),
+                      table[..., num_lbs:]], dim=-1)
+
+
 def warp_blend_fwd(xyz_rows: torch.Tensor, dists: torch.Tensor,
                    idx: torch.Tensor, table: torch.Tensor, num_lbs: int,
-                   weight_std: float, conf_gate: float):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+                   weight_std: float, conf_gate: float,
+                   residuals: bool = True):
+    """Kernel on CUDA tensors, plain version on CPU tensors. -> (out, w,
+    bf); with ``residuals=False`` (the no-grad callers) only out is
+    written: (out, None, None)."""
     _check(xyz_rows, dists, idx, table, num_lbs)
     if xyz_rows.device.type == "cpu":
         return warp_blend_fwd_plain(xyz_rows, dists, idx, table, num_lbs,
-                                    weight_std, conf_gate)
+                                    weight_std, conf_gate, residuals)
     xyz_rows, dists, idx, table = (t.contiguous() for t in
                                    (xyz_rows, dists, idx, table))
     _build.check_cuda("warp_blend_fwd", xyz_rows, dists, idx, table)
     B, k, N = idx.shape
-    V, F = table.shape[1:]
+    V = table.shape[1]
     dev = xyz_rows.device
     out = torch.empty((B, 8, N), dtype=torch.float32, device=dev)
-    w = torch.empty((B, k, N), dtype=torch.float32, device=dev)
-    bf = torch.empty((B, 16, N), dtype=torch.float32, device=dev)
+    w = bf = None
+    if residuals:
+        w = torch.empty((B, k, N), dtype=torch.float32, device=dev)
+        bf = torch.empty((B, 16, N), dtype=torch.float32, device=dev)
     if N == 0:
         return out, w, bf
+    Lp = warp_blend_row_layout(num_lbs)
+    padded = None  # rows read in place when they lie on 16 bytes
+    if Lp != num_lbs or table.data_ptr() % 16:
+        padded = torch.empty((B, V, Lp + 16), dtype=torch.float32,
+                             device=dev)
     _build.kernel_library().call(
         "animnerf_warp_blend_fwd", xyz_rows.data_ptr(), dists.data_ptr(),
-        idx.data_ptr(), table.data_ptr(), out.data_ptr(), w.data_ptr(),
-        bf.data_ptr(), B, N, V, F, k, num_lbs,
+        idx.data_ptr(), table.data_ptr(),
+        None if padded is None else padded.data_ptr(), out.data_ptr(),
+        w.data_ptr() if residuals else None,
+        bf.data_ptr() if residuals else None, B, N, V, k, num_lbs,
         1.0 / (2.0 * float(weight_std) ** 2), float(conf_gate),
         _build.stream_of(xyz_rows))
     _build.LAUNCHES["warp_blend"] += 1
@@ -95,8 +124,10 @@ def warp_blend_fwd(xyz_rows: torch.Tensor, dists: torch.Tensor,
 
 
 def warp_blend_fwd_plain(xyz_rows, dists, idx, table, num_lbs: int,
-                         weight_std: float, conf_gate: float):
-    """gather_blend_plain plus the blended 4x4 applied to xyz."""
+                         weight_std: float, conf_gate: float,
+                         residuals: bool = True):
+    """gather_blend_plain plus the blended 4x4 applied to xyz; (out, None,
+    None) with ``residuals=False``."""
     _check(xyz_rows, dists, idx, table, num_lbs)
     B, _, N = idx.shape
     bd, bf, w = gather_blend_plain(table, dists.transpose(1, 2),
@@ -110,8 +141,10 @@ def warp_blend_fwd_plain(xyz_rows, dists, idx, table, num_lbs: int,
     rows.append(bd.transpose(1, 2))
     rows.append(torch.zeros((B, 4, N), dtype=xyz_rows.dtype,
                             device=xyz_rows.device))
-    return (torch.cat(rows, dim=1), w.transpose(1, 2).contiguous(),
-            bf_t.contiguous())
+    out = torch.cat(rows, dim=1)
+    if not residuals:
+        return out, None, None
+    return out, w.transpose(1, 2).contiguous(), bf_t.contiguous()
 
 
 class WarpBlendRows(torch.autograd.Function):
@@ -161,10 +194,11 @@ def warp_blend_rows(xyz_rows: torch.Tensor, dists: torch.Tensor,
                     idx: torch.Tensor, table: torch.Tensor, num_lbs: int,
                     weight_std: float, conf_gate: float) -> torch.Tensor:
     """(B, 8, N) rows [x'|y'|z'|bd|0..], differentiable through the xyz
-    rows and the table's transform columns when autograd needs it."""
+    rows and the table's transform columns when autograd needs it; without
+    it the forward writes no residuals."""
     if torch.is_grad_enabled() and (xyz_rows.requires_grad
                                     or table.requires_grad):
         return WarpBlendRows.apply(xyz_rows, dists, idx, table, num_lbs,
                                    weight_std, conf_gate)
     return warp_blend_fwd(xyz_rows, dists, idx, table, num_lbs, weight_std,
-                          conf_gate)[0]
+                          conf_gate, residuals=False)[0]

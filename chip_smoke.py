@@ -23,17 +23,25 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      bit-equal across two launches, the MLP forward (on wgmma) checked at
      a second encoding width (n_freqs 7) and given its share of the bound,
      the scatter beside the deterministic library scatter (and the atomic
-     one), and the bf16 MLP backward's main kernel (recompute + dgrad, on
-     wgmma) and weight-gradient kernels timed apart in one profiled call;
-     the kNN lines of kernels 1 and 8 with their share of the bound, their
-     sweep's points per thread and its SASS instructions per pair; then
-     kernels 1 and 8 at edge shapes (N = 2^20 - 37, V in {K, 1025, 8192},
-     K in {1, 4, 8, 16}), each bit-equal to its plain version;
+     one) with its kernels' device time by name, the warp-blend also in
+     its residual-free mode, and the bf16 MLP backward's main kernel
+     (recompute + dgrad, on wgmma) and weight-gradient kernels timed apart
+     in one profiled call; the kNN lines of kernels 1 and 8 with their
+     share of the bound, their sweep's points per thread and its SASS
+     instructions per pair; then kernels 1 and 8 at edge shapes (N = 2^20
+     - 37, V in {K, 1025, 8192}, K in {1, 4, 8, 16}), each bit-equal to
+     its plain version; the scatter at K in {1, 4, 8, 16} with one, two
+     and three radix passes (bit-equal to its plain version and to a
+     second run) and the warp-blend on every family's row width and an
+     unaligned table (within 1e-4, residual-free out bit-equal);
   4. serving: the trained scale512 checkpoint on the seed-3 SMPL rig, a
      512x512 turntable rendered through ``Renderer.render_stream``,
      launch counts reset just before and read just after; then one more
      view under torch.profiler (device time by kernel, the MLP forward's
-     and the kNN's shares, idle share);
+     and the kNN's shares, the scatter's and the warp-blend's time and
+     launches, idle share); then ``warp_blend_view``: kernel 2 on the
+     arguments of a view's first call (its coarse warp), within 1e-4 of
+     its plain version, with the residual-free mode's time and out;
   5. serving parity: one view at 96x96 rendered on the card with the
      kernels and on the CPU with the plain versions;
   5a. dense_serve: the same system through the dense route
@@ -68,9 +76,12 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      16 x 1024 rays, six-term loss, Adam) through
      ``RowsCompactTrainer.step``: one warm-up step, then 20 timed steps on
      distinct ray batches with the launch counts reset just before and
-     read just after, and one more step under torch.profiler; then 30
-     steps on one fixed batch, whose loss must fall, with finite losses
-     and gradients throughout;
+     read just after, and one more step under torch.profiler; the
+     ``scatter_step`` line: kernel 5 on the inputs of one more step's two
+     scatter calls (coarse, fine), with their row statistics, bit-equal to
+     its plain version and to a second run, beside both library scatters;
+     then 30 steps on one fixed batch, whose loss must fall, with finite
+     losses and gradients throughout;
   7. train parity: one step at full width with 2 x 128 rays on the card
      (kernels) and on the CPU (plain versions) from the same parameters
      and noise, in f32 and in bf16: loss terms, gradients per parameter
@@ -92,7 +103,8 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      10%, the kNN calls of one more view (kernel 9's launches and points
      per launch), and the same views with ``prepass="boxes"``, whose
      images must agree; then kernel 9's lines on the points that view's
-     coarse warp passed to it, at K = 4 and 8 (as in phase 8);
+     coarse warp passed to it, at K = 4 and 8 (as in phase 8), and kernel
+     2 on its first warp-blend call (``warp_blend_smplx``, F = 71);
  10. smplx_serve_parity: one 64x64 view with prepass="exact" on the card
      and on the CPU, bf16 and f32; smplx_dense: a dense 64x64 view with
      the far skip off and on (kernel 9 and the far pass; images
@@ -116,7 +128,9 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      and on: kernel 8 and the far pass, images bit-equal);
      k8_serve_parity (phase 5 at k_neigh 8); k8_train (the
      bench.py step with k_neigh 8: warm-up, 10 timed steps, one profiled,
-     20 on one batch whose loss must fall); k8_train_parity (phase 7 at
+     ``scatter_step_k8`` on one more step's scatter calls, 20 on one batch
+     whose loss must fall); ``warp_blend_view_k8`` on a k8 view's first
+     call; k8_train_parity (phase 7 at
      k_neigh 8); smplx_k8_parity (phase 10 at k_neigh 8 in f32, launching
      the exact kNN at K = 8);
  14. the matmul-form kNN (kernel 10) at "highest" and "default" against
@@ -184,6 +198,11 @@ PREV_WGRAD_MS = 13.204
 # the bf16 MLP forward at 2^21 points on the wmma kernel it replaced
 # (H100 80GB HBM3, 700 W): the kernel line's earlier time
 PREV_FWD_MS = 20.327
+# the weighted scatter (kernel 5: torch.sort, then a row kernel) and the
+# warp-blend (kernel 2: scalar loads) before their redesign, by K (H100
+# 80GB HBM3, 700 W): the kernel lines' earlier times
+PREV_SCATTER_MS = {4: 0.549, 8: 0.762}
+PREV_WARP_BLEND_MS = {4: 0.573, 8: 1.003}
 
 
 def emit(obj) -> None:
@@ -515,6 +534,243 @@ def capture_knn(fn, keep: bool = False) -> list:
     return calls
 
 
+# every kernel weighted_scatter_rows launches (csrc/scatter.cu's
+# scatter_*_kernel; weighted_scatter_kernel before its redesign), and the
+# warp-blend's, by profiler name (not torch's _scatter_gather kernels)
+SCATTER_KERNEL_NAMES = ("::scatter_", "weighted_scatter")
+WARP_BLEND_KERNEL_NAMES = ("warp_blend",)
+
+
+def kernel_name(key: str) -> str:
+    """A profiler kernel key without its return type, namespace and
+    parameters: "warp_blend_fwd_kernel<4>", "scatter_sum_kernel"."""
+    key = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    return key.split("(")[0]
+
+
+def capture_scatter(fn) -> list:
+    """The calls fn makes to the warp-blend backward's scatter
+    (``animnerf_tpu_torch.ops.warp_blend.weighted_scatter_rows``, the name
+    ``WarpBlendRows.backward`` calls; wrapped for the call and restored
+    after): copies of each call's idx, w and g, and its num_rows."""
+    from animnerf_tpu_torch.ops import warp_blend
+
+    calls, orig = [], warp_blend.weighted_scatter_rows
+
+    def record(idx_t, w_t, g, num_rows):
+        calls.append({"idx": idx_t.detach().clone(),
+                      "w": w_t.detach().clone(), "g": g.detach().clone(),
+                      "num_rows": num_rows})
+        return orig(idx_t, w_t, g, num_rows)
+
+    warp_blend.weighted_scatter_rows = record
+    try:
+        fn()
+    finally:
+        warp_blend.weighted_scatter_rows = orig
+    return calls
+
+
+def capture_warp_blend(fn, keep: int = 1) -> list:
+    """The calls fn makes to the warp-blend forward
+    (``animnerf_tpu_torch.ops.warp_blend.warp_blend_fwd``, the name
+    ``warp_blend_rows`` and ``WarpBlendRows.forward`` call; wrapped for
+    the call and restored after): [{N, k}], with copies of the positional
+    arguments of the first ``keep`` calls under "args"."""
+    from animnerf_tpu_torch.ops import warp_blend
+
+    calls, orig = [], warp_blend.warp_blend_fwd
+
+    def record(*args, **kw):
+        c = {"N": int(args[2].shape[2]), "k": int(args[2].shape[1])}
+        if len(calls) < keep:
+            c["args"] = tuple(a.detach().clone() if hasattr(a, "detach")
+                              else a for a in args)
+        calls.append(c)
+        return orig(*args, **kw)
+
+    warp_blend.warp_blend_fwd = record
+    try:
+        fn()
+    finally:
+        warp_blend.warp_blend_fwd = orig
+    return calls
+
+
+def scatter_row_stats(idx, w, g, V: int) -> dict:
+    """A scatter call's shape and how its live entries (w != 0 and a
+    cotangent column not all zero) spread over the B * V rows: row lengths
+    over all rows (max, p99, p50, the empty share) and over live entries
+    (the length of the row an entry lands in: p50, p99)."""
+    import torch
+
+    B, K, N = idx.shape
+    live = (w != 0) & (g != 0).any(1, keepdim=True)
+    keys = (idx.long() + (torch.arange(B, device=idx.device)
+                          * V)[:, None, None])[live]
+    counts = torch.bincount(keys, minlength=B * V).float()
+    q = torch.tensor([0.5, 0.99], device=idx.device)
+    r50, r99 = (float(x) for x in torch.quantile(counts, q))
+    e50, e99 = (float(x) for x in torch.quantile(counts[keys], q)) \
+        if keys.numel() else (0.0, 0.0)
+    return {"B": B, "K": K, "N": N, "entries": B * K * N,
+            "live_entries": int(keys.numel()),
+            "live_share": keys.numel() / max(B * K * N, 1), "rows": B * V,
+            "row_len_max": int(counts.max()), "row_len_p99": r99,
+            "row_len_p50": r50,
+            "empty_row_share": float((counts == 0).float().mean()),
+            "entry_row_len_p50": e50, "entry_row_len_p99": e99}
+
+
+def kernel_split(fn, names, reps: int = 5, tries: int = 4) -> dict:
+    """Device time and launches per call of fn (after a warm-up), over
+    ``reps`` profiled calls: of each kernel whose profiler name contains
+    one of ``names`` ({name: [ms, launches]}), of those together
+    (``ms``, ``launches``) and of every device event (``busy_ms``). The
+    trace sometimes misses a session's first kernels, or all of them: a
+    session is taken again (up to ``tries`` in all) until every such
+    kernel shows a whole number of launches a call; ``complete`` says
+    whether one did."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        mine = [e for e in events if any(n in e.key for n in names)]
+        complete = bool(mine) and all(e.count % reps == 0 for e in mine)
+        if complete:
+            break
+    split = {kernel_name(e.key): [e.self_device_time_total / 1e3 / reps,
+                                  e.count / reps] for e in mine}
+    return {"by_kernel": split, "ms": sum(v[0] for v in split.values()),
+            "launches": sum(v[1] for v in split.values()),
+            "busy_ms": sum(e.self_device_time_total
+                           for e in events) / 1e3 / reps,
+            "complete": complete, "sessions": attempt}
+
+
+def scatter_call_line(c: dict, reps: int = 20) -> dict:
+    """A kernel line of the weighted scatter on a captured call's inputs:
+    bit-equal to its plain version and to a second run, its row
+    statistics, its time (CUDA events) and its kernels' device time by
+    name (kernel_split), beside the deterministic index_put_ and the
+    atomic index_add_ on the premultiplied contributions, and its bound
+    (idx, w and g read once, the table written once)."""
+    import torch
+
+    from animnerf_tpu_torch.ops.blend import (
+        weighted_scatter_rows,
+        weighted_scatter_rows_plain,
+    )
+
+    idx, w, g, V = c["idx"], c["w"], c["g"], c["num_rows"]
+    B, K, N = idx.shape
+    out = weighted_scatter_rows(idx, w, g, V)
+    out2 = weighted_scatter_rows(idx, w, g, V)
+    outp = weighted_scatter_rows_plain(idx, w, g, V)
+    torch.cuda.synchronize()
+    err = float((out - outp).abs().max())
+    same = bool(torch.equal(out, outp))
+    deterministic = bool(torch.equal(out, out2))
+    check(same and deterministic, f"scatter ({B},{K},{N}): bit-equal to "
+          f"plain {same} (max err {err}), to a second run {deterministic}")
+    del out2, outp
+    contrib = (w[:, :, None, :] * g[:, None]).permute(0, 1, 3, 2) \
+        .reshape(-1, 16).contiguous()
+    rows = (idx.long() + (torch.arange(B, device=idx.device)
+                          * V)[:, None, None]).reshape(-1)
+    flat = torch.zeros(B * V, 16, device=idx.device)
+    line = dict(
+        shape=f"idx/w ({B},{K},{N}) g ({B},16,{N}) -> ({B},{V},16)",
+        **scatter_row_stats(idx, w, g, V), max_abs_err=err, tolerance=0.0,
+        bit_equal_to_plain=same, deterministic=deterministic,
+        ms=time_ms(lambda: weighted_scatter_rows(idx, w, g, V), reps),
+        plain_ms=time_ms(lambda: weighted_scatter_rows_plain(idx, w, g, V),
+                         3),
+        kernels=kernel_split(lambda: weighted_scatter_rows(idx, w, g, V),
+                             SCATTER_KERNEL_NAMES),
+        bound_ms=B * (N * (K + K + 16) * 4 + V * 16 * 4) / PEAK_BYTES * 1e3,
+        bound_by="bytes",
+        library_ms=deterministic_scatter_ms(flat, rows, contrib, reps),
+        library_call="index_put_(accumulate=True), deterministic algorithms",
+        library_atomic_ms=time_ms(
+            lambda: flat.zero_().index_add_(0, rows, contrib), reps))
+    line["pct_of_bound"] = 100.0 * line["bound_ms"] / line["ms"]
+    return line
+
+
+def step_scatter_lines(calls: list) -> dict:
+    """scatter_call_line on a training step's first scatter call (the
+    coarse pass's), with the second (the fine pass's) under "fine"."""
+    check(len(calls) == 2, f"a step made {len(calls)} scatter calls")
+    line = scatter_call_line(calls[0])
+    line["fine"] = scatter_call_line(calls[1])
+    return line
+
+
+def warp_blend_call_line(args: tuple, reps: int = 20) -> dict:
+    """A kernel line of the warp-blend on a captured call's arguments:
+    within 1e-4 of its plain version (every output), its time (CUDA
+    events) and bound (inputs read once, outputs written once), the bytes
+    of the gathered table rows (N * K * F * 4) as a field of their own,
+    and, where the wrapper has it, the residual-free mode (``out`` only):
+    its time, its own bound, and its ``out`` bit-equal to the full
+    mode's."""
+    import inspect
+
+    import torch
+
+    from animnerf_tpu_torch.ops.warp_blend import (
+        warp_blend_fwd,
+        warp_blend_fwd_plain,
+    )
+
+    rows, d, idx, table, num_lbs = args[:5]
+    B, K, N = idx.shape
+    F = table.shape[2]
+    out = warp_blend_fwd(*args)
+    outp = warp_blend_fwd_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(out, outp))
+    tol = 1e-4  # f32 blend; nvcc contracts the blend sums into FMAs
+    check(err <= tol, f"warp_blend ({B},{K},{N}) F={F}: max err {err}")
+    del outp
+    in_bytes = (3 * N + 2 * K * N) * B * 4 + table.numel() * 4
+    line = dict(
+        shape=f"rows ({B},8,{N}) knn ({B},{K},{N}) table "
+        f"{tuple(table.shape)}", max_abs_err=err, tolerance=tol,
+        gathered_bytes=B * N * K * F * 4,
+        ms=time_ms(lambda: warp_blend_fwd(*args), reps),
+        plain_ms=time_ms(lambda: warp_blend_fwd_plain(*args), 3),
+        kernels=kernel_split(lambda: warp_blend_fwd(*args),
+                             WARP_BLEND_KERNEL_NAMES),
+        bound_ms=max((in_bytes + B * N * (8 + K + 16) * 4) / PEAK_BYTES,
+                     B * N * (K * (3 * num_lbs + 40) + 100) / PEAK_F32)
+        * 1e3, bound_by="bytes", library_ms=None)
+    line["pct_of_bound"] = 100.0 * line["bound_ms"] / line["ms"]
+    if "residuals" in inspect.signature(warp_blend_fwd).parameters:
+        o = warp_blend_fwd(*args, residuals=False)[0]
+        same = bool(torch.equal(o, out[0]))
+        check(same, f"warp_blend ({B},{K},{N}) F={F}: the residual-free "
+              "out differs from the full mode's")
+        line.update(
+            out_only_bit_equal=same,
+            out_only_ms=time_ms(
+                lambda: warp_blend_fwd(*args, residuals=False), reps),
+            out_only_bound_ms=(in_bytes + B * N * 8 * 4) / PEAK_BYTES * 1e3)
+    return line
+
+
 def exact_calls(calls: list) -> dict:
     """Kernel 9's launches and points per launch among captured kNN calls
     (those above the packed kernels' 8192 vertices)."""
@@ -643,6 +899,8 @@ def kernel_lines(system, ctx, sass):
         shape=f"rows (1,8,{N}) knn (1,4,{N}) table {tuple(table.shape)}",
         max_abs_err=err, tolerance=tol,
         ms=time_ms(lambda: warp_blend_fwd(*args), reps),
+        out_only_ms=time_ms(lambda: warp_blend_fwd(*args, residuals=False),
+                            reps), prev_ms=PREV_WARP_BLEND_MS[4],
         plain_ms=time_ms(lambda: warp_blend_fwd_plain(*args), preps),
         bound_ms=max(wb_bytes / PEAK_BYTES,
                      N * (4 * (3 * J + 40) + 100) / PEAK_F32) * 1e3,
@@ -702,6 +960,8 @@ def kernel_lines(system, ctx, sass):
         "one-hot LBS", max_abs_err=err, tolerance=tol,
         share_blending_2_or_more=multi,
         ms=time_ms(lambda: warp_blend_fwd(*args8), reps),
+        out_only_ms=time_ms(lambda: warp_blend_fwd(*args8, residuals=False),
+                            reps), prev_ms=PREV_WARP_BLEND_MS[8],
         plain_ms=time_ms(lambda: warp_blend_fwd_plain(*args8), preps),
         bound_ms=max(wb8_bytes / PEAK_BYTES,
                      N * (8 * (3 * J + 40) + 100) / PEAK_F32) * 1e3,
@@ -898,8 +1158,11 @@ def kernel_lines_train(dev, sass):
         shape=f"idx/w ({B},4,{N}) g ({B},16,{N}) -> ({B},{V},16)",
         max_abs_err=err, tolerance=tol, deterministic=deterministic,
         bit_equal_to_plain=bool(torch.equal(out, outp)),
-        # the wrapper's stable sort of the keys included
+        # every kernel the wrapper launches
         ms=time_ms(lambda: weighted_scatter_rows(i1, w, gr, V), reps),
+        prev_ms=PREV_SCATTER_MS[4],
+        kernels=kernel_split(lambda: weighted_scatter_rows(i1, w, gr, V),
+                             SCATTER_KERNEL_NAMES),
         plain_ms=time_ms(lambda: weighted_scatter_rows_plain(i1, w, gr, V),
                          preps),
         # idx, w and g read once, the table written once
@@ -933,6 +1196,9 @@ def kernel_lines_train(dev, sass):
         max_abs_err=err, tolerance=tol, deterministic=deterministic,
         bit_equal_to_plain=bool(torch.equal(out, outp)),
         ms=time_ms(lambda: weighted_scatter_rows(i8, w8, gr, V), reps),
+        prev_ms=PREV_SCATTER_MS[8],
+        kernels=kernel_split(lambda: weighted_scatter_rows(i8, w8, gr, V),
+                             SCATTER_KERNEL_NAMES),
         plain_ms=time_ms(lambda: weighted_scatter_rows_plain(i8, w8, gr, V),
                          preps),
         bound_ms=B * (N * (8 + 8 + 16) * 4 + V * 16 * 4) / PEAK_BYTES * 1e3,
@@ -1253,6 +1519,87 @@ def kernel_lines_edge(dev):
     return lines
 
 
+def kernel_lines_edge_scatter_warp(dev):
+    """Kernels 5 and 2 at the shapes their designs stress. The scatter at
+    K in {1, 4, 8, 16} with one radix pass (B V = 300), two (B V = 13,780,
+    N = 20,011: a ragged last tile) and three (B V = 275,600 > 2^18), half
+    of the first neighbours on one row, zero weights and zero cotangent
+    columns: each bit-equal to its plain version and to a second run. The
+    warp-blend at K in {1, 4, 8, 16} on each family's row (LBS part 5, 16,
+    24, 52, 55: FLAME, MANO, SMPL, SMPL-H, SMPL-X; padded to 4 floats where
+    it is not a multiple) and on an SMPL table 4 bytes off 16-byte
+    alignment (padded too), one-hot LBS columns so that several neighbours
+    blend: within 1e-4 of its plain version, the residual-free out
+    bit-equal to the full mode's."""
+    import torch
+
+    from animnerf_tpu_torch.ops.blend import (
+        radix_passes,
+        weighted_scatter_rows,
+        weighted_scatter_rows_plain,
+    )
+    from animnerf_tpu_torch.ops.warp_blend import (
+        warp_blend_fwd,
+        warp_blend_fwd_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    lines = {}
+    for B, V, N in ((1, 300, 4099), (2, 6890, 20011), (40, 6890, 3001)):
+        for K in (1, 4, 8, 16):
+            idx = torch.randint(0, V, (B, K, N), generator=g, device=dev,
+                                dtype=torch.int32)
+            idx[:, 0, ::2] = V // 3
+            w = torch.rand(B, K, N, generator=g, device=dev)
+            w[:, K // 2:, ::3] = 0.0
+            gr = torch.randn(B, 16, N, generator=g, device=dev)
+            gr[:, :, ::7] = 0.0
+            out = weighted_scatter_rows(idx, w, gr, V)
+            out2 = weighted_scatter_rows(idx, w, gr, V)
+            outp = weighted_scatter_rows_plain(idx, w, gr, V)
+            torch.cuda.synchronize()
+            same, det = bool(torch.equal(out, outp)), bool(
+                torch.equal(out, out2))
+            err = float((out - outp).abs().max())
+            check(same and det, f"edge scatter K={K} B={B} V={V} N={N}: "
+                  f"bit-equal {same} (max err {err}), deterministic {det}")
+            lines[f"scatter_k{K}_b{B}_v{V}"] = dict(
+                shape=f"idx/w ({B},{K},{N}) -> ({B},{V},16)",
+                radix_passes=radix_passes(B * V), max_abs_err=err,
+                tolerance=0.0, bit_equal_to_plain=same, deterministic=det)
+    N, V = 5003, 500
+    for num_lbs, aligned in ((5, True), (16, True), (24, True), (52, True),
+                             (55, True), (24, False)):
+        F = num_lbs + 16
+        flat = torch.randn(V * F + 1, generator=g, device=dev)
+        table = (flat[:-1] if aligned else flat[1:]).view(1, V, F)
+        bone = torch.randint(0, min(num_lbs, 3), (V,), generator=g,
+                             device=dev)
+        table[0, :, :num_lbs] = torch.nn.functional.one_hot(
+            bone, num_lbs).float()
+        for K in (1, 4, 8, 16):
+            idx = torch.randint(0, V, (1, K, N), generator=g, device=dev,
+                                dtype=torch.int32)
+            d = torch.rand(1, K, N, generator=g, device=dev).sort(1)[0]
+            rows = torch.zeros(1, 8, N, device=dev)
+            rows[0, :3] = torch.randn(3, N, generator=g, device=dev)
+            args = (rows, d.contiguous(), idx, table, num_lbs, 0.1, 0.9)
+            out = warp_blend_fwd(*args)
+            outp = warp_blend_fwd_plain(*args)
+            o = warp_blend_fwd(*args, residuals=False)[0]
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in zip(out, outp))
+            same = bool(torch.equal(o, out[0]))
+            check(err <= 1e-4 and same, f"edge warp_blend K={K} "
+                  f"num_lbs={num_lbs} aligned={aligned}: max err {err}, "
+                  f"residual-free out bit-equal {same}")
+            lines[f"warp_blend_k{K}_f{F}{'' if aligned else '_off16'}"] = \
+                dict(shape=f"knn (1,{K},{N}) table (1,{V},{F})",
+                     max_abs_err=err, tolerance=1e-4,
+                     out_only_bit_equal=same)
+    return lines
+
+
 def morton_sorted(x):
     """(1, n, 3) points or vertices in Morton order (the order of the
     training step's rows and of the warp's cloud)."""
@@ -1479,6 +1826,19 @@ KERNELS = {
                       "animnerf_tpu/ops/warp_blend.py:48"),
     "scatter_k8": ("animnerf_tpu_torch/csrc/scatter.cu",
                    "animnerf_tpu/ops/blend.py:59"),
+    # kernels 5 and 2 on the inputs the main paths give them: a training
+    # step's scatter calls (SMPL, k_neigh 8), a view's first warp-blend
+    # call (SMPL, SMPL-X, k_neigh 8)
+    "scatter_step": ("animnerf_tpu_torch/csrc/scatter.cu",
+                     "animnerf_tpu/ops/blend.py:59"),
+    "scatter_step_k8": ("animnerf_tpu_torch/csrc/scatter.cu",
+                        "animnerf_tpu/ops/blend.py:59"),
+    "warp_blend_view": ("animnerf_tpu_torch/csrc/warp_blend.cu",
+                        "animnerf_tpu/ops/warp_blend.py:48"),
+    "warp_blend_smplx": ("animnerf_tpu_torch/csrc/warp_blend.cu",
+                         "animnerf_tpu/ops/warp_blend.py:48"),
+    "warp_blend_view_k8": ("animnerf_tpu_torch/csrc/warp_blend.cu",
+                           "animnerf_tpu/ops/warp_blend.py:48"),
     "knn_mxu": ("animnerf_tpu_torch/csrc/knn_mxu.cu",
                 "tools/bench_knn.py:29"),
     "knn_mxu_default": ("animnerf_tpu_torch/csrc/knn_mxu.cu",
@@ -1596,6 +1956,10 @@ def profile_call(fn, what: str):
     exact_rows = sum(e.self_device_time_total for e in events
                      if "knn_exact_rows" in e.key) / 1e3
     far = [e for e in events if "knn_far_kernel" in e.key]
+    scat = [e for e in events if any(k in e.key
+                                      for k in SCATTER_KERNEL_NAMES)]
+    wb = [e for e in events if any(k in e.key
+                                    for k in WARP_BLEND_KERNEL_NAMES)]
     return {f"{what}_ms_profiled": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "mlp_fwd_ms": fwd, "mlp_fwd_share_of_busy": fwd / max(busy, 1e-9),
@@ -1606,6 +1970,13 @@ def profile_call(fn, what: str):
             "knn_exact_launches": sum(e.count for e in exact),
             "knn_far_ms": sum(e.self_device_time_total for e in far) / 1e3,
             "knn_far_launches": sum(e.count for e in far),
+            "scatter_ms": sum(e.self_device_time_total for e in scat) / 1e3,
+            "scatter_launches": sum(e.count for e in scat),
+            "scatter_by_kernel": {kernel_name(e.key):
+                                  [e.self_device_time_total / 1e3, e.count]
+                                  for e in scat},
+            "warp_blend_ms": sum(e.self_device_time_total for e in wb) / 1e3,
+            "warp_blend_launches": sum(e.count for e in wb),
             "mlp_bwd_main_ms": split["main_ms"],
             "mlp_bwd_wgrad_ms": split["wgrad_ms"],
             "mlp_bwd_launches": split["main_launches"]
@@ -1729,9 +2100,10 @@ PROFILE_SPREAD = 1.10
 def smplx_serve(angles):
     """The SMPL-X turntable with the exact pre-pass (launches: kernel 9
     with its cull on every call), two profiled views of angles[0] (their
-    device-busy times within PROFILE_SPREAD) and the kNN calls of one more
-    (captured with their points), then the same views with the box
-    pre-pass: the two images agree."""
+    device-busy times within PROFILE_SPREAD), the kNN calls of one more
+    (captured with their points) and the warp-blend calls of another (the
+    first with its arguments), then the same views with the box pre-pass:
+    the two images agree."""
     system = smplx_system()
     bp, tmpl = smplx_params(1, 1), smplx_params(1, 2, zero_transl=True)
     views, launches, _, imgs = render_turntable(
@@ -1747,13 +2119,14 @@ def smplx_serve(angles):
     check(max(busy) <= PROFILE_SPREAD * min(busy),
           f"the SMPL-X view's two profiles disagree: busy {busy} ms")
     calls = capture_knn(view, keep=True)
+    wcalls = capture_warp_blend(view)  # kernel 2's first call, kept
     bviews, _, _, bimgs = render_turntable(system, bp, tmpl, angles,
                                            prepass="boxes", profile=False)
     # both pre-passes are exact end to end: a kept sample that is not
     # valid gets the outside-shell sigma, and every kernel works per point
     agree = max(float(np.abs(a - b).max()) for a, b in zip(imgs, bimgs))
     check(agree <= 1e-5, f"exact vs boxes pre-pass images: {agree}")
-    return views, launches, profs, bviews, agree, calls
+    return views, launches, profs, bviews, agree, calls, wcalls
 
 
 def smplx_serve_parity(H=64, W=64, cfg=None, bounds=PARITY_BOUNDS):
@@ -1891,13 +2264,15 @@ def finite(trainer, details) -> bool:
 def train_phase(dev, cfg=FLAGSHIP_CFG, make_rig=smpl_rig,
                 model_type: str = "smpl", n_timed: int = 20,
                 n_fixed: int = 30, need=TRAIN_KERNELS, absent=(),
-                B: int = 16, R: int = 1024, capture: bool = False):
+                B: int = 16, R: int = 1024, capture: bool = False,
+                scatter: bool = False):
     """The bench.py step: warm-up, ``n_timed`` timed steps (launch counts
     reset just before and read just after: every kernel of ``need``
     launched, none of ``absent``), one profiled step, (``capture``) the
     kNN calls of one more step (exact_calls: the summary's kernel 9
-    launches and points per launch), then ``n_fixed`` steps on one fixed
-    batch."""
+    launches and points per launch), (``scatter``) the weighted scatter's
+    calls of one more step (capture_scatter: the summary's
+    "scatter_calls"), then ``n_fixed`` steps on one fixed batch."""
     import torch
 
     from animnerf_tpu_torch.ops import _build
@@ -1928,6 +2303,8 @@ def train_phase(dev, cfg=FLAGSHIP_CFG, make_rig=smpl_rig,
           f"a kernel off the train path was launched: {launches}")
     prof = profile_call(lambda: trainer.step(batches[0]), "step")
     calls = capture_knn(lambda: trainer.step(batches[0])) if capture else []
+    scatter_calls = capture_scatter(lambda: trainer.step(batches[0])) \
+        if scatter else []
 
     losses = []
     for s in range(n_fixed):  # one fixed batch: the loss must fall
@@ -1952,6 +2329,8 @@ def train_phase(dev, cfg=FLAGSHIP_CFG, make_rig=smpl_rig,
     if capture:
         summary["knn_calls"] = [[c["N"], c["V"], c["k"]] for c in calls]
         summary.update(exact_calls(calls))
+    if scatter:
+        summary["scatter_calls"] = scatter_calls
     return steps, summary, prof, losses
 
 
@@ -2638,6 +3017,8 @@ def main() -> int:
     t0 = time.perf_counter()
     for name, line in kernel_lines_edge("cuda").items():
         emit(dict(phase="kernel_edge", name=name, **line))
+    for name, line in kernel_lines_edge_scatter_warp("cuda").items():
+        emit(dict(phase="kernel_edge", name=name, **line))
     emit({"phase": "edge_done", "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
@@ -2657,6 +3038,14 @@ def main() -> int:
           and serve_launches["knn_exact"] == serve_launches["min_dist"]
           == serve_launches["knn_packed"] == 0,
           f"the serving path launched the wrong kernels: {serve_launches}")
+    # kernel 2 on the points a view's coarse warp gives it (its first call)
+    wcalls = capture_warp_blend(view_fn(system, bp, tmpl, angles[0]))
+    lines["warp_blend_view"] = dict(
+        warp_blend_call_line(wcalls[0]["args"]),
+        view_calls=[[c["N"], c["k"]] for c in wcalls])
+    emit(dict(phase="kernel", name="warp_blend_view",
+              **lines["warp_blend_view"]))
+    del wcalls
 
     t0 = time.perf_counter()
     parity = slice_parity(ck, bp, tmpl)
@@ -2720,10 +3109,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     steps, summary, prof, losses = train_phase(
-        "cuda", absent=("knn_exact", "min_dist", "knn_packed"))
+        "cuda", absent=("knn_exact", "min_dist", "knn_packed"), scatter=True)
     for st in steps:
         emit(dict(phase="train_step", **st))
     emit(dict(phase="train_profile", **prof))
+    lines["scatter_step"] = step_scatter_lines(summary.pop("scatter_calls"))
+    emit(dict(phase="kernel", name="scatter_step", **lines["scatter_step"]))
     emit(dict(phase="train", **summary, fixed_batch_losses=losses,
               seconds=time.perf_counter() - t0))
     launches = summary["launches"]
@@ -2745,7 +3136,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     angles = [3, 29, 55]
-    xviews, xserve, profs, bviews, agree, calls = smplx_serve(angles)
+    xviews, xserve, profs, bviews, agree, calls, wcalls = smplx_serve(angles)
     for v in xviews:
         emit(dict(phase="smplx_view", **v))
     for prof in profs:
@@ -2772,9 +3163,14 @@ def main() -> int:
         lines[name] = exact_line(calls[0]["points"], calls[0]["verts"], k,
                                  exact)
         emit(dict(phase="kernel", name=name, **lines[name]))
+    lines["warp_blend_smplx"] = dict(
+        warp_blend_call_line(wcalls[0]["args"]),
+        view_calls=[[c["N"], c["k"]] for c in wcalls])
+    emit(dict(phase="kernel", name="warp_blend_smplx",
+              **lines["warp_blend_smplx"]))
     emit({"phase": "view_lines_done", "view_calls": view_calls(calls),
           "seconds": time.perf_counter() - t0})
-    del calls
+    del calls, wcalls
 
     t0 = time.perf_counter()
     emit({"phase": "smplx_serve_parity", **smplx_serve_parity(),
@@ -2829,6 +3225,13 @@ def main() -> int:
     check(all(k8serve[k] > 0 for k in K8_SERVE_KERNELS)
           and k8serve["knn"] == k8serve["knn_exact"] == k8serve["min_dist"]
           == 0, f"k_neigh 8 serving launched the wrong kernels: {k8serve}")
+    wcalls = capture_warp_blend(view_fn(system8, bp, tmpl, 3))
+    lines["warp_blend_view_k8"] = dict(
+        warp_blend_call_line(wcalls[0]["args"]),
+        view_calls=[[c["N"], c["k"]] for c in wcalls])
+    emit(dict(phase="kernel", name="warp_blend_view_k8",
+              **lines["warp_blend_view_k8"]))
+    del wcalls
 
     # one dense 64x64 view at k_neigh 8, the far skip off and on (kernel 8)
     t0 = time.perf_counter()
@@ -2853,10 +3256,15 @@ def main() -> int:
     t0 = time.perf_counter()
     steps, k8summary, prof, losses = train_phase(
         "cuda", K8_CFG, rigid_smpl_rig, n_timed=10, n_fixed=20,
-        need=K8_TRAIN_KERNELS, absent=("knn", "knn_exact", "min_dist"))
+        need=K8_TRAIN_KERNELS, absent=("knn", "knn_exact", "min_dist"),
+        scatter=True)
     for st in steps:
         emit(dict(phase="k8_train_step", **st))
     emit(dict(phase="k8_train_profile", **prof))
+    lines["scatter_step_k8"] = step_scatter_lines(
+        k8summary.pop("scatter_calls"))
+    emit(dict(phase="kernel", name="scatter_step_k8",
+              **lines["scatter_step_k8"]))
     emit(dict(phase="k8_train", **k8summary, fixed_batch_losses=losses,
               seconds=time.perf_counter() - t0))
 
@@ -2905,6 +3313,11 @@ def main() -> int:
         min_dist=xserve["min_dist"] + xsummary["launches"]["min_dist"],
         knn_packed=k8["knn_packed"], warp_blend_k8=k8["warp_blend"],
         scatter_k8=k8["scatter"], knn_exact_k8=x8launches["knn_exact"],
+        scatter_step=launches["scatter"],
+        scatter_step_k8=k8summary["launches"]["scatter"],
+        warp_blend_view=serve_launches["warp_blend"],
+        warp_blend_smplx=xserve["warp_blend"],
+        warp_blend_view_k8=k8serve["warp_blend"],
         knn_exact_view=xserve["knn_exact_cull"],
         knn_exact_view_k8=x8launches["knn_exact_cull"],
         knn_exact_nocull=blaunches["knn_exact"] - blaunches["knn_exact_cull"],
@@ -2929,7 +3342,10 @@ def main() -> int:
                      "max_abs_err": ln["max_abs_err"], "ms": ln["ms"],
                      "plain_ms": ln["plain_ms"], "bound_ms": ln["bound_ms"],
                      "bound_by": ln["bound_by"],
-                     "library_ms": ln["library_ms"]})
+                     "library_ms": ln["library_ms"],
+                     **({"functions": {k: v[0] for k, v in
+                                       ln["kernels"]["by_kernel"].items()}}
+                        if "kernels" in ln else {})})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})
