@@ -1,10 +1,11 @@
-"""Synthetic SMPL-topology rigs (numpy only), as in the JAX package.
+"""Synthetic SMPL-topology rigs and datasets, as in the JAX package.
 
-Copy of ``animnerf_tpu/data/synthetic.py::make_rig`` and
-``make_body_model`` (all five families): for the same seed the arrays are
-bit-identical to the JAX package's, so a checkpoint trained on a seeded
-rig (for instance ``docs/demo/scale512``, seed 3) is served against
-exactly its body model.
+Copy of ``animnerf_tpu/data/synthetic.py``: ``make_rig`` and
+``make_body_model`` (all five families) give arrays bit-identical to the
+JAX package's for the same seed, so a checkpoint trained on a seeded rig
+(for instance ``docs/demo/scale512``, seed 3) is served against exactly
+its body model; ``write_synthetic_dataset`` writes a dataset in the
+reference's on-disk layout through the port's body model and PNG writer.
 """
 
 from __future__ import annotations
@@ -154,3 +155,121 @@ def random_pose_params(num_joints: int = 24, num_betas: int = 10,
         ).astype(np.float32),
         "transl": rng.normal(scale=0.5, size=(batch, 3)).astype(np.float32),
     }
+
+
+def write_synthetic_dataset(root_dir: str, num_frames: int = 4,
+                            img_wh: tuple = (64, 64), num_verts: int = 512,
+                            num_joints: int = 24, seed: int = 0,
+                            model_type: str = "smpl",
+                            pose_scale: float = 0.15) -> str:
+    """Write a dataset in the reference's layout: cam000/camera.pkl,
+    cam000/images/*.png (RGBA, alpha the mask), {model_type}s/*.pkl,
+    {model_type}_template.pkl (with fg/bg points and their signed
+    distances) and the body model at models/SMPL_NEUTRAL.pkl. Frames are
+    splat renders of the posed rig (a radius-2 disc per vertex, far ones
+    first, coloured by the canonical position). The draws follow the JAX
+    package's writer; returns the body-model file's path."""
+    import os
+    import pickle
+
+    import torch
+
+    from animnerf_tpu_torch.smpl.lbs import lbs
+    from animnerf_tpu_torch.smpl.loader import save_model_data
+    from animnerf_tpu_torch.utils.image import rasterize_disc, write_png
+
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root_dir, "cam000", "images")
+    smpl_dir = os.path.join(root_dir, f"{model_type}s")
+    model_dir = os.path.join(root_dir, "models")
+    for d in (img_dir, smpl_dir, model_dir):
+        os.makedirs(d, exist_ok=True)
+
+    rig = make_rig(num_verts=num_verts, num_joints=num_joints, seed=seed)
+    model_path = os.path.join(model_dir, "SMPL_NEUTRAL.pkl")
+    save_model_data(model_path, rig)
+
+    W, H = img_wh
+    f = 1.2 * max(W, H)
+    cam = {
+        "R": np.eye(3),
+        "t": np.array([0.0, -0.2, 2.5]),  # body ~2.5 m in front
+        "camera_f": np.array([f, f], np.float64),
+        "camera_c": np.array([W / 2.0, H / 2.0], np.float64),
+        "camera_k": np.zeros(5),
+        "height": H,
+        "width": W,
+    }
+    with open(os.path.join(root_dir, "cam000", "camera.pkl"), "wb") as fh:
+        pickle.dump(cam, fh)
+
+    rig_t = {k: torch.from_numpy(np.asarray(rig[k])) for k in
+             ("v_template", "shapedirs", "posedirs", "J_regressor",
+              "lbs_weights")}
+
+    def pose(params):
+        full = np.concatenate([params["global_orient"],
+                               params["body_pose"]], axis=1)
+        with torch.no_grad():
+            out = lbs(torch.from_numpy(params["betas"]),
+                      torch.from_numpy(full), rig_t["v_template"],
+                      rig_t["shapedirs"], rig_t["posedirs"],
+                      rig_t["J_regressor"], rig["parents"],
+                      rig_t["lbs_weights"])
+        return out.vertices[0].numpy()
+
+    betas = rng.normal(scale=0.3, size=(1, 10)).astype(np.float32)
+    template = {
+        "betas": betas,
+        "global_orient": np.zeros((1, 3), np.float32),
+        "body_pose": np.zeros((1, 3 * (num_joints - 1)), np.float32),
+        "transl": np.zeros((1, 3), np.float32),
+    }
+    tmpl_verts = pose(template)
+
+    # fg/bg points with signed distances: nearest-vertex distance minus a
+    # 6 cm shell (inside < 0)
+    pts = rng.uniform(-1.2, 1.2, size=(8192, 3)).astype(np.float32)
+    center = tmpl_verts.mean(0)
+    pts = pts + center
+    d2 = ((pts[:, None] - tmpl_verts[None]) ** 2).sum(-1)
+    distances = (np.sqrt(d2.min(1)) - 0.06).astype(np.float32)
+    with open(os.path.join(root_dir, f"{model_type}_template.pkl"),
+              "wb") as fh:
+        pickle.dump(dict(template, points=pts, distances=distances), fh)
+
+    K = np.array([[cam["camera_f"][0], 0, cam["camera_c"][0]],
+                  [0, cam["camera_f"][1], cam["camera_c"][1]],
+                  [0, 0, 1.0]])
+    colours = (np.clip((tmpl_verts - center) * 2 + 0.5, 0, 1)
+               * 255).astype(int)
+    for i in range(num_frames):
+        frame_id = i + 1
+        params = {
+            "betas": betas,
+            "global_orient": rng.normal(scale=0.1, size=(1, 3)).astype(
+                np.float32),
+            "body_pose": rng.normal(
+                scale=pose_scale,
+                size=(1, 3 * (num_joints - 1))).astype(np.float32),
+            "transl": np.array([[0.0, 0.0, 0.0]], np.float32)
+            + rng.normal(scale=0.02, size=(1, 3)).astype(np.float32),
+        }
+        with open(os.path.join(smpl_dir, f"{frame_id:06d}.pkl"), "wb") as fh:
+            pickle.dump(params, fh)
+
+        verts = pose(params) + params["transl"][0]
+        # the reference camera: x_cam = R @ x + t, image y down
+        xc = verts @ np.asarray(cam["R"]).T + np.asarray(cam["t"])
+        uv = (xc / xc[:, 2:3]) @ K.T
+        order = np.argsort(-xc[:, 2])  # far first: nearer discs overwrite
+        u = np.rint(uv[order, 0]).astype(np.int64)
+        v = np.rint(uv[order, 1]).astype(np.int64)
+        on = (u >= 0) & (u < W) & (v >= 0) & (v < H)
+        img = np.zeros((H, W, 4), np.uint8)
+        rgba = np.concatenate([colours[order[on]],
+                               np.full((int(on.sum()), 1), 255)], axis=1)
+        rasterize_disc(img, u[on], v[on], rgba)
+        write_png(os.path.join(img_dir, f"{frame_id:06d}.png"),
+                  img.reshape(H, W, 4))
+    return model_path

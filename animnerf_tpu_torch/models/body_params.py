@@ -41,6 +41,37 @@ def init_body_params(num_frames: int, model_type: str = "smpl",
             for name, dim in dims.items()}
 
 
+def load_body_params_from_dataset(frame_ids: list, root_dir: str,
+                                  model_type: str = "smpl") -> dict:
+    """The per-frame params of a dataset's ``{model_type}s/{id:06d}.pkl``
+    files as float32 tensors (F, dim), a key a file lacks as zeros, each
+    cut to the family's width; betas (1, 10) are the mean over frames."""
+    import os
+
+    import numpy as np
+
+    from animnerf_tpu_torch.smpl.loader import load_pickle
+
+    dims = PARAM_DIMS[model_type]
+    per_frame: dict = {k: [] for k in dims}
+    for fid in frame_ids:
+        raw = load_pickle(os.path.join(root_dir, f"{model_type}s",
+                                       f"{fid:06d}.pkl"))
+        for k in dims:
+            if k in raw:
+                per_frame[k].append(
+                    np.asarray(raw[k], np.float32).reshape(-1))
+            else:
+                per_frame[k].append(np.zeros(dims[k], np.float32))
+    out = {}
+    for k, dim in dims.items():
+        arr = np.stack(per_frame[k])[:, :dim]
+        if k == "betas":
+            arr = arr.mean(axis=0, keepdims=True)
+        out[k] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
 def lookup_body_params(body_params: dict,
                        frame_idx: torch.Tensor) -> dict:
     """The per-frame params of a batch of frame indices; betas are

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 
 from animnerf_tpu_torch.smpl import lbs as lbs_mod
+from animnerf_tpu_torch.smpl.loader import load_model_data
+from animnerf_tpu_torch.smpl.vertex_ids import extra_joint_ids
 
 # skeleton joints driven by LBS (incl. root) per family
 NUM_JOINTS = {"smpl": 24, "smplh": 52, "smplx": 55, "mano": 16, "flame": 5}
@@ -77,6 +79,37 @@ class BodyModelOutput:
     vertices_transform: torch.Tensor  # (B, V, 4, 4)
     shape_offsets: torch.Tensor       # (B, V, 3)
     pose_offsets: torch.Tensor        # (B, V, 3)
+
+
+def create(model_path: str, model_type: str = "smpl",
+           gender: str = "neutral", num_betas: int = 10,
+           num_pca_comps: int = 6,
+           flat_hand_mean: bool = False) -> BodyModel:
+    """A body model from a model file (the reference's layout, see
+    ``loader.py::resolve_model_file``): the family's extra keypoint
+    vertices after the skeleton joints and, for SMPL-H/X files that hold
+    them, the first ``num_pca_comps`` hand PCA components. Keypoint ids
+    beyond a small mesh's last vertex (a synthetic rig) take that vertex,
+    as the JAX package's clamped gather does. On the CPU (move it with
+    ``.to``)."""
+    from animnerf_tpu_torch.utils.convert import body_model_from_arrays
+
+    data = load_model_data(model_path, model_type, gender,
+                           num_betas=num_betas)
+    hands = {}
+    if model_type in ("smplh", "smplx") and "hand_components_l" in data:
+        hands = dict(
+            hand_components_l=data["hand_components_l"][:num_pca_comps],
+            hand_components_r=data["hand_components_r"][:num_pca_comps],
+            hand_mean_l=data["hand_mean_l"], hand_mean_r=data["hand_mean_r"],
+            flat_hand_mean=flat_hand_mean)
+    V = data["v_template"].shape[0]
+    return body_model_from_arrays(
+        **{k: data[k] for k in ("v_template", "shapedirs", "posedirs",
+                                "J_regressor", "lbs_weights", "parents",
+                                "faces")},
+        extra_joint_idxs=np.minimum(extra_joint_ids(model_type), V - 1),
+        model_type=model_type, gender=gender, **hands)
 
 
 def _hand_pose(model: BodyModel, pose_pca: torch.Tensor,

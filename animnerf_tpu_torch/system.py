@@ -4,7 +4,8 @@
 Builds ``scene_cfg`` (``AnimNeRFConfig``), ``renderer_cfg``
 (``RendererConfig``), the training options (``train_cfg``, the reference's
 ``train`` section) and the scene model from a config dict with the
-reference's keys (a checkpoint's ``meta.json["cfg"]`` is one), and holds
+reference's keys (a checkpoint's ``meta.json["cfg"]`` is one) over
+``config.py::get_default_config()``, and holds
 the body model and the learnable per-frame body parameters. Parameters
 live in the ``nn.Module`` tree; load them with ``load_anim_nerf`` or
 ``load_params`` (see ``utils/convert.py``). ``render`` is the dense
@@ -20,6 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from animnerf_tpu_torch.config import CfgNode, finalize, get_default_config
 from animnerf_tpu_torch.models.anim_nerf import AnimNeRFConfig, AnimNeRFModel
 from animnerf_tpu_torch.models.body_params import init_body_params
 from animnerf_tpu_torch.models.warp import prepare_frame, rays_to_root_frame
@@ -40,35 +42,25 @@ UNPORTED = {"use_view": False, "use_deformation": False,
 MAX_K_NEIGH = 16
 
 
-# the reference's train section (config.py there) as the step reads it
-TRAIN_DEFAULTS = {
-    "lambda_alphas": 0.1, "lambda_foreground": 0.01,
-    "lambda_background": 0.01, "lambda_normals": 0.01, "epsilon": 0.01,
-    "batch_size": 16, "max_epochs": 30, "lr": 5e-4,
-    "optimizer": {"type": "adam", "momentum": 0.9, "weight_decay": 0},
-    "scheduler": {"type": "poly", "poly_exp": 0.9},
-}
-
-
-def train_config(cfg: dict) -> dict:
-    """cfg["train"] over TRAIN_DEFAULTS (nested sections merged)."""
-    given = dict(cfg.get("train") or {})
-    out = dict(TRAIN_DEFAULTS, **given)
-    for sec in ("optimizer", "scheduler"):
-        out[sec] = dict(TRAIN_DEFAULTS[sec], **dict(given.get(sec) or {}))
+def full_config(cfg: dict) -> CfgNode:
+    """cfg over ``get_default_config()`` (sections merged key by key, the
+    same coercion as a YAML merge), with the derived fields of
+    ``finalize``; a ``num_frames`` given in cfg wins over the training
+    frame range's length."""
+    given = {k: v for k, v in cfg.items() if k not in ("frame_IDs",
+                                                       "num_frames")}
+    out = get_default_config()
+    out.merge_from_dict(given)
+    out = finalize(out)
+    if cfg.get("num_frames") is not None:
+        out.num_frames = int(cfg["num_frames"])
     return out
 
 
 def num_frames(cfg: dict) -> int:
-    """cfg["num_frames"] when given, else the length of the training frame
-    range (the JAX package's ``finalize``): range(frame_start_ID,
-    frame_end_ID + 1, frame_skip) of cfg["train"], defaults 1, 400, 4."""
-    if cfg.get("num_frames") is not None:
-        return int(cfg["num_frames"])
-    t = cfg.get("train") or {}
-    return len(range(int(t.get("frame_start_ID", 1)),
-                     int(t.get("frame_end_ID", 400)) + 1,
-                     int(t.get("frame_skip", 4))))
+    """The count of per-frame body parameters: cfg["num_frames"] when
+    given, else the length of the training frame range (``finalize``)."""
+    return full_config(cfg).num_frames
 
 
 def resolve_compute_dtype(value: str, device) -> str:
@@ -91,44 +83,45 @@ class AnimNeRFSystem(nn.Module):
         global generator."""
         super().__init__()
         dev = resolve_device(device)
-        g = cfg.get
-        bad = [f"{k}={g(k)!r}" for k, want in UNPORTED.items()
-               if k in cfg and g(k) != want]
+        c = full_config(cfg)
+        bad = [f"{k}={c[k]!r}" for k, want in UNPORTED.items()
+               if c[k] != want]
         if bad:
             raise NotImplementedError(
                 "not ported yet (the port covers the flagship field): "
                 f"{', '.join(bad)}")
-        k_neigh = int(g("k_neigh", 4))
+        k_neigh = int(c.k_neigh)
         if not 1 <= k_neigh <= MAX_K_NEIGH:
             raise NotImplementedError(
                 f"k_neigh={k_neigh}: the port's kNN kernels take 1 to "
                 f"{MAX_K_NEIGH} neighbours")
-        n_fine = int(g("n_importance", 16))
+        n_fine = int(c.n_importance)
         self.scene_cfg = AnimNeRFConfig(
-            freqs_xyz=int(g("freqs_xyz", 10)),
+            freqs_xyz=int(c.freqs_xyz),
             use_fine=n_fine > 0,
-            share_fine=bool(g("share_fine", False)),
-            dis_threshold=float(g("dis_threshold", 0.2)),
+            share_fine=bool(c.share_fine),
+            dis_threshold=float(c.dis_threshold),
             k_neigh=k_neigh,
-            query_inside=bool(g("query_inside", False)),
-            compute_dtype=resolve_compute_dtype(
-                str(g("compute_dtype", "auto")), dev),
+            query_inside=bool(c.query_inside),
+            compute_dtype=resolve_compute_dtype(str(c.compute_dtype), dev),
         )
         self.renderer_cfg = RendererConfig(
-            n_coarse=int(g("n_samples", 64)), n_fine=n_fine,
-            white_bkgd=bool(g("white_bkgd", True)),
+            n_coarse=int(c.n_samples), n_fine=n_fine,
+            white_bkgd=bool(c.white_bkgd),
             share_fine=self.scene_cfg.share_fine)
-        self.cfg = dict(cfg)
-        self.train_cfg = train_config(cfg)
-        self.model_type = str(g("model_type", "smpl"))
-        self.optim_body_params = bool(g("optim_body_params", True))
+        self.cfg = c
+        self.train_cfg = c.train
+        self.model_type = str(c.model_type)
+        self.optim_body_params = bool(c.optim_body_params)
         gen = None if seed is None else torch.Generator().manual_seed(seed)
         self.scene = AnimNeRFModel(self.scene_cfg, generator=gen)
         self.body_model = body_model
+        # body_pose is the config's pose_dim wide when the caller names
+        # one, else the family's width (the default config's 69 is SMPL's)
         self.body_params = nn.ParameterDict({
             k: nn.Parameter(v) for k, v in init_body_params(
-                num_frames(cfg), self.model_type,
-                pose_dim=g("pose_dim")).items()})
+                c.num_frames, self.model_type,
+                pose_dim=cfg.get("pose_dim")).items()})
         self.to_device(dev)
 
     def to_device(self, device) -> "AnimNeRFSystem":
@@ -136,6 +129,14 @@ class AnimNeRFSystem(nn.Module):
         self.to(self.device)
         self.body_model = self.body_model.to(self.device)
         return self
+
+    def set_body_params(self, params: dict) -> None:
+        """Replace the per-frame body parameters ({name: (F, dim) tensor},
+        e.g. ``models/body_params.py::load_body_params_from_dataset``);
+        their shapes come from the data, as in the JAX package's fit."""
+        self.body_params = nn.ParameterDict({
+            k: nn.Parameter(torch.as_tensor(v, dtype=torch.float32).to(
+                self.device).clone()) for k, v in params.items()})
 
     def load_anim_nerf(self, groups: dict) -> None:
         """groups: {"nerf": state dict, "nerf_fine": state dict}."""

@@ -86,6 +86,18 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      (kernels) and on the CPU (plain versions) from the same parameters
      and noise, in f32 and in bf16: loss terms, gradients per parameter
      group and the parameters after one SGD-momentum step;
+  7a. fit: training from a dataset on disk as the train CLI runs it: the
+     port writes a synthetic dataset (12 frames at 512x512 on the V=6890
+     seed-0 rig), ``fit`` takes 60 steps of 16 x 32^2 foreground_pixel
+     rays (the flagship field in bf16) with the launch counts reset just
+     before and read just after (kernels 1-6 launched), renders one
+     validation frame and writes the checkpoints; ``evaluate`` scores the
+     2 test frames from ``last``; ``last`` loaded into a fresh system
+     gives the trained parameters bit for bit. Host-clock medians of the
+     step, the wait on the loader and the producer's batch beside phase
+     6's step median; the validation and evaluation ms per frame, the
+     checkpoint save ms, the first and last five losses, the test PSNR
+     and SSIM;
   8. SMPL-X kernel lines: the exact kNN (kernel 9, with and without its
      cull, at K = 4 and 8, random-order points: the swept share, both
      bounds, SASS per pair) and the nearest-vertex distance against the
@@ -137,7 +149,11 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      its plain version at the kNN tool's shapes, then the port's kNN tool
      (``animnerf_tpu_torch/tools/bench_knn.py``): every row, with the
      launch counts reset just before and read just after;
- 15. the kernels summary line, the card line, then the final status line.
+ 15. the kernels summary line (with each kernel's launches in the fit
+     phase, ``fit_launches``), the card line, then the final status line.
+The kNN, min-distance and MLP-forward lines also time the nearest PyTorch
+composite (``library_ms``: cdist then topk or amin by chunks of points;
+the encoding and bf16 F.linear chain).
 """
 
 from __future__ import annotations
@@ -230,6 +246,37 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+# points a chunk of the library kNN composites: a (chunk x V) f32 distance
+# matrix of ~0.9 GB at V = 6890
+LIBRARY_CHUNK = 1 << 15
+
+
+def library_knn_ms(pts, verts, k: int, reps: int = 3) -> float:
+    """The nearest PyTorch composite of kernels 1, 8, 9 and 10:
+    ``torch.cdist`` then ``torch.topk`` (k smallest) over chunks of
+    LIBRARY_CHUNK points of each batch row; CUDA-event ms of one pass."""
+    import torch
+
+    def run():
+        for b in range(pts.shape[0]):
+            for s in range(0, pts.shape[1], LIBRARY_CHUNK):
+                torch.cdist(pts[b, s:s + LIBRARY_CHUNK], verts[b]).topk(
+                    k, dim=-1, largest=False)
+
+    return time_ms(run, reps, warmup=1)
+
+
+def library_min_dist_ms(pts, verts, reps: int = 3) -> float:
+    """Kernel 7's composite: ``torch.cdist(...).amin(-1)`` by chunks."""
+    import torch
+
+    def run():
+        for s in range(0, pts.shape[1], LIBRARY_CHUNK):
+            torch.cdist(pts[0, s:s + LIBRARY_CHUNK], verts[0]).amin(-1)
+
+    return time_ms(run, reps, warmup=1)
 
 
 # ------------------------------------------------------------------ setup
@@ -488,7 +535,9 @@ def exact_line(pts, verts, k: int, exact: dict, reps: int = 20) -> dict:
                 bound_by="operations", bound_all_ms=bound_all,
                 pct_of_bound=100.0 * bound / ms,
                 pct_of_bound_nocull=100.0 * bound_all / ms_nocull,
-                library_ms=None, **exact[k])
+                library_ms=library_knn_ms(pts, verts, k),
+                library_call="torch.cdist + torch.topk, 32768-point chunks",
+                **exact[k])
 
 
 def view_calls(calls: list) -> list:
@@ -877,7 +926,8 @@ def kernel_lines(system, ctx, sass):
         ms=time_ms(lambda: knn_top4(pts, verts), reps),
         plain_ms=time_ms(lambda: knn_top4_plain(pts, verts), preps),
         bound_ms=knn_bound_ms(N * V, N * 12 + V * 12 + N * 32),
-        bound_by="operations", library_ms=None)
+        bound_by="operations", library_ms=library_knn_ms(pts, verts, 4),
+        library_call="torch.cdist + torch.topk, 32768-point chunks")
 
     # -- warp-blend on the same points
     J = ctx.lbs_weights.shape[1]
@@ -921,7 +971,8 @@ def kernel_lines(system, ctx, sass):
         ms=time_ms(lambda: knn_packed(pts, verts, 8), reps),
         plain_ms=time_ms(lambda: knn_packed_plain(pts, verts, 8), preps),
         bound_ms=knn_bound_ms(N * V, N * 12 + V * 12 + N * 64),
-        bound_by="operations", library_ms=None)
+        bound_by="operations", library_ms=library_knn_ms(pts, verts, 8),
+        library_call="torch.cdist + torch.topk, 32768-point chunks")
     d4, i4 = knn_packed(pts, verts, 4)
     torch.cuda.synchronize()
     same = bool(torch.equal(d4, d) and torch.equal(i4, i))
@@ -933,7 +984,8 @@ def kernel_lines(system, ctx, sass):
         ms=time_ms(lambda: knn_packed(pts, verts, 4), reps),
         plain_ms=time_ms(lambda: knn_packed_plain(pts, verts, 4), preps),
         bound_ms=lines["knn"]["bound_ms"], bound_by="operations",
-        library_ms=None)
+        library_ms=library_knn_ms(pts, verts, 4),
+        library_call="torch.cdist + torch.topk, 32768-point chunks")
     for name, k, insert in (("knn", 4, "top4"), ("knn_packed", 8, "packed"),
                             ("knn_packed_k4", 4, "packed")):
         add_sweep_fields(lines[name], sass, k, insert)
@@ -1026,7 +1078,11 @@ def kernel_lines(system, ctx, sass):
         plain_ms=time_ms(lambda: fused_nerf_fwd_plain(xrows, ws, bs, 10,
                                                     "bfloat16"), preps),
         bound_ms=bound, pct_of_bound=100.0 * bound / ms,
-        bound_by="operations", library_ms=None)
+        bound_by="operations",
+        library_ms=time_ms(lambda: library_mlp_fwd(
+            nerf.state_dict(), xrows), 5, warmup=1),
+        library_call="library_mlp_fwd: the encoding and F.linear in bf16 "
+                     "(cuBLAS)")
 
     # -- lane permute: the fine merge-sort payload, C=5, R=65536
     R = 65536
@@ -1130,7 +1186,8 @@ def kernel_lines_train(dev, sass):
         # the pairs this run's skip left to sweep
         bound_ms=knn_bound_ms(B * N * V * swept_share,
                               B * (N * 12 + V * 12 + N * 32)),
-        bound_by="operations", library_ms=None)
+        bound_by="operations", library_ms=library_knn_ms(pts, verts, 4),
+        library_call="torch.cdist + torch.topk, 32768-point chunks")
     add_sweep_fields(lines["knn_tile_skip"], sass, 4, "top4", skip=True)
 
     # -- weighted scatter of those neighbours (the warp-blend backward)
@@ -1304,23 +1361,15 @@ def kernel_lines_train(dev, sass):
     return lines
 
 
-def library_mlp_vjp(state: dict, xyz, dout):
-    """One call of the MLP's VJP as PyTorch's own ops: the forward as
-    ``torch.nn.functional.linear`` on point-major bf16 activations
-    (cuBLAS; the sigma and rgb heads in f32), then ``torch.autograd.grad``
-    to the coordinates and every weight and bias. The library yardstick of
-    the fused backward; its rounding points are cuBLAS's, not the TPU
-    kernel's."""
+def _library_mlp(p: dict, x):
+    """The MLP on point-major coordinates x (M, 3) as PyTorch's own ops:
+    the encoding and ``torch.nn.functional.linear`` in bf16 (cuBLAS), the
+    sigma and rgb heads in f32; p: {layer: (weight, bias)} -> (M, 4)."""
     import torch
 
     from animnerf_tpu_torch.models.embedding import positional_encoding
 
     bf = torch.bfloat16
-    names = [f"xyz_{i}" for i in range(8)] + ["sigma", "xyz_final", "dir_0",
-                                              "rgb"]
-    p = {n: (state[f"{n}.weight"].detach().requires_grad_(),
-             state[f"{n}.bias"].detach().requires_grad_()) for n in names}
-    x = xyz[0, 0:3].t().detach().requires_grad_()
     enc = positional_encoding(x, 10).to(bf)
 
     def lin(h, n, dt=bf):
@@ -1332,9 +1381,38 @@ def library_mlp_vjp(state: dict, xyz, dout):
         h = torch.relu(lin(torch.cat([enc, h], -1) if i == 4 else h,
                            f"xyz_{i}"))
     hd = torch.relu(lin(lin(h, "xyz_final"), "dir_0"))
-    out = torch.cat([torch.sigmoid(lin(hd, "rgb", torch.float32)),
-                     lin(h, "sigma", torch.float32)], -1)
-    return torch.autograd.grad(out, [x] + [t for n in names for t in p[n]],
+    return torch.cat([torch.sigmoid(lin(hd, "rgb", torch.float32)),
+                      lin(h, "sigma", torch.float32)], -1)
+
+
+MLP_LAYERS = [f"xyz_{i}" for i in range(8)] + ["sigma", "xyz_final", "dir_0",
+                                               "rgb"]
+
+
+def library_mlp_fwd(state: dict, xyz):
+    """Kernel 3's library yardstick: ``_library_mlp`` on the coordinates
+    of rows (1, 8, M), no gradient."""
+    import torch
+
+    with torch.no_grad():
+        return _library_mlp({n: (state[f"{n}.weight"], state[f"{n}.bias"])
+                             for n in MLP_LAYERS}, xyz[0, 0:3].t())
+
+
+def library_mlp_vjp(state: dict, xyz, dout):
+    """One call of the MLP's VJP as PyTorch's own ops: ``_library_mlp``,
+    then ``torch.autograd.grad`` to the coordinates and every weight and
+    bias. The library yardstick of the fused backward; its rounding points
+    are cuBLAS's, not the TPU kernel's."""
+    import torch
+
+    p = {n: (state[f"{n}.weight"].detach().requires_grad_(),
+             state[f"{n}.bias"].detach().requires_grad_())
+         for n in MLP_LAYERS}
+    x = xyz[0, 0:3].t().detach().requires_grad_()
+    out = _library_mlp(p, x)
+    return torch.autograd.grad(out, [x] + [t for n in MLP_LAYERS
+                                           for t in p[n]],
                                dout[0, 0:4].t())
 
 
@@ -1666,8 +1744,8 @@ def kernel_lines_smplx(dev, exact: dict):
     points (a slab of the serving pre-pass). Both versions round every
     operation alike, follow the same top-k rule and take IEEE square
     roots, so the outputs must be bit-equal. Neither has a one-call
-    PyTorch counterpart (cdist then topk / amin is two calls), so
-    library_ms is null."""
+    PyTorch counterpart: library_ms times the composites cdist then topk
+    (amin), by chunks of points."""
     import torch
 
     from animnerf_tpu_torch.models.warp import prepare_frame
@@ -1712,7 +1790,8 @@ def kernel_lines_smplx(dev, exact: dict):
         # 3 sub, 3 mul, 2 add and a min per pair, none an FMA
         bound_ms=max(9.0 * N * V / PEAK_F32_NONFMA,
                      (N * 12 + V * 12 + N * 4) / PEAK_BYTES) * 1e3,
-        bound_by="operations", library_ms=None)
+        bound_by="operations", library_ms=library_min_dist_ms(pts, verts),
+        library_call="torch.cdist + amin, 32768-point chunks")
     return lines
 
 
@@ -1720,8 +1799,8 @@ def kernel_lines_mxu(dev):
     """Check and time the matmul-form kNN at the kNN tool's shapes (16 x
     65536 ray-like points, V=6890, the tool's first point set) in both
     precisions. The kernel and the plain version round every product and
-    sum alike, so the outputs must be bit-equal. A batched matmul computes
-    d2 but not the top-4, so library_ms is null."""
+    sum alike, so the outputs must be bit-equal. library_ms times the
+    composite cdist then topk (one for both precisions)."""
     import torch
 
     from animnerf_tpu_torch.ops.knn_mxu import knn_mxu, knn_mxu_plain
@@ -1733,6 +1812,7 @@ def kernel_lines_mxu(dev):
     B, N, _ = pts.shape
     V = verts.shape[1]
     lines = {}
+    lib_ms = library_knn_ms(pts, verts, 4)
     for prec, name in (("highest", "knn_mxu"), ("default", "knn_mxu_default")):
         d, i = knn_mxu(pts, verts, 4, prec)
         dp, ip = knn_mxu_plain(pts, verts, 4, prec,
@@ -1753,7 +1833,8 @@ def kernel_lines_mxu(dev):
             bound_ms=max(16.0 * B * N * V / PEAK_F32,
                          1.0 * B * N * V / PEAK_F32_NONFMA,
                          B * (N * 32 + V * 32 + N * 32) / PEAK_BYTES) * 1e3,
-            bound_by="operations", library_ms=None)
+            bound_by="operations", library_ms=lib_ms,
+            library_call="torch.cdist + torch.topk, 32768-point chunks")
     return lines
 
 
@@ -1868,6 +1949,133 @@ SMPLX_SERVE_KERNELS = ("min_dist", "knn_exact", "knn_exact_cull",
 SMPLX_TRAIN_KERNELS = ("knn_exact", "knn_exact_cull", "warp_blend",
                        "scatter", "fused_mlp", "fused_mlp_bwd",
                        "fused_mlp_wgrad", "permute_lanes")
+
+
+# ---------------------------------------------------------------- fit
+
+# the fit phase's dataset: the port's writer at full width (512^2 frames,
+# the V=6890 / J=24 rig), frames 1-8 train, 9-10 val, 11-12 test
+FIT_FRAMES = 12
+FIT_STEPS = 60
+
+
+def fit_config(root: str):
+    """The flagship field (64 + 32 samples, freqs_xyz 10, bf16) on the fit
+    dataset: 16 frames x 32^2 foreground_pixel rays a step, FIT_STEPS
+    steps, every step logged."""
+    from animnerf_tpu_torch.config import finalize, get_default_config
+
+    cfg = get_default_config()
+    cfg.merge_from_list([
+        "root_dir", root, "model_path", os.path.join(root, "models"),
+        "gender", "neutral", "pose_dim", "69", "img_wh", "(512, 512)",
+        "n_samples", "64", "n_importance", "32", "freqs_xyz", "10",
+        "compute_dtype", "bfloat16", "exp_name", "fit",
+        "checkpoints_dir", os.path.join(root, "ck"),
+        "logs_dir", os.path.join(root, "logs"),
+        "train.frame_start_ID", "1", "train.frame_end_ID", "8",
+        "train.frame_skip", "1", "train.batch_size", "16",
+        "train.subsamplesize", "32", "train.subsampletype",
+        "foreground_pixel", "train.max_steps", str(FIT_STEPS),
+        "train.log_every", "1",
+        "val.frame_start_ID", "9", "val.frame_end_ID", "10",
+        "val.frame_skip", "1",
+        "test.frame_start_ID", "11", "test.frame_end_ID", "12",
+        "test.frame_skip", "1"])
+    return finalize(cfg)
+
+
+def fit_phase(train_median_ms: float, train_compact: float) -> dict:
+    """Training from a dataset on disk, as ``python -m
+    animnerf_tpu_torch.cli.train`` runs it: the port writes a synthetic
+    dataset at full width, ``fit`` takes FIT_STEPS steps (launch counts
+    reset just before and read just after: kernels 1-6 must launch) and
+    renders one validation frame, ``evaluate`` scores the test frames
+    from ``last``, and ``last`` loaded into a fresh system must give the
+    trained parameters bit for bit. Host-clock medians of the step, the
+    loop's wait on the loader and the producer's batch, beside the train
+    phase's step median (synthetic batches in memory); the coarse
+    survivors a step of each."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from animnerf_tpu_torch.data.synthetic import write_synthetic_dataset
+    from animnerf_tpu_torch.models.body_params import (
+        load_body_params_from_dataset,
+    )
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.training import loop as TL
+    from animnerf_tpu_torch.training.checkpoints import load_params
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="fit_smoke_", dir=os.path.join(ROOT,
+                                                                  "build"))
+    try:
+        t0 = time.perf_counter()
+        write_synthetic_dataset(root, num_frames=FIT_FRAMES,
+                                img_wh=(512, 512), num_verts=6890,
+                                num_joints=24, seed=0)
+        write_s = time.perf_counter() - t0
+        cfg = fit_config(root)
+        stats: dict = {}
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        ckpt_dir = TL.fit(cfg, device="cuda", stats=stats)
+        fit_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        check(all(launches[k] > 0 for k in TRAIN_KERNELS),
+              f"a kernel of the fit path was never launched: {launches}")
+        losses = [loss for _, loss in stats["losses"]]
+        check(len(losses) == FIT_STEPS and all(map(math.isfinite, losses)),
+              f"fit losses: {losses}")
+
+        # the trained parameters against 'last' in a fresh system
+        trained = {k: v.detach().clone() for k, v in
+                   stats["system"].named_parameters()}
+        del stats["system"]
+        last = os.path.join(ckpt_dir, "last")
+        fresh = TL.build_system(cfg, "cuda")
+        fresh.set_body_params(load_body_params_from_dataset(
+            cfg.frame_IDs, cfg.root_dir, cfg.model_type))
+        load_params(last, fresh)
+        got = dict(fresh.named_parameters())
+        same = sorted(got) == sorted(trained) and all(
+            torch.equal(got[k], v) for k, v in trained.items())
+        check(same, "last reloaded differs from the trained parameters")
+        del fresh, got, trained
+
+        estats: dict = {}
+        t0 = time.perf_counter()
+        scores = TL.evaluate(cfg, last, device="cuda", stats=estats)
+        eval_s = time.perf_counter() - t0
+        check(all(map(math.isfinite, scores.values())), f"test: {scores}")
+        step_ms = float(np.median(stats["step_s"])) * 1e3
+        rays = cfg.train.batch_size * cfg.train.subsamplesize ** 2
+        return {
+            "dataset": f"{FIT_FRAMES} frames 512x512, V=6890 J=24, "
+                       "the port's writer", "write_s": write_s,
+            "steps": len(stats["step_s"]), "rays_per_step": rays,
+            "median_step_ms": step_ms,
+            "rays_per_s": rays / (step_ms / 1e3),
+            "median_compact_count": float(np.median(
+                stats["compact_count"])),
+            "train_phase_median_step_ms": train_median_ms,
+            "train_phase_median_compact_count": train_compact,
+            "median_loader_wait_ms": float(np.median(stats["wait_s"])) * 1e3,
+            "max_loader_wait_ms": float(np.max(stats["wait_s"])) * 1e3,
+            "median_produce_ms": float(np.median(stats["produce_s"])) * 1e3,
+            "val_frame_ms": [t * 1e3 for t in stats["val_s"]],
+            "eval_frame_ms": [t * 1e3 for t in estats["frame_s"]],
+            "save_ms": [t * 1e3 for t in stats["save_s"]],
+            "losses_first5": losses[:5], "losses_last5": losses[-5:],
+            "test_psnr": scores["psnr"], "test_ssim": scores["ssim"],
+            "last_reload_bit_equal": same, "launches": launches,
+            "fit_s": fit_s, "evaluate_s": eval_s}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ------------------------------------------------------------------ slice
@@ -2736,7 +2944,9 @@ def far_kernel_line(name, fn, plain, pts, verts, k: int, thr: float,
                 bound_no_far_skip_ms=knn_bound_ms(N * V, nbytes)
                 if packed else max(EXACT_PAIR_OPS * N * V / PEAK_F32_NONFMA,
                                    nbytes / PEAK_BYTES) * 1e3,
-                bound_by="operations", library_ms=None)
+                bound_by="operations", library_ms=library_knn_ms(pts, verts,
+                                                                 k),
+                library_call="torch.cdist + torch.topk, 32768-point chunks")
 
 
 def far_kernel_lines(pts, verts, thr: float) -> dict:
@@ -2877,7 +3087,9 @@ def tile_skip_far_line(dev, thr: float = 0.2) -> dict:
                 bound_ms=max((FAR_PAIR_OPS * B * N * -(-V // 512)
                               + KNN_PAIR_OPS * kept * V * share_swept)
                              / PEAK_F32_NONFMA, nbytes / PEAK_BYTES) * 1e3,
-                bound_by="operations", library_ms=None)
+                bound_by="operations", library_ms=library_knn_ms(pts, verts,
+                                                                 4),
+                library_call="torch.cdist + torch.topk, 32768-point chunks")
 
 
 def kernel_lines_edge_far(dev, thr: float = 0.2) -> dict:
@@ -3124,6 +3336,13 @@ def main() -> int:
     emit({"phase": "train_parity", **tparity,
           "seconds": time.perf_counter() - t0})
 
+    # ---- training from a dataset on disk: fit, then evaluate from 'last'
+    t0 = time.perf_counter()
+    fitted = fit_phase(summary["median_step_ms"],
+                       summary["median_compact_count"])
+    emit({"phase": "fit", **fitted, "seconds": time.perf_counter() - t0})
+    fit_launches = fitted["launches"]
+
     # ---- SMPL-X: the exact kNN and the min-distance pre-pass
     t0 = time.perf_counter()
     xlines = kernel_lines_smplx("cuda", exact)
@@ -3343,6 +3562,8 @@ def main() -> int:
                      "plain_ms": ln["plain_ms"], "bound_ms": ln["bound_ms"],
                      "bound_by": ln["bound_by"],
                      "library_ms": ln["library_ms"],
+                     **({"fit_launches": fit_launches[name]}
+                        if name in fit_launches else {}),
                      **({"functions": {k: v[0] for k, v in
                                        ln["kernels"]["by_kernel"].items()}}
                         if "kernels" in ln else {})})

@@ -34,6 +34,28 @@ def test_import_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_importing_every_module_loads_no_jax_cv2_pil_or_yaml():
+    """Every port module and chip_smoke.py import in a fresh interpreter
+    without loading JAX, the JAX package, OpenCV, PIL or PyYAML (the
+    card's machine has none of the last three; yaml is imported only to
+    read a YAML config)."""
+    banned = FORBIDDEN + ("cv2", "PIL", "yaml")
+    code = (
+        "import importlib, pkgutil, sys, animnerf_tpu_torch as p;"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'animnerf_tpu_torch.')];"
+        "[importlib.import_module(m) for m in mods];"
+        "import importlib.util as u;"
+        "spec = u.spec_from_file_location('chip_smoke', 'chip_smoke.py');"
+        "spec.loader.exec_module(u.module_from_spec(spec));"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r];"
+        "print(len(mods), bad); sys.exit(1 if bad or len(mods) < 40 else 0)"
+        % (banned,))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=PKG.parent, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
