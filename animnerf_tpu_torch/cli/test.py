@@ -5,31 +5,16 @@ PSNR and SSIM; ``--vis`` saves GT | prediction | depth triptychs.
         [--cfg_file <yaml>] [--split test] [--vis] [key value ...]
 
 The config is the checkpoint's (``meta.json["cfg"]``), then the YAML file,
-then the options. Runs on the card unless ``--device cpu`` is given.
+then the options (``cli/common.py::resolve_cfg``). Runs on the card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Optional
 
-
-def resolve_cfg(ckpt_path: str, cfg_file: Optional[str] = None,
-                opts: Optional[list] = None):
-    """Checkpoint-stored cfg, then the YAML file, then the options."""
-    from animnerf_tpu_torch.config import finalize, get_default_config
-    from animnerf_tpu_torch.training.checkpoints import load_metadata
-
-    if not os.path.exists(ckpt_path):
-        raise FileNotFoundError(f"checkpoint not found: {ckpt_path!r}")
-    cfg = get_default_config()
-    cfg.merge_from_dict(load_metadata(ckpt_path).get("cfg", {}))
-    if cfg_file:
-        cfg.merge_from_file(cfg_file)
-    if opts:
-        cfg.merge_from_list(opts)
-    return finalize(cfg)
+from animnerf_tpu_torch.cli.common import resolve_cfg
 
 
 def main(argv=None) -> dict:

@@ -125,6 +125,14 @@ class Renderer:
         return a.to(self.device, torch.float32) if torch.is_tensor(a) \
             else torch.tensor(np.asarray(a, np.float32), device=self.device)
 
+    def frame_context(self, body_params: dict, body_tmpl: dict):
+        """The frame geometry (``prepare_frame``) of body params and
+        template params (arrays or tensors, (1, dim) each) on the device."""
+        with torch.no_grad():
+            return prepare_frame(self.system.body_model,
+                                 self._params(body_params),
+                                 self._params(body_tmpl))
+
     def _rays_root_rotated(self, ctx, rays: torch.Tensor, P: torch.Tensor):
         rays_root = rays_to_root_frame(ctx, rays)
         o = torch.einsum("ij,brj->bri", P[:3, :3], rays_root[..., 0:3]) \
@@ -138,10 +146,8 @@ class Renderer:
         """(B, R) bool: could any sample of this ray lie within
         dis_threshold of the body? Also returns the per-ray root-frame far.
         rays (B, R, 8), P (4, 4) host or device arrays."""
+        ctx = self.frame_context(body_params, body_tmpl)
         with torch.no_grad():
-            ctx = prepare_frame(self.system.body_model,
-                                self._params(body_params),
-                                self._params(body_tmpl))
             return self._maybe_hit_ctx(ctx, self._rays_root_rotated(
                 ctx, self._tensor(rays), self._tensor(P)))
 
@@ -253,10 +259,8 @@ class Renderer:
         if P is None:
             P = np.eye(4, dtype=np.float32)
         cfg = self.system.renderer_cfg
+        ctx = self.frame_context(body_params, body_tmpl)
         with torch.no_grad():
-            ctx = prepare_frame(self.system.body_model,
-                                self._params(body_params),
-                                self._params(body_tmpl))
             rays_t = self._tensor(rays)[None]
             n = rays_t.shape[1]
             rays_root = self._rays_root_rotated(ctx, rays_t, self._tensor(P))
@@ -286,6 +290,25 @@ class Renderer:
             W, H = img_wh
             return img.reshape(H, W, 3), mask.reshape(H, W), depth.reshape(H, W)
         return img, mask, depth
+
+    def query_sigma_observed(self, body_params: dict, body_tmpl: dict,
+                             points, use_fine: bool = True,
+                             chunk: int = 262144) -> np.ndarray:
+        """relu(sigma) at (1, N, 3) observed-space points -> numpy (1, N, 1)
+        (mesh extraction; the queries go through the unpose warp). The
+        frame geometry once, then chunks of ``chunk`` points through
+        ``warp_points`` and ``field_points``; every chunk's output stays on
+        the device and the whole grid is copied to the host once."""
+        scene = self.system.scene
+        ctx = self.frame_context(body_params, body_tmpl)
+        with torch.no_grad():
+            pts = self._tensor(points)
+            outs = []
+            for s in range(0, pts.shape[1], chunk):
+                xyz, valid = scene.warp_points(ctx, pts[:, s:s + chunk])
+                _, sigma = scene.field_points(xyz, valid, use_fine)
+                outs.append(torch.relu(sigma))
+            return torch.cat(outs, dim=1).cpu().numpy()
 
     def render_stream(self, frames):
         """Render a sequence of views (turntables, motion streams).

@@ -361,3 +361,117 @@ def rasterize_disc(img: np.ndarray, u, v, colour) -> None:
     last = len(pix) - 1 - np.unique(pix[::-1], return_index=True)[1]
     flat = img.reshape((h * w,) + img.shape[2:])
     flat[pix[last]] = colour[who[last]]
+
+
+# ------------------------------------------------------------------- GIF
+
+# pixels between clear codes: the decoder's table grows by one entry a
+# code, and after 254 literals it holds entries up to 510, so every code
+# stays 9 bits wide (the width grows at entry 512)
+_GIF_RUN = 254
+_GIF_CLEAR, _GIF_END = 256, 257
+
+
+def gif_palette(img: np.ndarray, colors: int = 256):
+    """uint8 (H, W, 3) -> (palette (colors, 3) uint8, indices (H, W)
+    uint8): median cut over the frame's colours binned at 6 bits a
+    channel (each bin at the mean of its pixels); a pixel takes the entry
+    of its bin's box, the mean colour of the box's pixels. A frame of at
+    most ``colors`` colours gets them exactly."""
+    img = np.asarray(img, np.uint8)
+    q = (img >> 2).astype(np.int32)
+    key = ((q[..., 0] << 12) | (q[..., 1] << 6) | q[..., 2]).reshape(-1)
+    counts = np.bincount(key, minlength=1 << 18)
+    bins = np.flatnonzero(counts)
+    flat = img.reshape(-1, 3)
+    if len(bins) <= colors:
+        # few colours (masks, rasters): each its own entry, exact
+        rgb = (flat[:, 0].astype(np.int32) << 16
+               | flat[:, 1].astype(np.int32) << 8 | flat[:, 2])
+        uniq, idx = np.unique(rgb, return_inverse=True)
+        if len(uniq) <= colors:
+            palette = np.zeros((colors, 3), np.uint8)
+            palette[:len(uniq)] = np.stack(
+                [uniq >> 16, (uniq >> 8) & 255, uniq & 255], 1)
+            return palette, idx.astype(np.uint8).reshape(img.shape[:2])
+    means = np.stack([np.bincount(key, flat[:, c], 1 << 18)[bins]
+                      for c in range(3)], axis=1) / counts[bins, None]
+    counts = counts[bins]
+
+    def scored(box):
+        # split priority: pixels x widest channel range
+        rng = np.ptp(means[box], axis=0)
+        return (float(counts[box].sum() * rng.max()), int(np.argmax(rng)),
+                box)
+
+    # median cut: split the box of highest priority at its pixel-weighted
+    # median along its widest channel
+    boxes = [scored(np.arange(len(bins)))]
+    while len(boxes) < colors:
+        i = max(range(len(boxes)), key=lambda j: boxes[j][0])
+        score, axis, box = boxes[i]
+        if score <= 0:
+            break
+        box = box[np.argsort(means[box, axis], kind="stable")]
+        cum = np.cumsum(counts[box])
+        cut = int(np.clip(np.searchsorted(cum, cum[-1] / 2.0) + 1, 1,
+                          len(box) - 1))
+        boxes[i] = scored(box[:cut])
+        boxes.append(scored(box[cut:]))
+    palette = np.zeros((colors, 3), np.uint8)
+    box_of = np.zeros(1 << 18, np.uint8)
+    for i, (_, _, b) in enumerate(boxes):
+        mean = (means[b] * counts[b, None]).sum(0) / counts[b].sum()
+        palette[i] = np.clip(np.rint(mean), 0, 255).astype(np.uint8)
+        box_of[bins[b]] = i
+    return palette, box_of[key].reshape(img.shape[:2])
+
+
+def _gif_lzw(indices: np.ndarray) -> bytes:
+    """8-bit palette indices -> GIF image data with no dictionary: a clear
+    code, then up to _GIF_RUN literal codes, repeated, then the end code;
+    9-bit codes packed LSB first, in sub-blocks of up to 255 bytes."""
+    px = np.asarray(indices, np.int32).reshape(-1)
+    n_runs = -(-len(px) // _GIF_RUN)
+    body = np.full(n_runs * _GIF_RUN, -1, np.int32)  # -1: padding
+    body[:len(px)] = px
+    codes = np.concatenate([np.full((n_runs, 1), _GIF_CLEAR, np.int32),
+                            body.reshape(n_runs, _GIF_RUN)], 1).reshape(-1)
+    codes = np.append(codes[codes >= 0], _GIF_END)
+    bits = ((codes[:, None] >> np.arange(9)) & 1).astype(np.uint8)
+    data = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+    blocks = [bytes([len(data[i:i + 255])]) + data[i:i + 255]
+              for i in range(0, len(data), 255)]
+    return bytes([8]) + b"".join(blocks) + b"\x00"
+
+
+def encode_gif(frames, fps: float = 30.0) -> bytes:
+    """uint8 (H, W, 3) frames of one size -> the bytes of a looping GIF89a
+    animation, each frame with its own 256-colour palette (``gif_palette``)
+    and a delay of round(100 / fps) hundredths of a second."""
+    frames = [np.asarray(f) for f in frames]
+    if not frames:
+        raise ValueError("encode_gif needs at least one frame")
+    h, w = frames[0].shape[:2]
+    delay = int(round(100.0 / fps))
+    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0, 0, 0),
+           b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", 0)
+           + b"\x00"]
+    for f in frames:
+        if f.dtype != np.uint8 or f.shape != (h, w, 3):
+            raise ValueError(f"encode_gif takes uint8 ({h}, {w}, 3) "
+                             f"frames, got {f.dtype} {f.shape}")
+        palette, idx = gif_palette(f)
+        out += [b"\x21\xf9\x04\x04" + struct.pack("<H", delay) + b"\x00\x00",
+                b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0x87),
+                palette.tobytes(), _gif_lzw(idx)]
+    out.append(b"\x3b")
+    return b"".join(out)
+
+
+def write_gif(path: str, frames, fps: float = 30.0) -> None:
+    """Write ``encode_gif(frames, fps)`` to path (in place of
+    ``imageio.mimsave(path, frames, fps=fps)``)."""
+    data = encode_gif(frames, fps)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -98,7 +98,28 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      6's step median; the validation and evaluation ms per frame, the
      checkpoint save ms, the first and last five losses, the test PSNR
      and SSIM;
-  8. SMPL-X kernel lines: the exact kNN (kernel 9, with and without its
+   7b. cli: the post-training CLIs through their ``main`` on the card, on
+     the fit phase's dataset and ``last``, the launch counts reset just
+     before and read just after each: ``novel_view`` (8 views at 512x512,
+     again with ``--betas_2th 0.5``, one ``--template`` view; ms a view,
+     the GIF's ms a frame, kernels 1-4), ``novel_pose`` (a seeded 8-frame
+     mocap; render, body model and raster ms a frame), ``extract_mesh``
+     at its default 256^3 grid with ``--vis`` (the query, with its points
+     a second, smoothing, marching, the OBJ and the raster timed apart;
+     vertex and face counts; kernels 1-3); then the mesh CLI's query
+     again with ``knn_far_skip`` off and on: the sigma grids bit-equal,
+     both times and the skipped share of kNN groups;
+  7c. mesh_scale512: ``extract_mesh`` at 256^3 on the trained scale512
+     system in its optimised frame-1 pose, cut at sigma 3 (as
+     ``tools/mesh_demo.py`` cut it), its stages timed, its vertex and
+     face counts beside ``docs/demo/scale512/mesh_stats.json``'s
+     (printed, not checked);
+  7d. cli_parity: ``query_sigma_observed`` on a 48^3 grid about that body
+     on the card and on the CPU, in f32 and bf16, within 1e-3 and 5e-2 of
+     1 + max |sigma|; the native marching of the card's field against
+     ``marching_tets_numpy`` through ``marching_model`` (soups bit-equal
+     after sorting the triangles, the merge bit-equal to the native);
+ 8. SMPL-X kernel lines: the exact kNN (kernel 9, with and without its
      cull, at K = 4 and 8, random-order points: the swept share, both
      bounds, SASS per pair) and the nearest-vertex distance against the
      seed-0 SMPL-X rig (V=10475, J=55), each bit-equal to its plain
@@ -150,7 +171,8 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      (``animnerf_tpu_torch/tools/bench_knn.py``): every row, with the
      launch counts reset just before and read just after;
  15. the kernels summary line (with each kernel's launches in the fit
-     phase, ``fit_launches``), the card line, then the final status line.
+     phase, ``fit_launches``, and in the cli phase, ``cli_launches``), the
+     card line, then the final status line.
 The kNN, min-distance and MLP-forward lines also time the nearest PyTorch
 composite (``library_ms``: cdist then topk or amin by chunks of points;
 the encoding and bf16 F.linear chain).
@@ -161,8 +183,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1985,20 +2009,19 @@ def fit_config(root: str):
     return finalize(cfg)
 
 
-def fit_phase(train_median_ms: float, train_compact: float) -> dict:
+def fit_phase(root: str, train_median_ms: float,
+              train_compact: float) -> dict:
     """Training from a dataset on disk, as ``python -m
     animnerf_tpu_torch.cli.train`` runs it: the port writes a synthetic
-    dataset at full width, ``fit`` takes FIT_STEPS steps (launch counts
-    reset just before and read just after: kernels 1-6 must launch) and
-    renders one validation frame, ``evaluate`` scores the test frames
-    from ``last``, and ``last`` loaded into a fresh system must give the
-    trained parameters bit for bit. Host-clock medians of the step, the
-    loop's wait on the loader and the producer's batch, beside the train
-    phase's step median (synthetic batches in memory); the coarse
-    survivors a step of each."""
-    import shutil
-    import tempfile
-
+    dataset at full width into ``root``, ``fit`` takes FIT_STEPS steps
+    (launch counts reset just before and read just after: kernels 1-6
+    must launch) and renders one validation frame, ``evaluate`` scores
+    the test frames from ``last``, and ``last`` loaded into a fresh system
+    must give the trained parameters bit for bit. Host-clock medians of
+    the step, the loop's wait on the loader and the producer's batch,
+    beside the train phase's step median (synthetic batches in memory);
+    the coarse survivors a step of each. The dataset and ``last`` stay
+    for the cli phase."""
     import torch
 
     from animnerf_tpu_torch.data.synthetic import write_synthetic_dataset
@@ -2009,73 +2032,469 @@ def fit_phase(train_median_ms: float, train_compact: float) -> dict:
     from animnerf_tpu_torch.training import loop as TL
     from animnerf_tpu_torch.training.checkpoints import load_params
 
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    root = tempfile.mkdtemp(prefix="fit_smoke_", dir=os.path.join(ROOT,
-                                                                  "build"))
-    try:
-        t0 = time.perf_counter()
-        write_synthetic_dataset(root, num_frames=FIT_FRAMES,
-                                img_wh=(512, 512), num_verts=6890,
-                                num_joints=24, seed=0)
-        write_s = time.perf_counter() - t0
-        cfg = fit_config(root)
+    t0 = time.perf_counter()
+    write_synthetic_dataset(root, num_frames=FIT_FRAMES,
+                            img_wh=(512, 512), num_verts=6890,
+                            num_joints=24, seed=0)
+    write_s = time.perf_counter() - t0
+    cfg = fit_config(root)
+    stats: dict = {}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ckpt_dir = TL.fit(cfg, device="cuda", stats=stats)
+    fit_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check(all(launches[k] > 0 for k in TRAIN_KERNELS),
+          f"a kernel of the fit path was never launched: {launches}")
+    losses = [loss for _, loss in stats["losses"]]
+    check(len(losses) == FIT_STEPS and all(map(math.isfinite, losses)),
+          f"fit losses: {losses}")
+
+    # the trained parameters against 'last' in a fresh system
+    trained = {k: v.detach().clone() for k, v in
+               stats["system"].named_parameters()}
+    del stats["system"]
+    last = os.path.join(ckpt_dir, "last")
+    fresh = TL.build_system(cfg, "cuda")
+    fresh.set_body_params(load_body_params_from_dataset(
+        cfg.frame_IDs, cfg.root_dir, cfg.model_type))
+    load_params(last, fresh)
+    got = dict(fresh.named_parameters())
+    same = sorted(got) == sorted(trained) and all(
+        torch.equal(got[k], v) for k, v in trained.items())
+    check(same, "last reloaded differs from the trained parameters")
+    del fresh, got, trained
+
+    estats: dict = {}
+    t0 = time.perf_counter()
+    scores = TL.evaluate(cfg, last, device="cuda", stats=estats)
+    eval_s = time.perf_counter() - t0
+    check(all(map(math.isfinite, scores.values())), f"test: {scores}")
+    step_ms = float(np.median(stats["step_s"])) * 1e3
+    rays = cfg.train.batch_size * cfg.train.subsamplesize ** 2
+    return {
+        "dataset": f"{FIT_FRAMES} frames 512x512, V=6890 J=24, "
+                   "the port's writer", "write_s": write_s,
+        "steps": len(stats["step_s"]), "rays_per_step": rays,
+        "median_step_ms": step_ms,
+        "rays_per_s": rays / (step_ms / 1e3),
+        "median_compact_count": float(np.median(
+            stats["compact_count"])),
+        "train_phase_median_step_ms": train_median_ms,
+        "train_phase_median_compact_count": train_compact,
+        "median_loader_wait_ms": float(np.median(stats["wait_s"])) * 1e3,
+        "max_loader_wait_ms": float(np.max(stats["wait_s"])) * 1e3,
+        "median_produce_ms": float(np.median(stats["produce_s"])) * 1e3,
+        "val_frame_ms": [t * 1e3 for t in stats["val_s"]],
+        "eval_frame_ms": [t * 1e3 for t in estats["frame_s"]],
+        "save_ms": [t * 1e3 for t in stats["save_s"]],
+        "losses_first5": losses[:5], "losses_last5": losses[-5:],
+        "test_psnr": scores["psnr"], "test_ssim": scores["ssim"],
+        "last_reload_bit_equal": same, "launches": launches,
+        "fit_s": fit_s, "evaluate_s": eval_s, "last": last}
+
+
+# ------------------------------------------------------------------ cli
+
+# the post-training CLIs on the fit phase's dataset and 'last': views and
+# mocap frames at the dataset's 512x512, meshes at the mesh CLI's default
+# grid and ranges, the card-vs-CPU sigma grid at 48^3
+CLI_VIEWS = 8
+CLI_POSES = 8
+MESH_N = 256
+MESH_RANGES = ([-1.2, 1.2], [-1.2, 1.2], [-1.2, 1.2])
+MESH_THRESHOLD = 20.0
+MESH_VIEWS = 4
+# the scale512 checkpoint's densities peak near 13 (6 epochs of a demo
+# budget), below the CLI's default threshold of 20: its mesh is cut at 3,
+# as tools/mesh_demo.py cut the mesh that mesh_stats.json counts
+SCALE512_THRESHOLD = 3.0
+PARITY_N = 48
+# card vs CPU bounds of the relu(sigma) grid, as a share of 1 + max |sigma|
+SIGMA_BOUNDS = {"float32": 1e-3, "bfloat16": 5e-2}
+MESH_STATS = os.path.join(ROOT, "docs", "demo", "scale512",
+                          "mesh_stats.json")
+MESH_KERNELS = ("knn", "warp_blend", "fused_mlp")
+_TETS = ((0, 5, 1, 6), (0, 1, 3, 6), (0, 3, 2, 6),
+         (0, 2, 7, 6), (0, 7, 4, 6), (0, 4, 5, 6))
+
+
+def marching_model(field, iso: float = 0.0):
+    """A numpy model of ``native/marching_tets.cpp``: the soup of
+    ``marching_tets_numpy`` (each corner of a triangle emitted on its
+    tetrahedron edge, the same formula and direction), each emission
+    tagged with its edge and its place in the C++ loop (cell, tetrahedron,
+    call), then merged as the C++ merges: an edge's vertex is its first
+    emission's, vertex ids in order of first emission. Returns (soup
+    triangles (T, 3, 3) in loop order, merged vertices, merged triangles)."""
+    f = np.asarray(field, np.float32)
+    nx, ny, nz = f.shape
+    ii, jj, kk = np.meshgrid(np.arange(nx - 1), np.arange(ny - 1),
+                             np.arange(nz - 1), indexing="ij")
+    base = np.stack([ii, jj, kk], -1).reshape(-1, 3)
+    bits = np.array([[c & 1, (c >> 1) & 1, (c >> 2) & 1] for c in range(8)])
+    corner = base[:, None, :] + bits[None]               # (C, 8, 3)
+    vals = f[corner[..., 0], corner[..., 1], corner[..., 2]]
+    lin = (corner[..., 0] * ny + corner[..., 1]) * nz + corner[..., 2]
+    # per case: (edges as (from, to) of (inside order, outside order)
+    # roles, triangles as call indices); roles: ("i", n) the n-th inside
+    # corner, ("o", n) the n-th outside corner, in tetrahedron order
+    cases = {1: ([(("i", 0), ("o", 0)), (("i", 0), ("o", 1)),
+                  (("i", 0), ("o", 2))], [(0, 1, 2)]),
+             3: ([(("o", 0), ("i", 0)), (("o", 0), ("i", 1)),
+                  (("o", 0), ("i", 2))], [(0, 2, 1)]),
+             2: ([(("i", 0), ("o", 0)), (("i", 0), ("o", 1)),
+                  (("i", 1), ("o", 1)), (("i", 1), ("o", 0))],
+                 [(0, 1, 2), (0, 2, 3)])}
+    keys, pos, order, tris, tri_order = [], [], [], [], []
+    n_em = 0
+    for ti, tet in enumerate(_TETS):
+        v = vals[:, tet]
+        inside = v < iso
+        ni = inside.sum(1)
+        role = {"i": np.argsort(~inside, axis=1, kind="stable"),
+                "o": np.argsort(inside, axis=1, kind="stable")}
+        for count, (edges, tri_calls) in cases.items():
+            cells = np.flatnonzero(ni == count)
+            if not len(cells):
+                continue
+            ids = []
+            for slot, ((ra, na), (rb, nb)) in enumerate(edges):
+                a = np.asarray(tet)[role[ra][cells, na]]
+                b = np.asarray(tet)[role[rb][cells, nb]]
+                pa, pb = corner[cells, a], corner[cells, b]
+                va, vb = vals[cells, a], vals[cells, b]
+                denom = vb - va
+                t = np.where(denom != 0,
+                             (iso - va) / np.where(denom == 0, 1, denom), 0.5)
+                t = np.clip(t, 0, 1)[:, None]
+                pos.append((pa + t * (pb - pa)).astype(np.float32))
+                la, lb = lin[cells, a], lin[cells, b]
+                keys.append(np.minimum(la, lb) * (nx * ny * nz)
+                            + np.maximum(la, lb))
+                order.append((cells * 6 + ti) * 4 + slot)
+                ids.append(n_em + np.arange(len(cells)))
+                n_em += len(cells)
+            for k, (x, y, z) in enumerate(tri_calls):
+                tris.append(np.stack([ids[x], ids[y], ids[z]], 1))
+                tri_order.append((cells * 6 + ti) * 2 + k)
+    if not tris:
+        return (np.zeros((0, 3, 3), np.float32), np.zeros((0, 3), np.float32),
+                np.zeros((0, 3), np.int32))
+    keys, pos, order = (np.concatenate(x) for x in (keys, pos, order))
+    tris = np.concatenate(tris)[np.argsort(np.concatenate(tri_order),
+                                           kind="stable")]
+    soup = pos[tris]
+    # merge: emissions in loop order, the first of each edge keeps its
+    # position and takes the next id
+    by_order = np.argsort(order, kind="stable")
+    _, first = np.unique(keys[by_order], return_index=True)
+    firsts = np.sort(first)                      # ranks in loop order
+    edge_of = np.unique(keys, return_inverse=True)[1]
+    vid_of_edge = np.empty(len(firsts), np.int64)
+    vid_of_edge[edge_of[by_order[firsts]]] = np.arange(len(firsts))
+    verts = pos[by_order[firsts]]
+    return soup, verts, vid_of_edge[edge_of][tris].astype(np.int32)
+
+
+def sorted_triangles(soup):
+    """(T, 3, 3) triangles -> (T, 9) rows in lexicographic order."""
+    flat = np.asarray(soup, np.float32).reshape(len(soup), 9)
+    return flat[np.lexsort(flat.T[::-1])]
+
+
+def marching_check(field) -> dict:
+    """The native marching (``marching_cubes``) against
+    ``marching_tets_numpy`` through ``marching_model``: the model's soup
+    sorted is bit-equal to marching_tets_numpy's sorted, and the model's
+    merge is bit-equal to the native vertices and triangles. (The native
+    and numpy soups themselves differ where two tetrahedra meet an edge
+    from opposite ends: the native keeps the first emission's rounding.)"""
+    from animnerf_tpu_torch.ops.marching import (
+        marching_cubes,
+        marching_tets_numpy,
+    )
+
+    t0 = time.perf_counter()
+    nv, nt = marching_cubes(field, 0.0)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pv, pt = marching_tets_numpy(field, 0.0)
+    numpy_s = time.perf_counter() - t0
+    soup, mv, mt = marching_model(field, 0.0)
+    soup_equal = bool(np.array_equal(sorted_triangles(soup),
+                                     sorted_triangles(pv[pt])))
+    merge_equal = bool(np.array_equal(mv, nv) and np.array_equal(mt, nt))
+    raw_equal = bool(np.array_equal(sorted_triangles(nv[nt]),
+                                    sorted_triangles(pv[pt])))
+    check(len(nt) > 0 and soup_equal and merge_equal,
+          f"marching: {len(nt)} triangles, soup {soup_equal}, "
+          f"merge {merge_equal}")
+    return {"triangles": int(len(nt)), "native_vertices": int(len(nv)),
+            "numpy_vertices": int(len(pv)), "soup_bit_equal": soup_equal,
+            "merge_bit_equal": merge_equal,
+            "native_vs_numpy_sorted_bit_equal": raw_equal,
+            "native_ms": native_s * 1e3, "numpy_ms": numpy_s * 1e3}
+
+
+def _mocap(root: str, frames: int, seed: int = 0) -> str:
+    """A seeded Mixamo-layout ``<root>/mocap/0007/result.pkl``."""
+    import pickle
+
+    actions = os.path.join(root, "mocap")
+    os.makedirs(os.path.join(actions, "0007"), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(actions, "0007", "result.pkl"), "wb") as f:
+        pickle.dump({
+            "anim_len": frames,
+            "smpl_array": rng.normal(scale=0.1, size=(frames, 72)).astype(
+                np.float32),
+            "cam_array": rng.normal(scale=0.1, size=(frames, 4)).astype(
+                np.float32)}, f)
+    return actions
+
+
+def _body_px(path: str) -> int:
+    """Pixels of a PNG on the white background that are not white."""
+    from animnerf_tpu_torch.utils.image import read_png
+
+    return int((read_png(path)[..., :3] < 250).any(-1).sum())
+
+
+def _gif_ok(path: str) -> bool:
+    with open(path, "rb") as f:
+        data = f.read()
+    return data[:6] == b"GIF89a" and data[-1:] == b"\x3b"
+
+
+def cli_phase(root: str, last: str) -> dict:
+    """The post-training CLIs on the fit phase's dataset and ``last``,
+    each through its ``main`` on the card with the launch counts reset
+    just before and read just after: novel views (CLI_VIEWS at 512x512,
+    then with ``--betas_2th 0.5``, then one ``--template`` view; kernels
+    1-4 launched), novel poses (a seeded CLI_POSES-frame mocap), the mesh
+    CLI at MESH_N^3 with ``--vis`` (kernels 1-3); then the mesh CLI's
+    query again with the far skip off and on (bit-equal)."""
+    import torch
+
+    from animnerf_tpu_torch.cli import common, extract_mesh
+    from animnerf_tpu_torch.cli import novel_pose, novel_view
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.render.inference import Renderer
+    from animnerf_tpu_torch.utils.image import read_png
+
+    opts = ["outputs_dir", os.path.join(root, "out")]
+    total = {k: 0 for k in _build.LAUNCHES}
+    out: dict = {}
+
+    def run(main, args, need=(), absent=()):
         stats: dict = {}
         torch.cuda.synchronize()
-        _build.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
-        ckpt_dir = TL.fit(cfg, device="cuda", stats=stats)
-        fit_s = time.perf_counter() - t0
+        save_dir = main(["--ckpt_path", last, *args, *opts], stats=stats)
+        seconds = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
-        check(all(launches[k] > 0 for k in TRAIN_KERNELS),
-              f"a kernel of the fit path was never launched: {launches}")
-        losses = [loss for _, loss in stats["losses"]]
-        check(len(losses) == FIT_STEPS and all(map(math.isfinite, losses)),
-              f"fit losses: {losses}")
+        for k, v in launches.items():
+            total[k] += v
+        check(all(launches[k] > 0 for k in need)
+              and all(launches[k] == 0 for k in absent),
+              f"{main.__module__} {args}: launches {launches}")
+        return save_dir, stats, launches, seconds
 
-        # the trained parameters against 'last' in a fresh system
-        trained = {k: v.detach().clone() for k, v in
-                   stats["system"].named_parameters()}
-        del stats["system"]
-        last = os.path.join(ckpt_dir, "last")
-        fresh = TL.build_system(cfg, "cuda")
-        fresh.set_body_params(load_body_params_from_dataset(
-            cfg.frame_IDs, cfg.root_dir, cfg.model_type))
-        load_params(last, fresh)
-        got = dict(fresh.named_parameters())
-        same = sorted(got) == sorted(trained) and all(
-            torch.equal(got[k], v) for k, v in trained.items())
-        check(same, "last reloaded differs from the trained parameters")
-        del fresh, got, trained
+    # ---- novel views: plain, shape-edited, T-pose
+    views, first = {}, {}
+    for tag, args in (("plain", ["--n_views", str(CLI_VIEWS)]),
+                      ("betas_2th", ["--n_views", str(CLI_VIEWS),
+                                     "--betas_2th", "0.5"]),
+                      ("template", ["--n_views", "1", "--template"])):
+        d, st, launches, sec = run(novel_view.main, args,
+                                   need=SERVE_KERNELS)
+        n = len(st["view_s"])
+        imgs = sorted(os.listdir(os.path.join(d, "images")))
+        body = _body_px(os.path.join(d, "images", imgs[0]))
+        check(len(imgs) == n and body > 500
+              and _gif_ok(os.path.join(d, "novel_view.gif")),
+              f"novel_view {tag}: {len(imgs)} images, {body} body px")
+        views[tag] = {
+            "views": n, "view_ms": [t * 1e3 for t in st["view_s"]],
+            "median_view_ms": float(np.median(st["view_s"])) * 1e3,
+            "gif_ms_per_frame": st["gif_s"] / n * 1e3,
+            "body_px_view0": body, "launches": launches,
+            "launches_per_view": {k: v / n for k, v in launches.items()
+                                  if v}, "seconds": sec}
+        first[tag] = read_png(os.path.join(d, "images", imgs[0]))
+    # reported, not checked: the seeded rig's shape directions are small
+    views["betas_2th"]["changed_px_view0"] = int(
+        (first["plain"] != first["betas_2th"]).any(-1).sum())
+    out["novel_view"] = views
 
-        estats: dict = {}
+    # ---- novel poses from a seeded mocap
+    actions = _mocap(root, CLI_POSES)
+    d, st, launches, sec = run(novel_pose.main, [
+        "--actions_dir", actions, "--action_type", "0007",
+        "--frame_skip", "1"], need=SERVE_KERNELS)
+    n = len(st["render_s"])
+    overlay = _body_px(os.path.join(d, "smpls_vis", "000000.png"))
+    check(n == CLI_POSES and overlay > 500
+          and _gif_ok(os.path.join(d, "novel_pose.gif")),
+          f"novel_pose: {n} frames, overlay {overlay} px")
+    out["novel_pose"] = {
+        "frames": n, **{f"median_{k[:-2]}_ms": float(np.median(v)) * 1e3
+                        for k, v in st.items()},
+        "overlay_px_frame0": overlay, "launches": launches,
+        "launches_per_frame": {k: v / n for k, v in launches.items() if v},
+        "seconds": sec}
+
+    # ---- the mesh CLI at the default grid, with --vis
+    d, st, launches, sec = run(extract_mesh.main, [
+        "--N_grid", str(MESH_N), "--sigma_threshold", str(MESH_THRESHOLD),
+        "--vis", "--n_views", str(MESH_VIEWS)], need=MESH_KERNELS,
+        absent=("permute_lanes",))
+    check(os.path.isfile(os.path.join(d, "mesh.obj"))
+          and os.path.isfile(os.path.join(d, "smpl.obj"))
+          and _gif_ok(os.path.join(d, "3d_rec.gif")), "extract_mesh outputs")
+    out["extract_mesh"] = mesh_line(st, launches)
+    out["extract_mesh"]["seconds"] = sec
+
+    # ---- the same query, the far skip off and on
+    cfg = common.resolve_cfg(last, None, opts)
+    system = common.load_system_and_params(cfg, last, "cuda")
+    fidx, bp, tmpl = common.load_frame_params(cfg, 1, "cuda")
+    bp = common.optimized_frame_params(cfg, system, fidx, bp)
+    renderer = Renderer(system)
+    points = extract_mesh.mesh_grid(renderer, bp, tmpl, MESH_N,
+                                    MESH_RANGES)[0]
+    grids, query_ms = {}, {}
+    for on in (False, True):
+        set_far_skip(system, on)
+        torch.cuda.synchronize()
+        reset_counts()
         t0 = time.perf_counter()
-        scores = TL.evaluate(cfg, last, device="cuda", stats=estats)
-        eval_s = time.perf_counter() - t0
-        check(all(map(math.isfinite, scores.values())), f"test: {scores}")
-        step_ms = float(np.median(stats["step_s"])) * 1e3
-        rays = cfg.train.batch_size * cfg.train.subsamplesize ** 2
-        return {
-            "dataset": f"{FIT_FRAMES} frames 512x512, V=6890 J=24, "
-                       "the port's writer", "write_s": write_s,
-            "steps": len(stats["step_s"]), "rays_per_step": rays,
-            "median_step_ms": step_ms,
-            "rays_per_s": rays / (step_ms / 1e3),
-            "median_compact_count": float(np.median(
-                stats["compact_count"])),
-            "train_phase_median_step_ms": train_median_ms,
-            "train_phase_median_compact_count": train_compact,
-            "median_loader_wait_ms": float(np.median(stats["wait_s"])) * 1e3,
-            "max_loader_wait_ms": float(np.max(stats["wait_s"])) * 1e3,
-            "median_produce_ms": float(np.median(stats["produce_s"])) * 1e3,
-            "val_frame_ms": [t * 1e3 for t in stats["val_s"]],
-            "eval_frame_ms": [t * 1e3 for t in estats["frame_s"]],
-            "save_ms": [t * 1e3 for t in stats["save_s"]],
-            "losses_first5": losses[:5], "losses_last5": losses[-5:],
-            "test_psnr": scores["psnr"], "test_ssim": scores["ssim"],
-            "last_reload_bit_equal": same, "launches": launches,
-            "fit_s": fit_s, "evaluate_s": eval_s}
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+        grids[on] = renderer.query_sigma_observed(bp, tmpl, points)
+        query_ms[on] = (time.perf_counter() - t0) * 1e3
+        if on:
+            share = far_share()
+            far_launches = dict(_build.LAUNCHES)
+    check(np.array_equal(grids[False], grids[True]),
+          "the far skip changed the sigma grid")
+    out["far_skip_query"] = {
+        "points": int(points.shape[1]), "query_ms_off": query_ms[False],
+        "query_ms_on": query_ms[True], "bit_equal_off_on": True,
+        **share, "launches_on": far_launches}
+    out["cli_launches"] = total
+    return out
+
+
+def mesh_line(st: dict, launches: dict) -> dict:
+    """The mesh stages' host-clock ms from ``extract_mesh``'s stats."""
+    q = st["query_s"]
+    line = {"grid": MESH_N, "vertices": int(st["n_verts"]),
+            "faces": int(st["n_faces"]),
+            "grid_ms": st["grid_s"] * 1e3, "query_ms": q * 1e3,
+            "query_points_per_s": MESH_N**3 / q,
+            "smooth_ms": st["smooth_s"] * 1e3,
+            "march_ms": st["march_s"] * 1e3,
+            "save_obj_ms": st["save_s"] * 1e3, "launches": launches,
+            "launches_per_mesh": {k: v for k, v in launches.items() if v}}
+    if "raster_s" in st:
+        line["raster_ms"] = [t * 1e3 for t in st["raster_s"]]
+    return line
+
+
+def mesh_scale512(root: str):
+    """``extract_mesh`` at MESH_N^3 on the trained scale512 system (the
+    way phase 4 builds it) in its optimised frame-1 pose (the
+    checkpoint's body params, as the mesh CLI takes them), cut at
+    SCALE512_THRESHOLD; its OBJ written and MESH_VIEWS raster views
+    timed; the vertex and face counts beside ``docs/demo/scale512/
+    mesh_stats.json``'s (an older JAX tool's count: printed, not
+    checked). Returns (the line, (system, frame params, template
+    params))."""
+    import torch
+
+    from animnerf_tpu_torch.cli.extract_mesh import extract_mesh
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.render.inference import Renderer
+    from animnerf_tpu_torch.utils.io import save_obj
+    from animnerf_tpu_torch.utils.renderer import SoftwareRenderer
+
+    ck, system, _, tmpl, _ = scale512("cuda")
+    bp = {k: v[:1] for k, v in ck["body_params"].items()}
+    renderer = Renderer(system)
+    st: dict = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    v, f, _, sig = extract_mesh(renderer, bp, tmpl, MESH_N, MESH_RANGES,
+                                SCALE512_THRESHOLD, True, st)
+    launches = dict(_build.LAUNCHES)
+    check(all(launches[k] > 0 for k in MESH_KERNELS) and len(f) > 0,
+          f"scale512 mesh: {len(f)} faces, launches {launches}")
+    t0 = time.perf_counter()
+    save_obj(os.path.join(root, "scale512_mesh.obj"), v, f)
+    st.update(save_s=time.perf_counter() - t0, n_verts=len(v),
+              n_faces=len(f))
+    raster = SoftwareRenderer((512, 512))
+    raster.set_camera(1.2 * 512, 1.2 * 512, 256, 256, np.eye(3),
+                      np.array([0.0, 0.0, 3.0]))
+    st["raster_s"] = []
+    for i in range(MESH_VIEWS):
+        t0 = time.perf_counter()
+        img = raster.render(v, f, angle=-i / MESH_VIEWS * 360,
+                            axis=[0, 1, 0])
+        st["raster_s"].append(time.perf_counter() - t0)
+    line = mesh_line(st, launches)
+    with open(MESH_STATS) as fh:
+        ref = json.load(fh)
+    line.update(
+        sigma_threshold=SCALE512_THRESHOLD, sigma_max=float(sig.max()),
+        inside_share=float((sig > SCALE512_THRESHOLD).mean()),
+        obj_bytes=os.path.getsize(os.path.join(root, "scale512_mesh.obj")),
+        raster_body_px=int((img < 250).any(-1).sum()),
+        mesh_stats_json=ref,
+        vertices_vs_json=len(v) / ref["vertices"] - 1.0,
+        faces_vs_json=len(f) / ref["faces"] - 1.0)
+    return line, (system, bp, tmpl)
+
+
+def cli_parity(system, bp, tmpl) -> dict:
+    """``query_sigma_observed`` on a PARITY_N^3 grid of the mesh ranges
+    about the scale512 body, on the card (kernels) and the CPU (plain
+    versions), in f32 and bf16, within SIGMA_BOUNDS x (1 + max |sigma|);
+    then the marching of the card's f32 field (threshold, smooth, negate,
+    as the mesh CLI) against marching_tets_numpy (``marching_check``)."""
+    from animnerf_tpu_torch.cli.extract_mesh import mesh_grid
+    from animnerf_tpu_torch.ops.marching import smooth
+    from animnerf_tpu_torch.render.inference import Renderer
+    from animnerf_tpu_torch.utils.convert import load_checkpoint
+
+    ck = load_checkpoint(CKPT)
+    points = mesh_grid(Renderer(system), bp, tmpl, PARITY_N, MESH_RANGES)[0]
+    out, fields = {}, {}
+    for dtype, bound in SIGMA_BOUNDS.items():
+        sig = {}
+        for dev in ("cuda", "cpu"):
+            s = scale512_system(ck, dev, compute_dtype=dtype)
+            t0 = time.perf_counter()
+            sig[dev] = Renderer(s, device=dev).query_sigma_observed(
+                bp, tmpl, points)
+            sig[dev + "_ms"] = (time.perf_counter() - t0) * 1e3
+        err = float(np.abs(sig["cuda"] - sig["cpu"]).max())
+        top = float(np.abs(sig["cpu"]).max())
+        check(err <= bound * (1 + top) and top > SCALE512_THRESHOLD,
+              f"{dtype} sigma grid: max |d| {err} for bound {bound} x "
+              f"(1 + {top})")
+        out[dtype] = {"max_abs_err": err, "max_sigma": top, "bound":
+                      bound * (1 + top), "card_ms": sig["cuda_ms"],
+                      "cpu_ms": sig["cpu_ms"],
+                      "inside_share": float((sig["cuda"] >
+                                             SCALE512_THRESHOLD).mean())}
+        fields[dtype] = sig["cuda"]
+    sig = np.maximum(fields["float32"].reshape((PARITY_N,) * 3), 0)
+    out["marching"] = marching_check(-smooth(sig - SCALE512_THRESHOLD))
+    out["points"] = int(points.shape[1])
+    return out
 
 
 # ------------------------------------------------------------------ slice
@@ -3336,12 +3755,38 @@ def main() -> int:
     emit({"phase": "train_parity", **tparity,
           "seconds": time.perf_counter() - t0})
 
-    # ---- training from a dataset on disk: fit, then evaluate from 'last'
-    t0 = time.perf_counter()
-    fitted = fit_phase(summary["median_step_ms"],
-                       summary["median_compact_count"])
-    emit({"phase": "fit", **fitted, "seconds": time.perf_counter() - t0})
-    fit_launches = fitted["launches"]
+    # ---- training from a dataset on disk: fit, then evaluate from 'last';
+    # then the post-training CLIs on that dataset and 'last', the mesh of
+    # the trained scale512 system and the sigma grid card against CPU
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    fit_root = tempfile.mkdtemp(prefix="fit_smoke_",
+                                dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        fitted = fit_phase(fit_root, summary["median_step_ms"],
+                           summary["median_compact_count"])
+        last = fitted.pop("last")
+        emit({"phase": "fit", **fitted, "seconds": time.perf_counter() - t0})
+        fit_launches = fitted["launches"]
+
+        t0 = time.perf_counter()
+        cli = cli_phase(fit_root, last)
+        cli_launches = cli.pop("cli_launches")
+        for entry, line in cli.items():
+            emit({"phase": "cli", "entry": entry, **line})
+        emit({"phase": "cli_done", "launches": cli_launches,
+              "seconds": time.perf_counter() - t0})
+
+        t0 = time.perf_counter()
+        mesh, body = mesh_scale512(fit_root)
+        emit({"phase": "mesh_scale512", **mesh,
+              "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        emit({"phase": "cli_parity", **cli_parity(*body),
+              "seconds": time.perf_counter() - t0})
+        del body
+    finally:
+        shutil.rmtree(fit_root, ignore_errors=True)
 
     # ---- SMPL-X: the exact kNN and the min-distance pre-pass
     t0 = time.perf_counter()
@@ -3564,6 +4009,8 @@ def main() -> int:
                      "library_ms": ln["library_ms"],
                      **({"fit_launches": fit_launches[name]}
                         if name in fit_launches else {}),
+                     **({"cli_launches": cli_launches[name]}
+                        if name in cli_launches else {}),
                      **({"functions": {k: v[0] for k, v in
                                        ln["kernels"]["by_kernel"].items()}}
                         if "kernels" in ln else {})})

@@ -17,6 +17,9 @@ torch.set_num_threads(1)
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "animnerf_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "animnerf_tpu")
+# the card's machine has none of these (yaml is imported only to read a
+# YAML config, so it is banned at import time alone)
+NOT_ON_THE_CARD = ("cv2", "PIL", "imageio")
 
 
 def test_import_loads_no_jax():
@@ -26,7 +29,13 @@ def test_import_loads_no_jax():
             " animnerf_tpu_torch.render.compact_rows,"
             " animnerf_tpu_torch.ops.perm_sort, animnerf_tpu_torch.utils.rng,"
             " animnerf_tpu_torch.ops.knn_mxu,"
-            " animnerf_tpu_torch.tools.bench_knn;"
+            " animnerf_tpu_torch.tools.bench_knn,"
+            " animnerf_tpu_torch.cli.common, animnerf_tpu_torch.cli.novel_view,"
+            " animnerf_tpu_torch.cli.novel_pose,"
+            " animnerf_tpu_torch.cli.extract_mesh,"
+            " animnerf_tpu_torch.ops.marching,"
+            " animnerf_tpu_torch.utils.renderer,"
+            " animnerf_tpu_torch.utils.host_lib;"
             "bad = [m for m in sys.modules if m.split('.')[0] in %r];"
             "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -34,12 +43,12 @@ def test_import_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-def test_importing_every_module_loads_no_jax_cv2_pil_or_yaml():
+def test_importing_every_module_loads_no_jax_cv2_pil_imageio_or_yaml():
     """Every port module and chip_smoke.py import in a fresh interpreter
-    without loading JAX, the JAX package, OpenCV, PIL or PyYAML (the
-    card's machine has none of the last three; yaml is imported only to
-    read a YAML config)."""
-    banned = FORBIDDEN + ("cv2", "PIL", "yaml")
+    without loading JAX, the JAX package, OpenCV, PIL, imageio or PyYAML
+    (the card's machine has none of the last four; yaml is imported only
+    to read a YAML config)."""
+    banned = FORBIDDEN + NOT_ON_THE_CARD + ("yaml",)
     code = (
         "import importlib, pkgutil, sys, animnerf_tpu_torch as p;"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
@@ -68,8 +77,34 @@ def _imports(path: pathlib.Path):
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(PKG)))
 def test_no_module_imports_jax_or_the_jax_package(path):
-    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    """Also inside functions: no JAX, no JAX package, and none of the
+    image libraries the card's machine lacks."""
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in FORBIDDEN + NOT_ON_THE_CARD]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_chip_smoke_imports_nothing_the_card_lacks():
+    root = PKG.parent / "chip_smoke.py"
+    bad = [m for m in _imports(root)
+           if m.split(".")[0] in FORBIDDEN + NOT_ON_THE_CARD + ("yaml",)]
+    assert not bad, f"chip_smoke.py imports {bad}"
+
+
+def test_host_library_builds_the_ports_own_sources():
+    """The host C++ (marching, raster) comes from the port's copies under
+    animnerf_tpu_torch/native/, never from the JAX package's native/, and
+    builds under build/animnerf_tpu_torch/."""
+    from animnerf_tpu_torch.utils import host_lib
+
+    assert host_lib.SRC_DIR == PKG / "native"
+    assert host_lib.BUILD_ROOT == PKG.parent / "build" / "animnerf_tpu_torch"
+    assert sorted(host_lib.SOURCES) == sorted(
+        p.name for p in (PKG / "native").glob("*.cpp"))
+    for name in host_lib.SOURCES:
+        assert (PKG / "native" / name).is_file()
+    text = (PKG / "utils" / "host_lib.py").read_text()
+    assert "native_build" not in text and "animnerf_tpu/" not in text
 
 
 def _tiny_system():
