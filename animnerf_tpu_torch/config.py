@@ -148,8 +148,13 @@ def get_default_config() -> CfgNode:
             # 'auto' is bfloat16 on the card (the fused MLP's fast path) and
             # float32 on the CPU (system.py::resolve_compute_dtype)
             "compute_dtype": "auto",
-            "remat": "auto",      # JAX package only; kept for its configs
-            "fused_mlp": "auto",  # JAX package only; the port always fuses
+            # recompute the plain MLP in the backward: 'auto' is on on the
+            # CPU and, on the card, above 16,384 rays a step
+            # (system.py::resolve_remat)
+            "remat": "auto",
+            # kernel 3 for flagship-architecture fields ('auto' / 'on'),
+            # the plain MLP for every field ('off')
+            "fused_mlp": "auto",
             "mesh_shape": (-1,),  # one device: (-1,) or (1,)
             "seed": 42,
             "train": {

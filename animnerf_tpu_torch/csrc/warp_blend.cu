@@ -1,7 +1,8 @@
 // Neighbour gather + confidence-gated LBS blend + 4x4 warp, for Hopper.
 //
 // Replaces: animnerf_tpu/ops/warp_blend.py::_warp_blend_kernel (reached
-// through warp_blend_fwd_pallas), forward only, warp_view=False.
+// through warp_blend_fwd_pallas), forward, warp_view off and on (the
+// backward is ops/warp_blend.py's autograd over the weighted scatter).
 //
 // Per point n with its K neighbours (d_k, i_k), K = 1..16 as the kNN
 // emits them, and table rows
@@ -12,6 +13,11 @@
 //   bd     = sum_k w_k d_k,   bf = sum_k w_k T(i_k)
 //   out    = [bf[0:3]·xyz + bf[3] | bf[4:7]·xyz + bf[7] | bf[8:11]·xyz + bf[11]
 //             | bd | 0 0 0 0],   w (K rows),   bf (16 rows)
+// With warp_view (a template flag: the off instantiation is the code
+// without it) the view direction vd in input rows 4:7 is warped by the same
+// blended 4x4, translation included as the reference does
+// (warp_blend.py:124-133): out rows 4:7 = bf[4r:4r+3]·vd + bf[4r+3], r =
+// 0..2, and row 7 = 0; the sums run in the TPU kernel's order.
 // Every sum over k runs in order k = 0, 1, ..., K-1, and l1_k in order
 // j = 0, 1, ..., as the TPU kernel (warp_blend.py:98-109) and the plain
 // version take them. expf, not __expf: the gate is a hard threshold and a
@@ -19,10 +25,11 @@
 // backward's residuals; with w_out null (the no-grad callers: every view,
 // dense view and eval frame) only out is written.
 //
-// Bound on the H100: bytes. Per point it reads 3 xyz floats, K distances
-// and K indices and writes 8 (+ K + 16 with the residuals) floats. The
-// gathered table rows (K x F x 4 B a point, F = num_lbs + 16: 40 for
-// SMPL, 71 for SMPL-X) come from L1 and L2: the tables are 1-3 MB and
+// Bound on the H100: bytes. Per point it reads 3 xyz floats (6 with
+// warp_view: the view direction too), K distances and K indices and
+// writes 8 (+ K + 16 with the residuals) floats. The gathered table
+// rows (K x F x 4 B a point, F = num_lbs + 16: 40 for SMPL, 71 for
+// SMPL-X) come from L1 and L2: the tables are 1-3 MB and
 // neighbouring points share rows. What costs is the number of load
 // instructions: each is a warp-wide gather from 32 different rows. One
 // thread a point reading its rows a float at a time, row 0's LBS values
@@ -76,7 +83,7 @@ warp_blend_pad_kernel(const float* __restrict__ table,
   padded[i] = c < num_lbs ? src[c] : c < Lp ? 0.0f : src[num_lbs + c - Lp];
 }
 
-template <int K>
+template <int K, bool WARP_VIEW>
 __global__ void __launch_bounds__(THREADS)
 warp_blend_fwd_kernel(const float* __restrict__ xyz,    // (B, 8, N) rows
                       const float* __restrict__ dists,  // (B, K, N)
@@ -154,8 +161,18 @@ warp_blend_fwd_kernel(const float* __restrict__ xyz,    // (B, 8, N) rows
     out[xo + r * (size_t)N] =
         bf[4 * r] * x + bf[4 * r + 1] * y + bf[4 * r + 2] * z + bf[4 * r + 3];
   out[xo + 3 * (size_t)N] = bd;
+  if constexpr (WARP_VIEW) {
+    const float vx = xyz[xo + 4 * (size_t)N], vy = xyz[xo + 5 * (size_t)N],
+                vz = xyz[xo + 6 * (size_t)N];
 #pragma unroll
-  for (int r = 4; r < 8; ++r) out[xo + r * (size_t)N] = 0.0f;
+    for (int r = 0; r < 3; ++r)
+      out[xo + (4 + r) * (size_t)N] = bf[4 * r] * vx + bf[4 * r + 1] * vy +
+                                      bf[4 * r + 2] * vz + bf[4 * r + 3];
+    out[xo + 7 * (size_t)N] = 0.0f;
+  } else {
+#pragma unroll
+    for (int r = 4; r < 8; ++r) out[xo + r * (size_t)N] = 0.0f;
+  }
   if (w_out == nullptr) return;
 #pragma unroll
   for (int k = 0; k < K; ++k) w_out[((size_t)b * K + k) * N + n] = w[k];
@@ -164,18 +181,19 @@ warp_blend_fwd_kernel(const float* __restrict__ xyz,    // (B, 8, N) rows
 }
 
 // launch the instantiation for k (1..MAX_K)
-template <int K>
+template <int K, bool WARP_VIEW>
 void launch(int k, dim3 grid, cudaStream_t stream, const float* xyz,
             const float* dists, const int* idx, const float* table,
             float* out, float* w_out, float* bf_out, int N, int V,
             int num_lbs, int Lp, float inv_two_std2, float conf_gate) {
   if (k == K) {
-    warp_blend_fwd_kernel<K><<<grid, THREADS, 0, stream>>>(
+    warp_blend_fwd_kernel<K, WARP_VIEW><<<grid, THREADS, 0, stream>>>(
         xyz, dists, idx, table, out, w_out, bf_out, N, V, num_lbs, Lp,
         inv_two_std2, conf_gate);
   } else if constexpr (K < MAX_K) {
-    launch<K + 1>(k, grid, stream, xyz, dists, idx, table, out, w_out,
-                  bf_out, N, V, num_lbs, Lp, inv_two_std2, conf_gate);
+    launch<K + 1, WARP_VIEW>(k, grid, stream, xyz, dists, idx, table, out,
+                             w_out, bf_out, N, V, num_lbs, Lp, inv_two_std2,
+                             conf_gate);
   }
 }
 
@@ -184,11 +202,13 @@ void launch(int k, dim3 grid, cudaStream_t stream, const float* xyz,
 // table (B, V, num_lbs + 16); padded: null when num_lbs is a multiple of
 // 4 and table is 16-byte aligned (its rows are then read in place), else
 // scratch for B V (Lp + 16) floats, 16-byte aligned, that the pad kernel
-// fills first; w_out and bf_out both null for the residual-free mode.
+// fills first; w_out and bf_out both null for the residual-free mode;
+// warp_view nonzero warps the view direction of xyz rows 4:7 too.
 extern "C" int animnerf_warp_blend_fwd(
     const void* xyz, const void* dists, const void* idx, const void* table,
     void* padded, void* out, void* w_out, void* bf_out, int B, int N, int V,
-    int k, int num_lbs, float inv_two_std2, float conf_gate, void* stream) {
+    int k, int num_lbs, float inv_two_std2, float conf_gate, int warp_view,
+    void* stream) {
   const int Lp = (num_lbs + 3) / 4 * 4;
   if (k < 1 || k > MAX_K || num_lbs < 1 ||
       (w_out == nullptr) != (bf_out == nullptr) ||
@@ -207,9 +227,16 @@ extern "C" int animnerf_warp_blend_fwd(
       rows = (const float*)padded;
     }
     dim3 grid((N + THREADS - 1) / THREADS, B);
-    launch<1>(k, grid, s, (const float*)xyz, (const float*)dists,
-              (const int*)idx, rows, (float*)out, (float*)w_out,
-              (float*)bf_out, N, V, num_lbs, Lp, inv_two_std2, conf_gate);
+    if (warp_view)
+      launch<1, true>(k, grid, s, (const float*)xyz, (const float*)dists,
+                      (const int*)idx, rows, (float*)out, (float*)w_out,
+                      (float*)bf_out, N, V, num_lbs, Lp, inv_two_std2,
+                      conf_gate);
+    else
+      launch<1, false>(k, grid, s, (const float*)xyz, (const float*)dists,
+                       (const int*)idx, rows, (float*)out, (float*)w_out,
+                       (float*)bf_out, N, V, num_lbs, Lp, inv_two_std2,
+                       conf_gate);
   }
   return (int)cudaGetLastError();
 }

@@ -21,9 +21,14 @@ from typing import Optional
 
 import torch
 
+from animnerf_tpu_torch.ops.blend import gather_blend_plain
 from animnerf_tpu_torch.ops.knn_kernel import knn
 from animnerf_tpu_torch.ops.perm_sort import inverse_permutation, permute
-from animnerf_tpu_torch.ops.warp_blend import morton_codes, warp_blend_rows
+from animnerf_tpu_torch.ops.warp_blend import (
+    morton_codes,
+    warp_blend,
+    warp_blend_rows,
+)
 from animnerf_tpu_torch.smpl.body_model import BodyModel, BodyModelOutput
 from animnerf_tpu_torch.smpl.body_model import forward as body_forward
 
@@ -188,21 +193,69 @@ def rays_to_root_frame(ctx: FrameContext, rays: torch.Tensor) -> torch.Tensor:
     return torch.cat([o, d, near, far], dim=-1)
 
 
-def unpose(ctx: FrameContext, xyz: torch.Tensor, k: int = 4,
+def _table(ctx: FrameContext) -> torch.Tensor:
+    """The [lbs | ober2cano] table (B, V, J+16) in mesh order."""
+    B = ctx.verts.shape[0]
+    V, J = ctx.lbs_weights.shape
+    return torch.cat([ctx.lbs_weights.expand(B, V, J), ctx.ober2cano], -1)
+
+
+def blend_neighbour_transforms(ctx: FrameContext, xyz: torch.Tensor,
+                               k: int = 4, weight_std: float = 0.1,
+                               conf_gate: float = 0.9,
+                               far_skip: float = 0.0):
+    """kNN against the observed verts, then the confidence-gated exp(-d)
+    blend of the per-vertex obs->canonical transforms (reference
+    anim_nerf.py:153-178), the plain blend -> (blended_dist (B, N, 1),
+    blended_transform (B, N, 4, 4))."""
+    B, N = xyz.shape[:2]
+    J = ctx.lbs_weights.shape[1]
+    dists, idx = knn(xyz.detach().contiguous(), ctx.verts.detach()
+                     .contiguous(), k, far_skip=far_skip)
+    bd, bf, _ = gather_blend_plain(_table(ctx), dists.transpose(1, 2),
+                                   idx.transpose(1, 2), J, float(weight_std),
+                                   float(conf_gate))
+    return bd, bf.reshape(B, N, 4, 4)
+
+
+def unpose(ctx: FrameContext, xyz: torch.Tensor,
+           viewdir: Optional[torch.Tensor] = None, k: int = 4,
            dis_threshold: float = 0.2, weight_std: float = 0.1,
-           far_skip: bool = False):
-    """Warp (B, N, 3) observed points into canonical space on the fused
-    path (``unpose_rows``) with k neighbours. Returns (xyz_canonical
-    (B, N, 3), valid (B, N, 1)) with valid in {0., 1.} (reference
-    anim_nerf.py:180-192; view directions are not warped on this path).
-    ``far_skip`` (``AnimNeRFConfig.knn_far_skip``): the kNN's all-far skip
-    at dis_threshold, exact end to end (such points are invalid)."""
-    rows = torch.nn.functional.pad(xyz.transpose(1, 2), (0, 0, 0, 5))
-    out = unpose_rows(ctx, rows, k=k, weight_std=weight_std,
-                      far_skip=dis_threshold if far_skip else 0.0)
-    xyz_cano = out[:, 0:3].transpose(1, 2)
-    valid = (out[:, 3:4] < dis_threshold).to(xyz.dtype).transpose(1, 2)
-    return xyz_cano, valid
+           unpose_view: bool = False, far_skip: bool = False):
+    """Warp (B, N, 3) observed points into canonical space: the top-k kNN
+    of the detached points against the Morton-sorted cloud, then the
+    point-layout warp-blend (``ops/warp_blend.py::warp_blend``), which
+    with ``unpose_view`` also warps the (B, N, 3) view directions by the
+    blended 4x4, translation included (the reference's quirk, JAX
+    models/warp.py:441-446). Returns (xyz_canonical (B, N, 3), viewdir
+    (warped, or the input), valid (B, N, 1)) with valid in {0., 1.}
+    (reference anim_nerf.py:180-192). ``far_skip``
+    (``AnimNeRFConfig.knn_far_skip``): the kNN's all-far skip at
+    dis_threshold, exact end to end (such points are invalid)."""
+    J = ctx.lbs_weights.shape[1]
+    fs = dis_threshold if far_skip else 0.0
+    dists, idx = knn(xyz.detach().contiguous(), ctx.verts_morton, k,
+                     far_skip=fs)
+    xyz_cano, viewdir, bd = warp_blend(
+        xyz, viewdir, dists, idx, ctx.table_morton, J, float(weight_std),
+        0.9, bool(unpose_view), inputs_t=True)
+    return xyz_cano, viewdir, (bd < dis_threshold).to(xyz.dtype)
+
+
+def unpose_with_knn(ctx: FrameContext, xyz: torch.Tensor,
+                    viewdir: Optional[torch.Tensor], dists: torch.Tensor,
+                    idx: torch.Tensor, dis_threshold: float = 0.2,
+                    weight_std: float = 0.1, unpose_view: bool = False,
+                    conf_gate: float = 0.9):
+    """The post-kNN half of ``unpose`` on (dists, idx) (B, N, k) found
+    against the observed verts in mesh order (``AnimNeRFModel.warp_knn``):
+    the warp-blend on the mesh-order table -> (xyz_cano, viewdir,
+    valid), per point equal to ``unpose``."""
+    J = ctx.lbs_weights.shape[1]
+    xyz_cano, viewdir, bd = warp_blend(
+        xyz, viewdir, dists.detach(), idx, _table(ctx), J,
+        float(weight_std), float(conf_gate), bool(unpose_view))
+    return xyz_cano, viewdir, (bd < dis_threshold).to(xyz.dtype)
 
 
 def unpose_rows(ctx: FrameContext, xyz_t: torch.Tensor, k: int = 4,

@@ -50,7 +50,7 @@ SIGNATURES = {
     "animnerf_knn_top4": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                           _I, _P],
     "animnerf_warp_blend_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _F, _F, _P],
+                                _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "animnerf_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _P],
     "animnerf_gather_lanes": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -76,8 +76,10 @@ SIGNATURES = {
 # the bf16 MLP backward's weight-gradient pass, launched by fused_nerf_bwd
 # (which also counts under "fused_mlp_bwd") or alone by fused_nerf_wgrad;
 # "knn_far" the all-far skip's pass, launched by a kNN wrapper in front of
-# its sweep when far_skip > 0
-LAUNCHES = {"knn": 0, "knn_tile_skip": 0, "warp_blend": 0, "scatter": 0,
+# its sweep when far_skip > 0; "warp_blend_view_dir" the warp-blend's
+# launches with warp_view on (also counted under "warp_blend")
+LAUNCHES = {"knn": 0, "knn_tile_skip": 0, "warp_blend": 0,
+            "warp_blend_view_dir": 0, "scatter": 0,
             "fused_mlp": 0, "fused_mlp_bwd": 0, "fused_mlp_wgrad": 0,
             "permute_lanes": 0, "knn_exact": 0, "knn_exact_cull": 0,
             "min_dist": 0, "knn_packed": 0, "knn_mxu": 0, "knn_far": 0}

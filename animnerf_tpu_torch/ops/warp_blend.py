@@ -1,18 +1,21 @@
 """Fused unpose (neighbour gather + gated blend + 4x4 warp): CUDA kernel
-plus plain version, its autograd Function, and the Morton codes that order
-the vertex table.
+plus plain version, its autograd Function, the point-layout entry, and
+the Morton codes that order the vertex table.
 
 Counterpart of ``animnerf_tpu/ops/warp_blend.py::warp_blend_fwd_pallas``
-with ``inputs_t=True, xyz_rows=True, warp_view=False``:
-xyz rows (B, 8, N) [x|y|z|..], dists/idx (B, k, N) as the top-k kNN emits
-them (k = ``k_neigh``, 1..16, read from the shapes), table
-(B, V, num_lbs + 16) -> (out (B, 8, N) rows [x'|y'|z'|bd|0 0 0 0],
-w (B, k, N), bf (B, 16, N)), and of
-``warp_blend_rows`` (its custom VJP): differentiable through xyz rows
-0..2 and the table's 16 transform columns, whose gradient is the weighted
-row scatter (``ops/blend.py``, the backward kernel); the distances, the
-indices and the LBS-weight gate are constants (the reference runs the kNN
-under no_grad and the gate is a hard threshold).
+with ``inputs_t=True, xyz_rows=True``, ``warp_view`` off and on:
+xyz rows (B, 8, N) [x|y|z|0|vx|vy|vz|0], dists/idx (B, k, N) as the top-k
+kNN emits them (k = ``k_neigh``, 1..16, read from the shapes), table
+(B, V, num_lbs + 16) -> (out (B, 8, N) rows [x'|y'|z'|bd|vd'|0] (vd' the
+view direction warped by the blended 4x4, translation included, with
+``warp_view``; zeros without), w (B, k, N), bf (B, 16, N)); of
+``warp_blend_rows`` (its custom VJP): differentiable through the xyz
+rows 0..2 (and 4..6 with ``warp_view``) and the table's 16 transform
+columns, whose gradient is the weighted row scatter (``ops/blend.py``,
+the backward kernel); the distances, the indices and the LBS-weight gate
+are constants (the reference runs the kNN under no_grad and the gate is
+a hard threshold); and of ``warp_blend`` (the point layout, which packs
+the rows itself as ``xyz_rows=False`` does).
 """
 
 from __future__ import annotations
@@ -85,14 +88,16 @@ def pad_table_plain(table: torch.Tensor, num_lbs: int) -> torch.Tensor:
 def warp_blend_fwd(xyz_rows: torch.Tensor, dists: torch.Tensor,
                    idx: torch.Tensor, table: torch.Tensor, num_lbs: int,
                    weight_std: float, conf_gate: float,
-                   residuals: bool = True):
+                   residuals: bool = True, warp_view: bool = False):
     """Kernel on CUDA tensors, plain version on CPU tensors. -> (out, w,
     bf); with ``residuals=False`` (the no-grad callers) only out is
-    written: (out, None, None)."""
+    written: (out, None, None). ``warp_view`` warps the view direction of
+    rows 4:7 into out rows 4:7."""
     _check(xyz_rows, dists, idx, table, num_lbs)
     if xyz_rows.device.type == "cpu":
         return warp_blend_fwd_plain(xyz_rows, dists, idx, table, num_lbs,
-                                    weight_std, conf_gate, residuals)
+                                    weight_std, conf_gate, residuals,
+                                    warp_view)
     xyz_rows, dists, idx, table = (t.contiguous() for t in
                                    (xyz_rows, dists, idx, table))
     _build.check_cuda("warp_blend_fwd", xyz_rows, dists, idx, table)
@@ -118,29 +123,39 @@ def warp_blend_fwd(xyz_rows: torch.Tensor, dists: torch.Tensor,
         w.data_ptr() if residuals else None,
         bf.data_ptr() if residuals else None, B, N, V, k, num_lbs,
         1.0 / (2.0 * float(weight_std) ** 2), float(conf_gate),
-        _build.stream_of(xyz_rows))
+        int(bool(warp_view)), _build.stream_of(xyz_rows))
     _build.LAUNCHES["warp_blend"] += 1
+    if warp_view:
+        _build.LAUNCHES["warp_blend_view_dir"] += 1
     return out, w, bf
 
 
 def warp_blend_fwd_plain(xyz_rows, dists, idx, table, num_lbs: int,
                          weight_std: float, conf_gate: float,
-                         residuals: bool = True):
-    """gather_blend_plain plus the blended 4x4 applied to xyz; (out, None,
-    None) with ``residuals=False``."""
+                         residuals: bool = True, warp_view: bool = False):
+    """gather_blend_plain plus the blended 4x4 applied to xyz (and, with
+    ``warp_view``, to the view direction of rows 4:7, translation
+    included); (out, None, None) with ``residuals=False``."""
     _check(xyz_rows, dists, idx, table, num_lbs)
     B, _, N = idx.shape
     bd, bf, w = gather_blend_plain(table, dists.transpose(1, 2),
                                    idx.transpose(1, 2), num_lbs,
                                    weight_std, conf_gate)
     bf_t = bf.transpose(1, 2)                                # (B, 16, N)
-    x, y, z = xyz_rows[:, 0:1], xyz_rows[:, 1:2], xyz_rows[:, 2:3]
-    rows = [bf_t[:, 4 * r:4 * r + 1] * x + bf_t[:, 4 * r + 1:4 * r + 2] * y
-            + bf_t[:, 4 * r + 2:4 * r + 3] * z + bf_t[:, 4 * r + 3:4 * r + 4]
-            for r in range(3)]
+
+    def apply(c0):
+        x, y, z = (xyz_rows[:, c0 + c:c0 + c + 1] for c in range(3))
+        return [bf_t[:, 4 * r:4 * r + 1] * x
+                + bf_t[:, 4 * r + 1:4 * r + 2] * y
+                + bf_t[:, 4 * r + 2:4 * r + 3] * z
+                + bf_t[:, 4 * r + 3:4 * r + 4] for r in range(3)]
+
+    rows = apply(0)
     rows.append(bd.transpose(1, 2))
-    rows.append(torch.zeros((B, 4, N), dtype=xyz_rows.dtype,
-                            device=xyz_rows.device))
+    if warp_view:
+        rows += apply(4)
+    rows.append(torch.zeros((B, 1 if warp_view else 4, N),
+                            dtype=xyz_rows.dtype, device=xyz_rows.device))
     out = torch.cat(rows, dim=1)
     if not residuals:
         return out, None, None
@@ -149,19 +164,22 @@ def warp_blend_fwd_plain(xyz_rows, dists, idx, table, num_lbs: int,
 
 class WarpBlendRows(torch.autograd.Function):
     """Forward: the warp-blend kernel, saving w and bf. Backward: d_bf rows
-    d_cano[r] * [x, y, z, 1][c] scattered into the 16 transform columns by
+    d_cano[r] * [x, y, z, 1][c] (plus d_vd[r] * [vx, vy, vz, 1][c] with
+    ``warp_view``) scattered into the 16 transform columns by
     ``weighted_scatter_rows`` (zeros for the LBS columns), and d_xyz rows
-    R^T d_cano from bf (counterpart of ops/warp_blend.py:398-439)."""
+    R^T d_cano (and R^T d_vd in rows 4:7 with ``warp_view``) from bf
+    (counterpart of ops/warp_blend.py:333-371 and :398-439)."""
 
     @staticmethod
     def forward(ctx, xyz_rows, dists, idx, table, num_lbs, weight_std,
-                conf_gate):
+                conf_gate, warp_view=False):
         out, w, bf = warp_blend_fwd(xyz_rows.detach(), dists.detach(), idx,
                                     table.detach(), num_lbs, weight_std,
-                                    conf_gate)
+                                    conf_gate, warp_view=warp_view)
         ctx.save_for_backward(xyz_rows, idx, w, bf)
         ctx.table_shape = table.shape
         ctx.num_lbs = num_lbs
+        ctx.warp_view = warp_view
         return out
 
     @staticmethod
@@ -169,36 +187,81 @@ class WarpBlendRows(torch.autograd.Function):
         xyz_rows, idx, w, bf = ctx.saved_tensors
         B, _, N = xyz_rows.shape
         d_cano = d_out[:, 0:3]
+        d_vd = d_out[:, 4:7] if ctx.warp_view else None
         d_xyz = d_table = None
         if ctx.needs_input_grad[3]:
-            xyzh = torch.cat([xyz_rows[:, 0:3], xyz_rows.new_ones(B, 1, N)],
-                             dim=1)
-            d_bf = torch.cat([d_cano[:, r:r + 1] * xyzh for r in range(3)]
-                             + [xyz_rows.new_zeros(B, 4, N)], dim=1)
+            ones = xyz_rows.new_ones(B, 1, N)
+            xyzh = torch.cat([xyz_rows[:, 0:3], ones], dim=1)
+            parts = [d_cano[:, r:r + 1] * xyzh for r in range(3)]
+            if d_vd is not None:
+                vdh = torch.cat([xyz_rows[:, 4:7], ones], dim=1)
+                parts = [p + d_vd[:, r:r + 1] * vdh
+                         for r, p in enumerate(parts)]
+            d_bf = torch.cat(parts + [xyz_rows.new_zeros(B, 4, N)], dim=1)
             V = ctx.table_shape[1]
             d_t16 = weighted_scatter_rows(idx, w, d_bf.contiguous(), V)
             d_table = torch.cat([d_t16.new_zeros(B, V, ctx.num_lbs), d_t16],
                                 dim=-1)
         if ctx.needs_input_grad[0]:
-            rows = []
-            for j in range(3):
-                acc = bf[:, j:j + 1] * d_cano[:, 0:1]
-                acc = acc + bf[:, 4 + j:5 + j] * d_cano[:, 1:2]
-                acc = acc + bf[:, 8 + j:9 + j] * d_cano[:, 2:3]
-                rows.append(acc)
-            d_xyz = torch.cat(rows + [xyz_rows.new_zeros(B, 5, N)], dim=1)
-        return d_xyz, None, None, d_table, None, None, None
+            def r_t(d):
+                rows = []
+                for j in range(3):
+                    acc = bf[:, j:j + 1] * d[:, 0:1]
+                    acc = acc + bf[:, 4 + j:5 + j] * d[:, 1:2]
+                    acc = acc + bf[:, 8 + j:9 + j] * d[:, 2:3]
+                    rows.append(acc)
+                return rows
+
+            zero = xyz_rows.new_zeros(B, 1, N)
+            rest = (r_t(d_vd) + [zero] if d_vd is not None
+                    else [xyz_rows.new_zeros(B, 4, N)])
+            d_xyz = torch.cat(r_t(d_cano) + [zero] + rest, dim=1)
+        return d_xyz, None, None, d_table, None, None, None, None
 
 
 def warp_blend_rows(xyz_rows: torch.Tensor, dists: torch.Tensor,
                     idx: torch.Tensor, table: torch.Tensor, num_lbs: int,
-                    weight_std: float, conf_gate: float) -> torch.Tensor:
-    """(B, 8, N) rows [x'|y'|z'|bd|0..], differentiable through the xyz
-    rows and the table's transform columns when autograd needs it; without
-    it the forward writes no residuals."""
+                    weight_std: float, conf_gate: float,
+                    warp_view: bool = False) -> torch.Tensor:
+    """(B, 8, N) rows [x'|y'|z'|bd|vd'|0] (vd' zeros without
+    ``warp_view``), differentiable through the xyz (and view) rows and
+    the table's transform columns when autograd needs it; without it the
+    forward writes no residuals."""
     if torch.is_grad_enabled() and (xyz_rows.requires_grad
                                     or table.requires_grad):
         return WarpBlendRows.apply(xyz_rows, dists, idx, table, num_lbs,
-                                   weight_std, conf_gate)
+                                   weight_std, conf_gate, warp_view)
     return warp_blend_fwd(xyz_rows, dists, idx, table, num_lbs, weight_std,
-                          conf_gate, residuals=False)[0]
+                          conf_gate, residuals=False, warp_view=warp_view)[0]
+
+
+def warp_blend(xyz: torch.Tensor, viewdir, dists: torch.Tensor,
+               idx: torch.Tensor, table: torch.Tensor, num_lbs: int,
+               weight_std: float, conf_gate: float, warp_view: bool = False,
+               inputs_t: bool = False):
+    """The point layout (``animnerf_tpu/ops/warp_blend.py::warp_blend``):
+    xyz (B, N, 3), viewdir (B, N, 3) or None, dists/idx (B, N, k), or
+    (B, k, N) with ``inputs_t`` -> (xyz_cano (B, N, 3), viewdir_out,
+    blended_dist (B, N, 1)). viewdir_out is the warped view direction
+    with ``warp_view`` (of zeros when viewdir is None, as in the JAX
+    package), else the input passed through.
+    The rows [x|y|z|0|vx|vy|vz|0] are packed here, as
+    ``warp_blend_fwd_pallas(xyz_rows=False)`` packs them, and go through
+    ``warp_blend_rows``: the same kernel, the same gradients."""
+    B, N = xyz.shape[:2]
+    xyz_t = xyz.to(torch.float32).transpose(1, 2)
+    zero = xyz_t.new_zeros(B, 1, N)
+    if warp_view and viewdir is not None:
+        vd_t = viewdir.to(torch.float32).transpose(1, 2)
+    else:
+        vd_t = xyz_t.new_zeros(B, 3, N)
+    rows = torch.cat([xyz_t, zero, vd_t, zero], dim=1)
+    if not inputs_t:
+        dists, idx = dists.transpose(1, 2), idx.transpose(1, 2)
+    out = warp_blend_rows(rows, dists.to(torch.float32).contiguous(),
+                          idx.to(torch.int32).contiguous(), table, num_lbs,
+                          weight_std, conf_gate, bool(warp_view))
+    cano = out[:, 0:3].transpose(1, 2)
+    bd = out[:, 3:4].transpose(1, 2)
+    vd = out[:, 4:7].transpose(1, 2) if warp_view else viewdir
+    return cano, vd, bd

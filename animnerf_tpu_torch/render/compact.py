@@ -23,7 +23,6 @@ import torch
 from animnerf_tpu_torch.models.anim_nerf import SIGMA_OUTSIDE
 from animnerf_tpu_torch.render.volume_renderer import (
     RendererConfig,
-    check_lanes,
     composite,
     composite_rows,
     composite_weights,
@@ -95,22 +94,26 @@ def compact_coarse(cfg: RendererConfig, warp_fn, field_fn,
                    rays: torch.Tensor, z_c: torch.Tensor, sel_c: torch.Tensor,
                    need_rgb: bool = True):
     """Coarse pass on the compacted samples, dense composite.
-    warp_fn(xyz) -> (cano, valid); field_fn(cano, valid, use_fine) ->
-    (rgb, sigma). Returns (out dict or None, weights (B, R, Kc), warped
-    (cano, valid)) — the warped survivors are reused by the fine pass."""
+    warp_fn(xyz, viewdir) -> (cano, viewdir', valid); field_fn(cano,
+    viewdir, valid, use_fine) -> (rgb, sigma), the view direction passed
+    as the JAX package's ``_fused_fn`` passes it. Returns (out dict or
+    None, weights (B, R, Kc), warped (cano, viewdir, valid)) — the warped
+    survivors are reused by the fine pass."""
     B, R, Kc = z_c.shape
-    xyz, _ = gather_samples(rays, z_c.reshape(B, -1), sel_c, Kc)
-    cano, valid = warp_fn(xyz)
-    rgb, sigma = field_fn(cano, valid, False)
+    xyz, vd = gather_samples(rays, z_c.reshape(B, -1), sel_c, Kc)
+    cano, vd2, valid = warp_fn(xyz, vd)
+    if vd2 is None:
+        vd2 = vd
+    rgb, sigma = field_fn(cano, vd2, valid, False)
     if not need_rgb:
         _, sigma_d = scatter_dense(None, sigma[..., 0], sel_c, R, Kc)
         weights, _ = composite_weights(cfg, sigma_d, rays, z_c)
-        return None, weights, (cano, valid)
+        return None, weights, (cano, vd2, valid)
     rgb_d, sigma_d = scatter_dense(rgb, sigma[..., 0], sel_c, R, Kc)
     weights, rgb_c, depth_c, alpha_c = composite(cfg, rgb_d, sigma_d, rays,
                                                  z_c)
     return ({"rgbs": rgb_c, "alphas": alpha_c, "depths": depth_c}, weights,
-            (cano, valid))
+            (cano, vd2, valid))
 
 
 def compact_fine(cfg: RendererConfig, warp_fn, field_fn, rays: torch.Tensor,
@@ -118,17 +121,20 @@ def compact_fine(cfg: RendererConfig, warp_fn, field_fn, rays: torch.Tensor,
                  warped_c, sel_f: torch.Tensor):
     """Fine pass: warp only the compacted fine samples, one fine-field
     evaluation over (compacted coarse + compacted fine), then the per-ray
-    depth merge-sort of the channel-leading [r|g|b|sigma|z] payload by the
-    lane permute kernel, and the composite."""
+    depth merge-sort of the channel-leading [r|g|b|sigma|z] payload
+    (``sort_by_depth``: the lane permute kernel up to 128 samples a ray,
+    the point-major sort above), and the composite."""
     B, R, Kc = z_c.shape
     Kf = z_f.shape[-1]
     Kall = Kc + Kf
-    check_lanes(Kall)
 
-    xyz_f, _ = gather_samples(rays, z_f.reshape(B, -1), sel_f, Kf)
-    cano_f, valid_f = warp_fn(xyz_f)
-    cano_c, valid_c = warped_c
+    xyz_f, vd_f = gather_samples(rays, z_f.reshape(B, -1), sel_f, Kf)
+    cano_f, vd_f2, valid_f = warp_fn(xyz_f, vd_f)
+    if vd_f2 is None:
+        vd_f2 = vd_f
+    cano_c, vd_c, valid_c = warped_c
     rgb, sigma = field_fn(torch.cat([cano_c, cano_f], dim=1),
+                          torch.cat([vd_c, vd_f2], dim=1),
                           torch.cat([valid_c, valid_f], dim=1), True)
 
     # dense concat layout (R, Kc + Kf), coarse slots first — the dense

@@ -63,7 +63,10 @@ def render_rays_rows_compact(cfg: RendererConfig, warp_rows_fn: Callable,
     compacted. warp_rows_fn(rows) and field_rows_fn(rows, use_fine) are
     the rows-native model hooks (the warp with the kNN tile skip);
     keep_rows_fn(rows) -> (B, N) bool is the conservative pre-pass.
-    ``noise`` (training) jitters the samples and the sigmas. Returns (out
+    ``noise`` (training) jitters the samples and the sigmas. Under
+    ``share_fine`` the coarse field and composite run without a gradient
+    (their weights only steer the fine samples) and the fine outputs
+    replace the coarse ones (JAX compact_rows.py:156-231). Returns (out
     dict, n_c): n_c the largest per-row coarse survivor count."""
     perturb = 1.0 if noise is not None else 0.0
     B, R = rays.shape[:2]
@@ -78,17 +81,21 @@ def render_rays_rows_compact(cfg: RendererConfig, warp_rows_fn: Callable,
     cap = max(n_c, 1)
     sel_rows = _rows_of(compact_channels(_xyz(rows_c), o, inv, cap), B, cap)
     wout_sel = warp_rows_fn(sel_rows)
-    f_sel = field_rows_fn(wout_sel, False)                 # (B, 8, cap)
 
     def expand_cols(src, o, inv, K):
         dense = expand_channels(tuple(src[:, c] for c in range(4)), FILLS,
                                 o, inv)
         return [c.reshape(B, R, K) for c in dense]
 
-    frows_c = torch.stack(expand_cols(f_sel, o, inv, Kc), dim=1)
-    weights, rgb_c, depth_c, alpha_c = composite_rows(
-        cfg, frows_c, rays, z_coarse,
-        noise.sigma_c if noise is not None else None)
+    def run_coarse():
+        f_sel = field_rows_fn(wout_sel, False)             # (B, 8, cap)
+        frows_c = torch.stack(expand_cols(f_sel, o, inv, Kc), dim=1)
+        return composite_rows(cfg, frows_c, rays, z_coarse,
+                              noise.sigma_c if noise is not None else None)
+
+    shared = cfg.n_fine > 0 and cfg.share_fine
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not shared):
+        weights, rgb_c, depth_c, alpha_c = run_coarse()
     out = {"rgbs": rgb_c, "alphas": alpha_c, "depths": depth_c}
     if cfg.n_fine <= 0:
         return out, n_c
@@ -121,6 +128,8 @@ def render_rays_rows_compact(cfg: RendererConfig, warp_rows_fn: Callable,
     sp = sort_by_depth(pay, z_all)
     _, rgb_f, depth_f, alpha_f = composite_rows(
         cfg, sp, rays, sp[:, 4], noise.sigma_f if noise is not None else None)
+    if shared:
+        return {"rgbs": rgb_f, "alphas": alpha_f, "depths": depth_f}, n_c
     out.update({"rgbs_fine": rgb_f, "alphas_fine": alpha_f,
                 "depths_fine": depth_f})
     return out, n_c

@@ -14,12 +14,20 @@ composite to exact background), then the surviving rays in slabs.
   deterministic fine sampling, its pre-pass, the fine warp, one fine MLP
   over coarse and fine survivors, the per-ray depth merge-sort and the
   composite; slabs of 8 x ``max_rays_per_call`` rays.
-- Dense (``compact_samples=False``): ``render_rays_rows`` on every sample
-  of every ray (the JAX package's ``_render_fn`` on its rows path), slabs
-  of ``max_rays_per_call`` rays; the image is the fine pass's. Here most
+- Dense (``compact_samples=False``, or a configuration that compaction
+  does not cover: DeRF, latent codes, depth-guided samples, no
+  unposing): every sample of every ray, as the JAX package's
+  ``_render_fn`` routes it: ``render_rays_rows`` for a rows-renderable
+  configuration, ``render_rays_split`` for every other; slabs of
+  ``max_rays_per_call`` rays; the image is the fine pass's. Here most
   kNN point groups of a slab are background, which the kNN's all-far
   skip (``AnimNeRFConfig.knn_far_skip``) skips; the image is the same
   with it on or off.
+
+The view direction reaches the warp and the field on both routes. As in
+the JAX package, the renderer passes no latent codes: a model with
+``deformation_dim`` or ``apperance_dim`` renders through
+``make_eval_step``, and the renderer raises for it.
 
 The JAX package's capacity rungs, overflow ratchet and ray padding
 (``_quantize``, ``_prime_caps``, ``_fetch_ratchet``, ``_pad_ray_ids`` and
@@ -46,6 +54,7 @@ from animnerf_tpu_torch.render.compact import (
 )
 from animnerf_tpu_torch.render.volume_renderer import (
     render_rays_rows,
+    render_rays_split,
     sample_coarse,
     sample_fine,
 )
@@ -111,6 +120,13 @@ class Renderer:
         self.device = resolve_device(device)
         pin_fp32_geometry()
         self.system = system.to_device(self.device)
+        if system.latent_dim > 0:
+            # the JAX package's Renderer passes no codes either, and its
+            # field then fails on the missing code
+            raise TypeError(
+                "the renderer passes no latent codes: a model with "
+                "deformation_dim or apperance_dim renders through "
+                "training.system.make_eval_step (frame_idx picks the code)")
         # coarse / fine samples through the kNN and the MLP in the last
         # frame: the survivors (compacted), every sample of the rendered
         # rays (dense)
@@ -199,8 +215,8 @@ class Renderer:
                 return min_vertex_distance(xyz, ctx.verts) < thr
             return keep_within_boxes(xyz, ctx.verts_morton, thr)
 
-        def warp_fn(xyz):
-            return scene.warp_points(ctx, xyz)
+        def warp_fn(xyz, viewdir):
+            return scene.warp_points(ctx, xyz, viewdir)
 
         sel_c = select_indices(keep_of(z_c, Kc))
         out, weights, warped_c = compact_coarse(
@@ -223,22 +239,36 @@ class Renderer:
     def _render_dense(self, ctx, rays_root: torch.Tensor):
         """Dense render of (1, R, 8) root-frame rays -> (rgb (1, R, 3),
         alpha (1, R), depth (1, R), coarse and fine sample counts): the
-        fine pass's outputs where there is one."""
+        fine pass's outputs where there is one; the rows render where the
+        configuration is rows-renderable, else the split render."""
         cfg = self.system.renderer_cfg
         scene = self.system.scene
-        out = render_rays_rows(cfg, lambda rows: scene.warp_rows(ctx, rows),
-                               scene.field_rows, rays_root)
+        if self.system.rows_renderable():
+            out = render_rays_rows(
+                cfg, lambda rows: scene.warp_rows(ctx, rows),
+                scene.field_rows, rays_root)
+        else:
+            out = render_rays_split(
+                cfg, lambda xyz, vd: scene.warp_points(ctx, xyz, vd),
+                scene.field_points, rays_root)
         sfx = "_fine" if "rgbs_fine" in out else ""
         R = rays_root.shape[1]
         return (out["rgbs" + sfx], out["alphas" + sfx][..., 0],
                 out["depths" + sfx][..., 0], R * cfg.n_coarse,
-                R * cfg.n_fine)
+                R * (cfg.n_fine + cfg.n_fine_depth))
+
+    def _compaction_applicable(self) -> bool:
+        """Compaction covers the kNN-unposed field without DeRF, latent
+        codes or depth-guided samples (view directions are carried; JAX
+        inference.py:141-149)."""
+        sc = self.system.scene_cfg
+        return (self.compact_samples and sc.use_unpose
+                and not sc.use_deformation and sc.deformation_dim == 0
+                and sc.apperance_dim == 0
+                and self.system.renderer_cfg.n_fine_depth == 0)
 
     def _render_slabs(self, ctx, rays_root: torch.Tensor):
-        # the JAX package's other conditions for compaction (no latent
-        # codes, no depth-guided samples) hold for every config the port
-        # takes: system.py rejects the others
-        if self.compact_samples:
+        if self._compaction_applicable():
             render, slab = self._render_compact, 8 * self.max_rays_per_call
         else:
             render, slab = self._render_dense, self.max_rays_per_call
@@ -265,7 +295,11 @@ class Renderer:
             n = rays_t.shape[1]
             rays_root = self._rays_root_rotated(ctx, rays_t, self._tensor(P))
             active = None
-            if self.cull_rays and n > self.max_rays_per_call:
+            # the cull's proof needs the shell: unposing, and no
+            # depth-guided samples (JAX inference.py:379-381)
+            if self.cull_rays and n > self.max_rays_per_call \
+                    and self.system.scene_cfg.use_unpose \
+                    and cfg.n_fine_depth == 0:
                 maybe, fars = self._maybe_hit_ctx(ctx, rays_root)
                 active = torch.nonzero(maybe[0], as_tuple=False)[:, 0]
                 if len(active) == n:
@@ -295,8 +329,9 @@ class Renderer:
                              points, use_fine: bool = True,
                              chunk: int = 262144) -> np.ndarray:
         """relu(sigma) at (1, N, 3) observed-space points -> numpy (1, N, 1)
-        (mesh extraction; the queries go through the unpose warp). The
-        frame geometry once, then chunks of ``chunk`` points through
+        (mesh extraction; the queries go through the unpose warp, with
+        zero view directions as the JAX package passes them). The frame
+        geometry once, then chunks of ``chunk`` points through
         ``warp_points`` and ``field_points``; every chunk's output stays on
         the device and the whole grid is copied to the host once."""
         scene = self.system.scene
@@ -305,8 +340,9 @@ class Renderer:
             pts = self._tensor(points)
             outs = []
             for s in range(0, pts.shape[1], chunk):
-                xyz, valid = scene.warp_points(ctx, pts[:, s:s + chunk])
-                _, sigma = scene.field_points(xyz, valid, use_fine)
+                p = pts[:, s:s + chunk]
+                xyz, vd, valid = scene.warp_points(ctx, p, torch.zeros_like(p))
+                _, sigma = scene.field_points(xyz, vd, valid, use_fine)
                 outs.append(torch.relu(sigma))
             return torch.cat(outs, dim=1).cpu().numpy()
 

@@ -6,8 +6,11 @@ the JAX package's key names and a ``meta.json`` with ``groups``, ``step``
 and ``cfg``:
 
   * ``anim_nerf.npz``: ``<net>/params/<layer>/<kernel|bias>`` for the nets
-    ``nerf`` and ``nerf_fine``, flax kernels (in, out);
-  * ``body_params.npz``: the per-frame body parameters by name.
+    ``nerf``, ``nerf_fine`` and ``derf`` (DeRF), flax kernels (in, out);
+  * ``body_params.npz``: the per-frame body parameters by name;
+  * ``latent_codes.npz``: the per-frame codes, one array under the key
+    "" (the JAX package's flattening of a bare array), when the model has
+    them.
 
 So the JAX package loads the port's checkpoints and the port loads the
 JAX package's, by group (``model_names_to_load``). The port's optimizer,
@@ -28,17 +31,22 @@ from typing import Optional
 import numpy as np
 import torch
 
-from animnerf_tpu_torch.utils.convert import NERF_LAYERS, load_checkpoint
+from animnerf_tpu_torch.utils.convert import (
+    NERF_LAYERS,
+    NET_LAYERS,
+    load_checkpoint,
+)
 
 OPT_STATE = "opt_state.pt"
 
 
-def nerf_params_to_flax(state: dict, net: str) -> dict:
-    """``NeRFMLP`` state dict -> flat flax keys of one net
-    (``<net>/params/<layer>/kernel`` (in, out) and ``.../bias``), the
-    inverse of ``utils/convert.py::nerf_params_from_flax``."""
+def nerf_params_to_flax(state: dict, net: str, layers=NERF_LAYERS) -> dict:
+    """``NeRFMLP`` (or, with DeRF's layers, ``DeRFMLP``) state dict -> flat
+    flax keys of one net (``<net>/params/<layer>/kernel`` (in, out) and
+    ``.../bias``), the inverse of ``utils/convert.py::
+    nerf_params_from_flax``."""
     out = {}
-    for layer in NERF_LAYERS:
+    for layer in layers:
         w = state[f"{layer}.weight"].detach().to("cpu", torch.float32)
         b = state[f"{layer}.bias"].detach().to("cpu", torch.float32)
         out[f"{net}/params/{layer}/kernel"] = np.ascontiguousarray(
@@ -49,15 +57,21 @@ def nerf_params_to_flax(state: dict, net: str) -> dict:
 
 def system_params(system) -> dict:
     """The system's parameters as the JAX package's groups of flat numpy
-    arrays: {"anim_nerf": {flax key: array}, "body_params": {name: array}}."""
+    arrays: {"anim_nerf": {flax key: array}, "body_params": {name: array}}
+    and, with latent codes, "latent_codes": {"": array}."""
     nerf = {}
-    for net in ("nerf", "nerf_fine"):
+    for net, layers in NET_LAYERS.items():
         module = getattr(system.scene, net, None)
         if module is not None:
-            nerf.update(nerf_params_to_flax(module.state_dict(), net))
+            nerf.update(nerf_params_to_flax(module.state_dict(), net,
+                                            layers))
     body = {k: p.detach().to("cpu", torch.float32).numpy().copy()
             for k, p in system.body_params.items()}
-    return {"anim_nerf": nerf, "body_params": body}
+    out = {"anim_nerf": nerf, "body_params": body}
+    if system.latent_codes is not None:
+        out["latent_codes"] = {"": system.latent_codes.detach().to(
+            "cpu", torch.float32).numpy().copy()}
+    return out
 
 
 def save_params(path: str, params: dict,
@@ -81,9 +95,10 @@ def load_metadata(path: str) -> dict:
 def load_params(path: str, system,
                 groups: Optional[list] = None) -> None:
     """Load all (or the named) groups of a checkpoint into the system;
-    groups the system lacks (latent codes) and files that are missing
-    leave its values as they are, as the JAX package's ``load_params``.
-    A body parameter of another shape raises."""
+    groups the system lacks (latent codes of a model without them) and
+    files that are missing leave its values as they are, as the JAX
+    package's ``load_params``. A body parameter or codes of another shape
+    raise."""
     ck = load_checkpoint(path)
     for group in groups if groups is not None else ck["meta"]["groups"]:
         if group == "anim_nerf" and "anim_nerf" in ck:
@@ -104,6 +119,15 @@ def load_params(path: str, system,
                             f"body_params:{k} shape {arr.shape} != target "
                             f"{tuple(p.shape)}")
                     p.copy_(torch.from_numpy(arr))
+        elif group == "latent_codes" and "latent_codes" in ck \
+                and system.latent_codes is not None:
+            arr = ck["latent_codes"]
+            if tuple(arr.shape) != tuple(system.latent_codes.shape):
+                raise ValueError(
+                    f"latent_codes shape {arr.shape} != target "
+                    f"{tuple(system.latent_codes.shape)}")
+            with torch.no_grad():
+                system.latent_codes.copy_(torch.from_numpy(arr))
 
 
 def save_train_state(path: str, system, optimizer, scheduler, step: int,

@@ -3,7 +3,9 @@ validation, evaluation — counterpart of ``animnerf_tpu/training/loop.py``.
 
 ``fit`` builds the system from the config (the body model from its model
 file), reads the training frames through ``AnimNeRFDataset`` / ``Loader``,
-takes ``RowsCompactTrainer`` steps, renders one validation frame per epoch
+takes steps of the engine the JAX package's ``auto`` picks
+(``RowsCompactTrainer`` for the flagship configuration, ``DenseTrainer``
+for every other; a line names it), renders one validation frame per epoch
 (``make_eval_step`` in slabs of 32,768 rays), and writes the top-k and
 ``last`` checkpoints in the JAX package's layout; ``evaluate`` scores a
 split's frames with PSNR and SSIM. Log lines, ``metrics.jsonl`` keys,
@@ -42,10 +44,10 @@ from animnerf_tpu_torch.training.checkpoints import (
     system_params,
 )
 from animnerf_tpu_torch.training.system import (
-    RowsCompactTrainer,
     _schedule,
     make_eval_step,
     make_optimizer,
+    make_trainer,
 )
 from animnerf_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -153,12 +155,6 @@ def fit(cfg: CfgNode, profile: bool = False, device: DeviceLike = None,
     check_single_device(cfg)
     dev = resolve_device(device)
     system = build_system(cfg, dev)
-    if not system.rows_renderable():
-        r = system.renderer_cfg
-        raise NotImplementedError(
-            f"{r.n_coarse} + {r.n_fine} samples per ray: the port trains "
-            "with the rows-compacted step, which takes up to 128; the "
-            "dense trainer is not ported")
 
     train_ds = AnimNeRFDataset(
         cfg.root_dir, mode="train", img_wh=tuple(cfg.img_wh),
@@ -191,8 +187,11 @@ def fit(cfg: CfgNode, profile: bool = False, device: DeviceLike = None,
             train_field = False
     optimizer, scheduler = make_optimizer(system, steps_per_epoch,
                                           train_field=train_field)
-    trainer = RowsCompactTrainer(system, steps_per_epoch, optimizer,
-                                 scheduler, seed=cfg.seed + 1)
+    trainer = make_trainer(system, steps_per_epoch, optimizer, scheduler,
+                           seed=cfg.seed + 1)
+    print(f"trainer engine: {trainer.engine} "
+          f"(compute_dtype={system.scene_cfg.compute_dtype}, "
+          f"remat={system.scene_cfg.remat}, device={dev.type})", flush=True)
     start_step = 0
     if cfg.train.resume and cfg.train.ckpt_path:
         start_step = load_train_state(cfg.train.ckpt_path, system,
@@ -272,7 +271,8 @@ def fit(cfg: CfgNode, profile: bool = False, device: DeviceLike = None,
                 _sync(dev)
                 stats["wait_s"].append(t_step - t_wait)
                 stats["step_s"].append(time.perf_counter() - t_step)
-                stats["compact_count"].append(metrics["compact_count"])
+                stats["compact_count"].append(
+                    metrics.get("compact_count", 0))
             if prof is not None and step == start_step + 4:
                 _sync(dev)
                 prof.stop()

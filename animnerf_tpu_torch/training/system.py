@@ -1,7 +1,17 @@
-"""Training and evaluation steps of the flagship model — counterpart of
+"""Training and evaluation steps — counterpart of
 ``animnerf_tpu/training/system.py`` (``psnr``, ``_safe_normalize``,
-``compute_loss``, ``rows_compact_loss_fn``, ``make_optimizer``,
-``RowsCompactTrainer``, ``make_eval_step``).
+``compute_loss``, ``loss_fn`` and ``make_train_step`` (here
+``DenseTrainer``), ``rows_compact_loss_fn``, ``make_optimizer``,
+``RowsCompactTrainer``, ``make_eval_step``, ``compaction_applicable``,
+``rows_compaction_applicable``).
+
+Two engines, picked as the JAX package's ``auto`` picks them
+(``training/loop.py``): the rows-compacted step for the flagship
+configuration (``rows_compaction_applicable``), the dense step
+(``loss_fn``: ``AnimNeRFSystem.render`` with perturb 1, through
+``render_rays_split`` for view directions, latent codes, DeRF,
+depth-guided samples, no unposing or more than 128 samples a ray) for
+every other.
 
 The JAX functions take a params pytree; here the parameters live in the
 ``AnimNeRFSystem`` (``system.py``), so the functions take the system.
@@ -53,13 +63,17 @@ def _safe_normalize(n: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def compute_loss(system: AnimNeRFSystem, results: dict, rgbs: torch.Tensor,
                  alphas: torch.Tensor, ctx, noise: TrainNoise,
                  fg_points: Optional[torch.Tensor] = None,
-                 bg_points: Optional[torch.Tensor] = None):
-    """Six-term loss (reference train.py:228-322) -> (loss, details)."""
+                 bg_points: Optional[torch.Tensor] = None,
+                 frame_idx: Optional[torch.Tensor] = None):
+    """Six-term loss (reference train.py:228-322) -> (loss, details). The
+    density terms take the frames' deformation code; without unposing the
+    fg/bg terms are left out, as in the JAX package."""
     t = system.train_cfg
     scene = system.scene
     has_fine = system.renderer_cfg.n_fine > 0 \
         and not system.scene_cfg.share_fine
     fields = [False, True] if has_fine else [False]
+    d_code, _ = system.codes(frame_idx)
 
     details = {}
     loss = torch.mean((results["rgbs"] - rgbs) ** 2)
@@ -79,12 +93,14 @@ def compute_loss(system: AnimNeRFSystem, results: dict, rgbs: torch.Tensor,
 
     # fg/bg sigma terms: one MLP pass per field over both point sets
     scale = 2.0 / system.renderer_cfg.n_coarse
-    if fg_points is not None or bg_points is not None:
+    if system.scene_cfg.use_unpose and (fg_points is not None
+                                        or bg_points is not None):
         pts = torch.cat([p for p in (fg_points, bg_points) if p is not None],
                         dim=1)
         n_fg = fg_points.shape[1] if fg_points is not None else 0
         for fine in fields:
-            e = torch.exp(-scale * torch.relu(scene.query_sigma(pts, fine)))
+            e = torch.exp(-scale * torch.relu(
+                scene.query_sigma(pts, fine, d_code)))
             sfx = "_fine" if fine else ""
             if fg_points is not None:
                 lfg = torch.mean(e[:, :n_fg])
@@ -102,7 +118,7 @@ def compute_loss(system: AnimNeRFSystem, results: dict, rgbs: torch.Tensor,
     n_pts = pts.shape[1]
     pts_nrm = torch.cat([pts, nbrs], dim=1)
     for fine in fields:
-        nrm = scene.query_normal(pts_nrm, fine)
+        nrm = scene.query_normal(pts_nrm, fine, d_code)
         n1 = _safe_normalize(nrm[:, :n_pts])
         n2 = _safe_normalize(nrm[:, n_pts:])
         ln = torch.mean((n1 - n2) ** 2)
@@ -113,6 +129,16 @@ def compute_loss(system: AnimNeRFSystem, results: dict, rgbs: torch.Tensor,
     return loss, details
 
 
+def _body_params(system: AnimNeRFSystem, batch: dict):
+    if system.optim_body_params:
+        body_params = lookup_body_params(dict(system.body_params),
+                                         batch["frame_idx"])
+    else:
+        body_params = batch_params_from_data(batch, system.model_type)
+    return body_params, batch_params_from_data(batch, system.model_type,
+                                               template=True)
+
+
 def rows_compact_loss_fn(system: AnimNeRFSystem, batch: dict,
                          noise: TrainNoise):
     """The training loss on the rows-native compacted kernel pipeline with
@@ -121,15 +147,8 @@ def rows_compact_loss_fn(system: AnimNeRFSystem, batch: dict,
     count). batch: tensors on the system's device (``frame_idx``, ``rays``
     (B, R, 8), ``rgbs``, ``alphas``, the ``*_template`` body params, and
     optionally ``fg_points`` / ``bg_points`` and observed body params)."""
-    if system.scene_cfg.share_fine:
-        raise NotImplementedError("share_fine training is not ported yet")
     frame_idx = batch["frame_idx"]
-    if system.optim_body_params:
-        body_params = lookup_body_params(dict(system.body_params), frame_idx)
-    else:
-        body_params = batch_params_from_data(batch, system.model_type)
-    body_tmpl = batch_params_from_data(batch, system.model_type,
-                                       template=True)
+    body_params, body_tmpl = _body_params(system, batch)
     ctx = prepare_frame(system.body_model, body_params, body_tmpl)
     rays_root = rays_to_root_frame(ctx, batch["rays"])
     thr = system.scene_cfg.dis_threshold
@@ -142,11 +161,45 @@ def rows_compact_loss_fn(system: AnimNeRFSystem, batch: dict,
         noise=noise)
     loss, details = compute_loss(
         system, results, batch["rgbs"], batch["alphas"], ctx, noise,
-        fg_points=batch.get("fg_points"), bg_points=batch.get("bg_points"))
+        fg_points=batch.get("fg_points"), bg_points=batch.get("bg_points"),
+        frame_idx=frame_idx)
     rgb_key = "rgbs_fine" if "rgbs_fine" in results else "rgbs"
     details["psnr"] = psnr(results[rgb_key], batch["rgbs"])
     details["compact_count"] = n_c
     return loss, details
+
+
+def loss_fn(system: AnimNeRFSystem, batch: dict, noise: TrainNoise):
+    """The dense training loss (JAX ``AnimNeRFSystem.loss_fn``): the
+    batch rendered by ``AnimNeRFSystem.render`` at perturb 1 with the
+    frames' codes and ``noise``, then ``compute_loss`` -> (loss, details
+    with the psnr). batch as ``rows_compact_loss_fn`` takes it."""
+    frame_idx = batch["frame_idx"]
+    body_params, body_tmpl = _body_params(system, batch)
+    results, ctx = system.render(body_params, body_tmpl, batch["rays"],
+                                 frame_idx, perturb=1.0, noise=noise)
+    loss, details = compute_loss(
+        system, results, batch["rgbs"], batch["alphas"], ctx, noise,
+        fg_points=batch.get("fg_points"), bg_points=batch.get("bg_points"),
+        frame_idx=frame_idx)
+    rgb_key = "rgbs_fine" if "rgbs_fine" in results else "rgbs"
+    details["psnr"] = psnr(results[rgb_key], batch["rgbs"])
+    return loss, details
+
+
+def compaction_applicable(system: AnimNeRFSystem) -> bool:
+    """Sample compaction is exact for the kNN-unposed field without DeRF,
+    latent codes or depth-guided samples (JAX
+    ``AnimNeRFSystem.compaction_applicable``)."""
+    sc = system.scene_cfg
+    return (sc.use_unpose and not sc.use_deformation
+            and sc.deformation_dim == 0 and sc.apperance_dim == 0
+            and system.renderer_cfg.n_fine_depth == 0)
+
+
+def rows_compaction_applicable(system: AnimNeRFSystem) -> bool:
+    """The rows-compacted step needs the rows pipeline and compaction."""
+    return compaction_applicable(system) and system.rows_renderable()
 
 
 def _schedule(t: dict, base_lr: float, steps_per_epoch: int):
@@ -174,16 +227,19 @@ def _schedule(t: dict, base_lr: float, steps_per_epoch: int):
 
 def make_optimizer(system: AnimNeRFSystem, steps_per_epoch: int,
                    train_field: bool = True):
-    """(optimizer, scheduler): the field at lr and the body params at half
-    of it (latent codes would join the field's rate; the flagship has
-    none), Adam (eps 1e-8; AdamW with weight_decay) or SGD with momentum,
-    and the per-epoch schedule applied per update (step the scheduler
-    after every optimizer step, as optax counts updates)."""
+    """(optimizer, scheduler): the field at lr, the latent codes at lr
+    (trained even when a loaded field is frozen, as the JAX package's
+    ``latent`` group) and the body params at half of it, Adam (eps 1e-8;
+    AdamW with weight_decay) or SGD with momentum, and the per-epoch
+    schedule applied per update (step the scheduler after every optimizer
+    step, as optax counts updates)."""
     t = system.train_cfg
     lr = float(t["lr"])
     groups = []
     if train_field:
         groups.append({"params": list(system.scene.parameters()), "lr": lr})
+    if system.latent_codes is not None:
+        groups.append({"params": [system.latent_codes], "lr": lr})
     if system.optim_body_params:
         groups.append({"params": list(system.body_params.parameters()),
                        "lr": 0.5 * lr})
@@ -207,6 +263,9 @@ class RowsCompactTrainer:
     the rows-compacted loss, its backward, the optimizer and scheduler
     steps. Exact survivor selection: no capacity, no re-run."""
 
+    engine = "rows"
+    loss_fn = staticmethod(rows_compact_loss_fn)
+
     def __init__(self, system: AnimNeRFSystem, steps_per_epoch: int = 100,
                  optimizer=None, scheduler=None, seed: int = 0):
         pin_fp32_geometry()
@@ -226,11 +285,11 @@ class RowsCompactTrainer:
 
     def step(self, batch: dict, noise: Optional[TrainNoise] = None) -> dict:
         """batch as ``rows_compact_loss_fn`` takes it -> details (0-d
-        tensors, ``compact_count`` an int)."""
+        tensors; the rows engine's ``compact_count`` an int)."""
         if noise is None:
             noise = self.draw_noise(batch)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, details = rows_compact_loss_fn(self.system, batch, noise)
+        loss, details = self.loss_fn(self.system, batch, noise)
         loss.backward()
         self.optimizer.step()
         if self.scheduler is not None:
@@ -240,11 +299,29 @@ class RowsCompactTrainer:
                 for k, v in details.items()}
 
 
+class DenseTrainer(RowsCompactTrainer):
+    """The dense engine (JAX ``make_train_step``): the same step on the
+    dense ``loss_fn``."""
+
+    engine = "dense"
+    loss_fn = staticmethod(loss_fn)
+
+
+def make_trainer(system: AnimNeRFSystem, steps_per_epoch: int = 100,
+                 optimizer=None, scheduler=None, seed: int = 0):
+    """The engine the JAX package's ``auto`` picks: rows-compacted where
+    ``rows_compaction_applicable``, else dense."""
+    cls = RowsCompactTrainer if rows_compaction_applicable(system) \
+        else DenseTrainer
+    return cls(system, steps_per_epoch, optimizer, scheduler, seed)
+
+
 def make_eval_step(system: AnimNeRFSystem):
     """The evaluation step: eval_step(batch) -> the dense render's outputs
-    (``AnimNeRFSystem.render``, perturb 0, no gradient). batch: tensors on
-    the system's device (``frame_idx`` (B,), ``rays`` (B, R, 8), the
-    ``*_template`` body params and the observed ones). With body params
+    (``AnimNeRFSystem.render`` with the frames' codes, perturb 0, no
+    gradient). batch: tensors on the system's device (``frame_idx`` (B,),
+    ``rays`` (B, R, 8), the ``*_template`` body params and the observed
+    ones). With body params
     optimised, a frame of the training set (frame_idx >= 0) takes its
     stored params and any other (frame_idx == -1) the batch's, blended as
     sel * stored + (1 - sel) * given as the JAX step does."""
@@ -265,7 +342,8 @@ def make_eval_step(system: AnimNeRFSystem):
                 body_params = given
             body_tmpl = batch_params_from_data(batch, system.model_type,
                                                template=True)
-            results, _ = system.render(body_params, body_tmpl, batch["rays"])
+            results, _ = system.render(body_params, body_tmpl, batch["rays"],
+                                       frame_idx)
         return results
 
     return eval_step

@@ -23,13 +23,18 @@ class TrainNoise:
     coarse_u: torch.Tensor   # (B, R, Kc) U[0, 1): stratified jitter
     fine_u: torch.Tensor     # (B, R, Kf) U[0, 1): importance samples
     sigma_c: torch.Tensor    # (B, R, Kc) N(0, 1): coarse sigma noise
-    sigma_f: torch.Tensor    # (B, R, Kc + Kf) N(0, 1): fine sigma noise
+    sigma_f: torch.Tensor    # (B, R, Kc + Kf + Kd) N(0, 1): fine sigma noise
     normal_pts: torch.Tensor   # (B, V, 3) N(0, 1): normal-loss jitter
     normal_nbr: torch.Tensor   # (B, V, 3) N(0, 1): its neighbour offsets
+    # (B, R, Kd) N(0, 1): the depth-guided samples (n_fine_depth); None
+    # without them
+    depth_n: Optional[torch.Tensor] = None
 
     def to(self, device) -> "TrainNoise":
-        return TrainNoise(**{f.name: getattr(self, f.name).to(device)
-                             for f in dataclasses.fields(self)})
+        return TrainNoise(**{
+            f.name: None if getattr(self, f.name) is None
+            else getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)})
 
 
 def draw_noise(generator: torch.Generator, B: int, R: int, cfg, V: int,
@@ -38,7 +43,7 @@ def draw_noise(generator: torch.Generator, B: int, R: int, cfg, V: int,
     (a ``RendererConfig``) and V template vertices, on ``device`` (the
     generator's device by default)."""
     dev = generator.device if device is None else device
-    n_coarse, n_fine = cfg.n_coarse, cfg.n_fine
+    n_coarse, n_fine, n_depth = cfg.n_coarse, cfg.n_fine, cfg.n_fine_depth
     f32 = torch.float32
 
     def uni(*shape):
@@ -49,5 +54,6 @@ def draw_noise(generator: torch.Generator, B: int, R: int, cfg, V: int,
 
     return TrainNoise(coarse_u=uni(B, R, n_coarse), fine_u=uni(B, R, n_fine),
                       sigma_c=nrm(B, R, n_coarse),
-                      sigma_f=nrm(B, R, n_coarse + n_fine),
-                      normal_pts=nrm(B, V, 3), normal_nbr=nrm(B, V, 3))
+                      sigma_f=nrm(B, R, n_coarse + n_fine + n_depth),
+                      normal_pts=nrm(B, V, 3), normal_nbr=nrm(B, V, 3),
+                      depth_n=nrm(B, R, n_depth) if n_depth else None)

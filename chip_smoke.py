@@ -655,7 +655,8 @@ def capture_warp_blend(fn, keep: int = 1) -> list:
     calls, orig = [], warp_blend.warp_blend_fwd
 
     def record(*args, **kw):
-        c = {"N": int(args[2].shape[2]), "k": int(args[2].shape[1])}
+        c = {"N": int(args[2].shape[2]), "k": int(args[2].shape[1]),
+             "warp_view": bool(kw.get("warp_view", False))}
         if len(calls) < keep:
             c["args"] = tuple(a.detach().clone() if hasattr(a, "detach")
                               else a for a in args)
@@ -791,14 +792,15 @@ def step_scatter_lines(calls: list) -> dict:
     return line
 
 
-def warp_blend_call_line(args: tuple, reps: int = 20) -> dict:
-    """A kernel line of the warp-blend on a captured call's arguments:
-    within 1e-4 of its plain version (every output), its time (CUDA
-    events) and bound (inputs read once, outputs written once), the bytes
-    of the gathered table rows (N * K * F * 4) as a field of their own,
-    and, where the wrapper has it, the residual-free mode (``out`` only):
-    its time, its own bound, and its ``out`` bit-equal to the full
-    mode's."""
+def warp_blend_call_line(args: tuple, reps: int = 20,
+                         warp_view: bool = False) -> dict:
+    """A kernel line of the warp-blend on a captured call's arguments
+    (``warp_view``: with the view-direction rows warped too): within 1e-4
+    of its plain version (every output), its time (CUDA events) and bound
+    (inputs read once, outputs written once), the bytes of the gathered
+    table rows (N * K * F * 4) as a field of their own, and, where the
+    wrapper has it, the residual-free mode (``out`` only): its time, its
+    own bound, and its ``out`` bit-equal to the full mode's."""
     import inspect
 
     import torch
@@ -808,38 +810,43 @@ def warp_blend_call_line(args: tuple, reps: int = 20) -> dict:
         warp_blend_fwd_plain,
     )
 
+    kw = {"warp_view": True} if warp_view else {}
     rows, d, idx, table, num_lbs = args[:5]
     B, K, N = idx.shape
     F = table.shape[2]
-    out = warp_blend_fwd(*args)
-    outp = warp_blend_fwd_plain(*args)
+    out = warp_blend_fwd(*args, **kw)
+    outp = warp_blend_fwd_plain(*args, **kw)
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(out, outp))
     tol = 1e-4  # f32 blend; nvcc contracts the blend sums into FMAs
     check(err <= tol, f"warp_blend ({B},{K},{N}) F={F}: max err {err}")
     del outp
-    in_bytes = (3 * N + 2 * K * N) * B * 4 + table.numel() * 4
+    # per point: 3 xyz floats (6 with the view direction), K distances
+    # and K indices; the table once
+    in_bytes = ((6 if warp_view else 3) * N + 2 * K * N) * B * 4 \
+        + table.numel() * 4
+    ops = B * N * (K * (3 * num_lbs + 40) + 100 + (21 if warp_view else 0))
     line = dict(
         shape=f"rows ({B},8,{N}) knn ({B},{K},{N}) table "
         f"{tuple(table.shape)}", max_abs_err=err, tolerance=tol,
         gathered_bytes=B * N * K * F * 4,
-        ms=time_ms(lambda: warp_blend_fwd(*args), reps),
-        plain_ms=time_ms(lambda: warp_blend_fwd_plain(*args), 3),
-        kernels=kernel_split(lambda: warp_blend_fwd(*args),
+        ms=time_ms(lambda: warp_blend_fwd(*args, **kw), reps),
+        plain_ms=time_ms(lambda: warp_blend_fwd_plain(*args, **kw), 3),
+        kernels=kernel_split(lambda: warp_blend_fwd(*args, **kw),
                              WARP_BLEND_KERNEL_NAMES),
         bound_ms=max((in_bytes + B * N * (8 + K + 16) * 4) / PEAK_BYTES,
-                     B * N * (K * (3 * num_lbs + 40) + 100) / PEAK_F32)
-        * 1e3, bound_by="bytes", library_ms=None)
+                     ops / PEAK_F32) * 1e3, bound_by="bytes",
+        library_ms=None)
     line["pct_of_bound"] = 100.0 * line["bound_ms"] / line["ms"]
     if "residuals" in inspect.signature(warp_blend_fwd).parameters:
-        o = warp_blend_fwd(*args, residuals=False)[0]
+        o = warp_blend_fwd(*args, residuals=False, **kw)[0]
         same = bool(torch.equal(o, out[0]))
         check(same, f"warp_blend ({B},{K},{N}) F={F}: the residual-free "
               "out differs from the full mode's")
         line.update(
             out_only_bit_equal=same,
             out_only_ms=time_ms(
-                lambda: warp_blend_fwd(*args, residuals=False), reps),
+                lambda: warp_blend_fwd(*args, residuals=False, **kw), reps),
             out_only_bound_ms=(in_bytes + B * N * 8 * 4) / PEAK_BYTES * 1e3)
     return line
 
@@ -1960,6 +1967,10 @@ KERNELS = {
                         "animnerf_tpu/ops/knn_pallas.py:161"),
     "knn_exact_far2": ("animnerf_tpu_torch/csrc/knn_exact.cu",
                        "animnerf_tpu/ops/knn_pallas.py:35"),
+    # kernel 2's warp_view option (the view direction warped with the
+    # points), on (1, 2^20) points at K = 4 (K = 8 under "k8")
+    "warp_blend_view_dir": ("animnerf_tpu_torch/csrc/warp_blend.cu",
+                            "animnerf_tpu/ops/warp_blend.py:48"),
 }
 SERVE_KERNELS = ("knn", "warp_blend", "fused_mlp", "permute_lanes")
 K8_SERVE_KERNELS = ("knn_packed", "warp_blend", "fused_mlp", "permute_lanes")
@@ -2965,23 +2976,28 @@ def _grad_groups(system):
     import torch
 
     groups = {"field": system.scene.nerf, "fine_field": system.scene.nerf_fine,
-              "body_params": system.body_params}
+              "derf": system.scene.derf, "body_params": system.body_params}
+    params = {k: list(m.parameters()) for k, m in groups.items()
+              if m is not None}
+    if system.latent_codes is not None:
+        params["latent_codes"] = [system.latent_codes]
     # a parameter the rig does not use has no gradient (the SMPL-X
     # expression with 10 shape directions): zeros on both sides
     return {k: torch.cat([(p.grad if p.grad is not None
                            else torch.zeros_like(p)).detach().reshape(-1)
-                          .cpu().double() for p in m.parameters()])
-            for k, m in groups.items()}
+                          .cpu().double() for p in ps])
+            for k, ps in params.items()}
 
 
 def train_parity(dev, cfg=FLAGSHIP_CFG, make_rig=smpl_rig,
                  model_type: str = "smpl", B: int = 2, R: int = 128):
     """One full-width step with B x R rays on the card (kernels) and on the
-    CPU (plain versions) from the same parameters and noise."""
+    CPU (plain versions) from the same parameters and noise, through the
+    engine the config takes (``make_trainer``)."""
     import torch
 
     from animnerf_tpu_torch.system import AnimNeRFSystem
-    from animnerf_tpu_torch.training.system import RowsCompactTrainer
+    from animnerf_tpu_torch.training.system import make_trainer
     from animnerf_tpu_torch.utils.rng import draw_noise
 
     # Bounds. f32: the kernels and the plain versions sum in other orders
@@ -3006,7 +3022,7 @@ def train_parity(dev, cfg=FLAGSHIP_CFG, make_rig=smpl_rig,
             noise = draw_noise(torch.Generator().manual_seed(7), B, R,
                                system.renderer_cfg,
                                system.body_model.num_verts).to(dv)
-            trainer = RowsCompactTrainer(system, steps_per_epoch=100)
+            trainer = make_trainer(system, steps_per_epoch=100)
             d = trainer.step(train_batches(B, R, [5], dv, model_type)[0],
                              noise)
             res[dv] = ({k: float(v) for k, v in d.items()},
@@ -3022,8 +3038,9 @@ def train_parity(dev, cfg=FLAGSHIP_CFG, make_rig=smpl_rig,
         out[dtype] = dict(loss_gpu=dg["loss"], loss_cpu=dc["loss"],
                           max_loss_term_rel=loss_rel, grad_rel_l2=grad_rel,
                           max_param_abs_after_sgd=param_abs,
-                          compact_count=[dg["compact_count"],
-                                         dc["compact_count"]], bounds=bd)
+                          engine=trainer.engine,
+                          compact_count=[dg.get("compact_count"),
+                                         dc.get("compact_count")], bounds=bd)
         check(loss_rel <= bd["loss_rtol"]
               and max(grad_rel.values()) <= bd["grad_rel_l2"]
               and param_abs <= bd["param_abs"],
@@ -3588,6 +3605,399 @@ def kernel_lines_edge_far(dev, thr: float = 0.2) -> dict:
 # ------------------------------------------------------------------- main
 
 
+# ------------------------------------------------------- the split path
+
+# the flagship rig and field (FLAGSHIP_CFG) with the reference's other
+# options: view directions warped with the points, latent codes + DeRF,
+# more than 128 samples a ray with depth-guided ones, a shared fine field
+VIEW_CFG = dict(FLAGSHIP_CFG, use_view=True, freqs_dir=4, unpose_view=True)
+CODES_CFG = dict(FLAGSHIP_CFG, use_deformation=True, deformation_dim=16,
+                 apperance_dim=16)
+WIDE_CFG = dict(FLAGSHIP_CFG, n_samples=128, n_importance=64, n_depth=16)
+SHARE_CFG = dict(FLAGSHIP_CFG, share_fine=True)
+# the dense view step: kNN, warp-blend with warp_view, its backward's
+# scatter, sample_fine's lane gather; the field is the plain MLP
+VIEW_TRAIN_KERNELS = ("knn", "warp_blend", "warp_blend_view_dir", "scatter",
+                      "permute_lanes")
+VIEW_SERVE_KERNELS = ("knn", "warp_blend", "warp_blend_view_dir",
+                      "permute_lanes")
+OFF_SMPL = ("knn_exact", "min_dist", "knn_packed")
+VIEW_DIR_POINTS = 1 << 20
+# split_serve's parity shapes: the compacted view route at 96x96, the
+# split eval route at 32x32 (the CPU renders every sample of every ray:
+# 64x64 took ~2.5 min of the run, most of it the wide config's CPU side)
+SPLIT_PARITY_VIEW = 96
+SPLIT_PARITY_EVAL = 32
+
+
+def split_params():
+    """Seeded SMPL body params (seed 1) and template params (seed 2,
+    zero translation), numpy (1, dim) each."""
+    from animnerf_tpu_torch.data.synthetic import random_pose_params
+
+    bp = random_pose_params(24, batch=1, seed=1)
+    tmpl = random_pose_params(24, batch=1, seed=2)
+    bp["transl"] = np.zeros_like(bp["transl"])
+    tmpl["transl"] = np.zeros_like(tmpl["transl"])
+    return bp, tmpl
+
+
+def split_system(cfg: dict, dev, opaque: bool = False):
+    """The field of ``cfg`` at seed-0 random weights on the seed-0 SMPL
+    rig (``opaque``: both sigma biases raised by 30, opaque_shell)."""
+    import torch
+
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+
+    system = AnimNeRFSystem(cfg, smpl_rig(), device=dev, seed=0)
+    if opaque:
+        with torch.no_grad():
+            for net in (system.scene.nerf, system.scene.nerf_fine):
+                if net is not None:
+                    net.sigma.bias += 30.0
+    return system
+
+
+def warp_view_lines(dev) -> dict:
+    """``warp_blend_view_dir``: kernel 2 with warp_view on (1, 2^20)
+    points about the seeded SMPL body (vertices + N(0, 0.05)), unit view
+    directions, their kNN on the Morton cloud, at K = 4 and 8: the
+    forward line (warp_blend_call_line), then one backward of the point
+    form (d_xyz, d_viewdir, d_table) against autograd through the plain
+    version on the same inputs: d_xyz and d_viewdir within 1e-4 of
+    1 + their largest value, d_table within rel-L2 1e-5 (f32 sums in
+    another order, as the weighted scatter's lines)."""
+    import torch
+
+    from animnerf_tpu_torch.models.warp import prepare_frame
+    from animnerf_tpu_torch.ops.knn_kernel import knn
+    from animnerf_tpu_torch.ops.warp_blend import (
+        warp_blend,
+        warp_blend_fwd_plain,
+    )
+
+    bp, tmpl = split_params()
+    bm = smpl_rig().to(dev)
+    with torch.no_grad():
+        ctx = prepare_frame(bm, tensors(bp, dev), tensors(tmpl, dev))
+    g = torch.Generator(device=dev).manual_seed(0)
+    V = ctx.verts.shape[1]
+    N = VIEW_DIR_POINTS
+    pick = torch.randint(0, V, (N,), generator=g, device=dev)
+    pts = (ctx.verts[:, pick] + 0.05 * torch.randn(
+        (1, N, 3), generator=g, device=dev)).contiguous()
+    vd = torch.randn((1, N, 3), generator=g, device=dev)
+    vd = vd / vd.norm(dim=-1, keepdim=True)
+    J = ctx.lbs_weights.shape[1]
+    table = ctx.table_morton.contiguous()
+    out = {}
+    for K in (4, 8):
+        d, i = knn(pts, ctx.verts_morton, K)
+        rows = torch.cat([pts.transpose(1, 2), pts.new_zeros(1, 1, N),
+                          vd.transpose(1, 2), pts.new_zeros(1, 1, N)], 1)
+        line = warp_blend_call_line((rows.contiguous(), d, i, table, J, 0.1,
+                                     0.9), warp_view=True)
+        ct = torch.randn((2, 1, N, 3), generator=g, device=dev)
+        grads = {}
+        for mode in ("kernel", "plain"):
+            x = pts.clone().requires_grad_()
+            v = vd.clone().requires_grad_()
+            t = table.clone().requires_grad_()
+            if mode == "kernel":
+                cano, vo, _ = warp_blend(x, v, d, i, t, J, 0.1, 0.9,
+                                         warp_view=True, inputs_t=True)
+            else:
+                r = torch.cat([x.transpose(1, 2), x.new_zeros(1, 1, N),
+                               v.transpose(1, 2), x.new_zeros(1, 1, N)], 1)
+                o = warp_blend_fwd_plain(r, d, i, t, J, 0.1, 0.9,
+                                         residuals=False, warp_view=True)[0]
+                cano, vo = o[:, 0:3].transpose(1, 2), o[:, 4:7].transpose(1, 2)
+            ((cano * ct[0]).sum() + (vo * ct[1]).sum()).backward()
+            grads[mode] = (x.grad, v.grad, t.grad)
+        (gx, gv, gt), (px, pv, pt) = grads["kernel"], grads["plain"]
+        errs = {"d_xyz_max_abs": float((gx - px).abs().max()),
+                "d_viewdir_max_abs": float((gv - pv).abs().max()),
+                "d_table_rel_l2": float((gt - pt).norm() / pt.norm())}
+        bounds = {"d_xyz_max_abs": 1e-4 * (1 + float(px.abs().max())),
+                  "d_viewdir_max_abs": 1e-4 * (1 + float(pv.abs().max())),
+                  "d_table_rel_l2": 1e-5}
+        check(all(errs[k] <= bounds[k] for k in errs),
+              f"warp_view backward K={K}: {errs} (bounds {bounds})")
+        line["backward"] = dict(errs, bounds=bounds)
+        out[K] = line
+        del grads, gx, gv, gt, px, pv, pt
+    return out
+
+
+def dense_train(dev, cfg: dict, n_timed: int, need=(), absent=OFF_SMPL,
+                engine: str = "dense", profile: bool = False,
+                B: int = 16, R: int = 1024) -> dict:
+    """Steps of the engine ``make_trainer`` picks for ``cfg`` (it must be
+    ``engine``) on the bench.py batch: one warm-up step, ``n_timed``
+    steps on distinct batches, synchronised, with the launch counts and
+    the peak of allocated device memory reset just before and read just
+    after (every kernel of ``need`` launched, none of ``absent``), then
+    (``profile``) one profiled step."""
+    import torch
+
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.training.system import make_trainer
+
+    system = split_system(cfg, dev)
+    trainer = make_trainer(system, steps_per_epoch=100)
+    check(trainer.engine == engine,
+          f"{cfg}: the {trainer.engine} engine, not {engine}")
+    batches = train_batches(B, R, range(n_timed + 1), dev)
+    trainer.step(batches[n_timed])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    steps = []
+    for s in range(n_timed):
+        t0 = time.perf_counter()
+        d = trainer.step(batches[s])
+        torch.cuda.synchronize()
+        ok = finite(trainer, d)
+        steps.append(dict(step=s, ms=(time.perf_counter() - t0) * 1e3,
+                          loss=float(d["loss"]), psnr=float(d["psnr"]),
+                          finite=ok))
+        check(ok, f"{engine} step {s}: non-finite loss or gradient")
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(launches[k] > 0 for k in need)
+          and all(launches[k] == 0 for k in absent),
+          f"{engine} steps launched the wrong kernels: {launches}")
+    med = float(np.median([st["ms"] for st in steps]))
+    out = {"engine": engine, "rays_per_step": B * R, "steps": steps,
+           "median_step_ms": med, "train_rays_per_s": B * R / (med / 1e3),
+           "peak_allocated_gib": peak / 2 ** 30,
+           "remat": system.scene_cfg.remat,
+           "fused_mlp": system.scene.use_fused_mlp,
+           "launches": launches,
+           "launches_per_step": {k: v / n_timed for k, v in launches.items()
+                                 if v}}
+    if profile:
+        out["profile"] = profile_call(lambda: trainer.step(batches[0]),
+                                      "step")
+    return out
+
+
+def split_train(dev) -> dict:
+    """The dense view step at full width (10 timed, profiled), then 3
+    steps each of the codes (dense), wide (dense) and shared-fine (rows
+    engine) configurations."""
+    out = {"view": dense_train(dev, VIEW_CFG, 10, VIEW_TRAIN_KERNELS,
+                               OFF_SMPL + ("fused_mlp",), profile=True)}
+    out["codes"] = dense_train(dev, CODES_CFG, 3,
+                               ("knn", "warp_blend", "scatter"),
+                               OFF_SMPL + ("fused_mlp",
+                                           "warp_blend_view_dir"))
+    out["wide"] = dense_train(dev, WIDE_CFG, 3,
+                              ("knn", "warp_blend", "scatter", "fused_mlp",
+                               "fused_mlp_bwd"),
+                              OFF_SMPL + ("warp_blend_view_dir",))
+    out["share_fine"] = dense_train(dev, SHARE_CFG, 3, TRAIN_KERNELS,
+                                    OFF_SMPL, engine="rows")
+    return out
+
+
+def eval_frame(system, bp, tmpl, H: int, W: int, frame_idx: int = 1):
+    """A function rendering one H x W frame through ``make_eval_step`` in
+    slabs of MAX_RAYS_PER_CALL rays with the frame's codes -> outputs."""
+    import torch
+
+    from animnerf_tpu_torch.render.inference import MAX_RAYS_PER_CALL
+    from animnerf_tpu_torch.training.system import make_eval_step
+
+    dev = system.device
+    rays = torch.tensor(frame_rays(H, W), device=dev)
+    base = {"frame_idx": torch.tensor([frame_idx], device=dev),
+            **tensors(bp, dev),
+            **{k + "_template": v for k, v in tensors(tmpl, dev).items()}}
+    step = make_eval_step(system)
+
+    def frame():
+        parts = [step(dict(base, rays=rays[None, s:s + MAX_RAYS_PER_CALL]))
+                 for s in range(0, rays.shape[0], MAX_RAYS_PER_CALL)]
+        return {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
+
+    return frame
+
+
+def split_serve() -> dict:
+    """The view config through Renderer.render_stream at 512x512
+    (compacted route: kernels 1, 2 with warp_view, 4; the plain MLP),
+    views 3, 29, 55 with a profiled view; ``make_eval_step`` on one
+    512x512 frame of the codes and of the wide config (split route), a
+    warm-up slab first, the frame with the launch counts reset just
+    before and read just after, one profiled frame; then card against
+    CPU: the view config's view at 96x96 (Renderer), the codes and wide
+    frames at 32x32 (eval step), within PARITY_BOUNDS: both dtypes, but
+    the wide config in f32 only (its field is kernel 3, whose bf16 card
+    against CPU slice_parity holds; what it adds is the split route past
+    128 samples and the depth-guided samples)."""
+    import torch
+
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.render.inference import (
+        Renderer,
+        turntable_rotation,
+    )
+
+    bp, tmpl = split_params()
+    out: dict = {}
+    system = split_system(VIEW_CFG, "cuda", opaque=True)
+    views, launches, prof, _ = render_turntable(system, bp, tmpl,
+                                                [3, 29, 55])
+    check(all(launches[k] > 0 for k in VIEW_SERVE_KERNELS)
+          and all(launches[k] == 0 for k in OFF_SMPL + ("fused_mlp",)),
+          f"view serving launched the wrong kernels: {launches}")
+    out["view"] = {"views": views, "median_view_ms": float(np.median(
+        [v["ms"] for v in views])), "launches": launches,
+        "launches_per_view": {k: v / len(views) for k, v in launches.items()
+                              if v}, "profile": prof}
+    del system
+    for name, cfg in (("codes", CODES_CFG), ("wide", WIDE_CFG)):
+        system = split_system(cfg, "cuda", opaque=True)
+        check(not system.rows_renderable(), f"{name} is rows-renderable")
+        frame = eval_frame(system, bp, tmpl, 512, 512)
+        eval_frame(system, bp, tmpl, 64, 64)()  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = frame()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.LAUNCHES)
+        key = "rgbs" if cfg.get("share_fine") else "rgbs_fine"
+        alpha = res["alphas_fine"][0, :, 0]
+        ok = all(bool(torch.isfinite(v).all()) for v in res.values())
+        body = int((alpha > 0.5).sum())
+        check(ok and body > 500 and res[key].shape == (1, 512 * 512, 3),
+              f"{name} eval frame: finite {ok}, body {body} px")
+        check(all(launches[k] > 0 for k in ("knn", "warp_blend"))
+              and launches["permute_lanes"] + launches["fused_mlp"] > 0
+              and all(launches[k] == 0 for k in OFF_SMPL),
+              f"{name} eval launched the wrong kernels: {launches}")
+        out[name] = {"frame_ms": ms, "rays": 512 * 512, "body_px": body,
+                     "samples_per_ray": system.renderer_cfg.n_coarse
+                     + system.renderer_cfg.n_fine
+                     + system.renderer_cfg.n_fine_depth,
+                     "launches": launches,
+                     "profile": profile_call(frame, "frame")}
+        del system, res
+    parity = {}
+    for name, cfg, bounds in (("view", VIEW_CFG, PARITY_BOUNDS),
+                              ("codes", CODES_CFG, PARITY_BOUNDS),
+                              ("wide", WIDE_CFG, PARITY_BOUNDS[1:])):
+        parity[name] = {}
+        for dtype, bound in bounds:
+            imgs = {}
+            for dv in ("cuda", "cpu"):
+                s = split_system(dict(cfg, compute_dtype=dtype), dv,
+                                 opaque=True)
+                if name == "view":
+                    n = SPLIT_PARITY_VIEW
+                    img, _, _ = Renderer(s, device=dv).render_frame(
+                        bp, tmpl, frame_rays(n, n), turntable_rotation(17, 64),
+                        (n, n))
+                else:
+                    n = SPLIT_PARITY_EVAL
+                    with torch.no_grad():
+                        img = eval_frame(s, bp, tmpl, n, n)()[
+                            "rgbs_fine"][0].cpu().numpy()
+                imgs[dv] = img
+            d = image_diff(imgs["cuda"], imgs["cpu"])
+            parity[name][dtype] = dict(d, shape=n, bound_max_abs=bound[0],
+                                       bound_psnr_db=bound[1])
+            check(d["max_abs"] <= bound[0] and d["psnr_db"] >= bound[1],
+                  f"split parity {name} {dtype}: {d}")
+    out["parity"] = parity
+    return out
+
+
+def split_fit(root: str) -> dict:
+    """``fit`` on the fit phase's dataset with the view config (a few
+    steps, the dense engine; kernels 1, 2 with warp_view, 5 launched),
+    then ``cli.test`` and ``cli.novel_view`` (2 views) on its ``last``;
+    then a fit of the codes config whose ``last`` (latent codes, DeRF)
+    loaded into a fresh system gives the trained parameters bit for
+    bit."""
+    import torch
+
+    from animnerf_tpu_torch.cli import novel_view
+    from animnerf_tpu_torch.cli import test as test_cli
+    from animnerf_tpu_torch.models.body_params import (
+        load_body_params_from_dataset,
+    )
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.training import loop as TL
+    from animnerf_tpu_torch.training.checkpoints import load_params
+
+    out = {}
+    for name, opts, steps in (
+            ("view", ["use_view", "True", "freqs_dir", "4", "unpose_view",
+                      "True"], 3),
+            ("codes", ["use_deformation", "True", "deformation_dim", "16",
+                       "apperance_dim", "16"], 2)):
+        cfg = fit_config(root)
+        cfg.merge_from_list(opts + ["exp_name", "fit_" + name,
+                                    "train.max_steps", str(steps)])
+        stats: dict = {}
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        ckpt_dir = TL.fit(cfg, device="cuda", stats=stats)
+        fit_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        need = ("knn", "warp_blend", "scatter") + (
+            ("warp_blend_view_dir",) if name == "view" else ())
+        check(all(launches[k] > 0 for k in need),
+              f"split fit {name}: launches {launches}")
+        losses = [loss for _, loss in stats["losses"]]
+        check(len(losses) == steps and all(map(math.isfinite, losses)),
+              f"split fit {name} losses: {losses}")
+        trained = {k: v.detach().clone() for k, v in
+                   stats.pop("system").named_parameters()}
+        last = os.path.join(ckpt_dir, "last")
+        fresh = TL.build_system(cfg, "cuda")
+        fresh.set_body_params(load_body_params_from_dataset(
+            cfg.frame_IDs, cfg.root_dir, cfg.model_type))
+        load_params(last, fresh)
+        got = dict(fresh.named_parameters())
+        same = sorted(got) == sorted(trained) and all(
+            torch.equal(got[k], v) for k, v in trained.items())
+        check(same, f"split fit {name}: last reloaded differs")
+        del fresh, got, trained
+        entry = {"steps": steps, "fit_s": fit_s, "losses": losses,
+                 "median_step_ms": float(np.median(stats["step_s"])) * 1e3,
+                 "last_reload_bit_equal": same, "launches": launches}
+        if name == "codes":
+            entry["has_latent_codes"] = os.path.isfile(os.path.join(
+                last, "latent_codes.npz"))
+            check(entry["has_latent_codes"], "no latent_codes.npz in last")
+        else:
+            t0 = time.perf_counter()
+            scores = test_cli.main(["--ckpt_path", last])
+            entry["test"] = dict(scores, seconds=time.perf_counter() - t0)
+            check(all(map(math.isfinite, scores.values())),
+                  f"cli.test on the view fit: {scores}")
+            vstats: dict = {}
+            _build.reset_launches()
+            d = novel_view.main(["--ckpt_path", last, "--n_views", "2",
+                                 "outputs_dir", os.path.join(root, "out")],
+                                stats=vstats)
+            nv = dict(_build.LAUNCHES)
+            imgs = sorted(os.listdir(os.path.join(d, "images")))
+            check(len(imgs) == 2 and nv["warp_blend_view_dir"] > 0,
+                  f"novel_view on the view fit: {imgs}, {nv}")
+            entry["novel_view"] = {"view_ms": [t * 1e3 for t in
+                                               vstats["view_s"]],
+                                   "launches": nv}
+        out[name] = entry
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3755,6 +4165,37 @@ def main() -> int:
     emit({"phase": "train_parity", **tparity,
           "seconds": time.perf_counter() - t0})
 
+    # ---- the split path and the reference's other fields: kernel 2 with
+    # warp_view, the dense trainer, the split serving and eval routes
+    t0 = time.perf_counter()
+    vlines = warp_view_lines("cuda")
+    lines["warp_blend_view_dir"] = dict(vlines[4], k8=vlines[8])
+    emit(dict(phase="kernel", name="warp_blend_view_dir",
+              **lines["warp_blend_view_dir"]))
+    emit({"phase": "warp_view_lines_done",
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    strain = split_train("cuda")
+    for name, st in strain.items():
+        emit(dict(phase="split_train", config=name, **st))
+    emit({"phase": "split_train_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    # the codes config is held to the bounds with 4 encoding frequencies:
+    # at 10, DeRF at random weights has an input gradient of ~1e3, and the
+    # card's and the CPU's last-bit differences in a canonical point move
+    # its, the codes' and the body params' gradients by percents (5.9e-2,
+    # 6.3e-2 and 9.9e-2 rel-L2 in f32 on the H100; the CPU tests against
+    # JAX find the same at 10 and 1e-6 at 4)
+    emit({"phase": "split_train_parity",
+          "view": train_parity("cuda", VIEW_CFG),
+          "codes_freqs4": train_parity("cuda", dict(CODES_CFG,
+                                                    freqs_xyz=4)),
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    sserve = split_serve()
+    emit({"phase": "split_serve", **sserve,
+          "seconds": time.perf_counter() - t0})
+
     # ---- training from a dataset on disk: fit, then evaluate from 'last';
     # then the post-training CLIs on that dataset and 'last', the mesh of
     # the trained scale512 system and the sigma grid card against CPU
@@ -3785,6 +4226,10 @@ def main() -> int:
         emit({"phase": "cli_parity", **cli_parity(*body),
               "seconds": time.perf_counter() - t0})
         del body
+
+        t0 = time.perf_counter()
+        emit({"phase": "split_fit", **split_fit(fit_root),
+              "seconds": time.perf_counter() - t0})
     finally:
         shutil.rmtree(fit_root, ignore_errors=True)
 
@@ -3993,7 +4438,10 @@ def main() -> int:
         knn_far=dense_launches["knn_far"], knn_far2=dense_launches["knn"],
         knn_packed_far2=k8dense["launches_on"]["knn_packed"],
         knn_exact_far2=xdense["launches_on"]["knn_exact"],
-        knn_tile_skip_far2=ftrain["launches"]["knn_tile_skip"])
+        knn_tile_skip_far2=ftrain["launches"]["knn_tile_skip"],
+        # warp_view: the dense view training steps'
+        warp_blend_view_dir=strain["view"]["launches"][
+            "warp_blend_view_dir"])
     lines["knn_exact_nocull"] = dict(lines["knn_exact"],
                                      ms=lines["knn_exact"]["ms_nocull"],
                                      bound_ms=lines["knn_exact"]["bound_all_ms"])
@@ -4011,6 +4459,8 @@ def main() -> int:
                         if name in fit_launches else {}),
                      **({"cli_launches": cli_launches[name]}
                         if name in cli_launches else {}),
+                     **({"serve_launches": sserve["view"]["launches"][name]}
+                        if name == "warp_blend_view_dir" else {}),
                      **({"functions": {k: v[0] for k, v in
                                        ln["kernels"]["by_kernel"].items()}}
                         if "kernels" in ln else {})})

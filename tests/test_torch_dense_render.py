@@ -282,23 +282,31 @@ def test_dense_renderer_matches_jax(dtype, far_skip):
 
 
 def test_render_rejects_what_the_rows_render_does_not_cover():
-    """perturb > 0 (the dense training loss's noise) and more than 128
-    samples a ray (the split renderer) raise."""
+    """The rows render itself takes up to 128 samples a ray and needs the
+    training noise at perturb > 0; a config of more samples is not rows
+    renderable, and the system renders it through the split renderer (the
+    JAX package's route) instead of raising."""
     from animnerf_tpu_torch.data.synthetic import make_body_model
+    from animnerf_tpu_torch.render.volume_renderer import render_rays_rows
     from animnerf_tpu_torch.system import AnimNeRFSystem
 
     bp = {k: torch.tensor(v[:1])
           for k, v in _jax_setup("float32")[3].items()}
     rays = torch.from_numpy(_rays(1, seed=3)[:, :4])
     system = _port_system("float32", False)
-    with pytest.raises(NotImplementedError, match="perturb"):
+    with pytest.raises(ValueError, match="noise"):
         system.render(bp, bp, rays, perturb=1.0)
     wide = AnimNeRFSystem({"n_samples": 100, "n_importance": 32,
                            "pose_dim": 33}, make_body_model(128, 12, seed=0),
                           device="cpu")
     assert not wide.rows_renderable()
     with pytest.raises(NotImplementedError, match="128"):
-        wide.render(bp, bp, rays)
+        render_rays_rows(wide.renderer_cfg, lambda r: r,
+                         lambda r, f: r, rays)
+    with torch.no_grad():
+        out, _ = wide.render(bp, bp, rays)
+    assert out["rgbs_fine"].shape == (1, 4, 3)
+    assert all(torch.isfinite(v).all() for v in out.values())
 
 
 def test_compacted_and_dense_renderers_agree():

@@ -307,12 +307,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(root, tmp_path,
 
 
 @pytest.mark.parametrize("opts, match", [
-    (["n_samples", "100", "n_importance", "32"], "128"),
+    (["k_neigh", "17"], "1 to 16"),
     (["mesh_shape", "(2,)"], "one device"),
 ])
 def test_fit_raises_for_configs_it_cannot_take(root, tmp_path, opts, match):
-    """More than 128 samples a ray (the rows-compacted step's limit; the
-    dense trainer is not ported) and a mesh over several devices."""
+    """More neighbours than the kNN kernels take and a mesh over several
+    devices (more than 128 samples a ray train with the dense engine:
+    tests/test_torch_split_train.py)."""
     with pytest.raises(NotImplementedError, match=match):
         TL.fit(_port_cfg(root, str(tmp_path), "x", *opts), device="cpu")
 

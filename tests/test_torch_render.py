@@ -80,16 +80,27 @@ def test_sample_fine_det_matches(Kc, Kf):
 
 
 def test_sample_fine_rejects_rows_wider_than_the_lanes():
-    """The CDF-bound lookups always go through the lane gather, which
-    holds 128 lanes: wider rows raise instead of taking another path."""
+    """The lane gather holds 128 lanes and raises on wider rows; so
+    sample_fine picks by width, as the JAX package picks gather_lanes or
+    take_along_axis: wider rows take torch.gather and give JAX's
+    deterministic fine depths (f32 rounding only, atol 1e-5)."""
+    from animnerf_tpu_torch.ops.sort_lanes import gather_lanes
+
     Kc = 200
     z = np.sort(np.random.default_rng(1).uniform(2, 4, size=(1, 3, Kc)),
                 -1).astype(np.float32)
     mids = 0.5 * (z[..., :-1] + z[..., 1:])
-    w = np.ones((1, 3, Kc - 2), np.float32)
+    w = np.random.default_rng(2).uniform(size=(1, 3, Kc - 2)).astype(
+        np.float32)
+    pay = torch.zeros((1, 2, 3, Kc - 1))
     with pytest.raises(ValueError, match="128"):
-        TV.sample_fine(TV.RendererConfig(n_coarse=Kc, n_fine=32), _t(mids),
-                       _t(w))
+        gather_lanes(pay, torch.zeros((1, 3, 32), dtype=torch.int32))
+    got = TV.sample_fine(TV.RendererConfig(n_coarse=Kc, n_fine=32),
+                         _t(mids), _t(w))
+    want = JV.sample_fine(JV.RendererConfig(n_coarse=Kc, n_fine=32),
+                          jnp.asarray(mids), jnp.asarray(w), det=True,
+                          key=None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
 def test_composite_functions_match():

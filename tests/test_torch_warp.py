@@ -172,7 +172,7 @@ def test_unpose_matches_jax_warp():
         jc, _, jvalid = JW.unpose(jctx, jnp.asarray(pts))
         jc, jvalid = np.asarray(jc), np.asarray(jvalid)
     jax.clear_caches()
-    tc, tvalid = TW.unpose(tctx, torch.from_numpy(pts))
+    tc, _, tvalid = TW.unpose(tctx, torch.from_numpy(pts))
     assert 0 < jvalid.sum() < N
     np.testing.assert_array_equal(tvalid.numpy(), jvalid)
     np.testing.assert_allclose(tc.numpy(), jc, atol=1e-4)
