@@ -55,6 +55,17 @@
 //      a warpgroup). Shared memory: 2 x 64 KB activations + 16 KB encoding
 //      (later the heads) + 48 KB slab ring + 32 KB ReLU bits (later d_enc).
 //      f32 (not on the main path): a SIMT block per 32 points.
+//      Encoding width: the kernels are instantiated for an encoding block
+//      of EC = 64 columns (n_freqs 0..10, the flagship's 10 among them)
+//      and of 128 (n_freqs 11..20), every encoding use_fused_mlp admits;
+//      the columns from 3 + 6 n_freqs are zero and contribute nothing
+//      (the chain rule reads only the encoding's own columns, and the
+//      weight gradients keep pack_params' enc_rows columns). At 128 the
+//      encoding block takes 32 KB, so the ring keeps two slab stages
+//      (230,432 B of shared memory, against 230,448 at 64 with three), and
+//      d_enc (32 KB a warpgroup in f32) goes to the warpgroup's rows of
+//      the activation buffer whose cotangent d_1 is spent, not the 16 KB
+//      mask region.
 //   2. weight gradients (bf16), dW_l = G_l^T H_l over the chunk's points,
 //      the head weight gradients and every bias sum, in one pass that
 //      reads each scratch byte from device memory once (a layer's two
@@ -112,18 +123,31 @@ constexpr int WG_ROWS = 64;
 constexpr int MASK_ROW = WIDTH / 8;  // bytes of one row's ReLU bits
 
 // shared memory of the main kernel (bytes from a 1024-aligned base)
+constexpr int SMEM_MAX = 232448;  // a block's shared memory
 constexpr int OFF_A = 0;                               // 128 x 256 bf16
 constexpr int OFF_B = OFF_A + T * WIDTH * 2;           // 128 x 256 bf16
-// 128 x 64 bf16 encoding; after the forward, the heads (128 x 4 f32)
+// 128 x EC bf16 encoding; after the forward, the heads (128 x 4 f32)
 constexpr int OFF_ENC = OFF_B + T * WIDTH * 2;
-constexpr int OFF_RING = OFF_ENC + T * E * 2;          // the slab ring
-constexpr int OFF_MASK = OFF_RING + mlpw::STAGES * mlpw::SLAB_BYTES;
 constexpr int MASK_WG = DEPTH * WG_ROWS * MASK_ROW;    // 16 KB a warpgroup
-constexpr int OFF_BARS = OFF_MASK + 2 * MASK_WG;
-constexpr size_t SMEM_BF16 = OFF_BARS + 2 * mlpw::STAGES * 8 + 1024;
-static_assert(WG_ROWS * E * 4 <= MASK_WG, "d_enc reuses a mask region");
-static_assert(T * HEAD_COLS * 4 <= T * E * 2, "the heads reuse the encoding");
-static_assert(SMEM_BF16 <= 232448, "shared memory of one block");
+template <int EC>
+struct MainSmem {
+  static constexpr int OFF_RING = OFF_ENC + T * EC * 2;  // the slab ring
+  // as many stages as fit, up to mlpw::STAGES: 3 at EC = 64, 2 at 128
+  static constexpr int FIT = (SMEM_MAX - 1024 - OFF_RING - 2 * MASK_WG -
+                              2 * mlpw::STAGES * 8) / mlpw::SLAB_BYTES;
+  static constexpr int STAGES = FIT < mlpw::STAGES ? FIT : mlpw::STAGES;
+  static constexpr int OFF_MASK = OFF_RING + STAGES * mlpw::SLAB_BYTES;
+  static constexpr int OFF_BARS = OFF_MASK + 2 * MASK_WG;
+  static constexpr size_t BYTES = OFF_BARS + 2 * STAGES * 8 + 1024;
+  static_assert(STAGES >= 2, "a slab ring of two stages at least");
+  static_assert(EC != 64 || WG_ROWS * EC * 4 <= MASK_WG,
+                "d_enc reuses a mask region at EC = 64");
+  static_assert(EC != 128 || WG_ROWS * EC * 4 == 4 * WG_ROWS * 128,
+                "d_enc fills the warpgroup's rows of a spent buffer at 128");
+  static_assert(T * HEAD_COLS * 4 <= T * EC * 2,
+                "the heads reuse the encoding");
+  static_assert(BYTES <= SMEM_MAX, "shared memory of one block");
+};
 
 // element offsets of the weight image's parts (ops/fused_mlp.py::
 // weight_image): fwd[l] holds W_l (N x K) for out = in . W_l^T, bwd[l]
@@ -238,6 +262,7 @@ __device__ __forceinline__ void dgrad_layer(mlpw::Ring& ring, uint32_t a,
 // output goes to the H scratch, the trunk's ReLU bits stay in shared
 // memory), the heads, the dgrad chain (each cotangent to the G scratch),
 // d_enc and the encoding chain rule.
+template <int EC>
 __global__ void __launch_bounds__(MAIN_THREADS, 1)
 mlp_bwd_main_bf16(const float* __restrict__ xyz,   // (8, M) rows
                   const float* __restrict__ dout,  // (8, M) rows
@@ -249,10 +274,13 @@ mlp_bwd_main_bf16(const float* __restrict__ xyz,   // (8, M) rows
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       (unsigned char*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  using S = MainSmem<EC>;
+  constexpr int KB_ENC = EC / mlpw::KBLOCK;  // 64-column blocks of enc
   const int mb = blockIdx.x * T;  // first point of the block, in chunk
-  mlpw::Ring ring{mlpw::smem_u32(smem + OFF_RING),
-                  mlpw::smem_u32(smem + OFF_BARS),
-                  mlpw::smem_u32(smem + OFF_BARS + 8 * mlpw::STAGES), 0, 0u};
+  mlpw::Ring ring{mlpw::smem_u32(smem + S::OFF_RING),
+                  mlpw::smem_u32(smem + S::OFF_BARS),
+                  mlpw::smem_u32(smem + S::OFF_BARS + 8 * S::STAGES), 0, 0u,
+                  S::STAGES};
   if (threadIdx.x == 0) mlpw::ring_init(ring);
   __syncthreads();
 
@@ -260,19 +288,20 @@ mlp_bwd_main_bf16(const float* __restrict__ xyz,   // (8, M) rows
     if (threadIdx.x != CONSUMERS) return;
     auto F = [&](int l) { return image + io.fwd[l]; };
     auto B = [&](int l) { return image + io.bwd[l]; };
-    mlpw::produce_product(ring, F(0), WIDTH, E, nullptr, 0);
+    mlpw::produce_product(ring, F(0), WIDTH, EC, nullptr, 0);
     for (int i = 1; i < DEPTH; ++i)
       mlpw::produce_product(ring, F(i), WIDTH, WIDTH,
-                            i == SKIP ? F(8) : nullptr, E);
+                            i == SKIP ? F(8) : nullptr, EC);
     mlpw::produce_product(ring, F(10), WIDTH, WIDTH, nullptr, 0);
     mlpw::produce_product(ring, F(11), DIR_W, WIDTH, nullptr, 0);
     mlpw::produce_product(ring, B(11), WIDTH, DIR_W, nullptr, 0);
     mlpw::produce_product(ring, B(10), WIDTH, WIDTH, nullptr, 0);
     for (int i = DEPTH - 1; i >= 1; --i) {
-      if (i == SKIP) mlpw::produce_product(ring, B(8), E, WIDTH, nullptr, 0);
+      if (i == SKIP)
+        mlpw::produce_product(ring, B(8), EC, WIDTH, nullptr, 0);
       mlpw::produce_product(ring, B(i), WIDTH, WIDTH, nullptr, 0);
     }
-    mlpw::produce_product(ring, B(0), E, WIDTH, nullptr, 0);
+    mlpw::produce_product(ring, B(0), EC, WIDTH, nullptr, 0);
     return;
   }
 
@@ -282,10 +311,10 @@ mlp_bwd_main_bf16(const float* __restrict__ xyz,   // (8, M) rows
   unsigned char* bufA = smem + OFF_A;
   unsigned char* bufB = smem + OFF_B;
   unsigned char* enc = smem + OFF_ENC;
-  unsigned char* masks = smem + OFF_MASK + wg * MASK_WG;
+  unsigned char* masks = smem + S::OFF_MASK + wg * MASK_WG;
   float* hsm = (float*)(smem + OFF_ENC) + r0 * HEAD_COLS;
   const bf16* const* w = (const bf16* const*)p.w;
-  auto H = [&](int h) { return hs + (size_t)h_col(h) * chunk; };
+  auto H = [&](int h) { return hs + (size_t)h_col<EC>(h) * chunk; };
   auto G = [&](int g) { return gs + (size_t)g_col(g) * chunk; };
   auto rows_of = [&](const unsigned char* buf) {
     return mlpw::smem_u32(buf) + r0 * 128;  // A operand: the wg's rows
@@ -305,22 +334,22 @@ mlp_bwd_main_bf16(const float* __restrict__ xyz,   // (8, M) rows
     const float c3[3] = {live ? xyz[gm] : 0.0f,
                          live ? xyz[(size_t)M + gm] : 0.0f,
                          live ? xyz[2 * (size_t)M + gm] : 0.0f};
-    mlpw::encode_row(enc, E, r0 + rl, wt / WG_ROWS, c3, n_freqs);
+    mlpw::encode_row(enc, EC, r0 + rl, wt / WG_ROWS, c3, n_freqs);
   }
   publish();
 
   // ---- recomputed forward; every layer's output also goes to H, stored
   // while the next layer's first products run
-  fwd_layer<WIDTH, true>(ring, rows_of(enc), 1, 0, 0, bufA, p.b[0], r0,
+  fwd_layer<WIDTH, true>(ring, rows_of(enc), KB_ENC, 0, 0, bufA, p.b[0], r0,
                          [&](int s, int n) {
-                           copy_out<E>(enc, H(0), mb, r0, nullptr, s, n);
+                           copy_out<EC>(enc, H(0), mb, r0, nullptr, s, n);
                          });
   publish();
   unsigned char* hin = bufA;
   unsigned char* hout = bufB;
   for (int i = 1; i < DEPTH; ++i) {
     fwd_layer<WIDTH, true>(ring, rows_of(hin), WIDTH / 64, rows_of(enc),
-                           i == SKIP ? 1 : 0, hout, p.b[i], r0,
+                           i == SKIP ? KB_ENC : 0, hout, p.b[i], r0,
                            [&](int s, int n) {
                              copy_out<WIDTH>(hin, H(i), mb, r0,
                                              mask_of(i - 1), s, n);
@@ -410,14 +439,14 @@ mlp_bwd_main_bf16(const float* __restrict__ xyz,   // (8, M) rows
   publish();
   unsigned char* cur = spare;  // d_i, stored under the next products
   unsigned char* nxt = hd;
-  float d_enc8[32];  // W8^T d_4 (f32, unrounded), the skip's enc half
+  float d_enc8[EC / 2];  // W8^T d_4 (f32, unrounded), the skip's enc half
   for (int i = DEPTH - 1; i >= 1; --i) {
     auto store = [&](int s, int n) {
       copy_out<WIDTH>(cur, G(i), mb, r0, nullptr, s, n);
     };
     if (i == SKIP) {
-      mlpw::tile_mma<E>(d_enc8, ring, rows_of(cur), WIDTH / 64, 0, 0,
-                        [&](int s) { store(s, WIDTH / 64); });
+      mlpw::tile_mma<EC>(d_enc8, ring, rows_of(cur), WIDTH / 64, 0, 0,
+                         [&](int s) { store(s, WIDTH / 64); });
       dgrad_layer<false>(ring, rows_of(cur), WIDTH / 64, nxt, mask_of(i - 1),
                          nullptr, hsm, r0, [](int, int) {});
     } else {
@@ -429,21 +458,30 @@ mlp_bwd_main_bf16(const float* __restrict__ xyz,   // (8, M) rows
     cur = nxt;
     nxt = tmp;
   }
-  // d_enc = W8^T d_4 + bf16(W0^T d_0), f32, into the (spent) mask region
+  // d_enc = W8^T d_4 + bf16(W0^T d_0), f32, (rl, c) at float rl * EC + (c
+  // ^ (rl & 31)) of a spent region: at EC = 64 the mask region; at 128 the
+  // warpgroup's rows of nxt (d_1's buffer, stored and read by then), four
+  // 8 KB pieces, one per 64-column block, 16 rows of d_enc each
+  auto denc_at = [&](int i) -> float* {
+    if constexpr (EC == 64)
+      return (float*)masks + i;
+    else
+      return (float*)(nxt + (i >> 11) * mlpw::KB_BYTES + r0 * 128) +
+             (i & 2047);
+  };
   {
-    float acc[32];
-    mlpw::tile_mma<E>(acc, ring, rows_of(cur), WIDTH / 64, 0, 0,
-                      [&](int s) {
-                        copy_out<WIDTH>(cur, G(0), mb, r0, nullptr, s,
-                                        WIDTH / 64);
-                      });
+    float acc[EC / 2];
+    mlpw::tile_mma<EC>(acc, ring, rows_of(cur), WIDTH / 64, 0, 0,
+                       [&](int s) {
+                         copy_out<WIDTH>(cur, G(0), mb, r0, nullptr, s,
+                                         WIDTH / 64);
+                       });
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = d_enc8[i] + bf16r(acc[i]);
-    float* denc = (float*)masks;
-    mlpw::for_each_pair<E>(acc, 0, 0, [&](int rl, int c, int, int, float v0,
-                                          float v1) {
-      denc[rl * E + (c ^ (rl & 31))] = v0;
-      denc[rl * E + ((c + 1) ^ (rl & 31))] = v1;
+    for (int i = 0; i < EC / 2; ++i) acc[i] = d_enc8[i] + bf16r(acc[i]);
+    mlpw::for_each_pair<EC>(acc, 0, 0, [&](int rl, int c, int, int,
+                                           float v0, float v1) {
+      *denc_at(rl * EC + (c ^ (rl & 31))) = v0;
+      *denc_at(rl * EC + ((c + 1) ^ (rl & 31))) = v1;
     });
   }
   mlpw::wg_sync(wg);
@@ -454,7 +492,7 @@ mlp_bwd_main_bf16(const float* __restrict__ xyz,   // (8, M) rows
     const int m = mb + r0 + rl;
     if (m < Mc) {
       const size_t gm = (size_t)m_start + m;
-      const float* de = (const float*)masks + rl * E;
+      const float* de = denc_at(rl * EC);
       auto D = [&](int c) { return de[c ^ (rl & 31)]; };
       for (int c = 0; c < 3; ++c) {
         const float x = xyz[(size_t)c * M + gm];
@@ -543,25 +581,31 @@ __device__ __forceinline__ void dgrad_f32(const float* d, int n_in,
   }
 }
 
-constexpr size_t SMEM_F32 =
-    (size_t)(2 * E + 2 * WIDTH + HEAD_COLS) * TF * sizeof(float);
+template <int EC>
+constexpr size_t smem_f32() {
+  return (size_t)(2 * EC + 2 * WIDTH + HEAD_COLS) * TF * sizeof(float);
+}
 
+// er: the encoding rows of the weights (pack_params' (256, er) layers 0
+// and 8, row stride er); the block's encoding is EC rows, zero from
+// 3 + 6 n_freqs
+template <int EC>
 __global__ void __launch_bounds__(WIDTH)
 mlp_bwd_main_f32(const float* __restrict__ xyz, const float* __restrict__ dout,
                  float* __restrict__ dxyz, MlpWeights p,
                  float* __restrict__ hs, float* __restrict__ gs,
                  float* __restrict__ heads, int M, int m_start, int Mc,
-                 int chunk, int n_freqs) {
+                 int chunk, int n_freqs, int er) {
   extern __shared__ __align__(128) unsigned char smem[];
-  float* enc = (float*)smem;         // (E, TF)
-  float* bufA = enc + E * TF;        // (WIDTH, TF)
+  float* enc = (float*)smem;         // (EC, TF)
+  float* bufA = enc + EC * TF;       // (WIDTH, TF)
   float* bufB = bufA + WIDTH * TF;
-  float* denc = bufB + WIDTH * TF;   // (E, TF)
-  float* hsm = denc + E * TF;        // (HEAD_COLS, TF)
+  float* denc = bufB + WIDTH * TF;   // (EC, TF)
+  float* hsm = denc + EC * TF;       // (HEAD_COLS, TF)
   const int mb = blockIdx.x * TF;
   const float* const* w = (const float* const*)p.w;
   const int tid = threadIdx.x;
-  auto H = [&](int h) { return hs + (size_t)h_col(h) * chunk; };
+  auto H = [&](int h) { return hs + (size_t)h_col<EC>(h) * chunk; };
   auto G = [&](int g) { return gs + (size_t)g_col(g) * chunk; };
 
   for (int task = tid; task < TF * 2; task += WIDTH) {
@@ -575,7 +619,7 @@ mlp_bwd_main_f32(const float* __restrict__ xyz, const float* __restrict__ dout,
                          live ? xyz[2 * (size_t)M + gm] : 0.0f};
     if (half == 0) {
       for (int c = 0; c < 3; ++c) enc[c * TF + t] = c3[c];
-      for (int e = 3 + 6 * n_freqs; e < E; ++e) enc[e * TF + t] = 0.0f;
+      for (int e = 3 + 6 * n_freqs; e < EC; ++e) enc[e * TF + t] = 0.0f;
     }
     for (int j = half; j < n_freqs; j += 2) {
       const float f = (float)(1 << j);
@@ -586,19 +630,19 @@ mlp_bwd_main_f32(const float* __restrict__ xyz, const float* __restrict__ dout,
       }
     }
   }
-  for (int i = tid; i < E * TF; i += WIDTH) denc[i] = 0.0f;
+  for (int i = tid; i < EC * TF; i += WIDTH) denc[i] = 0.0f;
   __syncthreads();
-  for (int i = tid; i < TF * E; i += WIDTH)
-    H(0)[(size_t)(mb + i / E) * E + i % E] = enc[(i % E) * TF + i / E];
+  for (int i = tid; i < TF * EC; i += WIDTH)
+    H(0)[(size_t)(mb + i / EC) * EC + i % EC] = enc[(i % EC) * TF + i / EC];
 
-  dense_f32<WIDTH, true>(enc, E, w[0], nullptr, 0, nullptr, p.b[0], bufA,
+  dense_f32<WIDTH, true>(enc, er, w[0], nullptr, 0, nullptr, p.b[0], bufA,
                          H(1), mb);
   __syncthreads();
   float* hin = bufA;
   float* hout = bufB;
   for (int i = 1; i < DEPTH; ++i) {
     if (i == SKIP)
-      dense_f32<WIDTH, true>(hin, WIDTH, w[i], enc, E, w[8], p.b[i], hout,
+      dense_f32<WIDTH, true>(hin, WIDTH, w[i], enc, er, w[8], p.b[i], hout,
                              H(i + 1), mb);
     else
       dense_f32<WIDTH, true>(hin, WIDTH, w[i], nullptr, 0, nullptr, p.b[i],
@@ -674,8 +718,8 @@ mlp_bwd_main_f32(const float* __restrict__ xyz, const float* __restrict__ dout,
   float* nxt = hd;
   for (int i = DEPTH - 1; i >= 1; --i) {
     const int k = tid;
-    if (i == SKIP && k < E) {
-      dgrad_f32(cur, WIDTH, w[8], E, k, acc);
+    if (i == SKIP && k < er) {
+      dgrad_f32(cur, WIDTH, w[8], er, k, acc);
       for (int t = 0; t < TF; ++t) denc[k * TF + t] += acc[t];
     }
     dgrad_f32(cur, WIDTH, w[i], WIDTH, k, acc);
@@ -690,8 +734,8 @@ mlp_bwd_main_f32(const float* __restrict__ xyz, const float* __restrict__ dout,
     cur = nxt;
     nxt = tmp;
   }
-  if (tid < E) {
-    dgrad_f32(cur, WIDTH, w[0], E, tid, acc);
+  if (tid < er) {
+    dgrad_f32(cur, WIDTH, w[0], er, tid, acc);
     for (int t = 0; t < TF; ++t) denc[tid * TF + t] += acc[t];
   }
   __syncthreads();
@@ -717,10 +761,11 @@ mlp_bwd_main_f32(const float* __restrict__ xyz, const float* __restrict__ dout,
   }
 }
 
-// dW (N x K) += G^T H, SIMT: 64x64 tile per block, 4x4 outputs a thread
+// dW (N x ldo) += G^T H over H's first ldo <= K columns (H rows of K, a
+// multiple of 64), SIMT: 64x64 tile per block, 4x4 outputs a thread
 __global__ void __launch_bounds__(256)
 wgrad_f32(const float* __restrict__ g, int N, const float* __restrict__ h,
-          int K, int rows, int rps, float* __restrict__ part,
+          int K, int ldo, int rows, int rps, float* __restrict__ part,
           size_t part_stride, size_t w_off) {
   __shared__ float sg[16][64];
   __shared__ float sh[16][64];
@@ -764,7 +809,8 @@ wgrad_f32(const float* __restrict__ g, int N, const float* __restrict__ h,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      out[(size_t)(n0 + tn * 4 + i) * K + k0 + tk * 4 + j] += acc[i][j];
+      if (k0 + tk * 4 + j < ldo)
+        out[(size_t)(n0 + tn * 4 + i) * ldo + k0 + tk * 4 + j] += acc[i][j];
 }
 
 // sigma / rgb head weight gradients over split s, by HEAD_GROUPS row
@@ -845,22 +891,25 @@ constexpr WgradLayer WG_LAYERS[11] = {
     {6, 6, 6}, {7, 7, 7}, {8, 4, 0},  {10, 8, 8}, {11, 9, 9}};
 
 // the f32 path's weight gradients, added into the (zeroed) partials
+template <int EC>
 int run_wgrad_f32(const float* hs, const float* gs, const float* heads,
                   int chunk, int rows, float* part, const GradLayout& L,
                   cudaStream_t stream) {
   const int rps = ((rows + SPLITS - 1) / SPLITS + 31) / 32 * 32;
   for (const WgradLayer& wl : WG_LAYERS) {
     const int N = L.wr[wl.layer];
-    const int K = L.wc[wl.layer];
+    const int K = h_width<EC>(wl.h);
     wgrad_f32<<<dim3((N / 64) * (K / 64), SPLITS), 256, 0, stream>>>(
-        gs + (size_t)g_col(wl.g) * chunk, N, hs + (size_t)h_col(wl.h) * chunk,
-        K, rows, rps, part, L.total, L.w[wl.layer]);
+        gs + (size_t)g_col(wl.g) * chunk, N,
+        hs + (size_t)h_col<EC>(wl.h) * chunk, K, L.wc[wl.layer], rows, rps,
+        part, L.total, L.w[wl.layer]);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   wgrad_heads_f32<<<SPLITS, WIDTH * HEAD_GROUPS, 0, stream>>>(
-      heads, hs + (size_t)h_col(8) * chunk, hs + (size_t)h_col(10) * chunk,
-      rows, rps, part, L.total, L.w[9], L.w[12]);
+      heads, hs + (size_t)h_col<EC>(8) * chunk,
+      hs + (size_t)h_col<EC>(10) * chunk, rows, rps, part, L.total, L.w[9],
+      L.w[12]);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bias_sums_f32<<<dim3((GW + HEAD_COLS + 255) / 256, SPLITS), 256, 0,
@@ -868,19 +917,75 @@ int run_wgrad_f32(const float* hs, const float* gs, const float* heads,
   return (int)cudaGetLastError();
 }
 
+// every chunk of M points through the main kernel and the weight
+// gradients at encoding width EC, then the split reduction
+template <int EC>
+int run_bwd(const void* xyz, const void* dout, const MlpWeights& p,
+            const void* w_image, const ImageOffsets& io, void* dxyz,
+            void* grads, void* scratch, void* heads, void* partials, int M,
+            int chunk, int n_freqs, int er, int dtype, cudaStream_t st) {
+  const GradLayout L = grad_layout(er);
+  if (dtype != 0 && cudaMemsetAsync(partials, 0,
+                                    sizeof(float) * SPLITS * L.total,
+                                    st) != cudaSuccess)
+    return (int)cudaGetLastError();
+  for (int m_start = 0; m_start < M; m_start += chunk) {
+    const int Mc = min(chunk, M - m_start);
+    if (dtype == 0) {
+      const int rows = (Mc + T - 1) / T * T;
+      bf16* hs = (bf16*)scratch;
+      bf16* gs = hs + (size_t)HW<EC> * chunk;
+      cudaFuncSetAttribute(mlp_bwd_main_bf16<EC>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)MainSmem<EC>::BYTES);
+      mlp_bwd_main_bf16<EC><<<rows / T, MAIN_THREADS, MainSmem<EC>::BYTES,
+                              st>>>(
+          (const float*)xyz, (const float*)dout, (float*)dxyz, p,
+          (const bf16*)w_image, io, hs, gs, (float*)heads, M, m_start, Mc,
+          chunk, n_freqs);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      const int rc = animnerf_mlp_wgrad_chunk(hs, heads, partials, rows,
+                                              chunk, er, m_start == 0, st);
+      if (rc != 0) return rc;
+    } else {
+      const int rows = (Mc + TF - 1) / TF * TF;
+      float* hs = (float*)scratch;
+      float* gs = hs + (size_t)HW<EC> * chunk;
+      cudaFuncSetAttribute(mlp_bwd_main_f32<EC>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem_f32<EC>());
+      mlp_bwd_main_f32<EC><<<rows / TF, WIDTH, smem_f32<EC>(), st>>>(
+          (const float*)xyz, (const float*)dout, (float*)dxyz, p, hs, gs,
+          (float*)heads, M, m_start, Mc, chunk, n_freqs, er);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      const int rc = run_wgrad_f32<EC>(hs, gs, (const float*)heads, chunk,
+                                       rows, (float*)partials, L, st);
+      if (rc != 0) return rc;
+    }
+  }
+  reduce_splits<<<(unsigned)((L.total + 255) / 256), 256, 0, st>>>(
+      (const float*)partials, L.total, (float*)grads);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The buffers animnerf_fused_mlp_bwd takes for a chunk of `chunk` points
-// (a multiple of 128): sizes[0] scratch elements of the compute type (the
-// H and G arrays), sizes[1] head floats (the (chunk, 4) f32 head
-// cotangents, then the bf16 pass's head tiles, 16 B a point), sizes[2]
-// partial floats (one flat gradient per split; the kernels set them, the
-// caller need not), sizes[3] gradient floats (dW_0..12 then db_0..12 in
-// pack_params' shapes, padded to 64).
-extern "C" int animnerf_fused_mlp_bwd_sizes(int chunk, void* sizes) {
-  const GradLayout L = grad_layout();
+// (a multiple of 128) and er encoding rows (enc_rows(n_freqs): 8..128):
+// sizes[0] scratch elements of the compute type (the H and G arrays, the
+// encoding EC = enc_cols_of(er) wide), sizes[1] head floats (the (chunk, 4)
+// f32 head cotangents, then the bf16 pass's head tiles, 16 B a point),
+// sizes[2] partial floats (one flat gradient per split; the kernels set
+// them, the caller need not), sizes[3] gradient floats (dW_0..12 then
+// db_0..12 in pack_params' shapes, padded to 64).
+extern "C" int animnerf_fused_mlp_bwd_sizes(int chunk, int er, void* sizes) {
+  if (er < 8 || er > EC_MAX || er % 8 != 0) return (int)cudaErrorInvalidValue;
+  const GradLayout L = grad_layout(er);
   long long* out = (long long*)sizes;
-  out[0] = (long long)chunk * (HW + GW);
+  out[0] = (long long)chunk *
+           ((er <= 64 ? HW<64> : HW<128>) + GW);
   out[1] = (long long)chunk * 2 * HEAD_COLS;
   out[2] = (long long)SPLITS * L.total;
   out[3] = (long long)L.total;
@@ -889,7 +994,8 @@ extern "C" int animnerf_fused_mlp_bwd_sizes(int chunk, void* sizes) {
 
 // w_image: the bf16 weight image (ops/fused_mlp.py::weight_image), with
 // image_offsets its 2 x 13 part offsets (host int array: fwd then bwd);
-// both unused (may be null) in f32.
+// both unused (may be null) in f32. E_in: the encoding rows of the packed
+// weights, enc_rows(n_freqs) (8..128, n_freqs 0..20).
 extern "C" int animnerf_fused_mlp_bwd(const void* xyz, const void* dout,
                                       const void* w_ptrs, const void* b_ptrs,
                                       const void* w_image,
@@ -898,8 +1004,8 @@ extern "C" int animnerf_fused_mlp_bwd(const void* xyz, const void* dout,
                                       void* heads, void* partials, int M,
                                       int chunk, int n_freqs, int E_in,
                                       int dtype, void* stream) {
-  if (E_in != E || n_freqs < 0 || 3 + 6 * n_freqs > E || chunk % T != 0 ||
-      chunk <= 0)
+  if (E_in < 8 || E_in > EC_MAX || E_in % 8 != 0 || n_freqs < 0 ||
+      3 + 6 * n_freqs > E_in || chunk % T != 0 || chunk <= 0)
     return (int)cudaErrorInvalidValue;
   MlpWeights p;
   for (int i = 0; i < N_W; ++i) {
@@ -920,48 +1026,10 @@ extern "C" int animnerf_fused_mlp_bwd(const void* xyz, const void* dout,
           io.bwd[l] % 64)
         return (int)cudaErrorInvalidValue;
   }
-  const GradLayout L = grad_layout();
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype != 0 && cudaMemsetAsync(partials, 0,
-                                    sizeof(float) * SPLITS * L.total,
-                                    st) != cudaSuccess)
-    return (int)cudaGetLastError();
-  for (int m_start = 0; m_start < M; m_start += chunk) {
-    const int Mc = min(chunk, M - m_start);
-    if (dtype == 0) {
-      const int rows = (Mc + T - 1) / T * T;
-      bf16* hs = (bf16*)scratch;
-      bf16* gs = hs + (size_t)HW * chunk;
-      cudaFuncSetAttribute(mlp_bwd_main_bf16,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)SMEM_BF16);
-      mlp_bwd_main_bf16<<<rows / T, MAIN_THREADS, SMEM_BF16, st>>>(
-          (const float*)xyz, (const float*)dout, (float*)dxyz, p,
-          (const bf16*)w_image, io, hs, gs, (float*)heads, M, m_start, Mc,
-          chunk, n_freqs);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      const int rc = animnerf_mlp_wgrad_chunk(hs, heads, partials, rows,
-                                              chunk, m_start == 0, st);
-      if (rc != 0) return rc;
-    } else {
-      const int rows = (Mc + TF - 1) / TF * TF;
-      float* hs = (float*)scratch;
-      float* gs = hs + (size_t)HW * chunk;
-      cudaFuncSetAttribute(mlp_bwd_main_f32,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)SMEM_F32);
-      mlp_bwd_main_f32<<<rows / TF, WIDTH, SMEM_F32, st>>>(
-          (const float*)xyz, (const float*)dout, (float*)dxyz, p, hs, gs,
-          (float*)heads, M, m_start, Mc, chunk, n_freqs);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      const int rc = run_wgrad_f32(hs, gs, (const float*)heads, chunk, rows,
-                                   (float*)partials, L, st);
-      if (rc != 0) return rc;
-    }
-  }
-  reduce_splits<<<(unsigned)((L.total + 255) / 256), 256, 0, st>>>(
-      (const float*)partials, L.total, (float*)grads);
-  return (int)cudaGetLastError();
+  if (E_in <= 64)
+    return run_bwd<64>(xyz, dout, p, w_image, io, dxyz, grads, scratch,
+                       heads, partials, M, chunk, n_freqs, E_in, dtype, st);
+  return run_bwd<128>(xyz, dout, p, w_image, io, dxyz, grads, scratch, heads,
+                      partials, M, chunk, n_freqs, E_in, dtype, st);
 }

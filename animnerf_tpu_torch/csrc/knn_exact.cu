@@ -1,5 +1,5 @@
-// Exact, unquantised top-k nearest vertices, any k in 1..16, for Hopper
-// (sm_90a), with the TPU kernel's exact AABB cull.
+// Exact, unquantised top-k nearest vertices, any k in 1..V, for Hopper
+// (sm_90a), with the TPU kernel's exact AABB cull (k <= 32).
 //
 // Replaces: animnerf_tpu/ops/knn_pallas.py::_knn_kernel (knn_pallas with
 // packed=False, or with a padded vertex cloud above the packed key's
@@ -75,6 +75,24 @@
 //   knn_sweep.cuh's box_lb2 is written gx*gx + gy*gy + gz*gz, which nvcc
 //   contracts into FMAs under -O3; kernel 1 survives that only through its
 //   deflated, quantised bound.
+//
+// Above 16 neighbours. Every K in 17..32 has its own instantiation: the
+// slot rule's order is not total, so the k-slot result is not the first k
+// of a K-slot one. Counterexample (k = 2, K = 3, one vertex a tile, all
+// else far): tile 0 gives d2 0 (z), 5 (m), 9 (w); tile 1 gives a at 1;
+// tile 2 gives e at 1. Three slots: [z, m, w] -> a replaces w -> e
+// replaces m -> [z, e, a] sorted, first two z, e. Two slots: [z, m] -> a
+// replaces m -> e (1, not below the maximum 1) is not merged: z, a. Above
+// 32, knn_exact_any takes k at run time: one thread a point keeps its k
+// slots in its own column of the output ((d2, index) in out_d, out_i,
+// coalesced across the warp's points), takes each tile's pairs in
+// ascending (d2, index) order by extract-min passes over the staged tile
+// (one pass a merged pair, and one that ends the tile: the merge stops at
+// the first pair not below the slots' maximum), replaces the first slot
+// holding the maximum as the rule does, runs the bubble network on the
+// slots and takes sqrtf in place. The same rule and the same d2, so the
+// same output; no cull (the output does not depend on it), no stats.
+// Slow but exact; its time is in PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -87,7 +105,7 @@ constexpr int THREADS = 128;
 constexpr int TILE = knn_slots::TILE;  // 512 rows: the top-k rule's tile
 constexpr int SUB = 64;                // rows a sub-tile box bounds
 constexpr int SUBS = TILE / SUB;
-constexpr int MAX_K = 16;
+constexpr int MAX_K = 32;  // every K up to here has its instantiation
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int FAR_GROUP = 1024;  // the all-far skip's point group
 static_assert(SUB == 64, "a sub-tile is two warps of the rows kernel");
@@ -322,6 +340,93 @@ knn_exact_kernel(const float* __restrict__ points,  // (B, N, 3)
   }
 }
 
+constexpr int ANY_THREADS = 128;
+
+// any k: the slot rule with the slots of point n in out_d[b, s, n] (d2)
+// and out_i[b, s, n], s < k; each tile's pairs merged in ascending (d2,
+// index) order, found by extract-min passes over the staged tile's real
+// rows; every thread takes part in the staging, dead ones included
+__global__ void __launch_bounds__(ANY_THREADS)
+knn_exact_any(const float* __restrict__ points,  // (B, N, 3)
+              const float4* __restrict__ rows,   // (B, Vp, 4)
+              const int* __restrict__ far, float* __restrict__ out_d,
+              int* __restrict__ out_i, int N, int V, int Vp, int k) {
+  static_assert(FAR_GROUP % ANY_THREADS == 0,
+                "a block's points lie in one far-skip group");
+  const int b = blockIdx.y;
+  if (far != nullptr &&
+      far[(size_t)b * ((N + FAR_GROUP - 1) / FAR_GROUP) +
+          blockIdx.x * ANY_THREADS / FAR_GROUP])
+    return;  // knn_far.cu wrote this group's outputs
+  __shared__ float4 s_rows[TILE];
+  const int n = blockIdx.x * ANY_THREADS + threadIdx.x;
+  const bool live = n < N;
+  const float* q = points + ((size_t)b * N + (live ? n : N - 1)) * 3;
+  const float px = q[0], py = q[1], pz = q[2];
+  float* sd = out_d + (size_t)b * k * N + n;  // slot s at sd[s * N]
+  int* si = out_i + (size_t)b * k * N + n;
+  if (live)
+    for (int s = 0; s < k; ++s) {
+      sd[(size_t)s * N] = INFINITY;
+      si[(size_t)s * N] = 0;
+    }
+  float smax = INFINITY;  // the slots' maximum, first held by slot am
+  int am = 0;
+  const float4* rb = rows + (size_t)b * Vp;
+  for (int t = 0; t * TILE < Vp; ++t) {
+    __syncthreads();  // the previous tile consumed
+    for (int r = threadIdx.x; r < TILE; r += ANY_THREADS)
+      s_rows[r] = rb[t * TILE + r];
+    __syncthreads();
+    if (!live) continue;
+    const int rows_t = min(TILE, V - t * TILE);
+    float pd = -INFINITY;  // the pair merged last (none: below every pair)
+    int pi = -1;
+    for (int s = 0; s < k; ++s) {
+      float bd = INFINITY;
+      int bi = -1;
+      for (int j = 0; j < rows_t; ++j) {
+        const float d = pair_d2(s_rows[j], px, py, pz);
+        const int id = t * TILE + j;
+        const bool after = d > pd || (d == pd && id > pi);
+        const bool better = d < bd || (d == bd && bi < 0);
+        if (after && better) {
+          bd = d;
+          bi = id;
+        }
+      }
+      if (!(bd < smax)) break;  // the pairs ascend, the maximum only falls
+      sd[(size_t)am * N] = bd;
+      si[(size_t)am * N] = bi;
+      pd = bd;
+      pi = bi;
+      smax = sd[0];
+      am = 0;
+      for (int u = 1; u < k; ++u) {
+        const float v = sd[(size_t)u * N];
+        if (v > smax) {
+          smax = v;
+          am = u;
+        }
+      }
+    }
+  }
+  if (!live) return;
+  // the bubble network, a swap only on a strictly larger d2, then sqrtf
+  for (int end = k - 1; end > 0; --end)
+    for (int a = 0; a < end; ++a) {
+      const float da = sd[(size_t)a * N], db = sd[(size_t)(a + 1) * N];
+      if (da > db) {
+        const int ia = si[(size_t)a * N];
+        sd[(size_t)a * N] = db;
+        sd[(size_t)(a + 1) * N] = da;
+        si[(size_t)a * N] = si[(size_t)(a + 1) * N];
+        si[(size_t)(a + 1) * N] = ia;
+      }
+    }
+  for (int s = 0; s < k; ++s) sd[(size_t)s * N] = sqrtf(sd[(size_t)s * N]);
+}
+
 // rows (B, Vp, 4): (x, y, z, 0) of vertex v < V, (+inf, +inf, +inf, 0)
 // beyond; sbox (B, Vp / SUB, 8) and tbox (B, Vp / TILE, 8): [lo xyz, hi xyz,
 // 0, 0] over the real vertices of each sub-tile and tile (lo +inf, hi -inf
@@ -426,13 +531,19 @@ extern "C" int animnerf_knn_exact(const void* points, const void* rows,
                                   int cull, void* stats, const void* far,
                                   void* out_d, void* out_i, int B, int N,
                                   int V, int Vp, int k, void* stream) {
-  if (k < 1 || k > MAX_K || V < k || Vp < V || Vp % TILE != 0 ||
-      Vp - V >= TILE)
+  if (k < 1 || V < k || Vp < V || Vp % TILE != 0 || Vp - V >= TILE)
     return (int)cudaErrorInvalidValue;
-  if (N > 0 && B > 0)
-    launch<1>(k, B, (cudaStream_t)stream, (const float*)points,
-              (const float4*)rows, (const float*)sbox, (const float*)tbox,
-              cull, (unsigned long long*)stats, (const int*)far,
-              (float*)out_d, (int*)out_i, N, V, Vp);
+  if (N > 0 && B > 0) {
+    if (k <= MAX_K)
+      launch<1>(k, B, (cudaStream_t)stream, (const float*)points,
+                (const float4*)rows, (const float*)sbox, (const float*)tbox,
+                cull, (unsigned long long*)stats, (const int*)far,
+                (float*)out_d, (int*)out_i, N, V, Vp);
+    else
+      knn_exact_any<<<dim3((N + ANY_THREADS - 1) / ANY_THREADS, B),
+                      ANY_THREADS, 0, (cudaStream_t)stream>>>(
+          (const float*)points, (const float4*)rows, (const int*)far,
+          (float*)out_d, (int*)out_i, N, V, Vp, k);
+  }
   return (int)cudaGetLastError();
 }

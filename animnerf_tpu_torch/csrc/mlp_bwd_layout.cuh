@@ -12,38 +12,51 @@ namespace mlpb {
 constexpr int WIDTH = 256;
 constexpr int DIR_W = 128;
 constexpr int N_W = 13;
-constexpr int E = 64;       // encoding block rows: enc_rows(n_freqs <= 10)
 constexpr int SPLITS = 44;  // point splits of the weight-gradient sums
 constexpr int HEAD_COLS = 4;  // d_rgb_raw[0..2], d_sigma (f32)
 
+// Two encoding widths. EC, the encoding block's columns in the scratch and
+// in shared memory: enc_cols(n_freqs), 64 for n_freqs 0..10 and 128 for
+// 11..20 (ops/fused_mlp.py::bwd_layout), the columns from 3 + 6 n_freqs
+// zero; a template argument of the kernels. ER, the rows of the encoding
+// in pack_params' weights: enc_rows(n_freqs), 8..128, a multiple of 8,
+// the columns of dW_0 and dW_8 in the flat gradients; a runtime value.
+constexpr int EC_MAX = 128;
+__host__ __device__ __forceinline__ int enc_cols_of(int er) {
+  return er <= 64 ? 64 : 128;
+}
+
 // ------------------------------------------------------- scratch layout
-// H (layer inputs): 0 enc (E) | 1..8 h0..h7 (256) | 9 hf (256) | 10 hd (128)
+// H (layer inputs): 0 enc (EC) | 1..8 h0..h7 (256) | 9 hf (256) | 10 hd (128)
 // G (layer output cotangents): 0..7 d0..d7 (256) | 8 d_hf (256) | 9 d_hd (128)
 // Each array is a (chunk, width) point-major block of the scratch.
+template <int EC>
 __host__ __device__ __forceinline__ int h_col(int h) {
-  return h == 0 ? 0 : E + (h - 1) * WIDTH;
+  return h == 0 ? 0 : EC + (h - 1) * WIDTH;
 }
 __host__ __device__ __forceinline__ int g_width(int g) {
   return g == 9 ? DIR_W : WIDTH;
 }
 __host__ __device__ __forceinline__ int g_col(int g) { return g * WIDTH; }
-constexpr int HW = E + 9 * WIDTH + DIR_W;  // 2496
+template <int EC>
+constexpr int HW = EC + 9 * WIDTH + DIR_W;  // 2496 at EC = 64
 constexpr int GW = 9 * WIDTH + DIR_W;      // 2432
 
 // flat f32 gradient layout: dW_0..12 then db_0..12, pack_params' shapes
+// (dW_0 and dW_8 have er columns)
 struct GradLayout {
   size_t w[N_W], b[N_W], total;
   int wr[N_W], wc[N_W], br[N_W];
 };
-__host__ __device__ inline GradLayout grad_layout() {
+__host__ __device__ inline GradLayout grad_layout(int er) {
   GradLayout L;
   for (int i = 0; i < N_W; ++i) {
     L.wr[i] = WIDTH;
     L.wc[i] = WIDTH;
     L.br[i] = WIDTH;
   }
-  L.wc[0] = E;
-  L.wc[8] = E;
+  L.wc[0] = er;
+  L.wc[8] = er;
   L.wr[9] = 8;
   L.wr[11] = DIR_W;
   L.wr[12] = 8;
@@ -64,8 +77,9 @@ __host__ __device__ inline GradLayout grad_layout() {
   return L;
 }
 
+template <int EC>
 __host__ __device__ __forceinline__ int h_width(int h) {
-  return h == 0 ? E : h == 10 ? DIR_W : WIDTH;
+  return h == 0 ? EC : h == 10 ? DIR_W : WIDTH;
 }
 
 // grads = the sum of the SPLITS partials (one flat gradient each), in
@@ -83,7 +97,8 @@ reduce_splits(const float* __restrict__ part, size_t total,
 }  // namespace mlpb
 
 // mlp_wgrad.cu: the bf16 weight-gradient pass over rows [0, rows) of a
-// chunk's scratch into the partials (stored when `first`, else added)
+// chunk's scratch (encoding rows er) into the partials (stored when
+// `first`, else added)
 extern "C" int animnerf_mlp_wgrad_chunk(const void* scratch, void* heads,
                                         void* partials, int rows, int chunk,
-                                        int first, void* stream);
+                                        int er, int first, void* stream);

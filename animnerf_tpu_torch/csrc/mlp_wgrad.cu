@@ -43,6 +43,11 @@ constexpr int CONSUMERS = 256;  // two consumer warpgroups
 // heads: m64n8 products of the h7 / hd boxes with the bf16 head cotangent
 // tile that mlp_wgrad_prep writes (8 rows x 64 points a stage). The f32
 // head bias sums and the entries no product writes are mlp_wgrad_prep's.
+// The encoding width EC (64 or 128 columns, mlp_bwd_layout.cuh) is a
+// template argument: the enc box of a stage becomes EC / 64 boxes, and the
+// products with it (dW8 in the ENC4 jobs, dW0 in the ENC0 job) EC / 64
+// m64n64 products a G box, of which the first er (enc_rows) columns are
+// stored. At 128 an ENC4 consumer holds 128 + 4 + 64 accumulators.
 constexpr int WP = 64;          // points per stage
 constexpr int BOX = WP * 128;   // one 64-column box of WP points
 constexpr int DN_BYTES = 8 * WP * 2;  // a stage's head cotangent tile
@@ -74,11 +79,16 @@ __constant__ WgradJob WG_JOBS[N_JOBS] = {
     {SIGMA, 10, 8, 8, 128}, {RGB, 11, 9, 9, 0},   {ENC0, 0, 0, 0, 0}};
 
 // a job's stage: boxes (and the head tile) in this order
-//   PAIR, ENC4, SIGMA, RGB: 0, 1 the warpgroups' G boxes; 2..5 H; ENC4: 6
-//     enc; RGB: 6, 7 hd; SIGMA: the head tile after box 5, RGB after 7
-//   ENC0: 0, 1 warpgroup 0's G0 boxes, 2, 3 warpgroup 1's; 4 enc
+//   PAIR, ENC4, SIGMA, RGB: 0, 1 the warpgroups' G boxes; 2..5 H; ENC4:
+//     6.. enc (EC / 64 boxes); RGB: 6, 7 hd; SIGMA: the head tile after
+//     box 5, RGB after 7
+//   ENC0: 0, 1 warpgroup 0's G0 boxes, 2, 3 warpgroup 1's; 4.. enc
+template <int EC>
 __device__ __forceinline__ int job_boxes(int kind) {
-  return kind == ENC0 ? 5 : kind == ENC4 ? 7 : kind == RGB ? 8 : 6;
+  return kind == ENC0 ? 4 + EC / 64
+         : kind == ENC4 ? 6 + EC / 64
+         : kind == RGB  ? 8
+                        : 6;
 }
 __device__ __forceinline__ bool job_heads(int kind) {
   return kind == SIGMA || kind == RGB;
@@ -154,24 +164,29 @@ __device__ __forceinline__ void consume_stages(WRing& ring, int steps,
 
 // the products of a 256-wide job, one warpgroup (w), over `steps` stages
 // of the ring, then its partial entries
-template <int KIND>
+template <int KIND, int EC>
 __device__ __forceinline__ void wgrad_consume(WRing& ring, uint32_t ones,
                                               int w, int half, int steps,
                                               const WgradJob& job,
                                               float* P, const GradLayout& L,
                                               bool first) {
-  constexpr int NX = KIND == ENC4 ? 32 : 4;  // the third product's
-  float acc[128], bacc[4], xacc[NX];
+  // the third product's accumulators: ENC4 one m64n64 tile per enc box
+  constexpr int NXB = KIND == ENC4 ? EC / 64 : 1;
+  constexpr int NX = KIND == ENC4 ? 32 : 4;
+  float acc[128], bacc[4], xacc[NXB][NX];
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) bacc[i] = 0.0f;
 #pragma unroll
-  for (int i = 0; i < NX; ++i) xacc[i] = 0.0f;
+  for (int b = 0; b < NXB; ++b)
+#pragma unroll
+    for (int i = 0; i < NX; ++i) xacc[b][i] = 0.0f;
   // the zeros stay ahead of the products (no move inside a wgmma stage)
   mlpw::fence_operand(acc);
   mlpw::fence_operand(bacc);
-  mlpw::fence_operand(xacc);
+#pragma unroll
+  for (int b = 0; b < NXB; ++b) mlpw::fence_operand(xacc[b]);
   consume_stages(ring, steps, [&](uint32_t s0) {
 #pragma unroll
     for (int kk = 0; kk < WP / 16; ++kk) {
@@ -179,21 +194,25 @@ __device__ __forceinline__ void wgrad_consume(WRing& ring, uint32_t ones,
       const uint64_t da = mlpw::desc_mn128(s0 + w * BOX + o, BOX);
       mlpw::wgmma_n256_mn(acc, da, mlpw::desc_mn128(s0 + 2 * BOX + o, BOX));
       mlpw::wgmma_n8_amn(bacc, da, mlpw::desc_sw128(ones + kk * 32));
-      if constexpr (KIND == ENC4)  // G4 box . enc
-        mlpw::wgmma_n64_mn(xacc, da, mlpw::desc_mn128(s0 + 6 * BOX + o, BOX));
+      if constexpr (KIND == ENC4)  // G4 box . enc boxes
+#pragma unroll
+        for (int b = 0; b < NXB; ++b)
+          mlpw::wgmma_n64_mn(xacc[b], da,
+                             mlpw::desc_mn128(s0 + (6 + b) * BOX + o, BOX));
       if constexpr (KIND == SIGMA)  // h7 box 2 half + w . the head tile
         mlpw::wgmma_n8_amn(
-            xacc, mlpw::desc_mn128(s0 + (2 + 2 * half + w) * BOX + o, BOX),
+            xacc[0], mlpw::desc_mn128(s0 + (2 + 2 * half + w) * BOX + o, BOX),
             mlpw::desc_sw128(s0 + 6 * BOX + kk * 32));
       if constexpr (KIND == RGB)  // hd box w . the head tile
-        mlpw::wgmma_n8_amn(xacc,
+        mlpw::wgmma_n8_amn(xacc[0],
                            mlpw::desc_mn128(s0 + (6 + w) * BOX + o, BOX),
                            mlpw::desc_sw128(s0 + 8 * BOX + kk * 32));
     }
   });
   mlpw::fence_operand(acc);
   mlpw::fence_operand(bacc);
-  mlpw::fence_operand(xacc);
+#pragma unroll
+  for (int b = 0; b < NXB; ++b) mlpw::fence_operand(xacc[b]);
 
   const int n0 = job.col0 + w * 64;  // the warpgroup's first G feature
   float* dw = P + L.w[job.layer];    // K = 256
@@ -204,77 +223,100 @@ __device__ __forceinline__ void wgrad_consume(WRing& ring, uint32_t ones,
   put_bias(bacc, P + L.b[job.layer], n0, first);
   const int r = mlpw::pair_row();
   const int c = mlpw::pair_col();
-  if constexpr (KIND == ENC4)  // dW8 = G4^T enc
-    mlpw::for_each_pair<E>(xacc, n0, 0, [&](int row, int cc, int, int,
-                                            float v0, float v1) {
-      put2(P + L.w[8] + (size_t)row * E + cc, v0, v1, first);
-    });
+  if constexpr (KIND == ENC4) {  // dW8 = G4^T enc, its er columns
+    const int er = L.wc[8];
+#pragma unroll
+    for (int b = 0; b < NXB; ++b)
+      mlpw::for_each_pair<64>(xacc[b], n0, 64 * b,
+                              [&](int row, int cc, int, int, float v0,
+                                  float v1) {
+                                if (cc < er)
+                                  put2(P + L.w[8] + (size_t)row * er + cc, v0,
+                                       v1, first);
+                              });
+  }
   if constexpr (KIND == SIGMA) {  // column 3: d_sigma
     if (c == 2) {
       const int f = (2 * half + w) * 64 + r;
-      put(P + L.w[9] + f, xacc[1], first);
-      put(P + L.w[9] + f + 8, xacc[3], first);
+      put(P + L.w[9] + f, xacc[0][1], first);
+      put(P + L.w[9] + f + 8, xacc[0][3], first);
     }
   }
   if constexpr (KIND == RGB) {  // columns 0..2: d_rgb
     float* d12 = P + L.w[12] + w * 64 + r;
     if (c == 0) {
-      put(d12, xacc[0], first);
-      put(d12 + 8, xacc[2], first);
-      put(d12 + DIR_W, xacc[1], first);
-      put(d12 + DIR_W + 8, xacc[3], first);
+      put(d12, xacc[0][0], first);
+      put(d12 + 8, xacc[0][2], first);
+      put(d12 + DIR_W, xacc[0][1], first);
+      put(d12 + DIR_W + 8, xacc[0][3], first);
     } else if (c == 2) {
-      put(d12 + 2 * DIR_W, xacc[0], first);
-      put(d12 + 2 * DIR_W + 8, xacc[2], first);
+      put(d12 + 2 * DIR_W, xacc[0][0], first);
+      put(d12 + 2 * DIR_W + 8, xacc[0][2], first);
     }
   }
 }
 
 // dW0 = G0^T enc: warpgroup w owns G0 features 128 w .. 128 w + 127, two
-// m64n64 tiles
+// G0 tiles of 64, each EC / 64 m64n64 products (one an enc box); the
+// first er (enc_rows) columns are stored
+template <int EC>
 __device__ __forceinline__ void wgrad_consume_enc0(WRing& ring,
                                                    uint32_t ones, int w,
                                                    int steps, float* P,
                                                    const GradLayout& L,
                                                    bool first) {
-  float acc[2][32], bacc[2][4];
+  constexpr int NB = EC / 64;
+  float acc[2][NB][32], bacc[2][4];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[j][i] = 0.0f;
+    for (int b = 0; b < NB; ++b) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][b][i] = 0.0f;
+      mlpw::fence_operand(acc[j][b]);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) bacc[j][i] = 0.0f;
-    mlpw::fence_operand(acc[j]);
     mlpw::fence_operand(bacc[j]);
   }
   consume_stages(ring, steps, [&](uint32_t s0) {
 #pragma unroll
     for (int kk = 0; kk < WP / 16; ++kk) {
       const uint32_t o = kk * 2048;
-      const uint64_t db = mlpw::desc_mn128(s0 + 4 * BOX + o, BOX);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const uint64_t da = mlpw::desc_mn128(s0 + (2 * w + j) * BOX + o, BOX);
-        mlpw::wgmma_n64_mn(acc[j], da, db);
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          mlpw::wgmma_n64_mn(acc[j][b], da,
+                             mlpw::desc_mn128(s0 + (4 + b) * BOX + o, BOX));
         mlpw::wgmma_n8_amn(bacc[j], da, mlpw::desc_sw128(ones + kk * 32));
       }
     }
   });
+  const int er = L.wc[0];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    mlpw::fence_operand(acc[j]);
     mlpw::fence_operand(bacc[j]);
     const int n0 = 128 * w + 64 * j;
-    mlpw::for_each_pair<E>(acc[j], n0, 0, [&](int row, int c, int, int,
-                                              float v0, float v1) {
-      put2(P + L.w[0] + (size_t)row * E + c, v0, v1, first);
-    });
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      mlpw::fence_operand(acc[j][b]);
+      mlpw::for_each_pair<64>(acc[j][b], n0, 64 * b,
+                              [&](int row, int c, int, int, float v0,
+                                  float v1) {
+                                if (c < er)
+                                  put2(P + L.w[0] + (size_t)row * er + c, v0,
+                                       v1, first);
+                              });
+    }
     put_bias(bacc[j], P + L.b[0], n0, first);
   }
 }
 
 // grid (N_JOBS, SPLITS), clusters of 2 along x: block (j, s) runs job j
 // over the points [s rps, min(rows, (s + 1) rps)) of the chunk
+template <int EC>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(WGRAD_THREADS, 1)
 mlp_wgrad_bf16(const __grid_constant__ WgradMaps maps,
                const bf16* __restrict__ dn, int rows, int rps,
@@ -289,7 +331,7 @@ mlp_wgrad_bf16(const __grid_constant__ WgradMaps maps,
   const int t_end = min(rows, t_begin + rps);
   const int steps = t_end > t_begin ? (t_end - t_begin + WP - 1) / WP : 0;
   if (steps == 0 && !first) return;
-  const int bytes = job_boxes(job.kind) * BOX +
+  const int bytes = job_boxes<EC>(job.kind) * BOX +
                     (job_heads(job.kind) ? DN_BYTES : 0);
   WRing ring{mlpw::smem_u32(smem + WG_OFF_RING),
              mlpw::smem_u32(smem + WG_OFF_BARS),
@@ -330,7 +372,9 @@ mlp_wgrad_bf16(const __grid_constant__ WgradMaps maps,
       if (job.kind == ENC0) {
         for (int j = 0; j < 4; ++j)
           mlpw::tma_load_2d(d + j * BOX, &G[0], 64 * j, p0, bar, EVICT_FIRST);
-        mlpw::tma_load_2d(d + 4 * BOX, &H[0], 0, p0, bar, EVICT_NORMAL);
+        for (int j = 0; j < EC / 64; ++j)
+          mlpw::tma_load_2d(d + (4 + j) * BOX, &H[0], 64 * j, p0, bar,
+                            EVICT_NORMAL);
       } else {
         for (int j = 0; j < 2; ++j)
           mlpw::tma_load_2d(d + j * BOX, &G[job.g], job.col0 + 64 * j, p0,
@@ -339,13 +383,15 @@ mlp_wgrad_bf16(const __grid_constant__ WgradMaps maps,
           mlpw::tma_load_2d(d + (2 + j) * BOX, &H[job.h], 64 * j, p0, bar,
                             job.kind == RGB ? EVICT_FIRST : EVICT_NORMAL);
         if (job.kind == ENC4)
-          mlpw::tma_load_2d(d + 6 * BOX, &H[0], 0, p0, bar, EVICT_NORMAL);
+          for (int j = 0; j < EC / 64; ++j)
+            mlpw::tma_load_2d(d + (6 + j) * BOX, &H[0], 64 * j, p0, bar,
+                              EVICT_NORMAL);
         if (job.kind == RGB)
           for (int j = 0; j < 2; ++j)
             mlpw::tma_load_2d(d + (6 + j) * BOX, &H[10], 64 * j, p0, bar,
                               EVICT_FIRST);
         if (job_heads(job.kind))
-          mlpw::bulk_copy(d + job_boxes(job.kind) * BOX,
+          mlpw::bulk_copy(d + job_boxes<EC>(job.kind) * BOX,
                           dn + (size_t)(p0 / WP) * (DN_BYTES / 2), DN_BYTES,
                           bar);
       }
@@ -360,19 +406,19 @@ mlp_wgrad_bf16(const __grid_constant__ WgradMaps maps,
   float* P = part + (size_t)s * L.total;
   switch (job.kind) {
     case PAIR:
-      wgrad_consume<PAIR>(ring, ones, w, half, steps, job, P, L, first);
+      wgrad_consume<PAIR, EC>(ring, ones, w, half, steps, job, P, L, first);
       break;
     case ENC4:
-      wgrad_consume<ENC4>(ring, ones, w, half, steps, job, P, L, first);
+      wgrad_consume<ENC4, EC>(ring, ones, w, half, steps, job, P, L, first);
       break;
     case SIGMA:
-      wgrad_consume<SIGMA>(ring, ones, w, half, steps, job, P, L, first);
+      wgrad_consume<SIGMA, EC>(ring, ones, w, half, steps, job, P, L, first);
       break;
     case RGB:
-      wgrad_consume<RGB>(ring, ones, w, half, steps, job, P, L, first);
+      wgrad_consume<RGB, EC>(ring, ones, w, half, steps, job, P, L, first);
       break;
     default:
-      wgrad_consume_enc0(ring, ones, w, steps, P, L, first);
+      wgrad_consume_enc0<EC>(ring, ones, w, steps, P, L, first);
   }
 }
 
@@ -458,6 +504,7 @@ EncodeTiled encode_tiled() {
 // maps (the 21 arrays, rows x width, 64 x WP boxes in the 128-byte
 // swizzle; rows past `rows` read as zeros), mlp_wgrad_prep, then
 // mlp_wgrad_bf16; `first`: the chunk's partials are stored, not added
+template <int EC>
 int run_wgrad_bf16(const bf16* hs, const bf16* gs, float* heads, int chunk,
                    int rows, float* part, const GradLayout& L, bool first,
                    cudaStream_t stream) {
@@ -465,8 +512,8 @@ int run_wgrad_bf16(const bf16* hs, const bf16* gs, float* heads, int chunk,
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   WgradMaps maps;
   for (int i = 0; i < N_MAPS; ++i) {
-    const int width = i < 11 ? h_width(i) : g_width(i - 11);
-    const bf16* base = i < 11 ? hs + (size_t)h_col(i) * chunk
+    const int width = i < 11 ? h_width<EC>(i) : g_width(i - 11);
+    const bf16* base = i < 11 ? hs + (size_t)h_col<EC>(i) * chunk
                               : gs + (size_t)g_col(i - 11) * chunk;
     const cuuint64_t dims[2] = {(cuuint64_t)width, (cuuint64_t)rows};
     const cuuint64_t strides[1] = {(cuuint64_t)width * 2};
@@ -485,11 +532,12 @@ int run_wgrad_bf16(const bf16* hs, const bf16* gs, float* heads, int chunk,
                                              first ? 1 : 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cudaFuncSetAttribute(mlp_wgrad_bf16,
+  cudaFuncSetAttribute(mlp_wgrad_bf16<EC>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)SMEM_WGRAD + 1024);
-  mlp_wgrad_bf16<<<dim3(N_JOBS, SPLITS), WGRAD_THREADS, SMEM_WGRAD + 1024,
-                   stream>>>(maps, dn, rows, rps, part, L, first ? 1 : 0);
+  mlp_wgrad_bf16<EC><<<dim3(N_JOBS, SPLITS), WGRAD_THREADS,
+                       SMEM_WGRAD + 1024, stream>>>(maps, dn, rows, rps, part,
+                                                    L, first ? 1 : 0);
   return (int)cudaGetLastError();
 }
 
@@ -497,26 +545,33 @@ int run_wgrad_bf16(const bf16* hs, const bf16* gs, float* heads, int chunk,
 
 extern "C" int animnerf_mlp_wgrad_chunk(const void* scratch, void* heads,
                                         void* partials, int rows, int chunk,
-                                        int first, void* stream) {
+                                        int er, int first, void* stream) {
   const bf16* hs = (const bf16*)scratch;
-  return run_wgrad_bf16(hs, hs + (size_t)HW * chunk, (float*)heads, chunk,
-                        rows, (float*)partials, grad_layout(), first != 0,
-                        (cudaStream_t)stream);
+  const GradLayout L = grad_layout(er);
+  if (enc_cols_of(er) == 64)
+    return run_wgrad_bf16<64>(hs, hs + (size_t)HW<64> * chunk, (float*)heads,
+                              chunk, rows, (float*)partials, L, first != 0,
+                              (cudaStream_t)stream);
+  return run_wgrad_bf16<128>(hs, hs + (size_t)HW<128> * chunk,
+                             (float*)heads, chunk, rows, (float*)partials, L,
+                             first != 0, (cudaStream_t)stream);
 }
 
 // The bf16 weight-gradient pass alone, on rows [0, rows) of a chunk's
-// scratch (H and G arrays as animnerf_fused_mlp_bwd leaves them, bf16) and
-// head cotangents (buffers as animnerf_fused_mlp_bwd_sizes gives them):
-// grads = the flat gradients of those points.
+// scratch (H and G arrays as animnerf_fused_mlp_bwd leaves them, bf16, for
+// er = enc_rows(n_freqs) encoding rows) and head cotangents (buffers as
+// animnerf_fused_mlp_bwd_sizes gives them): grads = the flat gradients of
+// those points.
 extern "C" int animnerf_mlp_wgrad(const void* scratch, void* heads,
                                   void* partials, void* grads, int rows,
-                                  int chunk, void* stream) {
-  if (chunk <= 0 || chunk % 128 != 0 || rows <= 0 || rows > chunk)
+                                  int chunk, int er, void* stream) {
+  if (chunk <= 0 || chunk % 128 != 0 || rows <= 0 || rows > chunk ||
+      er < 8 || er > EC_MAX || er % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const GradLayout L = grad_layout();
+  const GradLayout L = grad_layout(er);
   cudaStream_t st = (cudaStream_t)stream;
-  const int rc =
-      animnerf_mlp_wgrad_chunk(scratch, heads, partials, rows, chunk, 1, st);
+  const int rc = animnerf_mlp_wgrad_chunk(scratch, heads, partials, rows,
+                                          chunk, er, 1, st);
   if (rc != 0) return rc;
   reduce_splits<<<(unsigned)((L.total + 255) / 256), 256, 0, st>>>(
       (const float*)partials, L.total, (float*)grads);

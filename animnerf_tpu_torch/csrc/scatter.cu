@@ -6,7 +6,8 @@
 //   out[b, idx[b, k, n], c] += w[b, k, n] * g[b, c, n]     c < 16, k < K
 //
 // idx / w (B, K, N) as the kNN and warp-blend kernels emit them (K =
-// k_neigh, 1..16), g (B, 16, N) rows-native cotangents, out (B, V, 16) f32.
+// k_neigh, any K: it is a run-time count of the entries, B K N < 2^31),
+// g (B, 16, N) rows-native cotangents, out (B, V, 16) f32.
 //
 // Order of the sums. The TPU kernel keeps a VMEM-resident (Vp, 16)
 // accumulator across a sequential point grid, so its sums are taken in a
@@ -60,7 +61,6 @@
 namespace {
 
 constexpr int F = 16;
-constexpr int MAX_K = 16;
 constexpr int RADIX_BITS = 9;
 constexpr int RADIX = 1 << RADIX_BITS;
 constexpr int THREADS = 256;              // every kernel's block
@@ -389,7 +389,7 @@ extern "C" int animnerf_weighted_scatter(const void* idx, const void* w,
                                          const void* g, void* out, void* ws,
                                          int ws_words, int B, int N,
                                          int V, int k, void* stream) {
-  if (k < 1 || k > MAX_K || B < 1 || N < 1 || V < 1)
+  if (k < 1 || B < 1 || N < 1 || V < 1)
     return (int)cudaErrorInvalidValue;
   const Plan p = make_plan(B, N, V, k);
   if (p.M >= (1LL << 31) || p.rows >= (1LL << 31) ||

@@ -4,8 +4,8 @@
 // through warp_blend_fwd_pallas), forward, warp_view off and on (the
 // backward is ops/warp_blend.py's autograd over the weighted scatter).
 //
-// Per point n with its K neighbours (d_k, i_k), K = 1..16 as the kNN
-// emits them, and table rows
+// Per point n with its K neighbours (d_k, i_k), any K as the kNN emits
+// them, and table rows
 // row_v = [lbs (num_lbs) | ober2cano 4x4 (16)]:
 //   l1_k   = sum_j |lbs(i_k)[j] - lbs(i_0)[j]|
 //   gate_k = exp(-l1_k / (2 std^2)) > conf_gate
@@ -51,6 +51,14 @@
 // arrays stay in registers. The TPU kernel's 128-lane vertex chunks,
 // candidate-chunk pruning and dynamic_gather exist only for the TPU's
 // lanes and are not carried over.
+// Above 16 neighbours: the instantiations K = 24 and 32 take k in 17..24
+// and 25..32 at run time (their loops unrolled to K, each neighbour past k
+// skipped, each sum still in order 0, 1, ..., k - 1; the gate's loads one
+// neighbour at a time), and warp_blend_fwd_any takes any k above 32: one
+// thread a point, no per-neighbour array, the weights formed in a first
+// pass over the k neighbours (their sum) and formed again, bit for bit,
+// in a second that normalises them and takes bd and bf. Slow but in the
+// same order; its time is in PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,7 +66,8 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_K = 16;
+constexpr int MAX_K = 16;       // every K up to here has its instantiation
+constexpr int MAX_WIDE_K = 32;  // then K = 24 and 32; above, the any-k kernel
 
 // l1 += |r - v0| over the float4's first cnt components, in order
 __device__ __forceinline__ void l1_add(float& l1, float4 r, float4 v0,
@@ -83,77 +92,12 @@ warp_blend_pad_kernel(const float* __restrict__ table,
   padded[i] = c < num_lbs ? src[c] : c < Lp ? 0.0f : src[num_lbs + c - Lp];
 }
 
-template <int K, bool WARP_VIEW>
-__global__ void __launch_bounds__(THREADS)
-warp_blend_fwd_kernel(const float* __restrict__ xyz,    // (B, 8, N) rows
-                      const float* __restrict__ dists,  // (B, K, N)
-                      const int* __restrict__ idx,      // (B, K, N)
-                      const float* __restrict__ table,  // (B, V, Lp + 16)
-                      float* __restrict__ out,          // (B, 8, N)
-                      float* __restrict__ w_out,        // (B, K, N) or null
-                      float* __restrict__ bf_out,       // (B, 16, N) or null
-                      int N, int V, int num_lbs, int Lp,
-                      float inv_two_std2, float conf_gate) {
-  const int b = blockIdx.y;
-  const int n = blockIdx.x * THREADS + threadIdx.x;
-  if (n >= N) return;
-  const int F4 = Lp / 4 + 4, L4 = Lp / 4;
-  const float4* tab =
-      reinterpret_cast<const float4*>(table) + (size_t)b * V * F4;
-
-  const float4* row[K];
-  float d[K], w[K], l1[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    row[k] = tab + (size_t)idx[((size_t)b * K + k) * N + n] * F4;
-    d[k] = dists[((size_t)b * K + k) * N + n];
-    l1[k] = 0.0f;
-  }
-
-  // confidence gate against neighbour 0 (reference anim_nerf.py:165-171)
-  for (int q = 0; q < L4; ++q) {
-    const int cnt = min(4, num_lbs - 4 * q);
-    const float4 v0 = __ldg(row[0] + q);
-    float4 r[K];
-#pragma unroll
-    for (int k = 1; k < K; ++k) r[k] = __ldg(row[k] + q);
-    l1_add(l1[0], v0, v0, cnt);
-#pragma unroll
-    for (int k = 1; k < K; ++k) l1_add(l1[k], r[k], v0, cnt);
-  }
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float conf = expf(-l1[k] * inv_two_std2);
-    w[k] = expf(-d[k]) * (conf > conf_gate ? 1.0f : 0.0f);
-  }
-  float wsum = w[0];
-#pragma unroll
-  for (int k = 1; k < K; ++k) wsum += w[k];
-  float bd = 0.0f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    w[k] = w[k] / wsum;
-    bd = (k == 0) ? w[k] * d[k] : bd + w[k] * d[k];
-  }
-
-  float bf[16];
-#pragma unroll
-  for (int c = 0; c < 16; ++c) bf[c] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float t[16];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 v = __ldg(row[k] + L4 + q);
-      t[4 * q] = v.x;
-      t[4 * q + 1] = v.y;
-      t[4 * q + 2] = v.z;
-      t[4 * q + 3] = v.w;
-    }
-#pragma unroll
-    for (int c = 0; c < 16; ++c) bf[c] += w[k] * t[c];
-  }
-
+// the point's outputs from its blended dist bd and transform bf
+template <bool WARP_VIEW>
+__device__ __forceinline__ void write_out(const float* __restrict__ xyz,
+                                          float* __restrict__ out,
+                                          const float (&bf)[16], float bd,
+                                          int b, int n, int N) {
   const size_t xo = (size_t)b * 8 * N + n;
   const float x = xyz[xo], y = xyz[xo + N], z = xyz[xo + 2 * (size_t)N];
 #pragma unroll
@@ -173,27 +117,194 @@ warp_blend_fwd_kernel(const float* __restrict__ xyz,    // (B, 8, N) rows
 #pragma unroll
     for (int r = 4; r < 8; ++r) out[xo + r * (size_t)N] = 0.0f;
   }
+}
+
+// K: the instantiation's neighbours; kr, the neighbours read: kr == K up
+// to MAX_K, 1 <= kr <= K above (neighbours kr.. skipped)
+template <int K, bool WARP_VIEW>
+__global__ void __launch_bounds__(THREADS)
+warp_blend_fwd_kernel(const float* __restrict__ xyz,    // (B, 8, N) rows
+                      const float* __restrict__ dists,  // (B, kr, N)
+                      const int* __restrict__ idx,      // (B, kr, N)
+                      const float* __restrict__ table,  // (B, V, Lp + 16)
+                      float* __restrict__ out,          // (B, 8, N)
+                      float* __restrict__ w_out,        // (B, kr, N) or null
+                      float* __restrict__ bf_out,       // (B, 16, N) or null
+                      int N, int V, int num_lbs, int Lp,
+                      float inv_two_std2, float conf_gate, int kr) {
+  constexpr bool EXACT = K <= MAX_K;
+  const int KS = EXACT ? K : kr;  // the rows of dists, idx and w_out
+  auto on = [&](int k) { return EXACT || k < kr; };
+  const int b = blockIdx.y;
+  const int n = blockIdx.x * THREADS + threadIdx.x;
+  if (n >= N) return;
+  const int F4 = Lp / 4 + 4, L4 = Lp / 4;
+  const float4* tab =
+      reinterpret_cast<const float4*>(table) + (size_t)b * V * F4;
+
+  const float4* row[K];
+  float d[K], w[K], l1[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    row[k] = on(k) ? tab + (size_t)idx[((size_t)b * KS + k) * N + n] * F4
+                   : tab;
+    d[k] = on(k) ? dists[((size_t)b * KS + k) * N + n] : 0.0f;
+    l1[k] = 0.0f;
+  }
+
+  // confidence gate against neighbour 0 (reference anim_nerf.py:165-171)
+  for (int q = 0; q < L4; ++q) {
+    const int cnt = min(4, num_lbs - 4 * q);
+    const float4 v0 = __ldg(row[0] + q);
+    if constexpr (EXACT) {
+      float4 r[K];
+#pragma unroll
+      for (int k = 1; k < K; ++k) r[k] = __ldg(row[k] + q);
+      l1_add(l1[0], v0, v0, cnt);
+#pragma unroll
+      for (int k = 1; k < K; ++k) l1_add(l1[k], r[k], v0, cnt);
+    } else {
+      l1_add(l1[0], v0, v0, cnt);
+#pragma unroll
+      for (int k = 1; k < K; ++k)
+        if (on(k)) l1_add(l1[k], __ldg(row[k] + q), v0, cnt);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float conf = expf(-l1[k] * inv_two_std2);
+    w[k] = on(k) ? expf(-d[k]) * (conf > conf_gate ? 1.0f : 0.0f) : 0.0f;
+  }
+  float wsum = w[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k)
+    if (on(k)) wsum += w[k];
+  float bd = 0.0f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (!on(k)) continue;
+    w[k] = w[k] / wsum;
+    bd = (k == 0) ? w[k] * d[k] : bd + w[k] * d[k];
+  }
+
+  float bf[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) bf[c] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (!on(k)) continue;
+    float t[16];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 v = __ldg(row[k] + L4 + q);
+      t[4 * q] = v.x;
+      t[4 * q + 1] = v.y;
+      t[4 * q + 2] = v.z;
+      t[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int c = 0; c < 16; ++c) bf[c] += w[k] * t[c];
+  }
+
+  write_out<WARP_VIEW>(xyz, out, bf, bd, b, n, N);
   if (w_out == nullptr) return;
 #pragma unroll
-  for (int k = 0; k < K; ++k) w_out[((size_t)b * K + k) * N + n] = w[k];
+  for (int k = 0; k < K; ++k)
+    if (on(k)) w_out[((size_t)b * KS + k) * N + n] = w[k];
 #pragma unroll
   for (int c = 0; c < 16; ++c) bf_out[((size_t)b * 16 + c) * N + n] = bf[c];
 }
 
-// launch the instantiation for k (1..MAX_K)
+// any k: the gate weight of neighbour k of point n, formed the same way
+// in both passes of warp_blend_fwd_any (and as the kernel above forms it)
+__device__ __forceinline__ float gate_weight(const float4* row0,
+                                             const float4* rowk, float d,
+                                             int num_lbs, int L4,
+                                             float inv_two_std2,
+                                             float conf_gate) {
+  float l1 = 0.0f;
+  for (int q = 0; q < L4; ++q)
+    l1_add(l1, __ldg(rowk + q), __ldg(row0 + q), min(4, num_lbs - 4 * q));
+  const float conf = expf(-l1 * inv_two_std2);
+  return expf(-d) * (conf > conf_gate ? 1.0f : 0.0f);
+}
+
+template <bool WARP_VIEW>
+__global__ void __launch_bounds__(THREADS)
+warp_blend_fwd_any(const float* __restrict__ xyz,
+                   const float* __restrict__ dists,
+                   const int* __restrict__ idx,
+                   const float* __restrict__ table, float* __restrict__ out,
+                   float* __restrict__ w_out, float* __restrict__ bf_out,
+                   int N, int V, int num_lbs, int Lp, float inv_two_std2,
+                   float conf_gate, int k) {
+  const int b = blockIdx.y;
+  const int n = blockIdx.x * THREADS + threadIdx.x;
+  if (n >= N) return;
+  const int F4 = Lp / 4 + 4, L4 = Lp / 4;
+  const float4* tab =
+      reinterpret_cast<const float4*>(table) + (size_t)b * V * F4;
+  const size_t e0 = (size_t)b * k * N + n;  // entry (b, j, n) at e0 + j N
+  const float4* row0 = tab + (size_t)idx[e0] * F4;
+  float wsum = 0.0f;
+  for (int j = 0; j < k; ++j) {
+    const float4* rowj = tab + (size_t)idx[e0 + j * (size_t)N] * F4;
+    const float wj = gate_weight(row0, rowj, dists[e0 + j * (size_t)N],
+                                 num_lbs, L4, inv_two_std2, conf_gate);
+    wsum = j == 0 ? wj : wsum + wj;
+  }
+  float bd = 0.0f, bf[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) bf[c] = 0.0f;
+  for (int j = 0; j < k; ++j) {
+    const float4* rowj = tab + (size_t)idx[e0 + j * (size_t)N] * F4;
+    const float dj = dists[e0 + j * (size_t)N];
+    const float wj = gate_weight(row0, rowj, dj, num_lbs, L4, inv_two_std2,
+                                 conf_gate) /
+                     wsum;
+    bd = (j == 0) ? wj * dj : bd + wj * dj;
+    float t[16];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 v = __ldg(rowj + L4 + q);
+      t[4 * q] = v.x;
+      t[4 * q + 1] = v.y;
+      t[4 * q + 2] = v.z;
+      t[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int c = 0; c < 16; ++c) bf[c] += wj * t[c];
+    if (w_out != nullptr) w_out[e0 + j * (size_t)N] = wj;
+  }
+  write_out<WARP_VIEW>(xyz, out, bf, bd, b, n, N);
+  if (bf_out == nullptr) return;
+#pragma unroll
+  for (int c = 0; c < 16; ++c) bf_out[((size_t)b * 16 + c) * N + n] = bf[c];
+}
+
+// launch the instantiation for k (1..MAX_K each its own; 17..24 on K =
+// 24, 25..32 on K = 32; above, warp_blend_fwd_any)
 template <int K, bool WARP_VIEW>
 void launch(int k, dim3 grid, cudaStream_t stream, const float* xyz,
             const float* dists, const int* idx, const float* table,
             float* out, float* w_out, float* bf_out, int N, int V,
             int num_lbs, int Lp, float inv_two_std2, float conf_gate) {
-  if (k == K) {
+  if (K <= MAX_K ? k == K : k <= K) {
     warp_blend_fwd_kernel<K, WARP_VIEW><<<grid, THREADS, 0, stream>>>(
         xyz, dists, idx, table, out, w_out, bf_out, N, V, num_lbs, Lp,
-        inv_two_std2, conf_gate);
+        inv_two_std2, conf_gate, k);
   } else if constexpr (K < MAX_K) {
     launch<K + 1, WARP_VIEW>(k, grid, stream, xyz, dists, idx, table, out,
                              w_out, bf_out, N, V, num_lbs, Lp, inv_two_std2,
                              conf_gate);
+  } else if constexpr (K < MAX_WIDE_K) {
+    launch<K + 8, WARP_VIEW>(k, grid, stream, xyz, dists, idx, table, out,
+                             w_out, bf_out, N, V, num_lbs, Lp, inv_two_std2,
+                             conf_gate);
+  } else {
+    warp_blend_fwd_any<WARP_VIEW><<<grid, THREADS, 0, stream>>>(
+        xyz, dists, idx, table, out, w_out, bf_out, N, V, num_lbs, Lp,
+        inv_two_std2, conf_gate, k);
   }
 }
 
@@ -210,7 +321,7 @@ extern "C" int animnerf_warp_blend_fwd(
     int k, int num_lbs, float inv_two_std2, float conf_gate, int warp_view,
     void* stream) {
   const int Lp = (num_lbs + 3) / 4 * 4;
-  if (k < 1 || k > MAX_K || num_lbs < 1 ||
+  if (k < 1 || num_lbs < 1 ||
       (w_out == nullptr) != (bf_out == nullptr) ||
       (padded == nullptr &&
        (Lp != num_lbs || (uintptr_t)table % 16 != 0)) ||

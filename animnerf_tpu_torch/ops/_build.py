@@ -58,8 +58,8 @@ SIGNATURES = {
                                   _P],
     "animnerf_fused_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _I, _I, _I, _I, _I, _P],
-    "animnerf_fused_mlp_bwd_sizes": [_I, _P],
-    "animnerf_mlp_wgrad": [_P, _P, _P, _P, _I, _I, _P],
+    "animnerf_fused_mlp_bwd_sizes": [_I, _I, _P],
+    "animnerf_mlp_wgrad": [_P, _P, _P, _P, _I, _I, _I, _P],
     "animnerf_knn_exact_rows": [_P, _P, _P, _P, _I, _I, _I, _P],
     "animnerf_knn_exact": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _P],

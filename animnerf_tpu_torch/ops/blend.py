@@ -7,7 +7,7 @@ Counterpart of ``animnerf_tpu/ops/blend.py``: ``gather_blend_plain`` is
 ``weighted_scatter_rows`` with ``transposed_in=True, g_t=True`` (the TPU
 kernel ``_scatter_kernel``): the warp-blend backward into the table's 16
 transform columns. k (the neighbour rows, ``k_neigh``) is read from the
-shapes, 1..16.
+shapes, any k >= 1.
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ import torch
 
 from animnerf_tpu_torch.ops import _build
 
-MAX_K = 16  # neighbours per point: the kernels take 1..16
 F = 16  # transform columns
 
 
@@ -54,8 +53,8 @@ def gather_blend_plain(table: torch.Tensor, dists: torch.Tensor,
 
 def _check(idx_t, w_t, g, num_rows):
     B, k, N = idx_t.shape
-    if not 1 <= k <= MAX_K or w_t.shape != (B, k, N) or g.shape != (B, F, N):
-        raise ValueError(f"idx/w (B, k <= {MAX_K}, N) and g (B, {F}, N) "
+    if k < 1 or w_t.shape != (B, k, N) or g.shape != (B, F, N):
+        raise ValueError(f"idx/w (B, k >= 1, N) and g (B, {F}, N) "
                          f"expected, got {tuple(idx_t.shape)}, "
                          f"{tuple(w_t.shape)}, {tuple(g.shape)}")
     if idx_t.dtype != torch.int32 or w_t.dtype != torch.float32 \

@@ -22,6 +22,7 @@ rounded. The backward's rounding points are those of the TPU kernel's
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -34,7 +35,6 @@ SKIP = 4
 DIR_W = 128
 N_W = DEPTH + 5  # trunk 0..7, skip-enc half, sigma, xyz_final, dir_0, rgb
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-BWD_E = 64  # the backward kernel's encoding block (n_freqs 9 or 10)
 # points per pass of its activation scratch (5.2 GB in bf16): large enough
 # that the weight-gradient pass's per-split partials (105 MB a chunk) stay
 # a few percent of the scratch it reads
@@ -43,6 +43,10 @@ SLAB_COLS = 64  # reduction columns of a weight slab: one 128-byte swizzle row
 # the bf16 kernels form 2^j as an int shift, and the forward's shared
 # memory holds up to 192 encoding columns: n_freqs 0..31
 MAX_FREQS = 31
+# the backward kernels' encoding blocks are 64 or 128 columns: n_freqs
+# 0..20, every encoding the fused field takes (3 + 6 n_freqs <= 128,
+# models/anim_nerf.py::use_fused_mlp)
+MAX_BWD_FREQS = 20
 
 
 def enc_rows(n_freqs: int) -> int:
@@ -57,7 +61,30 @@ def enc_cols(n_freqs: int) -> int:
     if not 0 <= n_freqs <= MAX_FREQS:
         raise ValueError(f"the bf16 kernels take n_freqs 0..{MAX_FREQS}, "
                          f"got {n_freqs}")
+    return _scratch_cols(n_freqs)
+
+
+def _scratch_cols(n_freqs: int) -> int:
+    """enc_rows rounded up to 64: the encoding columns of the kernels
+    (``enc_cols``) and of the plain backward's scratch at any n_freqs."""
     return -(-enc_rows(n_freqs) // SLAB_COLS) * SLAB_COLS
+
+
+class BwdLayout(NamedTuple):
+    """The backward's two encoding widths at one n_freqs."""
+    rows: int  # enc_rows: columns of dW_0 and dW_8 (pack_params' shapes)
+    cols: int  # enc_cols: the encoding block of the scratch and the kernels
+
+
+def bwd_layout(n_freqs: int) -> BwdLayout:
+    """The backward kernels' layout at n_freqs 0..20: the scratch's
+    encoding array is ``cols`` wide (64 up to n_freqs 10, 128 above; the
+    columns from 3 + 6 n_freqs zero), the weight gradients of layers 0 and
+    8 are ``rows`` wide."""
+    if not 0 <= n_freqs <= MAX_BWD_FREQS:
+        raise ValueError(f"the backward kernels take n_freqs "
+                         f"0..{MAX_BWD_FREQS}, got {n_freqs}")
+    return BwdLayout(enc_rows(n_freqs), enc_cols(n_freqs))
 
 
 def _dtype(dtype) -> torch.dtype:
@@ -220,7 +247,8 @@ def _rounder(dt: torch.dtype):
 
 
 # The backward kernel's activation scratch, per chunk of `chunk` points:
-# the H arrays (each layer's bf16 input: 0 enc (E) | 1..8 h0..h7 | 9 hf |
+# the H arrays (each layer's bf16 input: 0 enc (bwd_layout(n).cols, zero
+# from 3 + 6 n) | 1..8 h0..h7 | 9 hf |
 # 10 hd) then the G arrays (each layer's output cotangent: 0..7 d0..d7 |
 # 8 d_hf | 9 d_hd), each a point-major (chunk, width) block, in the
 # compute dtype (csrc/fused_mlp_bwd.cu, "scratch layout"). The head
@@ -236,7 +264,7 @@ BIAS_OF_G = (0, 1, 2, 3, 4, 5, 6, 7, 10, 11)
 
 def scratch_views(scratch: torch.Tensor, chunk: int, E: int):
     """(H, G): the (chunk, width) views of a flat scratch's 11 + 10
-    arrays."""
+    arrays, E the encoding array's width (``bwd_layout(n).cols``)."""
     views, o = [], 0
     for w in (E,) + (WIDTH,) * 9 + (DIR_W,) + (WIDTH,) * 9 + (DIR_W,):
         views.append(scratch[o:o + chunk * w].view(chunk, w))
@@ -245,7 +273,8 @@ def scratch_views(scratch: torch.Tensor, chunk: int, E: int):
 
 
 def grad_shapes(E: int):
-    """Shapes of dW_0..12 then db_0..12, as pack_params' (ws, bs)."""
+    """Shapes of dW_0..12 then db_0..12, as pack_params' (ws, bs), E the
+    encoding rows (``bwd_layout(n).rows``)."""
     ws = ([(WIDTH, E)] + [(WIDTH, WIDTH)] * (DEPTH - 1)
           + [(WIDTH, E), (8, WIDTH), (WIDTH, WIDTH), (DIR_W, WIDTH),
              (8, DIR_W)])
@@ -262,7 +291,8 @@ def bwd_scratch_plain(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
     compute dtype after every product, and the encoding chain rule.
     Returns (d_xyz_t (1, 8, M) f32, scratch, heads): the H/G scratch of the
     M points in the compute dtype and their (M, 4) f32 head cotangents, in
-    the kernel's layout with chunk = M."""
+    the kernel's layout with chunk = M (the encoding array zero-padded to
+    ``bwd_layout(n_freqs).cols`` columns)."""
     dt = _dtype(dtype)
     r = _rounder(dt)
     w = [x.to(torch.float32) for x in ws]
@@ -314,24 +344,33 @@ def bwd_scratch_plain(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
                            - torch.sin(f * x) * d_enc[3 + 6 * j + 3 + c])
         rows.append(dc)
     d_xyz = torch.cat([torch.stack(rows), coords.new_zeros(5, M)])[None]
-    H = [enc_b] + acts + [hf, hd]
+    enc_s = torch.nn.functional.pad(
+        enc_b, (0, 0, 0, _scratch_cols(n_freqs) - enc_b.shape[0]))
+    H = [enc_s] + acts + [hf, hd]
     scratch = torch.cat([t.t().reshape(-1) for t in H + G]).to(dt)
     heads = torch.cat([d_rgb_raw[0:3], d[3:4]]).t().contiguous()
     return d_xyz, scratch, heads
 
 
 def wgrad_from_scratch_plain(scratch: torch.Tensor, heads: torch.Tensor,
-                             rows: int, chunk: int,
-                             acc_dtype=torch.float32) -> torch.Tensor:
+                             rows: int, chunk: int, acc_dtype=torch.float32,
+                             n_freqs: int = 10) -> torch.Tensor:
     """The weight-gradient pass in plain PyTorch: the flat gradients (f32,
-    dW_0..12 then db_0..12 in pack_params' shapes, padded to a multiple of
-    64 as the kernel's) over points [0, rows) of a chunk's scratch and head
-    cotangents (``heads``: at least chunk * 4 floats). dW_l = G_l^T H_l,
-    db_l = the sum of G_l; the heads from their cotangents, rounded to bf16
-    for a bf16 scratch (the TPU kernel's d_rgb_b, d_sig_b), their bias
-    gradients from the f32 values; matmuls and sums in acc_dtype."""
+    dW_0..12 then db_0..12 in pack_params' shapes at n_freqs, padded to a
+    multiple of 64 as the kernel's) over points [0, rows) of a chunk's
+    scratch (its encoding array ``bwd_layout(n_freqs).cols`` wide) and head
+    cotangents (``heads``: at least chunk * 4 floats). dW_l = G_l^T H_l
+    (layers 0 and 8 over the encoding's first enc_rows columns), db_l =
+    the sum of G_l; the heads from their cotangents, rounded to bf16 for a
+    bf16 scratch (the TPU kernel's d_rgb_b, d_sig_b), their bias gradients
+    from the f32 values; matmuls and sums in acc_dtype."""
     E = scratch.numel() // chunk - 2 * (9 * WIDTH + DIR_W)
+    if E != _scratch_cols(n_freqs):
+        raise ValueError(f"the scratch's encoding array is {E} wide; "
+                         f"n_freqs={n_freqs} takes {_scratch_cols(n_freqs)}")
+    ER = enc_rows(n_freqs)
     H, G = scratch_views(scratch, chunk, E)
+    H = [H[0][:, :ER]] + H[1:]
     hc = heads.reshape(-1)[:chunk * HEAD_COLS].view(chunk, HEAD_COLS)
     hc = hc[:rows].to(acc_dtype)
     if scratch.dtype == torch.bfloat16:
@@ -344,7 +383,7 @@ def wgrad_from_scratch_plain(scratch: torch.Tensor, heads: torch.Tensor,
     def f(t):
         return t[:rows].to(acc_dtype)
 
-    shapes = grad_shapes(E)
+    shapes = grad_shapes(ER)
     out = [torch.zeros(sh, dtype=acc_dtype, device=scratch.device)
            for sh in shapes]
     for l, g, h in WGRAD_LAYERS:
@@ -385,7 +424,8 @@ def fused_nerf_bwd_plain(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
         flat = torch.zeros(sum(t.numel() for t in tuple(ws) + tuple(bs)),
                            device=xyz_t.device)
     else:
-        flat = wgrad_from_scratch_plain(scratch, heads, M, M)
+        flat = wgrad_from_scratch_plain(scratch, heads, M, M,
+                                        n_freqs=n_freqs)
     return (d_xyz, *_split_grads(flat, ws, bs))
 
 
@@ -497,11 +537,12 @@ def _offsets(ws, bs):
     return offs
 
 
-def _bwd_sizes(chunk: int):
+def _bwd_sizes(chunk: int, n_freqs: int):
     """(scratch elements, head floats, partial floats, gradient floats) of
-    the backward kernel at `chunk` points."""
+    the backward kernel at `chunk` points and n_freqs."""
     sizes = (ctypes.c_longlong * 4)()
     _build.kernel_library().call("animnerf_fused_mlp_bwd_sizes", chunk,
+                                 bwd_layout(n_freqs).rows,
                                  ctypes.addressof(sizes))
     return tuple(sizes)
 
@@ -523,9 +564,10 @@ def fused_nerf_bwd_buffers(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
     points left them (with M <= chunk, all of M's points)."""
     dt = _dtype(dtype)
     _check_bwd_args(xyz_t, ws, bs, dout)
-    if enc_rows(n_freqs) != BWD_E:
-        raise ValueError(f"the backward kernel takes a {BWD_E}-row encoding "
-                         f"block; n_freqs={n_freqs} gives {enc_rows(n_freqs)}")
+    layout = bwd_layout(n_freqs)
+    if ws[0].shape[1] != layout.rows:
+        raise ValueError(f"n_freqs={n_freqs} gives {layout.rows} encoding "
+                         f"rows, the weights have {ws[0].shape[1]}")
     if any(w.dtype != dt for w in ws) or any(b.dtype != torch.float32
                                             for b in bs):
         raise ValueError(f"packed weights must be {dt} and biases float32")
@@ -538,7 +580,7 @@ def fused_nerf_bwd_buffers(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
     dev = xyz_t.device
     M = xyz_t.shape[-1]
     chunk = min(-(-max(M, 1) // 128) * 128, BWD_CHUNK)
-    n_scratch, n_heads, n_part, total = _bwd_sizes(chunk)
+    n_scratch, n_heads, n_part, total = _bwd_sizes(chunk, n_freqs)
     # every row of d_xyz, every partial entry and every gradient is written
     # by the kernels
     d_xyz = torch.empty((1, 8, M), dtype=torch.float32, device=dev)
@@ -564,7 +606,7 @@ def fused_nerf_bwd_buffers(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
         ctypes.addressof(img_offs),
         d_xyz.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
         heads.data_ptr(), partials.data_ptr(), M, chunk, n_freqs,
-        enc_rows(n_freqs), 0 if dt == torch.bfloat16 else 1,
+        layout.rows, 0 if dt == torch.bfloat16 else 1,
         _build.stream_of(xyz_t))
     _build.LAUNCHES["fused_mlp_bwd"] += 1
     if dt == torch.bfloat16:  # its weight gradients: the wgmma pass
@@ -577,9 +619,9 @@ def fused_nerf_bwd(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
     """VJP of ``fused_nerf_fwd``: (d_xyz_t (1, 8, M) f32, d_ws, d_bs) f32,
     shaped like (ws, bs). Kernel on CUDA tensors (deterministic: per-split
     partial sums reduced in a fixed order), plain version on CPU tensors.
-    The kernel takes the flagship's 64-row encoding block (n_freqs 9 or
-    10); in bf16 it reads ``image`` (``weight_image(ws)``, built here when
-    None)."""
+    The kernels take n_freqs 0..20 (``bwd_layout``: encoding blocks of 64
+    or 128 columns); in bf16 they read ``image`` (``weight_image(ws)``,
+    built here when None)."""
     _check_bwd_args(xyz_t, ws, bs, dout)
     if xyz_t.device.type == "cpu":
         return fused_nerf_bwd_plain(xyz_t, ws, bs, dout, n_freqs,
@@ -590,23 +632,24 @@ def fused_nerf_bwd(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
 
 
 def fused_nerf_wgrad(scratch: torch.Tensor, heads: torch.Tensor, rows: int,
-                     chunk: int) -> torch.Tensor:
+                     chunk: int, n_freqs: int = 10) -> torch.Tensor:
     """The bf16 weight-gradient pass alone: the flat f32 gradients over
-    points [0, rows) of a chunk's scratch (bf16, the kernel's layout with
-    the flagship's 64-column encoding) and head cotangents (the first chunk
-    * 4 floats of ``heads``; on the card a buffer of the kernel's head
-    size, as ``fused_nerf_bwd_buffers`` returns it, whose tail the pass
-    writes). Kernel on CUDA tensors, plain version on CPU tensors."""
+    points [0, rows) of a chunk's scratch (bf16, the kernel's layout at
+    n_freqs: ``bwd_layout``) and head cotangents (the first chunk * 4
+    floats of ``heads``; on the card a buffer of the kernel's head size, as
+    ``fused_nerf_bwd_buffers`` returns it, whose tail the pass writes).
+    Kernel on CUDA tensors, plain version on CPU tensors."""
     if not 0 < rows <= chunk:
         raise ValueError(f"rows must be in 1..chunk, got {rows} of {chunk}")
     if scratch.device.type == "cpu":
-        return wgrad_from_scratch_plain(scratch, heads, rows, chunk)
+        return wgrad_from_scratch_plain(scratch, heads, rows, chunk,
+                                        n_freqs=n_freqs)
     if chunk % 128:
         raise ValueError(f"chunk must be a multiple of 128, got {chunk}")
-    n_scratch, n_heads, n_part, total = _bwd_sizes(chunk)
+    n_scratch, n_heads, n_part, total = _bwd_sizes(chunk, n_freqs)
     if scratch.dtype != torch.bfloat16 or scratch.numel() != n_scratch:
         raise ValueError(f"scratch must be {n_scratch} bf16 elements "
-                         f"(chunk {chunk}, encoding {BWD_E})")
+                         f"(chunk {chunk}, n_freqs {n_freqs})")
     if heads.dtype != torch.float32 or heads.numel() != n_heads:
         raise ValueError(f"heads must be {n_heads} float32 values")
     _build.check_cuda("fused_nerf_wgrad", scratch, heads)
@@ -615,7 +658,7 @@ def fused_nerf_wgrad(scratch: torch.Tensor, heads: torch.Tensor, rows: int,
     _build.kernel_library().call(
         "animnerf_mlp_wgrad", scratch.data_ptr(), heads.data_ptr(),
         partials.data_ptr(), grads.data_ptr(), rows, chunk,
-        _build.stream_of(scratch))
+        bwd_layout(n_freqs).rows, _build.stream_of(scratch))
     _build.LAUNCHES["fused_mlp_wgrad"] += 1
     return grads
 

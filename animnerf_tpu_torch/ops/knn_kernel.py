@@ -3,8 +3,11 @@ dispatcher between them.
 
 Counterpart of ``animnerf_tpu/ops/knn_pallas.py::knn_pallas`` with
 ``transposed_out=True``: points (B, N, 3) and the Morton-sorted vertices
-(B, V, 3) -> dists (B, k, N) ascending and idx (B, k, N) int32, for k in
-1..16 (``MAX_K``; the JAX package's ``k_neigh``). ``knn`` picks the kernel
+(B, V, 3) -> dists (B, k, N) ascending and idx (B, k, N) int32, for any k
+in 1..V (the JAX package's ``k_neigh``; each kernel has an instantiation
+for every k up to 16, kernel 9 up to 32, kernel 8 for 24 and 32 writing
+its first k slots, and above 32 one whose k is a run-time bound: see the
+sources' notes). ``knn`` picks the kernel
 as ``knn_pallas`` does (``knn_pallas.py:554-607``) at its default
 512-vertex tiles, under which "padded V <= 8192" is "V <= 8192":
 
@@ -73,7 +76,6 @@ import torch
 from animnerf_tpu_torch.ops import _build
 
 K = 4  # knn_top4's k
-MAX_K = 16  # the kernels' template instantiations
 KEY_MASK = ~0x1FFF
 MAX_VERTS = 8192
 TILE_V = 256  # the sweep's staged vertex tile (csrc/knn_sweep.cuh)
@@ -86,8 +88,9 @@ _PAD_KEY = (0x7F800000 << 32) | 0x7FFFFFFF  # d2 = +inf: never merged
 
 
 def check_k(k: int) -> None:
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k must be in 1..{MAX_K}, got {k}")
+    """k >= 1 (each caller also needs V >= k)."""
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
 
 
 def check_points_verts(points: torch.Tensor, verts: torch.Tensor,
@@ -238,7 +241,7 @@ def knn_top4_plain(points: torch.Tensor, verts: torch.Tensor,
 
 def knn_packed(points: torch.Tensor, verts: torch.Tensor, k: int,
                far_skip: float = 0.0):
-    """The packed-key top-k, any k in 1..16 (kernel 8): kernel on CUDA
+    """The packed-key top-k, any k in 1..V (kernel 8): kernel on CUDA
     tensors, plain version on CPU tensors. At k=4 it selects what
     ``knn_top4`` selects, bit for bit. ``far_skip`` > 0: the all-far skip
     at that threshold, the far pass first."""

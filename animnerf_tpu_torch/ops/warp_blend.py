@@ -5,7 +5,7 @@ the Morton codes that order the vertex table.
 Counterpart of ``animnerf_tpu/ops/warp_blend.py::warp_blend_fwd_pallas``
 with ``inputs_t=True, xyz_rows=True``, ``warp_view`` off and on:
 xyz rows (B, 8, N) [x|y|z|0|vx|vy|vz|0], dists/idx (B, k, N) as the top-k
-kNN emits them (k = ``k_neigh``, 1..16, read from the shapes), table
+kNN emits them (k = ``k_neigh``, any k >= 1, read from the shapes), table
 (B, V, num_lbs + 16) -> (out (B, 8, N) rows [x'|y'|z'|bd|vd'|0] (vd' the
 view direction warped by the blended 4x4, translation included, with
 ``warp_view``; zeros without), w (B, k, N), bf (B, 16, N)); of
@@ -24,7 +24,6 @@ import torch
 
 from animnerf_tpu_torch.ops import _build
 from animnerf_tpu_torch.ops.blend import (
-    MAX_K,
     gather_blend_plain,
     weighted_scatter_rows,
 )
@@ -53,9 +52,8 @@ def morton_codes(verts: torch.Tensor) -> torch.Tensor:
 
 def _check(xyz_rows, dists, idx, table, num_lbs):
     B, k, N = idx.shape
-    if not 1 <= k <= MAX_K or xyz_rows.shape != (B, 8, N) \
-            or dists.shape != (B, k, N):
-        raise ValueError(f"shapes (k must be in 1..{MAX_K}): xyz_rows "
+    if k < 1 or xyz_rows.shape != (B, 8, N) or dists.shape != (B, k, N):
+        raise ValueError(f"shapes (k must be at least 1): xyz_rows "
                          f"{tuple(xyz_rows.shape)}, dists "
                          f"{tuple(dists.shape)}, idx {tuple(idx.shape)}")
     if table.dim() != 3 or table.shape[0] != B \

@@ -37,10 +37,6 @@ from animnerf_tpu_torch.render.volume_renderer import (
 from animnerf_tpu_torch.smpl.body_model import BodyModel
 from animnerf_tpu_torch.utils.device import DeviceLike, resolve_device
 
-# k_neigh: the kNN kernels are instantiated for 1..16 neighbours
-MAX_K_NEIGH = 16
-
-
 def full_config(cfg: dict) -> CfgNode:
     """cfg over ``get_default_config()`` (sections merged key by key, the
     same coercion as a YAML merge), with the derived fields of
@@ -104,10 +100,8 @@ class AnimNeRFSystem(nn.Module):
         dev = resolve_device(device)
         c = full_config(cfg)
         k_neigh = int(c.k_neigh)
-        if not 1 <= k_neigh <= MAX_K_NEIGH:
-            raise NotImplementedError(
-                f"k_neigh={k_neigh}: the port's kNN kernels take 1 to "
-                f"{MAX_K_NEIGH} neighbours")
+        if k_neigh < 1:  # the kNN takes any k from 1 to the vertex count
+            raise ValueError(f"k_neigh must be at least 1, got {k_neigh}")
         n_fine, n_depth = int(c.n_importance), int(c.n_depth)
         self.scene_cfg = AnimNeRFConfig(
             freqs_xyz=int(c.freqs_xyz),

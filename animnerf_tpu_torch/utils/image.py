@@ -208,19 +208,36 @@ _TAB_BITS = 5      # INTER_BITS: 1/32-pixel map
 _REMAP_BITS = 15   # INTER_REMAP_COEF_BITS
 
 
+def tilt_matrix(tau_x: float, tau_y: float) -> np.ndarray:
+    """OpenCV's ``computeTiltProjectionMatrix``: the projection of the
+    sensor tilted by tau_x about x and tau_y about y (3 x 3, float64)."""
+    cx, sx = np.cos(tau_x), np.sin(tau_x)
+    cy, sy = np.cos(tau_y), np.sin(tau_y)
+    rot_x = np.array([[1, 0, 0], [0, cx, sx], [0, -sx, cx]])
+    rot_y = np.array([[cy, 0, -sy], [0, 1, 0], [sy, 0, cy]])
+    rot_xy = rot_y @ rot_x
+    proj_z = np.array([[rot_xy[2, 2], 0, -rot_xy[0, 2]],
+                       [0, rot_xy[2, 2], -rot_xy[1, 2]], [0, 0, 1]])
+    return proj_z @ rot_xy
+
+
 def undistort_maps(K: np.ndarray, D, H: int, W: int):
-    """``initUndistortRectifyMap(K, D, I, K, (W, H))`` in float64:
-    the distorted source position (u, v) of every output pixel for the
-    radial (k1, k2, k3) and tangential (p1, p2) coefficients."""
+    """``initUndistortRectifyMap(K, D, I, K, (W, H))`` in float64: the
+    distorted source position (u, v) of every output pixel under OpenCV's
+    full model, D = (k1, k2, p1, p2[, k3[, k4, k5, k6[, s1, s2, s3, s4[,
+    tau_x, tau_y]]]]): the rational radial factor (k1..k3 over k4..k6),
+    the tangential (p1, p2) and thin-prism (s1..s4) terms, then the tilt
+    projection; coefficients past those given are 0."""
     K = np.asarray(K, np.float64)
     fx, fy, u0, v0 = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
-    d = np.zeros(5)
     coeffs = np.ravel(np.asarray(D, np.float64))
-    if coeffs.size > 5 and np.any(coeffs[5:]):
-        raise NotImplementedError(
-            "undistort takes up to 5 coefficients (k1, k2, p1, p2, k3)")
-    d[:min(coeffs.size, 5)] = coeffs[:5]
-    k1, k2, p1, p2, k3 = d
+    if coeffs.size > 14:
+        raise ValueError(f"OpenCV's model has at most 14 distortion "
+                         f"coefficients, got {coeffs.size}")
+    d = np.zeros(14)
+    d[:coeffs.size] = coeffs
+    k1, k2, p1, p2, k3, k4, k5, k6, s1, s2, s3, s4, tau_x, tau_y = d
+    T = tilt_matrix(tau_x, tau_y)
     ir = np.linalg.inv(K).ravel()
     i = np.arange(H, dtype=np.float64)[:, None]
     j = np.arange(W, dtype=np.float64)[None, :]
@@ -230,9 +247,18 @@ def undistort_maps(K: np.ndarray, D, H: int, W: int):
     x2, y2 = x * x, y * y
     r2 = x2 + y2
     xy2 = 2 * x * y
-    kr = 1 + ((k3 * r2 + k2) * r2 + k1) * r2
-    u = fx * (x * kr + p1 * xy2 + p2 * (r2 + 2 * x2)) + u0
-    v = fy * (y * kr + p1 * (r2 + 2 * y2) + p2 * xy2) + v0
+    kr = ((1 + ((k3 * r2 + k2) * r2 + k1) * r2)
+          / (1 + ((k6 * r2 + k5) * r2 + k4) * r2))
+    xd = (x * kr + p1 * xy2 + p2 * (r2 + 2 * x2) + s1 * r2
+          + s2 * r2 * r2)
+    yd = (y * kr + p1 * (r2 + 2 * y2) + p2 * xy2 + s3 * r2
+          + s4 * r2 * r2)
+    t0 = T[0, 0] * xd + T[0, 1] * yd + T[0, 2]
+    t1 = T[1, 0] * xd + T[1, 1] * yd + T[1, 2]
+    t2 = T[2, 0] * xd + T[2, 1] * yd + T[2, 2]
+    inv = np.where(t2 != 0, 1.0 / np.where(t2 != 0, t2, 1.0), 1.0)
+    u = fx * inv * t0 + u0
+    v = fy * inv * t1 + v0
     return u, v
 
 

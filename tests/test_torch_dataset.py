@@ -53,6 +53,22 @@ def distorted_root(jax_root, tmp_path_factory):
     return root
 
 
+@pytest.fixture(scope="module")
+def rational_root(jax_root, tmp_path_factory):
+    """The same frames behind a camera with OpenCV's 8-coefficient
+    (rational) distortion model."""
+    root = str(tmp_path_factory.mktemp("rds"))
+    shutil.copytree(jax_root, root, dirs_exist_ok=True)
+    path = os.path.join(root, "cam000", "camera.pkl")
+    with open(path, "rb") as f:
+        cam = pickle.load(f)
+    cam["camera_k"] = np.array([-0.2, 0.1, 0.001, -0.001, 0.01, 0.05,
+                                -0.02, 0.01])
+    with open(path, "wb") as f:
+        pickle.dump(cam, f)
+    return root
+
+
 def _kwargs(mode, subsampletype="foreground_pixel", img_wh=(SIZE, SIZE)):
     return dict(mode=mode, img_wh=img_wh, frame_start_ID=1,
                 frame_end_ID=4 if mode == "train" else 2, frame_skip=1,
@@ -247,3 +263,24 @@ def test_mesh_over_several_devices_raises():
     cfg.mesh_shape = (4,)
     with pytest.raises(NotImplementedError, match="one device"):
         check_single_device(cfg)
+
+
+def test_rational_camera_batches_bit_equal(jax_root, rational_root):
+    """An 8-coefficient camera (k4..k6 of OpenCV's rational model, which
+    the JAX loader hands to cv2.undistort): training batches and a
+    validation frame bit-equal to the JAX loader's, and the pixels moved
+    against the undistorted camera."""
+    kw = _kwargs("train", img_wh=(24, 20))
+    a = JD.Loader(JD.AnimNeRFDataset(rational_root, **kw), 3, shuffle=True,
+                  seed=11)
+    b = TD.Loader(TD.AnimNeRFDataset(rational_root, **kw), 3, shuffle=True,
+                  seed=11)
+    _assert_batches_equal(a, b, epochs=1)
+    kv = _kwargs("val", img_wh=(24, 20))
+    _assert_batches_equal(
+        JD.Loader(JD.AnimNeRFDataset(rational_root, **kv), 1, shuffle=False),
+        TD.Loader(TD.AnimNeRFDataset(rational_root, **kv), 1, shuffle=False),
+        epochs=1)
+    c = TD.AnimNeRFDataset(jax_root, **kv)[0]["rgbs"]
+    d = TD.AnimNeRFDataset(rational_root, **kv)[0]["rgbs"]
+    assert not np.array_equal(c, d)

@@ -515,7 +515,7 @@ def test_enc_cols_takes_every_n_freqs_the_16_aligned_kernel_took():
         Ep = TF.enc_cols(f)
         assert Ep % 64 == 0 and 3 + 6 * f <= Ep <= 192
         assert Ep == -(-TF.enc_rows(f) // 64) * 64
-    assert TF.enc_cols(10) == TF.BWD_E
+    assert TF.enc_cols(10) == TF.bwd_layout(10).cols == 64
     for f in (-1, TF.MAX_FREQS + 1):
         with pytest.raises(ValueError, match="n_freqs"):
             TF.enc_cols(f)

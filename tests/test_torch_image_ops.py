@@ -195,6 +195,32 @@ def test_undistort_matches_cv2(coeffs):
                                       cv2.undistort(x, _K, D))
 
 
+@pytest.mark.parametrize("coeffs", [
+    # rational (k4..k6)
+    [-0.2, 0.1, 0.001, -0.001, 0.01, 0.05, -0.02, 0.01],
+    # + thin prism (s1..s4)
+    [-0.26, 0.21, -0.0005, 0.0003, -0.05, 0.02, 0.01, -0.03,
+     0.002, -0.001, 0.0015, 0.0005],
+    # + tilt (tau_x, tau_y)
+    [-0.2, 0.1, 0.001, -0.001, 0.01, 0.05, -0.02, 0.01,
+     0.001, -0.002, 0.003, 0.0005, 0.02, -0.015],
+], ids=["8", "12", "14"])
+def test_undistort_full_model_matches_cv2(coeffs):
+    """OpenCV's 8-, 12- and 14-coefficient models (rational radial factor,
+    thin prism, tilted sensor): bit-equal to cv2.undistort on the same
+    three images as the 5-coefficient test."""
+    D = np.asarray(coeffs).reshape(-1, 1)
+    img = I.resize_linear_u8(_noise((1080, 1080, 3), 7), (512, 512))
+    for x in (img, _gradient(512, 512, 3), img[..., 0].copy()):
+        np.testing.assert_array_equal(I.undistort_u8(x, _K, D),
+                                      cv2.undistort(x, _K, D))
+
+
+def test_undistort_takes_at_most_14_coefficients():
+    with pytest.raises(ValueError, match="14"):
+        I.undistort_maps(_K, np.zeros(15), 8, 8)
+
+
 def test_undistort_zero_coefficients_is_the_identity():
     img = _noise((64, 80, 3), 6)
     K = np.array([[96.0, 0, 40], [0, 96.0, 32], [0, 0, 1]])

@@ -116,13 +116,14 @@ def _system(cfg):
 
 
 def test_system_takes_k_neigh_1_to_16():
+    """Any k_neigh from 1 to the vertex count (64 here), as the JAX
+    package takes it; 0 is refused."""
     base = {"n_samples": 8, "n_importance": 4}
-    for k in (1, 4, 8, 16):
+    for k in (1, 4, 8, 16, 17, 24, 40, 64):
         assert _system(dict(base, k_neigh=k)).scene_cfg.k_neigh == k
     assert _system(base).scene_cfg.k_neigh == 4
-    for k in (0, 17):
-        with pytest.raises(NotImplementedError, match="1 to 16"):
-            _system(dict(base, k_neigh=k))
+    with pytest.raises(ValueError, match="at least 1"):
+        _system(dict(base, k_neigh=0))
 
 
 def test_checkpoint_k_neigh_reaches_the_config(tmp_path):

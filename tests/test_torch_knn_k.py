@@ -175,12 +175,17 @@ def test_knn_dispatches_by_k(V, k, want):
 
 
 def test_knn_rejects_k_outside_1_to_16():
+    """k = 0 and k > V are refused (every k from 1 to V is taken: 17 and
+    V itself here)."""
     pts, verts = _cloud(V=100, N=10, seed=15)
     tp, tv = torch.from_numpy(pts), torch.from_numpy(verts)
-    for k in (0, 17):
-        for packed in (True, False):
-            with pytest.raises(ValueError, match="16"):
-                knn(tp, tv, k, packed=packed)
+    for packed in (True, False):
+        with pytest.raises(ValueError, match="at least 1"):
+            knn(tp, tv, 0, packed=packed)
+        with pytest.raises(ValueError, match="V"):
+            knn(tp, tv, 101, packed=packed)
+        for k in (17, 100):
+            assert knn(tp, tv, k, packed=packed)[1].shape == (1, k, 10)
     with pytest.raises(ValueError, match="V"):
         knn(tp, tv[:, :5].contiguous(), 8)
 

@@ -307,15 +307,28 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(root, tmp_path,
 
 
 @pytest.mark.parametrize("opts, match", [
-    (["k_neigh", "17"], "1 to 16"),
     (["mesh_shape", "(2,)"], "one device"),
 ])
 def test_fit_raises_for_configs_it_cannot_take(root, tmp_path, opts, match):
-    """More neighbours than the kNN kernels take and a mesh over several
-    devices (more than 128 samples a ray train with the dense engine:
-    tests/test_torch_split_train.py)."""
+    """A mesh over several devices (more neighbours than 16 train:
+    test_fit_trains_at_k_neigh_17; more than 128 samples a ray train with
+    the dense engine: tests/test_torch_split_train.py)."""
     with pytest.raises(NotImplementedError, match=match):
         TL.fit(_port_cfg(root, str(tmp_path), "x", *opts), device="cpu")
+
+
+def test_fit_trains_at_k_neigh_17(root, tmp_path):
+    """k_neigh 17, past the 16 the port once took: fit takes two steps on
+    the CPU (the plain versions of the kNN, warp-blend and scatter at 17
+    neighbours), its losses finite, and writes ``last``."""
+    cfg = _port_cfg(root, str(tmp_path), "k17", "k_neigh", "17",
+                    "train.max_steps", "2")
+    stats: dict = {}
+    out = TL.fit(cfg, device="cpu", stats=stats)
+    assert stats["system"].scene_cfg.k_neigh == 17
+    assert len(stats["step_s"]) == 2
+    assert stats["losses"] and all(np.isfinite(l) for _, l in stats["losses"])
+    assert os.path.isfile(os.path.join(out, "last", "anim_nerf.npz"))
 
 
 def test_profile_traces_steps_2_to_4(root, tmp_path):

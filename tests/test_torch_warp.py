@@ -141,17 +141,17 @@ def test_warp_blend_plain_matches_kernel():
 
 
 def test_warp_blend_takes_the_top4_only():
-    """The warp-blend takes the kNN's 1..16 neighbour rows (k_neigh), with
-    distances and indices of one k; other shapes raise."""
+    """The warp-blend takes the kNN's neighbour rows (k_neigh, any k >= 1),
+    with distances and indices of one k; other shapes raise."""
     N = 10
     rows = torch.zeros(1, 8, N)
     table = torch.zeros(1, V, J + 16)
-    for kd, ki in ((0, 0), (17, 17), (4, 5)):
+    for kd, ki in ((0, 0), (17, 16), (4, 5)):
         with pytest.raises(ValueError, match="shapes"):
             warp_blend_fwd(rows, torch.zeros(1, kd, N),
                            torch.zeros(1, ki, N, dtype=torch.int32), table, J,
                            0.1, 0.9)
-    for k in (1, 16):
+    for k in (1, 16, 17, 40):
         _, w, _ = warp_blend_fwd(rows, torch.zeros(1, k, N),
                                  torch.zeros(1, k, N, dtype=torch.int32),
                                  table, J, 0.1, 0.9)
