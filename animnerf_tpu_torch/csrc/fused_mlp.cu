@@ -46,9 +46,9 @@
 // they were no faster on the H100: a persistent grid, a 384-thread block
 // with setmaxnreg, and a second accumulator set to run one tile's
 // epilogue under the next tile's products; see PERF.md.)
-// The f32 path (not on the main path) is a plain SIMT kernel (one output
-// feature per thread, 32 points per block), reading the packed (N, K)
-// weights row by row.
+// The f32 path (compute_dtype float32) is csrc/mlp_f32.cu's forward, on
+// the register-tiled f32 layer routine it shares with the MLP backward's
+// f32 recompute (mlp_f32_tile.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +56,7 @@
 
 #include <initializer_list>
 
+#include "mlp_f32_tile.cuh"
 #include "mlp_wgmma.cuh"
 
 namespace {
@@ -228,141 +229,16 @@ mlp_fwd_bf16(const float* __restrict__ xyz,  // (8, M) rows
           sigmoidf(rgb[c] + hsum[64 + 3 * rl + c] + p.b[12][c]);
 }
 
-// ----------------------------------------------------------------- f32 path
-
-constexpr int TF = 32;  // points per block
-
-// out[n][t] = epilogue(sum_k in[k][t] * W[n][k] (+ in2 . W2) + b[n]);
-// activations feature-major (K x TF) f32, W (N_OUT x K) row-major with K a
-// multiple of 4: thread n reads its weight row four columns at a time.
-template <int N_OUT, bool RELU>
-__device__ __forceinline__ void dense_f32(const float* in, int K,
-                                          const float* __restrict__ W,
-                                          const float* in2, int K2,
-                                          const float* __restrict__ W2,
-                                          const float* __restrict__ bias,
-                                          float* out) {
-  const int n = threadIdx.x;
-  if (n >= N_OUT) return;
-  float acc[TF];
-#pragma unroll
-  for (int t = 0; t < TF; ++t) acc[t] = 0.0f;
-  for (int pass = 0; pass < 2; ++pass) {
-    const float* A = pass == 0 ? in : in2;
-    const float* Wp = pass == 0 ? W : W2;
-    const int KK = pass == 0 ? K : K2;
-    if (Wp == nullptr) break;
-    const float4* wrow = (const float4*)(Wp + (size_t)n * KK);
-    for (int k4 = 0; k4 < KK / 4; ++k4) {
-      const float4 w4 = __ldg(wrow + k4);
-      const float wk[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const float wv = wk[s];
-        const float4* h = (const float4*)(A + (4 * k4 + s) * TF);
-#pragma unroll
-        for (int q = 0; q < TF / 4; ++q) {
-          const float4 hv = h[q];
-          acc[4 * q + 0] = fmaf(hv.x, wv, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(hv.y, wv, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(hv.z, wv, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(hv.w, wv, acc[4 * q + 3]);
-        }
-      }
-    }
-  }
-  const float bn = bias[n];
-#pragma unroll
-  for (int t = 0; t < TF; ++t) {
-    float v = acc[t] + bn;
-    if (RELU) v = fmaxf(v, 0.0f);
-    out[n * TF + t] = v;
-  }
-}
-
-__global__ void __launch_bounds__(WIDTH)
-fused_mlp_f32_kernel(const float* __restrict__ xyz, MlpWeights p,
-                     float* __restrict__ out, int M, int n_freqs, int E) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* enc = (float*)smem;            // (E, TF)
-  float* bufA = enc + E * TF;           // (WIDTH, TF)
-  float* bufB = bufA + WIDTH * TF;
-  const int m0 = blockIdx.x * TF;
-  const float* const* w = (const float* const*)p.w;
-
-  for (int task = threadIdx.x; task < TF * 2; task += WIDTH) {
-    const int t = task % TF;
-    const int half = task / TF;
-    const int m = m0 + t;
-    const bool live = m < M;
-    const float c3[3] = {live ? xyz[m] : 0.0f, live ? xyz[(size_t)M + m] : 0.0f,
-                         live ? xyz[2 * (size_t)M + m] : 0.0f};
-    if (half == 0) {
-      for (int c = 0; c < 3; ++c) enc[c * TF + t] = c3[c];
-      for (int e = 3 + 6 * n_freqs; e < E; ++e) enc[e * TF + t] = 0.0f;
-    }
-    for (int j = half; j < n_freqs; j += 2) {
-      const float f = (float)(1 << j);
-      for (int c = 0; c < 3; ++c) {
-        const float a = f * c3[c];
-        enc[(3 + 6 * j + c) * TF + t] = sinf(a);
-        enc[(3 + 6 * j + 3 + c) * TF + t] = cosf(a);
-      }
-    }
-  }
-  __syncthreads();
-  dense_f32<WIDTH, true>(enc, E, w[0], nullptr, 0, nullptr, p.b[0], bufA);
-  __syncthreads();
-  float* hin = bufA;
-  float* hout = bufB;
-  for (int i = 1; i < 8; ++i) {
-    if (i == SKIP)
-      dense_f32<WIDTH, true>(hin, WIDTH, w[i], enc, E, w[8], p.b[i], hout);
-    else
-      dense_f32<WIDTH, true>(hin, WIDTH, w[i], nullptr, 0, nullptr, p.b[i],
-                             hout);
-    __syncthreads();
-    float* tmp = hin;
-    hin = hout;
-    hout = tmp;
-  }
-  if (threadIdx.x < TF) {  // sigma head; W9 is (8, WIDTH), row 0 live
-    const int t = threadIdx.x;
-    float s = 0.0f;
-    for (int k = 0; k < WIDTH; ++k) s = fmaf(hin[k * TF + t], w[9][k], s);
-    const int m = m0 + t;
-    if (m < M) {
-      out[3 * (size_t)M + m] = s + p.b[9][0];
-      for (int r = 4; r < 8; ++r) out[r * (size_t)M + m] = 0.0f;
-    }
-  }
-  dense_f32<WIDTH, false>(hin, WIDTH, w[10], nullptr, 0, nullptr, p.b[10],
-                          hout);
-  __syncthreads();
-  dense_f32<DIR_W, true>(hout, WIDTH, w[11], nullptr, 0, nullptr, p.b[11],
-                         hin);
-  __syncthreads();
-  if (threadIdx.x < 3 * TF) {  // rgb head; W12 is (8, DIR_W)
-    const int c = threadIdx.x / TF;
-    const int t = threadIdx.x % TF;
-    float v = 0.0f;
-    for (int k = 0; k < DIR_W; ++k)
-      v = fmaf(hin[k * TF + t], w[12][c * DIR_W + k], v);
-    const int m = m0 + t;
-    if (m < M) out[c * (size_t)M + m] = sigmoidf(v + p.b[12][c]);
-  }
-}
-
 }  // namespace
 
 // xyz, out: (8, M) f32 rows; w_ptrs / b_ptrs: host arrays of 13 device
 // pointers (ops/fused_mlp.py::pack_params: weights (N, K) row-major,
-// biases (N,)); dtype 0 = bf16, 1 = f32. bf16: w_image is the weight
-// image (ops/fused_mlp.py::weight_image) and image_offsets its host int
-// array of part offsets (forward parts first), E the encoding block's
-// columns (enc_cols there: a multiple of 64, at most 192, covering 3 + 6
-// n_freqs); the heads (layers 9, 12) are read from w_ptrs. f32: E =
-// enc_rows, a multiple of 4; the image is unused (may be null).
+// biases (N,)); dtype 0 = bf16, 1 = f32. w_image is the kernels' weight
+// image (ops/fused_mlp.py::kernel_image: weight_image in bf16, f32_image
+// in f32) and image_offsets its host int array of part offsets (forward
+// parts first), E the encoding block's columns (enc_cols there: a
+// multiple of 64, at most 192, covering 3 + 6 n_freqs); the heads
+// (layers 9, 12) are read from w_ptrs.
 extern "C" int animnerf_fused_mlp_fwd(const void* xyz, const void* w_ptrs,
                                       const void* b_ptrs, const void* w_image,
                                       const void* image_offsets, void* out,
@@ -397,15 +273,19 @@ extern "C" int animnerf_fused_mlp_fwd(const void* xyz, const void* w_ptrs,
                                            (const bf16*)w_image, io,
                                            (float*)out, M, n_freqs, E);
   } else {
-    if (E % 4 != 0) return (int)cudaErrorInvalidValue;
-    const size_t bytes = (size_t)(E + 2 * WIDTH) * TF * sizeof(float);
-    err = cudaFuncSetAttribute(fused_mlp_f32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    fused_mlp_f32_kernel<<<(M + TF - 1) / TF, WIDTH, bytes,
-                           (cudaStream_t)stream>>>(
-        (const float*)xyz, p, (float*)out, M, n_freqs, E);
+    if (w_image == nullptr || image_offsets == nullptr)
+      return (int)cudaErrorInvalidValue;
+    MlpF32Params q;
+    q.image = (const float*)w_image;
+    for (int i = 0; i < N_W; ++i) {
+      q.fwd[i] = ((const int*)image_offsets)[i];
+      q.bwd[i] = -1;
+      q.b[i] = p.b[i];
+    }
+    q.w9 = (const float*)p.w[9];
+    q.w12 = (const float*)p.w[12];
+    return mlp_f32_forward((const float*)xyz, q, (float*)out, M, n_freqs, E,
+                           (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

@@ -54,7 +54,7 @@
 //      first products; the trunk's ReLU bits stay in shared memory (16 KB
 //      a warpgroup). Shared memory: 2 x 64 KB activations + 16 KB encoding
 //      (later the heads) + 48 KB slab ring + 32 KB ReLU bits (later d_enc).
-//      f32 (not on the main path): a SIMT block per 32 points.
+//      f32: csrc/mlp_f32.cu, 64 points a block on the CUDA cores.
 //      Encoding width: the kernels are instantiated for an encoding block
 //      of EC = 64 columns (n_freqs 0..10, the flagship's 10 among them)
 //      and of 128 (n_freqs 11..20), every encoding use_fused_mlp admits;
@@ -75,7 +75,8 @@
 //      head cotangents, 9,872 B a point: 3.09 ms per 2^20 points
 //      (products 1.25). Every block stores (first chunk) or adds
 //      its tiles into its own split's f32 partial, which only that block
-//      writes. f32: a SIMT kernel per layer, the heads and the bias sums.
+//      writes. f32: mlp_f32.cu's SGEMM-tiled pass, heads and bias sums in
+//      it.
 //   3. after the last chunk, one kernel sums the splits' partials in a
 //      fixed order.
 // No atomics anywhere, and no sum crosses a block in the main kernel: the
@@ -91,6 +92,7 @@
 #include <initializer_list>
 
 #include "mlp_bwd_layout.cuh"
+#include "mlp_f32_tile.cuh"
 #include "mlp_wgmma.cuh"
 
 namespace {
@@ -510,460 +512,32 @@ mlp_bwd_main_bf16(const float* __restrict__ xyz,   // (8, M) rows
   }
 }
 
-// ================================================================= f32 path
-
-constexpr int TF = 32;  // points per block
-
-// forward layer, thread n: out[n][t] = epi(sum_k in[k][t] W[n][k] (+ in2 .
-// W2) + b[n]); activations feature-major (K x TF); also writes H rows
-template <int N_OUT, bool RELU>
-__device__ __forceinline__ void dense_f32(const float* in, int K,
-                                          const float* __restrict__ W,
-                                          const float* in2, int K2,
-                                          const float* __restrict__ W2,
-                                          const float* __restrict__ bias,
-                                          float* out, float* h, int mb) {
-  const int n = threadIdx.x;
-  if (n >= N_OUT) return;
-  float acc[TF];
-#pragma unroll
-  for (int t = 0; t < TF; ++t) acc[t] = 0.0f;
-  for (int pass = 0; pass < 2; ++pass) {
-    const float* A = pass == 0 ? in : in2;
-    const float* Wp = pass == 0 ? W : W2;
-    const int KK = pass == 0 ? K : K2;
-    if (Wp == nullptr) break;
-    const float4* wrow = (const float4*)(Wp + (size_t)n * KK);
-    for (int k4 = 0; k4 < KK / 4; ++k4) {
-      const float4 w4 = __ldg(wrow + k4);
-      const float wk[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const float4* hv = (const float4*)(A + (4 * k4 + s) * TF);
-#pragma unroll
-        for (int q = 0; q < TF / 4; ++q) {
-          const float4 x = hv[q];
-          acc[4 * q + 0] = fmaf(x.x, wk[s], acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(x.y, wk[s], acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(x.z, wk[s], acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(x.w, wk[s], acc[4 * q + 3]);
-        }
-      }
-    }
-  }
-  const float bn = bias[n];
-#pragma unroll
-  for (int t = 0; t < TF; ++t) {
-    float v = acc[t] + bn;
-    if (RELU) v = fmaxf(v, 0.0f);
-    out[n * TF + t] = v;
-    h[(size_t)(mb + t) * N_OUT + n] = v;
-  }
-}
-
-// dgrad, thread k: acc[t] = sum_n W[n][k] d[n][t] (W is (N_IN, ldw))
-__device__ __forceinline__ void dgrad_f32(const float* d, int n_in,
-                                          const float* __restrict__ W,
-                                          int ldw, int k, float (&acc)[TF]) {
-#pragma unroll
-  for (int t = 0; t < TF; ++t) acc[t] = 0.0f;
-  for (int n = 0; n < n_in; ++n) {
-    const float wv = __ldg(W + (size_t)n * ldw + k);
-    const float4* dv = (const float4*)(d + n * TF);
-#pragma unroll
-    for (int q = 0; q < TF / 4; ++q) {
-      const float4 x = dv[q];
-      acc[4 * q + 0] = fmaf(x.x, wv, acc[4 * q + 0]);
-      acc[4 * q + 1] = fmaf(x.y, wv, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(x.z, wv, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(x.w, wv, acc[4 * q + 3]);
-    }
-  }
-}
-
-template <int EC>
-constexpr size_t smem_f32() {
-  return (size_t)(2 * EC + 2 * WIDTH + HEAD_COLS) * TF * sizeof(float);
-}
-
-// er: the encoding rows of the weights (pack_params' (256, er) layers 0
-// and 8, row stride er); the block's encoding is EC rows, zero from
-// 3 + 6 n_freqs
-template <int EC>
-__global__ void __launch_bounds__(WIDTH)
-mlp_bwd_main_f32(const float* __restrict__ xyz, const float* __restrict__ dout,
-                 float* __restrict__ dxyz, MlpWeights p,
-                 float* __restrict__ hs, float* __restrict__ gs,
-                 float* __restrict__ heads, int M, int m_start, int Mc,
-                 int chunk, int n_freqs, int er) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* enc = (float*)smem;         // (EC, TF)
-  float* bufA = enc + EC * TF;       // (WIDTH, TF)
-  float* bufB = bufA + WIDTH * TF;
-  float* denc = bufB + WIDTH * TF;   // (EC, TF)
-  float* hsm = denc + EC * TF;       // (HEAD_COLS, TF)
-  const int mb = blockIdx.x * TF;
-  const float* const* w = (const float* const*)p.w;
-  const int tid = threadIdx.x;
-  auto H = [&](int h) { return hs + (size_t)h_col<EC>(h) * chunk; };
-  auto G = [&](int g) { return gs + (size_t)g_col(g) * chunk; };
-
-  for (int task = tid; task < TF * 2; task += WIDTH) {
-    const int t = task % TF;
-    const int half = task / TF;
-    const int m = mb + t;
-    const bool live = m < Mc;
-    const size_t gm = (size_t)m_start + m;
-    const float c3[3] = {live ? xyz[gm] : 0.0f,
-                         live ? xyz[(size_t)M + gm] : 0.0f,
-                         live ? xyz[2 * (size_t)M + gm] : 0.0f};
-    if (half == 0) {
-      for (int c = 0; c < 3; ++c) enc[c * TF + t] = c3[c];
-      for (int e = 3 + 6 * n_freqs; e < EC; ++e) enc[e * TF + t] = 0.0f;
-    }
-    for (int j = half; j < n_freqs; j += 2) {
-      const float f = (float)(1 << j);
-      for (int c = 0; c < 3; ++c) {
-        const float a = f * c3[c];
-        enc[(3 + 6 * j + c) * TF + t] = sinf(a);
-        enc[(3 + 6 * j + 3 + c) * TF + t] = cosf(a);
-      }
-    }
-  }
-  for (int i = tid; i < EC * TF; i += WIDTH) denc[i] = 0.0f;
-  __syncthreads();
-  for (int i = tid; i < TF * EC; i += WIDTH)
-    H(0)[(size_t)(mb + i / EC) * EC + i % EC] = enc[(i % EC) * TF + i / EC];
-
-  dense_f32<WIDTH, true>(enc, er, w[0], nullptr, 0, nullptr, p.b[0], bufA,
-                         H(1), mb);
-  __syncthreads();
-  float* hin = bufA;
-  float* hout = bufB;
-  for (int i = 1; i < DEPTH; ++i) {
-    if (i == SKIP)
-      dense_f32<WIDTH, true>(hin, WIDTH, w[i], enc, er, w[8], p.b[i], hout,
-                             H(i + 1), mb);
-    else
-      dense_f32<WIDTH, true>(hin, WIDTH, w[i], nullptr, 0, nullptr, p.b[i],
-                             hout, H(i + 1), mb);
-    __syncthreads();
-    float* tmp = hin;
-    hin = hout;
-    hout = tmp;
-  }
-  dense_f32<WIDTH, false>(hin, WIDTH, w[10], nullptr, 0, nullptr, p.b[10],
-                          hout, H(9), mb);
-  __syncthreads();
-  dense_f32<DIR_W, true>(hout, WIDTH, w[11], nullptr, 0, nullptr, p.b[11],
-                         hin, H(10), mb);
-  __syncthreads();
-  float* hd = hin;
-  float* spare = hout;
-
-  if (tid < 4 * TF) {
-    const int c = tid / TF;
-    const int t = tid % TF;
-    const int m = mb + t;
-    const float d = m < Mc ? dout[(size_t)c * M + m_start + m] : 0.0f;
-    if (c < 3) {
-      float v = 0.0f;
-      for (int k = 0; k < DIR_W; ++k)
-        v = fmaf(hd[k * TF + t], w[12][c * DIR_W + k], v);
-      const float s = sigmoidf(v + p.b[12][c]);
-      hsm[c * TF + t] = d * s * (1.0f - s);
-    } else {
-      hsm[3 * TF + t] = d;
-    }
-  }
-  __syncthreads();
-  if (tid < TF * HEAD_COLS)
-    heads[(size_t)(mb + tid / HEAD_COLS) * HEAD_COLS + tid % HEAD_COLS] =
-        hsm[(tid % HEAD_COLS) * TF + tid / HEAD_COLS];
-
-  if (tid < DIR_W) {  // d_hd
-    const int n = tid;
-    for (int t = 0; t < TF; ++t) {
-      float acc = 0.0f;
-      for (int c = 0; c < 3; ++c)
-        acc = fmaf(w[12][c * DIR_W + n], hsm[c * TF + t], acc);
-      const float v = hd[n * TF + t] > 0.0f ? acc : 0.0f;
-      spare[n * TF + t] = v;
-      G(9)[(size_t)(mb + t) * DIR_W + n] = v;
-    }
-  }
-  __syncthreads();
-  float acc[TF];
-  {  // d_hf = W11^T d_hd
-    const int k = tid;
-    dgrad_f32(spare, DIR_W, w[11], WIDTH, k, acc);
-    for (int t = 0; t < TF; ++t) {
-      hd[k * TF + t] = acc[t];
-      G(8)[(size_t)(mb + t) * WIDTH + k] = acc[t];
-    }
-  }
-  __syncthreads();
-  {  // d_7 = mask(h7) (W10^T d_hf + W9^T d_sigma)
-    const int k = tid;
-    dgrad_f32(hd, WIDTH, w[10], WIDTH, k, acc);
-    for (int t = 0; t < TF; ++t) {
-      float v = acc[t] + w[9][k] * hsm[3 * TF + t];
-      if (!(H(8)[(size_t)(mb + t) * WIDTH + k] > 0.0f)) v = 0.0f;
-      spare[k * TF + t] = v;
-      G(7)[(size_t)(mb + t) * WIDTH + k] = v;
-    }
-  }
-  __syncthreads();
-  float* cur = spare;
-  float* nxt = hd;
-  for (int i = DEPTH - 1; i >= 1; --i) {
-    const int k = tid;
-    if (i == SKIP && k < er) {
-      dgrad_f32(cur, WIDTH, w[8], er, k, acc);
-      for (int t = 0; t < TF; ++t) denc[k * TF + t] += acc[t];
-    }
-    dgrad_f32(cur, WIDTH, w[i], WIDTH, k, acc);
-    for (int t = 0; t < TF; ++t) {
-      float v = acc[t];
-      if (!(H(i)[(size_t)(mb + t) * WIDTH + k] > 0.0f)) v = 0.0f;
-      nxt[k * TF + t] = v;
-      G(i - 1)[(size_t)(mb + t) * WIDTH + k] = v;
-    }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  if (tid < er) {
-    dgrad_f32(cur, WIDTH, w[0], er, tid, acc);
-    for (int t = 0; t < TF; ++t) denc[tid * TF + t] += acc[t];
-  }
-  __syncthreads();
-
-  if (tid < TF) {
-    const int t = tid;
-    const int m = mb + t;
-    if (m < Mc) {
-      const size_t gm = (size_t)m_start + m;
-      for (int c = 0; c < 3; ++c) {
-        const float x = xyz[(size_t)c * M + gm];
-        float d = denc[c * TF + t];
-        for (int j = 0; j < n_freqs; ++j) {
-          const float f = (float)(1 << j);
-          const float a = f * x;
-          d = d + f * (cosf(a) * denc[(3 + 6 * j + c) * TF + t] -
-                       sinf(a) * denc[(3 + 6 * j + 3 + c) * TF + t]);
-        }
-        dxyz[(size_t)c * M + gm] = d;
-      }
-      for (int r = 3; r < 8; ++r) dxyz[(size_t)r * M + gm] = 0.0f;
-    }
-  }
-}
-
-// dW (N x ldo) += G^T H over H's first ldo <= K columns (H rows of K, a
-// multiple of 64), SIMT: 64x64 tile per block, 4x4 outputs a thread
-__global__ void __launch_bounds__(256)
-wgrad_f32(const float* __restrict__ g, int N, const float* __restrict__ h,
-          int K, int ldo, int rows, int rps, float* __restrict__ part,
-          size_t part_stride, size_t w_off) {
-  __shared__ float sg[16][64];
-  __shared__ float sh[16][64];
-  const int tiles_k = K / 64;
-  const int n0 = (blockIdx.x / tiles_k) * 64;
-  const int k0 = (blockIdx.x % tiles_k) * 64;
-  const int s = blockIdx.y;
-  const int tn = threadIdx.x / 16;
-  const int tk = threadIdx.x % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  const int t_end = min(rows, (s + 1) * rps);
-  for (int t0 = s * rps; t0 < t_end; t0 += 16) {
-    for (int i = threadIdx.x; i < 16 * 64; i += 256) {
-      const int tt = i / 64;
-      const int cc = i % 64;
-      sg[tt][cc] = g[(size_t)(t0 + tt) * N + n0 + cc];
-      sh[tt][cc] = h[(size_t)(t0 + tt) * K + k0 + cc];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int tt = 0; tt < 16; ++tt) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = sg[tt][tn * 4 + i];
-        b[i] = sh[tt][tk * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* out = part + (size_t)s * part_stride + w_off;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (k0 + tk * 4 + j < ldo)
-        out[(size_t)(n0 + tn * 4 + i) * ldo + k0 + tk * 4 + j] += acc[i][j];
-}
-
-// sigma / rgb head weight gradients over split s, by HEAD_GROUPS row
-// groups of 256 threads combined in a fixed order; thread k: dW9[0][k]
-// over h7 and, for k < 128, dW12[0..2][k] over hd
-constexpr int HEAD_GROUPS = 4;
-
-__global__ void __launch_bounds__(WIDTH * HEAD_GROUPS)
-wgrad_heads_f32(const float* __restrict__ heads, const float* __restrict__ h7,
-                const float* __restrict__ hd, int rows, int rps,
-                float* __restrict__ part, size_t part_stride, size_t off9,
-                size_t off12) {
-  __shared__ float red[HEAD_GROUPS][4][WIDTH];
-  const int s = blockIdx.x;
-  const int k = threadIdx.x % WIDTH;
-  const int grp = threadIdx.x / WIDTH;
-  float a9 = 0.0f, a12[3] = {0.0f, 0.0f, 0.0f};
-  const int t_end = min(rows, (s + 1) * rps);
-  for (int t = s * rps + grp; t < t_end; t += HEAD_GROUPS) {
-    a9 = fmaf(heads[(size_t)t * HEAD_COLS + 3], h7[(size_t)t * WIDTH + k],
-              a9);
-    if (k < DIR_W) {
-      const float hv = hd[(size_t)t * DIR_W + k];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        a12[c] = fmaf(heads[(size_t)t * HEAD_COLS + c], hv, a12[c]);
-    }
-  }
-  red[grp][0][k] = a9;
-  for (int c = 0; c < 3; ++c) red[grp][1 + c][k] = a12[c];
-  __syncthreads();
-  if (grp != 0) return;
-  for (int q = 1; q < HEAD_GROUPS; ++q) {
-    a9 += red[q][0][k];
-    for (int c = 0; c < 3; ++c) a12[c] += red[q][1 + c][k];
-  }
-  float* out = part + (size_t)s * part_stride;
-  out[off9 + k] += a9;
-  if (k < DIR_W)
-    for (int c = 0; c < 3; ++c) out[off12 + (size_t)c * DIR_W + k] += a12[c];
-}
-
-// bias gradients: column j < GW of the G scratch, or one of the 4 head
-// columns, summed in point order over split s
-__global__ void __launch_bounds__(256)
-bias_sums_f32(const float* __restrict__ gs, const float* __restrict__ heads,
-              int chunk, int rows, int rps, float* __restrict__ part,
-              GradLayout L) {
-  const int j = blockIdx.x * 256 + threadIdx.x;
-  const int s = blockIdx.y;
-  if (j >= GW + HEAD_COLS) return;
-  const int t_end = min(rows, (s + 1) * rps);
-  float acc = 0.0f;
-  size_t dst;
-  if (j < GW) {
-    const int g = j < 9 * WIDTH ? j / WIDTH : 9;
-    const int col = j - g_col(g);
-    const int gw = g_width(g);
-    const float* src = gs + (size_t)g_col(g) * chunk + col;
-    for (int t = s * rps; t < t_end; ++t) acc += src[(size_t)t * gw];
-    const int layer = g < 8 ? g : (g == 8 ? 10 : 11);
-    dst = L.b[layer] + col;
-  } else {
-    const int hc = j - GW;
-    for (int t = s * rps; t < t_end; ++t)
-      acc += heads[(size_t)t * HEAD_COLS + hc];
-    dst = hc < 3 ? L.b[12] + hc : L.b[9];
-  }
-  part[(size_t)s * L.total + dst] += acc;
-}
-
-// (layer, G array, H array) of the weight gradients with N, K >= 64
-struct WgradLayer {
-  int layer, g, h;
-};
-constexpr WgradLayer WG_LAYERS[11] = {
-    {0, 0, 0}, {1, 1, 1}, {2, 2, 2},  {3, 3, 3},  {4, 4, 4},  {5, 5, 5},
-    {6, 6, 6}, {7, 7, 7}, {8, 4, 0},  {10, 8, 8}, {11, 9, 9}};
-
-// the f32 path's weight gradients, added into the (zeroed) partials
-template <int EC>
-int run_wgrad_f32(const float* hs, const float* gs, const float* heads,
-                  int chunk, int rows, float* part, const GradLayout& L,
-                  cudaStream_t stream) {
-  const int rps = ((rows + SPLITS - 1) / SPLITS + 31) / 32 * 32;
-  for (const WgradLayer& wl : WG_LAYERS) {
-    const int N = L.wr[wl.layer];
-    const int K = h_width<EC>(wl.h);
-    wgrad_f32<<<dim3((N / 64) * (K / 64), SPLITS), 256, 0, stream>>>(
-        gs + (size_t)g_col(wl.g) * chunk, N,
-        hs + (size_t)h_col<EC>(wl.h) * chunk, K, L.wc[wl.layer], rows, rps,
-        part, L.total, L.w[wl.layer]);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  wgrad_heads_f32<<<SPLITS, WIDTH * HEAD_GROUPS, 0, stream>>>(
-      heads, hs + (size_t)h_col<EC>(8) * chunk,
-      hs + (size_t)h_col<EC>(10) * chunk, rows, rps, part, L.total, L.w[9],
-      L.w[12]);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bias_sums_f32<<<dim3((GW + HEAD_COLS + 255) / 256, SPLITS), 256, 0,
-                  stream>>>(gs, heads, chunk, rows, rps, part, L);
-  return (int)cudaGetLastError();
-}
-
 // every chunk of M points through the main kernel and the weight
 // gradients at encoding width EC, then the split reduction
 template <int EC>
 int run_bwd(const void* xyz, const void* dout, const MlpWeights& p,
             const void* w_image, const ImageOffsets& io, void* dxyz,
             void* grads, void* scratch, void* heads, void* partials, int M,
-            int chunk, int n_freqs, int er, int dtype, cudaStream_t st) {
+            int chunk, int n_freqs, int er, cudaStream_t st) {
   const GradLayout L = grad_layout(er);
-  if (dtype != 0 && cudaMemsetAsync(partials, 0,
-                                    sizeof(float) * SPLITS * L.total,
-                                    st) != cudaSuccess)
-    return (int)cudaGetLastError();
   for (int m_start = 0; m_start < M; m_start += chunk) {
     const int Mc = min(chunk, M - m_start);
-    if (dtype == 0) {
-      const int rows = (Mc + T - 1) / T * T;
-      bf16* hs = (bf16*)scratch;
-      bf16* gs = hs + (size_t)HW<EC> * chunk;
-      cudaFuncSetAttribute(mlp_bwd_main_bf16<EC>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)MainSmem<EC>::BYTES);
-      mlp_bwd_main_bf16<EC><<<rows / T, MAIN_THREADS, MainSmem<EC>::BYTES,
-                              st>>>(
-          (const float*)xyz, (const float*)dout, (float*)dxyz, p,
-          (const bf16*)w_image, io, hs, gs, (float*)heads, M, m_start, Mc,
-          chunk, n_freqs);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      const int rc = animnerf_mlp_wgrad_chunk(hs, heads, partials, rows,
-                                              chunk, er, m_start == 0, st);
-      if (rc != 0) return rc;
-    } else {
-      const int rows = (Mc + TF - 1) / TF * TF;
-      float* hs = (float*)scratch;
-      float* gs = hs + (size_t)HW<EC> * chunk;
-      cudaFuncSetAttribute(mlp_bwd_main_f32<EC>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_f32<EC>());
-      mlp_bwd_main_f32<EC><<<rows / TF, WIDTH, smem_f32<EC>(), st>>>(
-          (const float*)xyz, (const float*)dout, (float*)dxyz, p, hs, gs,
-          (float*)heads, M, m_start, Mc, chunk, n_freqs, er);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      const int rc = run_wgrad_f32<EC>(hs, gs, (const float*)heads, chunk,
-                                       rows, (float*)partials, L, st);
-      if (rc != 0) return rc;
-    }
+    const int rows = (Mc + T - 1) / T * T;
+    bf16* hs = (bf16*)scratch;
+    bf16* gs = hs + (size_t)HW<EC> * chunk;
+    cudaFuncSetAttribute(mlp_bwd_main_bf16<EC>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)MainSmem<EC>::BYTES);
+    mlp_bwd_main_bf16<EC><<<rows / T, MAIN_THREADS, MainSmem<EC>::BYTES,
+                            st>>>(
+        (const float*)xyz, (const float*)dout, (float*)dxyz, p,
+        (const bf16*)w_image, io, hs, gs, (float*)heads, M, m_start, Mc,
+        chunk, n_freqs);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const int rc = animnerf_mlp_wgrad_chunk(hs, heads, partials, rows,
+                                            chunk, er, m_start == 0, st);
+    if (rc != 0) return rc;
   }
   reduce_splits<<<(unsigned)((L.total + 255) / 256), 256, 0, st>>>(
       (const float*)partials, L.total, (float*)grads);
@@ -992,10 +566,10 @@ extern "C" int animnerf_fused_mlp_bwd_sizes(int chunk, int er, void* sizes) {
   return 0;
 }
 
-// w_image: the bf16 weight image (ops/fused_mlp.py::weight_image), with
-// image_offsets its 2 x 13 part offsets (host int array: fwd then bwd);
-// both unused (may be null) in f32. E_in: the encoding rows of the packed
-// weights, enc_rows(n_freqs) (8..128, n_freqs 0..20).
+// w_image: the kernels' weight image (ops/fused_mlp.py::kernel_image:
+// weight_image in bf16, f32_image in f32), with image_offsets its 2 x 13
+// part offsets (host int array: fwd then bwd). E_in: the encoding rows of
+// the packed weights, enc_rows(n_freqs) (8..128, n_freqs 0..20).
 extern "C" int animnerf_fused_mlp_bwd(const void* xyz, const void* dout,
                                       const void* w_ptrs, const void* b_ptrs,
                                       const void* w_image,
@@ -1012,24 +586,36 @@ extern "C" int animnerf_fused_mlp_bwd(const void* xyz, const void* dout,
     p.w[i] = ((const void* const*)w_ptrs)[i];
     p.b[i] = ((const float* const*)b_ptrs)[i];
   }
-  ImageOffsets io;
-  if (dtype == 0) {
-    if (w_image == nullptr || image_offsets == nullptr)
-      return (int)cudaErrorInvalidValue;
-    for (int i = 0; i < N_W; ++i) {
-      io.fwd[i] = ((const int*)image_offsets)[i];
-      io.bwd[i] = ((const int*)image_offsets)[N_W + i];
-    }
-    // the parts the main kernel streams (ops/fused_mlp.py::IMAGE_PARTS)
-    for (int l : {0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11})
-      if (io.fwd[l] < 0 || io.bwd[l] < 0 || io.fwd[l] % 64 ||
-          io.bwd[l] % 64)
-        return (int)cudaErrorInvalidValue;
-  }
+  if (w_image == nullptr || image_offsets == nullptr)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype != 0) {  // f32: csrc/mlp_f32.cu
+    MlpF32Params q;
+    q.image = (const float*)w_image;
+    for (int i = 0; i < N_W; ++i) {
+      q.fwd[i] = ((const int*)image_offsets)[i];
+      q.bwd[i] = ((const int*)image_offsets)[N_W + i];
+      q.b[i] = p.b[i];
+    }
+    q.w9 = (const float*)p.w[9];
+    q.w12 = (const float*)p.w[12];
+    return mlp_f32_backward((const float*)xyz, (const float*)dout, q,
+                            (float*)dxyz, (float*)grads, (float*)scratch,
+                            (float*)heads, (float*)partials, M, chunk,
+                            n_freqs, E_in, st);
+  }
+  ImageOffsets io;
+  for (int i = 0; i < N_W; ++i) {
+    io.fwd[i] = ((const int*)image_offsets)[i];
+    io.bwd[i] = ((const int*)image_offsets)[N_W + i];
+  }
+  // the parts the main kernel streams (ops/fused_mlp.py::IMAGE_PARTS)
+  for (int l : {0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11})
+    if (io.fwd[l] < 0 || io.bwd[l] < 0 || io.fwd[l] % 64 || io.bwd[l] % 64)
+      return (int)cudaErrorInvalidValue;
   if (E_in <= 64)
     return run_bwd<64>(xyz, dout, p, w_image, io, dxyz, grads, scratch,
-                       heads, partials, M, chunk, n_freqs, E_in, dtype, st);
+                       heads, partials, M, chunk, n_freqs, E_in, st);
   return run_bwd<128>(xyz, dout, p, w_image, io, dxyz, grads, scratch, heads,
-                      partials, M, chunk, n_freqs, E_in, dtype, st);
+                      partials, M, chunk, n_freqs, E_in, st);
 }

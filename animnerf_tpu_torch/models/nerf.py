@@ -16,8 +16,8 @@ truncated-normal fan-in kernels (``lecun_normal``), zero biases.
 A field of the flagship architecture (``fused``: no view, no codes)
 runs the fused encode+MLP: the CUDA kernels on the card, their plain
 versions on the CPU (``ops/fused_mlp.py``). Under ``no_grad`` it reads
-packed operands cached in the compute dtype (in bf16 on the card also
-their slab image, ``weight_image``), repacked whenever a parameter
+packed operands cached in the compute dtype (on the card also the
+kernels' weight image, ``kernel_image``), repacked whenever a parameter
 changed (an optimizer step, a load) or the module moved. With autograd
 on it packs from the live parameters inside autograd, so the packed
 gradients flow back through the packing's pads and slices to the
@@ -49,8 +49,8 @@ from animnerf_tpu_torch.ops.fused_mlp import (
     SKIP,
     WIDTH,
     fused_nerf_rows,
+    kernel_image,
     pack_params,
-    weight_image,
 )
 
 # std of a unit normal truncated to [-2, 2] (flax's variance_scaling)
@@ -129,11 +129,12 @@ class NeRFMLP(nn.Module):
         return self._packed[1]
 
     def packed_image(self):
-        """``weight_image`` of ``packed()``'s weights (the bf16 kernels'
-        slab image and its offsets), built once per pack."""
+        """``kernel_image`` of ``packed()``'s weights (the kernels' weight
+        image in the compute dtype and its offsets), built once per
+        pack."""
         ws, _ = self.packed()
         if self._packed[2] is None:
-            self._packed[2] = weight_image(ws)
+            self._packed[2] = kernel_image(ws)
         return self._packed[2]
 
     def load_state_dict(self, *args, **kwargs):
@@ -158,8 +159,8 @@ class NeRFMLP(nn.Module):
             image = None
         else:
             ws, bs = self.packed()
-            image = (self.packed_image() if self.compute_dtype == "bfloat16"
-                     and ws[0].device.type != "cpu" else None)
+            image = (self.packed_image() if ws[0].device.type != "cpu"
+                     else None)
         return fused_nerf_rows(rows, ws, bs, self.freqs_xyz,
                                self.compute_dtype, image)
 

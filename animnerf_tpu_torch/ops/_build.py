@@ -32,10 +32,11 @@ BUILD_ROOT = _PKG.parent / "build" / "animnerf_tpu_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 SOURCES = ("knn.cu", "warp_blend.cu", "fused_mlp.cu", "sort_lanes.cu",
            "scatter.cu", "fused_mlp_bwd.cu", "knn_exact.cu", "min_dist.cu",
-           "knn_packed.cu", "knn_mxu.cu", "mlp_wgrad.cu", "knn_far.cu")
+           "knn_packed.cu", "knn_mxu.cu", "mlp_wgrad.cu", "knn_far.cu",
+           "mlp_f32.cu")
 # device code the sources include (hashed with them)
 HEADERS = ("knn_keys.cuh", "knn_slots.cuh", "knn_sweep.cuh",
-           "mlp_wgmma.cuh", "mlp_bwd_layout.cuh")
+           "mlp_wgmma.cuh", "mlp_bwd_layout.cuh", "mlp_f32_tile.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
@@ -60,6 +61,7 @@ SIGNATURES = {
                                _P, _I, _I, _I, _I, _I, _P],
     "animnerf_fused_mlp_bwd_sizes": [_I, _I, _P],
     "animnerf_mlp_wgrad": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "animnerf_mlp_f32_smem": [_I, _I, _P],
     "animnerf_knn_exact_rows": [_P, _P, _P, _P, _I, _I, _I, _P],
     "animnerf_knn_exact": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _P],
@@ -77,10 +79,13 @@ SIGNATURES = {
 # (which also counts under "fused_mlp_bwd") or alone by fused_nerf_wgrad;
 # "knn_far" the all-far skip's pass, launched by a kNN wrapper in front of
 # its sweep when far_skip > 0; "warp_blend_view_dir" the warp-blend's
-# launches with warp_view on (also counted under "warp_blend")
+# launches with warp_view on (also counted under "warp_blend");
+# "fused_mlp_f32" / "fused_mlp_bwd_f32" the MLP kernels' float32 launches
+# (also counted under "fused_mlp" / "fused_mlp_bwd")
 LAUNCHES = {"knn": 0, "knn_tile_skip": 0, "warp_blend": 0,
             "warp_blend_view_dir": 0, "scatter": 0,
             "fused_mlp": 0, "fused_mlp_bwd": 0, "fused_mlp_wgrad": 0,
+            "fused_mlp_f32": 0, "fused_mlp_bwd_f32": 0,
             "permute_lanes": 0, "knn_exact": 0, "knn_exact_cull": 0,
             "min_dist": 0, "knn_packed": 0, "knn_mxu": 0, "knn_far": 0}
 

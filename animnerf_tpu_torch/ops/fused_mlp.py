@@ -182,14 +182,15 @@ def fused_nerf_fwd_plain(xyz_t: torch.Tensor, ws, bs, n_freqs: int = 10,
 
 
 def _check_image(image, ws):
-    """A prebuilt (image, offsets) of ws, as ``weight_image`` returns it."""
+    """A prebuilt (image, offsets) of ws, as ``kernel_image`` returns it
+    (both layouts have the same part offsets)."""
     img, offs = image
     parts, total = image_layout(_image_weights(ws))
     if img.dtype != ws[0].dtype or img.device != ws[0].device \
             or img.numel() != total or not img.is_contiguous() \
             or list(offs) != _part_offsets(parts):
         raise ValueError("the weight image does not match the packed "
-                         "weights (build it with weight_image(ws))")
+                         "weights (build it with kernel_image(ws))")
     return img, (ctypes.c_int * (2 * N_W))(*offs)
 
 
@@ -197,10 +198,10 @@ def fused_nerf_fwd(xyz_t: torch.Tensor, ws, bs, n_freqs: int = 10,
                    dtype="bfloat16", image=None) -> torch.Tensor:
     """xyz_t (1, 8, M) rows -> (1, 8, M) [r|g|b|sigma|0..]. Kernel on CUDA
     tensors, plain version on CPU tensors. ws / bs as ``pack_params``
-    returns them, in the compute dtype. The bf16 kernel reads the weights
-    from their slab image: ``image`` is ``weight_image(ws)`` built once by
-    a caller whose weights do not change (built here when None), and
-    takes n_freqs 0..31 (``enc_cols``)."""
+    returns them, in the compute dtype. The kernels read the weights from
+    their image: ``image`` is ``kernel_image(ws)`` built once by a caller
+    whose weights do not change (built here when None); they take n_freqs
+    0..31 (``enc_cols``)."""
     dt = _dtype(dtype)
     if xyz_t.dim() != 3 or xyz_t.shape[:2] != (1, 8) \
             or xyz_t.dtype != torch.float32:
@@ -214,7 +215,7 @@ def fused_nerf_fwd(xyz_t: torch.Tensor, ws, bs, n_freqs: int = 10,
                                             for b in bs):
         raise ValueError(f"packed weights must be {dt} and biases float32")
     bf16 = dt == torch.bfloat16
-    E = enc_cols(n_freqs) if bf16 else enc_rows(n_freqs)
+    E = enc_cols(n_freqs)
     if ws[0].shape[1] != enc_rows(n_freqs):
         raise ValueError(f"n_freqs={n_freqs} gives {enc_rows(n_freqs)} "
                          f"encoding rows, the weights have {ws[0].shape[1]}")
@@ -224,19 +225,18 @@ def fused_nerf_fwd(xyz_t: torch.Tensor, ws, bs, n_freqs: int = 10,
         return out
     xyz_t = xyz_t.contiguous()
     _build.check_cuda("fused_nerf_fwd", xyz_t, *ws, *bs)
-    img, img_offs = None, None
-    if bf16:
-        img, img_offs = _check_image(image if image is not None
-                                     else weight_image(ws), ws)
+    img, img_offs = _check_image(image if image is not None
+                                 else kernel_image(ws), ws)
     w_ptrs = (ctypes.c_void_p * N_W)(*[t.data_ptr() for t in ws])
     b_ptrs = (ctypes.c_void_p * N_W)(*[t.data_ptr() for t in bs])
     _build.kernel_library().call(
         "animnerf_fused_mlp_fwd", xyz_t.data_ptr(), ctypes.addressof(w_ptrs),
-        ctypes.addressof(b_ptrs), None if img is None else img.data_ptr(),
-        None if img_offs is None else ctypes.addressof(img_offs),
+        ctypes.addressof(b_ptrs), img.data_ptr(), ctypes.addressof(img_offs),
         out.data_ptr(), M, n_freqs, E, 0 if bf16 else 1,
         _build.stream_of(xyz_t))
     _build.LAUNCHES["fused_mlp"] += 1
+    if not bf16:
+        _build.LAUNCHES["fused_mlp_f32"] += 1
     return out
 
 
@@ -472,23 +472,25 @@ def image_layout(ws):
 _IMAGE_INDEX = {}
 
 
-def _image_index(ws) -> torch.Tensor:
-    """Index into the concatenated flat weights for every image element
-    (cached per device and shapes)."""
+def _image_index(ws, f32: bool = False) -> torch.Tensor:
+    """Index into the concatenated flat weights for every image element,
+    in the bf16 kernels' slab layout or (``f32``) the f32 kernels'
+    reduction-major one (cached per device, shapes and layout)."""
     shapes = tuple(tuple(w.shape) for w in ws)
-    key = (str(ws[0].device), shapes)
+    key = (str(ws[0].device), shapes, f32)
     if key not in _IMAGE_INDEX:
         base = [0]
         for w in ws:
             base.append(base[-1] + w.numel())
         parts, total = image_layout(ws)
+        offset = f32_image_offset if f32 else image_offset
         index = torch.empty(total, dtype=torch.int64)
         for l, t, R, C, o in parts:
             r = torch.arange(R)[:, None]
             k = torch.arange(C)[None, :]
             K = ws[l].shape[1]
             src = base[l] + (k * K + r if t else r * K + k)
-            index[o + image_offset(R, C).reshape(-1)] = src.reshape(-1)
+            index[o + offset(R, C).reshape(-1)] = src.reshape(-1)
         _IMAGE_INDEX[key] = index.to(ws[0].device)
     return _IMAGE_INDEX[key]
 
@@ -521,10 +523,71 @@ def weight_image(ws):
     return image, _part_offsets(image_layout(ws)[0])
 
 
-def unpack_image(image: torch.Tensor, R: int, C: int,
-                 offset: int) -> torch.Tensor:
-    """The (R x C) operand at `offset` of an image, back in row-major."""
-    return image[offset + image_offset(R, C).to(image.device)]
+def unpack_image(image: torch.Tensor, R: int, C: int, offset: int,
+                 f32: bool = False) -> torch.Tensor:
+    """The (R x C) operand at `offset` of an image (``f32``: of an
+    ``f32_image``), back in row-major."""
+    offs = f32_image_offset(R, C) if f32 else image_offset(R, C)
+    return image[offset + offs.to(image.device)]
+
+
+# The f32 kernels' weight image (csrc/mlp_f32.cu, mlp_f32_tile.cuh): the
+# same parts at the same offsets as ``weight_image``, each (R x C) operand
+# (R output rows by C reduction columns) stored reduction-major, i.e.
+# column-major: the forward part of layer l is W_l^T (K x N row-major,
+# [k][n]), the dgrad part W_l itself (N x K, [n][k]), so a slab of KS = 16
+# reduction rows is KS whole rows, one contiguous block, read in order by
+# the kernels' cp.async ring. Encoding columns zero-padded to 64 as in
+# ``weight_image``.
+F32_KS = 16  # reduction rows of an f32 slab
+
+
+def f32_image_offset(R: int, C: int) -> torch.Tensor:
+    """(R, C) int64 element offsets of an (R x C) operand in the f32
+    image: element (r, c) at c * R + r."""
+    return torch.arange(C)[None, :] * R + torch.arange(R)[:, None]
+
+
+def f32_image(ws):
+    """(image (n,) float32, offsets): the packed f32 weights gathered into
+    the f32 kernels' reduction-major image (layers 0 and 8 zero-padded to
+    a multiple of 64 columns), with ``weight_image``'s part offsets."""
+    ws = _image_weights(ws)
+    image = torch.cat([w.reshape(-1) for w in ws])[_image_index(ws, True)]
+    return image, _part_offsets(image_layout(ws)[0])
+
+
+def kernel_image(ws):
+    """The image the MLP kernels read for packed weights ws in their
+    compute dtype: ``weight_image`` in bf16, ``f32_image`` in f32."""
+    if ws[0].dtype == torch.float32:
+        return f32_image(ws)
+    return weight_image(ws)
+
+
+# Shared memory of the f32 kernels' blocks (csrc/mlp_f32.cu: FwdSmem,
+# BwdSmem; the C entry animnerf_mlp_f32_smem reports the same): 64 points
+# of two 256-row activation buffers, the encoding block, the forward's
+# sigma partials or the backward's ReLU bits (9 layers x 256 threads x 8
+# B) and head cotangents, then as many 16 KB slab stages as fit, up to 4.
+F32_SMEM_MAX = 232448
+F32_SLAB_BYTES = F32_KS * WIDTH * 4
+F32_ACT_BYTES = WIDTH * 64 * 4
+
+
+def f32_smem(n_freqs: int, backward: bool = False):
+    """(encoding block, ring stages, bytes) of the f32 forward (n_freqs
+    0..31, encoding blocks of 64, 128 or 192) or backward main kernel
+    (0..20: 64 or 128) at n_freqs; the instantiation the wrappers pick
+    is the block ``enc_cols(n_freqs)``."""
+    if backward:
+        ec = bwd_layout(n_freqs).cols
+        fixed = 2 * F32_ACT_BYTES + ec * 64 * 4 + 9 * 256 * 8 + 64 * 4 * 4
+    else:
+        ec = enc_cols(n_freqs)
+        fixed = 2 * F32_ACT_BYTES + ec * 64 * 4 + 4 * 64 * 4
+    stages = min(4, (F32_SMEM_MAX - fixed) // F32_SLAB_BYTES)
+    return ec, stages, fixed + stages * F32_SLAB_BYTES
 
 
 def _offsets(ws, bs):
@@ -593,17 +656,12 @@ def fused_nerf_bwd_buffers(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
     grads = torch.empty(total, dtype=torch.float32, device=dev)
     w_ptrs = (ctypes.c_void_p * N_W)(*[t.data_ptr() for t in ws])
     b_ptrs = (ctypes.c_void_p * N_W)(*[t.data_ptr() for t in bs])
-    if dt == torch.bfloat16:
-        image, img_offs = _check_image(image if image is not None
-                                       else weight_image(ws), ws)
-    else:
-        image = None
-        img_offs = (ctypes.c_int * (2 * N_W))(*([-1] * (2 * N_W)))
+    image, img_offs = _check_image(image if image is not None
+                                   else kernel_image(ws), ws)
     _build.kernel_library().call(
         "animnerf_fused_mlp_bwd", xyz_t.data_ptr(), dout.data_ptr(),
         ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
-        None if image is None else image.data_ptr(),
-        ctypes.addressof(img_offs),
+        image.data_ptr(), ctypes.addressof(img_offs),
         d_xyz.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
         heads.data_ptr(), partials.data_ptr(), M, chunk, n_freqs,
         layout.rows, 0 if dt == torch.bfloat16 else 1,
@@ -611,6 +669,8 @@ def fused_nerf_bwd_buffers(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
     _build.LAUNCHES["fused_mlp_bwd"] += 1
     if dt == torch.bfloat16:  # its weight gradients: the wgmma pass
         _build.LAUNCHES["fused_mlp_wgrad"] += 1
+    else:
+        _build.LAUNCHES["fused_mlp_bwd_f32"] += 1
     return d_xyz, grads, scratch, heads, chunk
 
 
@@ -620,8 +680,8 @@ def fused_nerf_bwd(xyz_t: torch.Tensor, ws, bs, dout: torch.Tensor,
     shaped like (ws, bs). Kernel on CUDA tensors (deterministic: per-split
     partial sums reduced in a fixed order), plain version on CPU tensors.
     The kernels take n_freqs 0..20 (``bwd_layout``: encoding blocks of 64
-    or 128 columns); in bf16 they read ``image`` (``weight_image(ws)``,
-    built here when None)."""
+    or 128 columns) and read ``image`` (``kernel_image(ws)``, built here
+    when None)."""
     _check_bwd_args(xyz_t, ws, bs, dout)
     if xyz_t.device.type == "cpu":
         return fused_nerf_bwd_plain(xyz_t, ws, bs, dout, n_freqs,
@@ -677,8 +737,8 @@ class FusedNerf(torch.autograd.Function):
         ws = tuple(w.detach().to(dt).contiguous() for w in wb[:N_W])
         bs = tuple(b.detach().contiguous() for b in wb[N_W:])
         ctx.n_freqs, ctx.dtype = n_freqs, dt
-        ctx.image = (weight_image(ws) if dt == torch.bfloat16
-                     and xyz_t.device.type != "cpu" else None)
+        ctx.image = (kernel_image(ws) if xyz_t.device.type != "cpu"
+                     else None)
         ctx.save_for_backward(xyz_t, *ws, *bs)
         return fused_nerf_fwd(xyz_t.detach(), ws, bs, n_freqs, dt,
                               ctx.image)

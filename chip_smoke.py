@@ -252,6 +252,13 @@ PREV_WGRAD_MS = 13.204
 # the bf16 MLP forward at 2^21 points on the wmma kernel it replaced
 # (H100 80GB HBM3, 700 W): the kernel line's earlier time
 PREV_FWD_MS = 20.327
+# kernel 3 in f32 by points and kernel 6 in f32 at 2^16 points by
+# n_freqs, on the first SIMT kernels before their redesign onto one
+# register-tiled f32 routine (tools/ab_mlp_f32.py, the mean of the
+# parent checkout's two runs, H100 80GB HBM3, 700 W): the kernel lines'
+# earlier times
+PREV_F32_FWD_MS = {1 << 21: 119.535, 1 << 16: 3.979}
+PREV_F32_BWD_MS = {10: 15.543, 4: 15.421, 16: 15.963}
 # the weighted scatter (kernel 5: torch.sort, then a row kernel) and the
 # warp-blend (kernel 2: scalar loads) before their redesign, by K (H100
 # 80GB HBM3, 700 W): the kernel lines' earlier times
@@ -934,7 +941,6 @@ def kernel_lines(system, ctx, sass):
     from animnerf_tpu_torch.ops.fused_mlp import (
         fused_nerf_fwd,
         fused_nerf_fwd_plain,
-        pack_params,
     )
     from animnerf_tpu_torch.ops.knn_kernel import (
         knn_packed,
@@ -1102,20 +1108,10 @@ def kernel_lines(system, ctx, sass):
     torch.cuda.synchronize()
     err7, _, _ = mlp_fwd_errors(o7, op7, "n_freqs 7")
     del o2, o7, op7
-    # f32 path on a slice of the points: no rounding, f32 accumulation
-    ws32, bs32 = pack_params({k: v.detach() for k, v in
-                              nerf.state_dict().items()}, 10, "float32")
-    x32 = xrows[..., :65536].contiguous()
-    o32 = fused_nerf_fwd(x32, ws32, bs32, 10, "float32")
-    op32 = fused_nerf_fwd_plain(x32, ws32, bs32, 10, "float32")
-    torch.cuda.synchronize()
-    err32 = float(((o32 - op32).abs()
-                   / (1.0 + op32.abs())).max())
-    check(err32 <= 1e-4, f"fused_mlp f32: rel err {err32}")
-    enc = 3 + 6 * 10  # encoding width; xyz_0 and the skip's enc half
-    flops = 2.0 * M * (enc * 256 * 2 + 7 * 256 * 256 + 256 * 1 + 256 * 256
-                       + 256 * 128 + 128 * 3)
-    bound = max(flops / PEAK_BF16,
+    # kernel 3 in f32: its own line (no rounding, f32 accumulation)
+    lines["fused_mlp_f32"] = mlp_f32_line(nerf, xrows, reps, preps)
+    err32 = lines["fused_mlp_f32"]["max_rel_err"]
+    bound = max(M * fwd_flops(10) / PEAK_BF16,
                 (M * (12 + 32) + sum(w.numel() * 2 for w in ws))
                 / PEAK_BYTES) * 1e3
     ms = time_ms(lambda: fused_nerf_fwd(xrows, ws, bs, 10, "bfloat16", image),
@@ -1156,6 +1152,109 @@ def kernel_lines(system, ctx, sass):
         bound_by="bytes",
         library_ms=time_ms(lambda: torch.gather(pay, 3, idx64), reps))
     return lines
+
+
+def f32_smem_check() -> dict:
+    """The f32 kernels' shared memory as the C entry animnerf_mlp_f32_smem
+    reports it against its host restatement ops/fused_mlp.py::f32_smem
+    (which the CPU tests hold under 232,448 B), at every n_freqs each
+    kernel takes: {block: [forward bytes, backward bytes]}."""
+    import ctypes
+
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.ops.fused_mlp import (
+        MAX_BWD_FREQS,
+        MAX_FREQS,
+        f32_smem,
+    )
+
+    out = {}
+    for n in range(MAX_FREQS + 1):
+        for backward in (False, True):
+            if backward and n > MAX_BWD_FREQS:
+                continue
+            ec, stages, nbytes = f32_smem(n, backward)
+            got = (ctypes.c_longlong * 2)()
+            _build.kernel_library().call("animnerf_mlp_f32_smem", ec,
+                                         int(backward), ctypes.addressof(got))
+            check((got[0], got[1]) == (nbytes, stages),
+                  f"f32 shared memory at n_freqs {n} (backward {backward}): "
+                  f"C {tuple(got)}, host {(nbytes, stages)}")
+            out.setdefault(f"EC {ec}", [None, None])[int(backward)] = nbytes
+    return out
+
+
+def fwd_flops(n_freqs: int) -> float:
+    """The MLP forward's operations a point (2 a multiply-add): xyz_0 and
+    the skip's enc half over the 3 + 6 n_freqs encoding columns, the
+    seven 256-wide trunk products, the sigma head, xyz_final, dir_0 and
+    the rgb head; 1,179,904 at the flagship's 10 frequencies."""
+    enc = 3 + 6 * n_freqs
+    return 2.0 * (enc * 256 * 2 + 7 * 256 * 256 + 256 * 1 + 256 * 256
+                  + 256 * 128 + 128 * 3)
+
+
+# kernel 3's f32 line: the main path's rows and a 2^16-point slice
+MLP_F32_POINTS = (1 << 21, 1 << 16)
+
+
+def mlp_f32_line(nerf, xrows, reps: int, preps: int) -> dict:
+    """Kernel 3 in f32 (no rounding, f32 accumulation) on the scale512
+    weights and the serving line's points: within 1e-4 of its plain
+    version (|d| / (1 + |plain|)) and bit-equal across two launches, at
+    the main path's rows (1, 8, 2^21); timed there and on the first 2^16
+    points, beside the plain version, the operation bound (fwd_flops over
+    PEAK_F32) and ``library_mlp_fwd`` in full f32. TF32 is off
+    (``torch.backends.cuda.matmul.allow_tf32`` False, as
+    utils/device.py::pin_fp32_geometry sets it), so the library chain
+    computes the same function."""
+    import torch
+
+    from animnerf_tpu_torch.ops.fused_mlp import (
+        fused_nerf_fwd,
+        fused_nerf_fwd_plain,
+        kernel_image,
+        pack_params,
+    )
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "fused_mlp f32: TF32 matmuls are on")
+    state = {k: v.detach() for k, v in nerf.state_dict().items()}
+    ws, bs = pack_params(state, 10, "float32")
+    image = kernel_image(ws)
+    o = fused_nerf_fwd(xrows, ws, bs, 10, "float32", image)
+    o2 = fused_nerf_fwd(xrows, ws, bs, 10, "float32", image)
+    op = fused_nerf_fwd_plain(xrows, ws, bs, 10, "float32")
+    torch.cuda.synchronize()
+    deterministic = bool(torch.equal(o, o2))
+    err = float(((o - op).abs() / (1.0 + op.abs())).max())
+    abs_err = float((o - op).abs().max())
+    check(deterministic, "fused_mlp f32: two launches differ")
+    check(err <= 1e-4, f"fused_mlp f32: rel err {err}")
+    check(bool((o[0, 4:] == 0).all()), "fused_mlp f32: rows 4..7 not zero")
+    del o, o2, op
+    by_points = {}
+    for M in MLP_F32_POINTS:
+        x = xrows[..., :M].contiguous()
+        ms = time_ms(lambda: fused_nerf_fwd(x, ws, bs, 10, "float32", image),
+                     reps if M < MLP_F32_POINTS[0] else 5)
+        bound = M * fwd_flops(10) / PEAK_F32 * 1e3
+        by_points[M] = dict(
+            ms=ms, prev_ms=PREV_F32_FWD_MS.get(M),
+            plain_ms=time_ms(lambda: fused_nerf_fwd_plain(
+                x, ws, bs, 10, "float32"), preps, warmup=1),
+            bound_ms=bound, pct_of_bound=100.0 * bound / ms,
+            library_ms=time_ms(lambda: library_mlp_fwd(
+                state, x, 10, "float32"), 5, warmup=1))
+    main = by_points[MLP_F32_POINTS[0]]
+    return dict(
+        shape=f"rows (1,8,{xrows.shape[-1]}) f32 weights 13 packed, "
+              "scale512", max_abs_err=abs_err, max_rel_err=err,
+        tolerance="1e-4 of 1 + |plain|",
+        deterministic=deterministic, **main, bound_by="operations",
+        points_2p16=by_points[MLP_F32_POINTS[1]], tf32=False,
+        library_call="library_mlp_fwd: the encoding and F.linear in f32 "
+                     "(cuBLAS, TF32 off)")
 
 
 def kernel_lines_train(dev, sass):
@@ -1315,7 +1414,7 @@ def kernel_lines_train(dev, sass):
     for dt in ("bfloat16", "float32"):
         name = "fused_mlp_bwd" if dt == "bfloat16" else "fused_mlp_bwd_f32"
         lines[name] = mlp_bwd_line(dev, g, 10, dt, reps, preps,
-                                   profile=dt == "bfloat16")
+                                   profile=True)
     return lines
 
 
@@ -1348,16 +1447,14 @@ def mlp_bwd_line(dev, g, n_freqs: int, dt: str, reps: int, preps: int,
         bwd_layout,
         fused_nerf_bwd,
         fused_nerf_bwd_plain,
+        kernel_image,
         pack_params,
-        weight_image,
     )
 
     torch.manual_seed(0)
     mlp = NeRFMLP(n_freqs, "float32").to(dev)
     state = {k: v.detach() for k, v in mlp.state_dict().items()}
-    enc = 3 + 6 * n_freqs
-    fwd_flops = 2.0 * (enc * 256 * 2 + 7 * 256 * 256 + 256 * 1 + 256 * 256
-                       + 256 * 128 + 128 * 3)
+    flops = fwd_flops(n_freqs)
     M, tol = MLP_BWD_POINTS[dt], MLP_BWD_TOLS[dt]
     peak = PEAK_BF16 if dt == "bfloat16" else PEAK_F32
     ws, bs = pack_params(state, n_freqs, dt)
@@ -1387,16 +1484,24 @@ def mlp_bwd_line(dev, g, n_freqs: int, dt: str, reps: int, preps: int,
           and max(rel) <= tol["rel_l2"],
           f"{what}: median point {median_point}, flip share {flip_share}, "
           f"rel-L2 {max(rel)}")
+    layout = bwd_layout(n_freqs)
+    # the H and G scratch a point (the encoding block, 9 + 9 arrays of
+    # 256 and 2 of 128), written by the main kernel and read by the
+    # weight-gradient pass, in the compute dtype: 9,856 B in bf16 at 64
+    # encoding columns
+    scratch_bytes = ((layout.cols + 18 * 256 + 2 * 128)
+                     * (2 if dt == "bfloat16" else 4))
+    image = kernel_image(ws)
     split = {}
     if profile:
         # device time of the main kernel (recompute + dgrad) and of the
         # rest (weight gradients, head and bias sums, split reduction) in
-        # one profiled call; the main kernel's own bound: its products (2x
-        # the forward's flops) or the H and G scratch it writes (9,856 B a
-        # point), the larger (the weight image prebuilt, as the training
-        # step passes it: the call then launches only the backward's own
-        # kernels, which must account for its whole device-busy time)
-        image = weight_image(ws)
+        # one profiled call, and of each kernel by name; the main kernel's
+        # own bound: its products (2x the forward's flops) or the H and G
+        # scratch it writes, the larger (the weight image prebuilt, as the
+        # training step passes it: the call then launches only the
+        # backward's own kernels, which must account for its whole
+        # device-busy time)
         split = split_bwd_profile(
             lambda: fused_nerf_bwd(xyz, ws, bs, dout, n_freqs, dt, image))
         split["accounted_share"] = ((split["main_ms"] + split["wgrad_ms"])
@@ -1406,14 +1511,14 @@ def mlp_bwd_line(dev, g, n_freqs: int, dt: str, reps: int, preps: int,
               f"{split['wgrad_ms']} ms of {split['busy_ms']} ms busy")
         # the rest's own bound: the products dW_l = G_l^T H_l (the
         # forward's flops) or one read of the scratch and the head
-        # cotangents (9,856 + 16 B a point), the larger
+        # cotangents (+ 16 B a point), the larger
         split.update(
-            bound_main_ms=max(2.0 * fwd_flops * M / peak,
-                              M * 9856 / PEAK_BYTES) * 1e3,
-            bound_wgrad_ms=max(fwd_flops * M / peak,
-                               M * (9856 + 16) / PEAK_BYTES) * 1e3,
-            **({"prev_ms": PREV_BWD_MS} if n_freqs == 10 else {}))
-    layout = bwd_layout(n_freqs)
+            bound_main_ms=max(2.0 * flops * M / peak,
+                              M * scratch_bytes / PEAK_BYTES) * 1e3,
+            bound_wgrad_ms=max(flops * M / peak,
+                               M * (scratch_bytes + 16) / PEAK_BYTES) * 1e3,
+            **({"prev_ms": PREV_BWD_MS} if n_freqs == 10
+               and dt == "bfloat16" else {}))
     line = dict(
         shape=f"rows (1,8,{M}) dout (1,8,{M}) {dt} weights 13 packed, "
               f"n_freqs {n_freqs} (encoding rows {layout.rows}, block "
@@ -1421,12 +1526,19 @@ def mlp_bwd_line(dev, g, n_freqs: int, dt: str, reps: int, preps: int,
         max_abs_err=err, max_rel_l2=max(rel),
         median_point_rel=median_point, point_share_above_1e3=flip_share,
         tolerance=tol, deterministic=deterministic,
-        ms=time_ms(lambda: fused_nerf_bwd(xyz, ws, bs, dout, n_freqs, dt),
-                   5 if dt == "bfloat16" else reps),
+        # bf16: the image built in the call, as the line always timed it;
+        # f32: the image prebuilt (the first SIMT kernels read the packed
+        # weights, so both versions time the kernels alone)
+        ms=time_ms(lambda: fused_nerf_bwd(
+            xyz, ws, bs, dout, n_freqs, dt,
+            None if dt == "bfloat16" else image),
+            5 if dt == "bfloat16" else reps),
+        **({"prev_ms": PREV_F32_BWD_MS.get(n_freqs)} if dt == "float32"
+           else {}),
         plain_ms=time_ms(lambda: fused_nerf_bwd_plain(
             xyz, ws, bs, dout, n_freqs, dt), preps, warmup=1),
         # recomputed forward + dgrad + wgrad: 3x the forward's flops
-        bound_ms=max(3.0 * fwd_flops * M / peak,
+        bound_ms=max(3.0 * flops * M / peak,
                      M * (12 + 16 + 12) / PEAK_BYTES) * 1e3,
         bound_by="operations", **split,
         library_ms=time_ms(lambda: library_mlp_vjp(state, xyz, dout,
@@ -1450,12 +1562,94 @@ def kernel_lines_mlp_bwd_freqs(dev) -> dict:
         for dt in ("bfloat16", "float32"):
             name = ("fused_mlp_bwd" if dt == "bfloat16"
                     else "fused_mlp_bwd_f32") + f"_n{nf}"
-            lines[name] = mlp_bwd_line(dev, g, nf, dt, 20, 3)
+            lines[name] = mlp_bwd_line(dev, g, nf, dt, 20, 3,
+                                       profile=dt == "float32")
     return lines
 
 
 # the MLP backward's other encodings, held and timed beside the flagship's
 MLP_BWD_FREQS = (4, 16)
+
+# kernels 3 and 6 in f32 at their edges: a ragged forward (no whole
+# number of 64-point blocks) at each encoding block, and a backward over
+# two chunks, the second ragged
+F32_EDGE_FWD = ((1 << 16) - 37, (4, 16, 21))
+F32_EDGE_BWD = ((1 << 19) + 4099, 10)
+
+
+def mlp_f32_edge_lines(dev) -> dict:
+    """Kernel 3 in f32 at F32_EDGE_FWD's points and n_freqs 4, 16 and 21
+    (encoding blocks of 64, 128 and 192 columns) on seeded weights and
+    biases, within 1e-4 of its plain version (|d| / (1 + |plain|)), rows
+    4..7 zero; kernel 6 in f32 over F32_EDGE_BWD's points (BWD_CHUNK and a
+    ragged second chunk) at 10 frequencies, within MLP_BWD_TOLS["float32"]
+    of its plain version and bit-equal across two launches."""
+    import torch
+
+    from animnerf_tpu_torch.models.nerf import NeRFMLP
+    from animnerf_tpu_torch.ops.fused_mlp import (
+        f32_smem,
+        fused_nerf_bwd,
+        fused_nerf_bwd_plain,
+        fused_nerf_fwd,
+        fused_nerf_fwd_plain,
+        pack_params,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    lines = {}
+
+    def seeded(nf):
+        torch.manual_seed(nf)
+        mlp = NeRFMLP(nf, "float32").to(dev)
+        for m in mlp.children():
+            torch.nn.init.normal_(m.bias, std=0.1)
+        return pack_params({k: v.detach() for k, v in
+                            mlp.state_dict().items()}, nf, "float32")
+
+    M, freqs = F32_EDGE_FWD
+    x = torch.zeros(1, 8, M, device=dev)
+    x[0, :3] = 0.4 * torch.randn(3, M, generator=g, device=dev)
+    for nf in freqs:
+        ws, bs = seeded(nf)
+        o = fused_nerf_fwd(x, ws, bs, nf, "float32")
+        op = fused_nerf_fwd_plain(x, ws, bs, nf, "float32")
+        torch.cuda.synchronize()
+        err = float(((o - op).abs() / (1.0 + op.abs())).max())
+        check(err <= 1e-4 and bool((o[0, 4:] == 0).all()),
+              f"fused_mlp f32 edge n_freqs {nf}: rel err {err}")
+        lines[f"fused_mlp_f32_n{nf}_ragged"] = dict(
+            shape=f"rows (1,8,{M}), seeded weights and biases",
+            block=f32_smem(nf)[0], max_rel_err=err, tolerance=1e-4)
+    M, nf = F32_EDGE_BWD
+    ws, bs = seeded(nf)
+    xyz = torch.zeros(1, 8, M, device=dev)
+    xyz[0, :3] = 0.3 * torch.randn(3, M, generator=g, device=dev)
+    dout = torch.zeros(1, 8, M, device=dev)
+    dout[0, :4] = 1e-3 * torch.randn(4, M, generator=g, device=dev)
+    a = fused_nerf_bwd(xyz, ws, bs, dout, nf, "float32")
+    a2 = fused_nerf_bwd(xyz, ws, bs, dout, nf, "float32")
+    b = fused_nerf_bwd_plain(xyz, ws, bs, dout, nf, "float32")
+    torch.cuda.synchronize()
+    outs, outs2, ref = ((t[0],) + t[1] + t[2] for t in (a, a2, b))
+    outs, outs2, ref = list(outs), list(outs2), list(ref)
+    deterministic = all(torch.equal(u, v) for u, v in zip(outs, outs2))
+    rel = max(float((u - v).norm() / max(float(v.norm()), 1e-30))
+              for u, v in zip(outs, ref))
+    pt = ((a[0][0, :3] - b[0][0, :3]).norm(dim=0)
+          / (b[0][0, :3].norm(dim=0) + 1e-12))
+    tol = MLP_BWD_TOLS["float32"]
+    line = dict(shape=f"rows (1,8,{M}) dout (1,8,{M}), seeded weights and "
+                      "biases, two chunks",
+                max_rel_l2=rel, median_point_rel=float(pt.median()),
+                point_share_above_1e3=float((pt > 1e-3).float().mean()),
+                tolerance=tol, deterministic=deterministic)
+    check(deterministic and rel <= tol["rel_l2"]
+          and line["median_point_rel"] <= tol["median_point"]
+          and line["point_share_above_1e3"] <= tol["flip_share"],
+          f"fused_mlp_bwd f32 edge: {line}")
+    lines["fused_mlp_bwd_f32_two_chunks"] = line
+    return lines
 
 
 def _library_mlp(p: dict, x, n_freqs: int = 10, dtype: str = "bfloat16"):
@@ -1487,14 +1681,16 @@ MLP_LAYERS = [f"xyz_{i}" for i in range(8)] + ["sigma", "xyz_final", "dir_0",
                                                "rgb"]
 
 
-def library_mlp_fwd(state: dict, xyz):
-    """Kernel 3's library yardstick: ``_library_mlp`` on the coordinates
-    of rows (1, 8, M), no gradient."""
+def library_mlp_fwd(state: dict, xyz, n_freqs: int = 10,
+                    dtype: str = "bfloat16"):
+    """Kernel 3's library yardstick: ``_library_mlp`` in dtype on the
+    coordinates of rows (1, 8, M), no gradient."""
     import torch
 
     with torch.no_grad():
         return _library_mlp({n: (state[f"{n}.weight"], state[f"{n}.bias"])
-                             for n in MLP_LAYERS}, xyz[0, 0:3].t())
+                             for n in MLP_LAYERS}, xyz[0, 0:3].t(), n_freqs,
+                            dtype)
 
 
 def library_mlp_vjp(state: dict, xyz, dout, n_freqs: int = 10,
@@ -2141,6 +2337,11 @@ KERNELS = {
                   "animnerf_tpu/ops/fused_mlp.py:182"),
     "fused_mlp_bwd": ("animnerf_tpu_torch/csrc/fused_mlp_bwd.cu",
                       "animnerf_tpu/ops/fused_mlp.py:227"),
+    # kernels 3 and 6 in f32: one register-tiled f32 layer routine
+    "fused_mlp_f32": ("animnerf_tpu_torch/csrc/mlp_f32.cu",
+                      "animnerf_tpu/ops/fused_mlp.py:182"),
+    "fused_mlp_bwd_f32": ("animnerf_tpu_torch/csrc/mlp_f32.cu",
+                          "animnerf_tpu/ops/fused_mlp.py:227"),
     "fused_mlp_wgrad": ("animnerf_tpu_torch/csrc/mlp_wgrad.cu",
                         "animnerf_tpu/ops/fused_mlp.py:227"),
     "permute_lanes": ("animnerf_tpu_torch/csrc/sort_lanes.cu",
@@ -2204,9 +2405,9 @@ KERNELS = {
                          "animnerf_tpu/ops/fused_mlp.py:227"),
     "fused_mlp_bwd_n16": ("animnerf_tpu_torch/csrc/fused_mlp_bwd.cu",
                           "animnerf_tpu/ops/fused_mlp.py:227"),
-    "fused_mlp_bwd_f32_n4": ("animnerf_tpu_torch/csrc/fused_mlp_bwd.cu",
+    "fused_mlp_bwd_f32_n4": ("animnerf_tpu_torch/csrc/mlp_f32.cu",
                              "animnerf_tpu/ops/fused_mlp.py:227"),
-    "fused_mlp_bwd_f32_n16": ("animnerf_tpu_torch/csrc/fused_mlp_bwd.cu",
+    "fused_mlp_bwd_f32_n16": ("animnerf_tpu_torch/csrc/mlp_f32.cu",
                               "animnerf_tpu/ops/fused_mlp.py:227"),
     # kernels 8, 9, 2 and 5 above 16 neighbours: K = 24 (a wide
     # instantiation; kernel 9 its own) and 40 (the run-time-k versions)
@@ -2813,9 +3014,10 @@ def render_turntable(system, bp, tmpl, angles, H=512, W=512,
     return views, launches, prof, images
 
 
-def profile_call(fn, what: str):
+def profile_call(fn, what: str, by_kernel: bool = False):
     """Device time by kernel over one more call of fn (torch.profiler);
-    the launch counts of the main path were read before this."""
+    the launch counts of the main path were read before this.
+    ``by_kernel``: every device event's ms and count by name too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2836,7 +3038,7 @@ def profile_call(fn, what: str):
     busy = sum(e.self_device_time_total for e in events) / 1e3
     split = bwd_split(events)
     fwd = sum(e.self_device_time_total for e in events
-              if "mlp_fwd_bf16" in e.key) / 1e3
+              if any(k in e.key for k in FWD_NAMES)) / 1e3
     knn = sum(e.self_device_time_total for e in events
               if any(k in e.key for k in KNN_KERNEL_NAMES)) / 1e3
     exact = [e for e in events if "knn_exact_kernel" in e.key]
@@ -2870,25 +3072,44 @@ def profile_call(fn, what: str):
             + split["rest_launches"],
             "mlp_bwd_main_launches": split["main_launches"],
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
-                    for e in events[:15]]}
+                    for e in events[:15]],
+            **({"by_kernel": by_name(events)} if by_kernel else {})}
+
+
+def by_name(events) -> dict:
+    """{kernel_name: [device ms, launches]} over profiler events, summed
+    where two events share a name."""
+    out = {}
+    for e in events:
+        v = out.setdefault(kernel_name(e.key), [0.0, 0])
+        v[0] += e.self_device_time_total / 1e3
+        v[1] += e.count
+    return out
 
 
 # the MLP backward's kernels other than its main kernel: the bf16 weight-
 # gradient pass (mlp_wgrad_prep, mlp_wgrad_bf16), the split reduction and
-# the f32 path's weight-gradient, head and bias kernels
+# the f32 path's weight-gradient kernel (mlp_wgrad_f32; the first SIMT
+# version's wgrad_f32, wgrad_heads_f32 and bias_sums_f32, which
+# tools/ab_mlp_f32.py profiles in older checkouts)
 BWD_REST_NAMES = ("mlp_wgrad", "reduce_splits", "wgrad_f32", "wgrad_heads",
                   "bias_sums")
+# kernel 3 by profiler name: bf16, f32 (the first SIMT version's
+# fused_mlp_f32_kernel in older checkouts)
+FWD_NAMES = ("mlp_fwd_bf16", "mlp_fwd_f32", "fused_mlp_f32_kernel")
 
 
 def bwd_split(events) -> dict:
     """Device ms and launches of the MLP backward's main kernel and of its
-    other kernels (BWD_REST_NAMES) among profiler events."""
+    other kernels (BWD_REST_NAMES) among profiler events, and of each of
+    them by name ({name: [ms, launches]})."""
     main = [e for e in events if "mlp_bwd_main" in e.key]
     rest = [e for e in events if any(k in e.key for k in BWD_REST_NAMES)]
     return {"main_ms": sum(e.self_device_time_total for e in main) / 1e3,
             "wgrad_ms": sum(e.self_device_time_total for e in rest) / 1e3,
             "main_launches": sum(e.count for e in main),
-            "rest_launches": sum(e.count for e in rest)}
+            "rest_launches": sum(e.count for e in rest),
+            "by_kernel": by_name(main + rest)}
 
 
 def split_bwd_profile(fn) -> dict:
@@ -3219,6 +3440,82 @@ def train_phase(dev, cfg=FLAGSHIP_CFG, make_rig=smpl_rig,
     if scatter:
         summary["scatter_calls"] = scatter_calls
     return steps, summary, prof, losses
+
+
+# f32_profile: the flagship field with compute_dtype float32 (kernels 3
+# and 6 in f32), timed steps and views
+F32_STEPS = 5
+F32_VIEW = 29
+F32_VIEWS = 3
+
+
+def f32_profile(dev) -> dict:
+    """compute_dtype float32 with the flagship field. The step: bench.py's
+    16 x 1024 rays on the seed-0 rig (``RowsCompactTrainer.step``), a
+    warm-up then F32_STEPS distinct batches. The view: the scale512
+    checkpoint on the seed-3 rig, view F32_VIEW at 512x512 through
+    ``Renderer.render_stream``, a warm-up then F32_VIEWS times. For each:
+    the host-clock median (each synchronised), the launch counts (set to 0
+    just before, read just after; kernels 3 and 6 must launch in the step,
+    kernel 3 in the view), the peak allocated memory over the timed calls,
+    and one profiled call (device-busy ms by kernel name, idle share)."""
+    import torch
+
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+    from animnerf_tpu_torch.training.system import RowsCompactTrainer
+
+    out = {}
+    system = AnimNeRFSystem(dict(FLAGSHIP_CFG, compute_dtype="float32"),
+                            smpl_rig(), device=dev, seed=0)
+    trainer = RowsCompactTrainer(system, steps_per_epoch=100)
+    batches = train_batches(16, 1024, range(F32_STEPS + 1), dev)
+    trainer.step(batches[F32_STEPS])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+
+    def one_step(b):
+        t0 = time.perf_counter()
+        d = trainer.step(b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(finite(trainer, d), "f32 step: non-finite loss or gradient")
+        return d
+
+    launches = with_launches(lambda: [one_step(b) for b in
+                                      batches[:F32_STEPS]])[1]
+    check(launches["fused_mlp"] > 0 and launches["fused_mlp_bwd"] > 0
+          and launches["fused_mlp_wgrad"] == 0,
+          f"f32 step: kernels 3 and 6 in f32 not launched: {launches}")
+    out["step"] = dict(
+        rays=16 * 1024, steps=F32_STEPS, ms=times,
+        median_ms=float(np.median(times)),
+        peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches=launches,
+        profile=profile_call(lambda: trainer.step(batches[0]), "step",
+                             by_kernel=True))
+    del system, trainer, batches
+    torch.cuda.empty_cache()
+
+    ck, _, bp, tmpl, _ = scale512("cpu")
+    system = scale512_system(ck, dev, compute_dtype="float32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    views, vlaunches, _, _ = render_turntable(
+        system, bp, tmpl, [F32_VIEW] * F32_VIEWS, profile=False)
+    check(vlaunches["fused_mlp"] > 0,
+          f"f32 view: kernel 3 in f32 not launched: {vlaunches}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    renderer_prof = profile_call(
+        view_fn(system, bp, tmpl, F32_VIEW), "view", by_kernel=True)
+    out["view"] = dict(
+        view=F32_VIEW, size=[512, 512], ms=[v["ms"] for v in views],
+        median_ms=float(np.median([v["ms"] for v in views])),
+        survivors=[[v["n_coarse"], v["n_fine"]] for v in views],
+        peak_allocated_gib=peak, launches=vlaunches, profile=renderer_prof)
+    del system
+    torch.cuda.empty_cache()
+    return out
 
 
 def _grad_groups(system):
@@ -4399,7 +4696,8 @@ def main() -> int:
           "ptxas": ptxas,
           "sweep_sass": {f"K={k} {insert}{' tile_skip' if skip else ''}": v
                          for (k, skip, insert), v in sorted(sass.items())},
-          "exact_sass": {f"K={k}": v for k, v in sorted(exact.items())}})
+          "exact_sass": {f"K={k}": v for k, v in sorted(exact.items())},
+          "mlp_f32_smem": f32_smem_check()})
     check(all((k, False, "packed") in sass
               for k in list(range(1, 17)) + [24, 32])
           and (4, False, "top4") in sass and (4, True, "top4") in sass,
@@ -4426,6 +4724,8 @@ def main() -> int:
     emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
+    for name, line in mlp_f32_edge_lines("cuda").items():
+        emit(dict(phase="kernel_edge", name=name, **line))
     for name, line in kernel_lines_edge("cuda").items():
         emit(dict(phase="kernel_edge", name=name, **line))
     for name, line in kernel_lines_edge_scatter_warp("cuda").items():
@@ -4533,6 +4833,12 @@ def main() -> int:
     t0 = time.perf_counter()
     tparity = train_parity("cuda")
     emit({"phase": "train_parity", **tparity,
+          "seconds": time.perf_counter() - t0})
+
+    # kernels 3 and 6 in f32 on the flagship's step and view
+    t0 = time.perf_counter()
+    f32 = f32_profile("cuda")
+    emit({"phase": "f32_profile", **f32,
           "seconds": time.perf_counter() - t0})
 
     # the MLP backward's other encodings on the training path
@@ -4824,6 +5130,10 @@ def main() -> int:
         knn_packed=k8["knn_packed"], warp_blend_k8=k8["warp_blend"],
         scatter_k8=k8["scatter"], knn_exact_k8=x8launches["knn_exact"],
         scatter_step=launches["scatter"],
+        # kernels 3 and 6 in f32: the f32_profile step's and view's
+        fused_mlp_f32=f32["step"]["launches"]["fused_mlp"]
+        + f32["view"]["launches"]["fused_mlp"],
+        fused_mlp_bwd_f32=f32["step"]["launches"]["fused_mlp_bwd"],
         scatter_step_k8=k8summary["launches"]["scatter"],
         warp_blend_view=serve_launches["warp_blend"],
         warp_blend_smplx=xserve["warp_blend"],
@@ -4844,14 +5154,13 @@ def main() -> int:
         warp_blend_view_dir=strain["view"]["launches"][
             "warp_blend_view_dir"])
     # the MLP backward at n_freqs 4 and 16: the training steps at those
-    # frequencies (bf16: its weight-gradient pass's launches; f32: the
-    # rest); kernels 8, 2, 5 and 9 at K = 24 and 40: the k_neigh 24 and 40
+    # frequencies (bf16: its weight-gradient pass's launches; f32: its f32
+    # launches); kernels 8, 2, 5 and 9 at K = 24 and 40: the k_neigh 24 and 40
     # steps and views
     for nf in MLP_BWD_FREQS:
         fl = fparity[nf]["launches"]
         row_launches[f"fused_mlp_bwd_n{nf}"] = fl["fused_mlp_wgrad"]
-        row_launches[f"fused_mlp_bwd_f32_n{nf}"] = (fl["fused_mlp_bwd"]
-                                                   - fl["fused_mlp_wgrad"])
+        row_launches[f"fused_mlp_bwd_f32_n{nf}"] = fl["fused_mlp_bwd_f32"]
     for k in (24, 40):
         paths = [v["launches"] for n, v in wide.items()
                  if n.startswith(f"k{k}_")]
