@@ -1,6 +1,5 @@
 // The packed-key sweep shared by knn.cu (kernel 1, top-4 with the optional
-// tile skip) and knn_packed.cu (kernel 8, top-K for K in 1..16, 24 and 32,
-// the last two writing their first k <= K slots): one device
+// tile skip) and knn_packed.cu (kernel 8, top-K for K in 1..16): one device
 // loop over staged vertex rows, two selection policies (the kernels' own
 // insert of a key into their ascending top-K).
 //
@@ -211,13 +210,9 @@ sweep_kernel(const float* __restrict__ points,  // (B, N, 3)
              float* __restrict__ out_d,         // (B, K, N)
              int* __restrict__ out_i,           // (B, K, N)
              unsigned long long* __restrict__ stats,
-             const int* __restrict__ far, int N, int Vp, int k_out) {
+             const int* __restrict__ far, int N, int Vp) {
   static_assert(FAR_GROUP % (THREADS * P) == 0,
                 "a block's points lie in one far-skip group");
-  // the slots written: all K up to 16 (k_out == K there); above, the
-  // first k_out (the keys are unique, so the k smallest are the first k
-  // of the K smallest)
-  const int kw = K <= 16 ? K : k_out;
   if (far != nullptr &&
       far[(size_t)blockIdx.y * ((N + FAR_GROUP - 1) / FAR_GROUP) +
           blockIdx.x * (THREADS * P) / FAR_GROUP])
@@ -322,8 +317,7 @@ sweep_kernel(const float* __restrict__ points,  // (B, N, 3)
     const int n = first + 32 * p;
 #pragma unroll
     for (int s = 0; s < K; ++s) {
-      if (s >= kw) break;
-      const size_t o = ((size_t)b * kw + s) * N + n;
+      const size_t o = ((size_t)b * K + s) * N + n;
       out_d[o] = knn_keys::key_dist(st.top[p][s]);
       out_i[o] = knn_keys::key_index(st.top[p][s]);
     }
@@ -331,16 +325,13 @@ sweep_kernel(const float* __restrict__ points,  // (B, N, 3)
 }
 
 // launch the sweep over rows staged by knn.cu's rows kernel for V
-// vertices padded to Vp, writing k_out slots (K up to 16; 1..K above):
-// V >= k_out keeps the padding rows, whose keys sort above every real
-// one, out of the slots written; far: null or knn_far.cu's flags
+// vertices padded to Vp: V >= K keeps the padding rows, whose keys sort
+// above every real one, out of the slots; far: null or knn_far.cu's flags
 template <int K, int P, bool SKIP, class Insert>
 int launch(const void* points, const void* rows, const void* index,
            const void* vbox, void* stats, const void* far, void* out_d,
-           void* out_i, int B, int N, int V, int Vp, cudaStream_t stream,
-           int k_out = K) {
-  if ((K <= 16 ? k_out != K : k_out < 1 || k_out > K) || V < k_out ||
-      Vp < V || Vp % TILE != 0 || Vp > knn_keys::MAX_VERTS ||
+           void* out_i, int B, int N, int V, int Vp, cudaStream_t stream) {
+  if (V < K || Vp < V || Vp % TILE != 0 || Vp > knn_keys::MAX_VERTS ||
       (SKIP && vbox == nullptr))
     return (int)cudaErrorInvalidValue;
   if (N > 0 && B > 0) {
@@ -348,7 +339,7 @@ int launch(const void* points, const void* rows, const void* index,
     sweep_kernel<K, P, SKIP, Insert><<<grid, THREADS, 0, stream>>>(
         (const float*)points, (const float4*)rows, (const int*)index,
         (const float*)vbox, (float*)out_d, (int*)out_i,
-        (unsigned long long*)stats, (const int*)far, N, Vp, k_out);
+        (unsigned long long*)stats, (const int*)far, N, Vp);
   }
   return (int)cudaGetLastError();
 }

@@ -35,7 +35,7 @@ SOURCES = ("knn.cu", "warp_blend.cu", "fused_mlp.cu", "sort_lanes.cu",
            "knn_packed.cu", "knn_mxu.cu", "mlp_wgrad.cu", "knn_far.cu",
            "mlp_f32.cu")
 # device code the sources include (hashed with them)
-HEADERS = ("knn_keys.cuh", "knn_slots.cuh", "knn_sweep.cuh",
+HEADERS = ("knn_keys.cuh", "knn_slots.cuh", "knn_sweep.cuh", "knn_wide.cuh",
            "mlp_wgmma.cuh", "mlp_bwd_layout.cuh", "mlp_f32_tile.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,9 +65,13 @@ SIGNATURES = {
     "animnerf_knn_exact_rows": [_P, _P, _P, _P, _I, _I, _I, _P],
     "animnerf_knn_exact": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _P],
+    "animnerf_knn_exact_wide": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _P],
     "animnerf_min_dist": [_P, _P, _P, _I, _I, _I, _P],
     "animnerf_knn_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _P],
+    "animnerf_knn_packed_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _P],
     "animnerf_knn_far": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "animnerf_knn_mxu": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -81,13 +85,16 @@ SIGNATURES = {
 # its sweep when far_skip > 0; "warp_blend_view_dir" the warp-blend's
 # launches with warp_view on (also counted under "warp_blend");
 # "fused_mlp_f32" / "fused_mlp_bwd_f32" the MLP kernels' float32 launches
-# (also counted under "fused_mlp" / "fused_mlp_bwd")
+# (also counted under "fused_mlp" / "fused_mlp_bwd"); "knn_packed_wide" /
+# "knn_exact_wide" the kNN launches on the warp-per-point kernels (also
+# counted under "knn_packed" / "knn_exact")
 LAUNCHES = {"knn": 0, "knn_tile_skip": 0, "warp_blend": 0,
             "warp_blend_view_dir": 0, "scatter": 0,
             "fused_mlp": 0, "fused_mlp_bwd": 0, "fused_mlp_wgrad": 0,
             "fused_mlp_f32": 0, "fused_mlp_bwd_f32": 0,
             "permute_lanes": 0, "knn_exact": 0, "knn_exact_cull": 0,
-            "min_dist": 0, "knn_packed": 0, "knn_mxu": 0, "knn_far": 0}
+            "min_dist": 0, "knn_packed": 0, "knn_mxu": 0, "knn_far": 0,
+            "knn_packed_wide": 0, "knn_exact_wide": 0}
 
 
 def reset_launches() -> None:

@@ -4,10 +4,26 @@ dispatcher between them.
 Counterpart of ``animnerf_tpu/ops/knn_pallas.py::knn_pallas`` with
 ``transposed_out=True``: points (B, N, 3) and the Morton-sorted vertices
 (B, V, 3) -> dists (B, k, N) ascending and idx (B, k, N) int32, for any k
-in 1..V (the JAX package's ``k_neigh``; each kernel has an instantiation
-for every k up to 16, kernel 9 up to 32, kernel 8 for 24 and 32 writing
-its first k slots, and above 32 one whose k is a run-time bound: see the
-sources' notes). ``knn`` picks the kernel
+in 1..V (the JAX package's ``k_neigh``). Kernels 8 and 9 run two designs.
+Up to ``PACKED_WIDE_ABOVE`` / ``EXACT_WIDE_ABOVE`` (16 / 23) neighbours a
+thread sweeps its points with the k slots in its registers, one
+instantiation per K (the "sweep" route). Above, and for any k when asked,
+a warp owns a point and k is a run-time bound (the "wide" route,
+``knn_packed_wide`` / ``knn_exact_wide`` on ``csrc/knn_wide.cuh``): the
+lanes split each vertex
+tile, the tiles are visited nearest first by a bound on their box and
+the sweep stops where that bound passes the k-th neighbour, a vote sends
+the pairs below the point's filter to a buffer and a bitonic fold keeps
+the k smallest. Kernel 8 may visit the tiles in any order because its
+keys are unique; kernel 9 takes a point's output from that pass when its
+k + 1 nearest d2 strictly ascend (the TPU rule then has no choice to
+make) and runs the rule's index-order sweep, culled per point and merging
+a tile list at a time, for the points with ties. The lists sit in
+registers up to ``WIDE_CAP`` = 128 neighbours; above, each kernel's
+global-memory version takes k (one thread a point, slow but exact). Both
+designs give the plain versions' output bit for bit, so the thresholds
+only pick the faster one (see the sources' notes and ``PERF.md``).
+``knn`` picks the kernel
 as ``knn_pallas`` does (``knn_pallas.py:554-607``) at its default
 512-vertex tiles, under which "padded V <= 8192" is "V <= 8192":
 
@@ -84,6 +100,20 @@ SLOT_TILE = 512  # the TPU kernels' vertex tile, which the top-k rule follows
 SUB_TILE = 64  # the exact kernel's sub-tile boxes (csrc/knn_exact.cu)
 EXACT_MAX_VERTS = 2**31 - SLOT_TILE  # the padded count fits an int
 FAR_GROUP = 1024  # the all-far skip's point group (knn_pallas's tile_n)
+# the k above which kernels 8 and 9 run their warp-per-point kernels
+# (C entries animnerf_knn_packed_wide / animnerf_knn_exact_wide, which take
+# any k); up to it, and only there, the per-K instantiations. Both routes
+# were timed at k = 17, 24 and 32 on two shapes a kernel (PERF.md §6,
+# H100 80GB HBM3 at 700 W): kernel 8's warp-per-point kernel was the
+# faster at all three on both (random-order points, the training batch),
+# kernel 9's at 24 and 32 on both (random-order, Morton-ordered points)
+# but not at 17 on Morton-ordered points (2.68 against 1.95 ms); the
+# instantiations above the thresholds went. chip_smoke.py's "knn_routes"
+# line times both routes on those shapes at the boundary.
+PACKED_WIDE_ABOVE = 16
+EXACT_WIDE_ABOVE = 23
+WIDE_CAP = 128  # knn_wide::CAP: the slot lists' registers; above, k in memory
+ROUTES = (None, "sweep", "wide")
 _PAD_KEY = (0x7F800000 << 32) | 0x7FFFFFFF  # d2 = +inf: never merged
 
 
@@ -239,14 +269,31 @@ def knn_top4_plain(points: torch.Tensor, verts: torch.Tensor,
     return knn_packed_plain(points, verts, K, max_elems, far_skip)
 
 
+def _route(route, k: int, wide_above: int) -> str:
+    """The kernel a wrapper launches: "wide" (the warp-per-point kernel)
+    above wide_above neighbours or when asked, else "sweep" (the per-K
+    instantiations, which end at wide_above)."""
+    if route not in ROUTES or (route == "sweep" and k > wide_above):
+        raise ValueError(f"route {route!r} does not take k={k}")
+    return route or ("wide" if k > wide_above else "sweep")
+
+
 def knn_packed(points: torch.Tensor, verts: torch.Tensor, k: int,
-               far_skip: float = 0.0):
+               far_skip: float = 0.0, route: str = None,
+               stats: torch.Tensor = None):
     """The packed-key top-k, any k in 1..V (kernel 8): kernel on CUDA
     tensors, plain version on CPU tensors. At k=4 it selects what
     ``knn_top4`` selects, bit for bit. ``far_skip`` > 0: the all-far skip
-    at that threshold, the far pass first."""
+    at that threshold, the far pass first. ``route``: None picks the
+    kernel by k (``PACKED_WIDE_ABOVE``); "sweep" or "wide" asks for one
+    (the output is the same). ``stats`` (the wide route up to
+    ``WIDE_CAP``): an optional int64 CUDA tensor of 2 the kernel adds each
+    point's real (point, vertex) pairs [swept, skipped] to."""
     check_k(k)
     check_points_verts(points, verts, min_verts=k)
+    route = _route(route, k, PACKED_WIDE_ABOVE)
+    if stats is not None and route != "wide":
+        raise ValueError("stats: only the wide route counts pairs")
     if points.device.type == "cpu":
         return knn_packed_plain(points, verts, k, far_skip=far_skip)
     points = points.detach().contiguous()
@@ -257,12 +304,28 @@ def knn_packed(points: torch.Tensor, verts: torch.Tensor, k: int,
     if N == 0:
         return d, i
     flags = _far_pass(points, verts, far_skip, d, i, packed=True)
-    rows, order = vertex_rows(verts)
-    _build.kernel_library().call(
-        "animnerf_knn_packed", points.data_ptr(), rows.data_ptr(),
-        order.data_ptr(), flags.data_ptr() if flags is not None else None,
-        d.data_ptr(), i.data_ptr(), B, N, verts.shape[1], rows.shape[1], k,
-        _build.stream_of(points))
+    fp = flags.data_ptr() if flags is not None else None
+    if route == "wide":
+        # up to the cap, Morton tiles swept nearest first; above, the
+        # global-memory version on the stratified rows (every staged tile
+        # samples the whole cloud, so its k-th key tightens early)
+        _check_stats(stats, points)
+        regs = k <= WIDE_CAP
+        rows, order = vertex_rows(verts, stratified=not regs)
+        vbox = tile_boxes(verts) if regs else None
+        _build.kernel_library().call(
+            "animnerf_knn_packed_wide", points.data_ptr(), rows.data_ptr(),
+            order.data_ptr(), vbox.data_ptr() if regs else None,
+            stats.data_ptr() if stats is not None else None, fp,
+            d.data_ptr(), i.data_ptr(), B, N, verts.shape[1], rows.shape[1],
+            k, _build.stream_of(points))
+        _build.LAUNCHES["knn_packed_wide"] += 1
+    else:
+        rows, order = vertex_rows(verts)
+        _build.kernel_library().call(
+            "animnerf_knn_packed", points.data_ptr(), rows.data_ptr(),
+            order.data_ptr(), fp, d.data_ptr(), i.data_ptr(), B, N,
+            verts.shape[1], rows.shape[1], k, _build.stream_of(points))
     _build.LAUNCHES["knn_packed"] += 1
     return d, i
 
@@ -351,7 +414,7 @@ def exact_rows_plain(verts: torch.Tensor):
 
 def knn_exact(points: torch.Tensor, verts: torch.Tensor, k: int = K,
               cull: bool = True, stats: torch.Tensor = None,
-              far_skip: float = 0.0):
+              far_skip: float = 0.0, route: str = None):
     """The exact kNN (kernel 9): kernel on CUDA tensors, plain version on
     CPU tensors (which ignores ``cull``: the output is the same either
     way). Any V >= k. ``cull`` lets a warp skip the vertex tiles and
@@ -359,12 +422,15 @@ def knn_exact(points: torch.Tensor, verts: torch.Tensor, k: int = K,
     spatially coherent points). ``stats``: an optional int64 CUDA tensor
     of 2 the kernel adds its [swept, skipped] (point, vertex) pair counts
     to (a warp's point slots, dead ones included, times each tile's or
-    sub-tile's vertices; blocks of skipped far groups add nothing).
+    sub-tile's vertices; on the "wide" route each pass's real pairs of
+    each point; blocks of skipped far groups add nothing).
     ``far_skip`` > 0: the all-far skip at that threshold, the far pass
-    first."""
+    first. ``route``: None picks the kernel by k (``EXACT_WIDE_ABOVE``);
+    "sweep" or "wide" asks for one (the output is the same)."""
     check_k(k)
     check_points_verts(points, verts, min_verts=k,
                        max_verts=EXACT_MAX_VERTS)
+    route = _route(route, k, EXACT_WIDE_ABOVE)
     if points.device.type == "cpu":
         return knn_exact_plain(points, verts, k, far_skip=far_skip)
     points = points.detach().contiguous()
@@ -379,6 +445,7 @@ def knn_exact(points: torch.Tensor, verts: torch.Tensor, k: int = K,
     flags = _far_pass(points, verts, far_skip, d, i, packed=False,
                       tbox=tbox)
     _build.kernel_library().call(
+        "animnerf_knn_exact_wide" if route == "wide" else
         "animnerf_knn_exact", points.data_ptr(), rows.data_ptr(),
         sbox.data_ptr(), tbox.data_ptr(), int(bool(cull)),
         stats.data_ptr() if stats is not None else None,
@@ -386,6 +453,8 @@ def knn_exact(points: torch.Tensor, verts: torch.Tensor, k: int = K,
         i.data_ptr(), B, N, verts.shape[1], rows.shape[1], k,
         _build.stream_of(points))
     _build.LAUNCHES["knn_exact"] += 1
+    if route == "wide":
+        _build.LAUNCHES["knn_exact_wide"] += 1
     if cull:
         _build.LAUNCHES["knn_exact_cull"] += 1
     return d, i

@@ -30,12 +30,14 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      (its 64- and 128-column encoding blocks) in bf16 and f32 beside the
      library VJP in the same dtype; the kNN lines of kernels 1 and 8 with their
      share of the bound, their sweep's points per thread and its SASS
-     instructions per pair; then kernels 1 and 8 at edge shapes (N = 2^20
-     - 37, V in {K, 1025, 8192}, K in {1, 4, 8, 16}), each bit-equal to
-     its plain version; the scatter at K in {1, 4, 8, 16} with one, two
-     and three radix passes (bit-equal to its plain version and to a
-     second run) and the warp-blend on every family's row width and an
-     unaligned table (within 1e-4, residual-free out bit-equal);
+     instructions per pair; then kernels 1 and 8 at edge shapes (N = 2^20 - 37,
+     V in {K, 1025, 8192}, K in {1, 4, 8, 16}, and kernel 8's
+     warp-per-point kernel at K in {24, 33, 40, 64} on those V and a 1/64
+     tie grid), each bit-equal to its plain version; the scatter at K in
+     {1, 4, 8, 16} with one, two and three radix passes (bit-equal to its
+     plain version and to a second run) and the warp-blend on every
+     family's row width and an unaligned table (within 1e-4, residual-free
+     out bit-equal);
   4. serving: the trained scale512 checkpoint on the seed-3 SMPL rig, a
      512x512 turntable rendered through ``Renderer.render_stream``,
      launch counts reset just before and read just after; then one more
@@ -132,8 +134,10 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      seed-0 SMPL-X rig (V=10475, J=55), each bit-equal to its plain
      version on the card; then kernel 9 at edge shapes (N = 2^20 - 37,
      V in {K, 513, 8193, 10475}, K in {1, 4, 8, 16}, and a tie-rich 1/64
-     grid cloud), with and without its cull, each bit-equal to its plain
-     version, and its rows kernel to its plain version;
+     grid cloud; its warp-per-point kernel at K in {24, 33, 40, 64} on
+     2^16 - 37 points, the tie cloud among them), with and without its
+     cull, each bit-equal to its plain version, and its rows kernel to its
+     plain version;
   9. smplx_serve: the flagship field with random weights from a seed (the
      sigma heads' biases raised so the 0.2 m shell is opaque) on that rig,
      a 512x512 turntable through ``Renderer.render_stream`` with
@@ -173,13 +177,18 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      call; k8_train_parity (phase 7 at
      k_neigh 8); smplx_k8_parity (phase 10 at k_neigh 8 in f32, launching
      the exact kNN at K = 8);
- 13a. above 16 neighbours: kernel lines of kernels 8, 9, 2 and 5 at K in
-     {17, 24, 32, 40} (each against its plain version: the kNN bit-equal,
-     the warp-blend and scatter within their K = 8 tolerances), then the
-     main paths at k_neigh 24 and 40 with their launch counts: a training
-     step card against CPU on the rigid SMPL rig, a 64x64 view (24) and
-     a 32x32 SMPL-X view (kernel 9); the far pass's line carries its
-     device time from the profiler beside the CUDA-event time;
+ 13a. above 16 neighbours: kernel lines of kernels 8 and 9 at K in
+     WIDE_KNN_KS (17-160: the kernel that ran, its swept share and both
+     bounds; ``knn_routes``: both routes' times at the thresholds on two
+     shapes) and of kernels 2 and 5 at {17, 24, 32, 40} (each
+     against its plain version: the kNN bit-equal, the warp-blend and
+     scatter within their K = 8 tolerances), then the main paths at
+     k_neigh 24 and 40 with their launch counts: a training step card
+     against CPU on the rigid SMPL rig, a 64x64 view (24) and a 32x32
+     SMPL-X view (kernel 9); then k40_profile (the bench.py step, a 512^2
+     SMPL view and a 512^2 SMPL-X view at k_neigh 40, each timed and
+     profiled); the far pass's line carries its device time from the
+     profiler beside the CUDA-event time;
  14. the matmul-form kNN (kernel 10) at "highest" and "default" against
      its plain version at the kNN tool's shapes, then the port's kNN tool
      (``animnerf_tpu_torch/tools/bench_knn.py``): every row, with the
@@ -226,11 +235,12 @@ KNN_PAIR_OPS = 6.0
 # (point, vertex) pair, over PEAK_F32_NONFMA: 3 subtractions, 3 multiplies,
 # 2 adds (each rounded on its own) and the compare against the tile list
 EXACT_PAIR_OPS = 9.0
-# kernels 1, 8 (the sweep and its rows kernel) and 9 (its sweep and rows
-# kernel, knn_exact_kernel and knn_exact_rows), and the far pass of their
-# all-far skip, by profiler name
+# kernels 1, 8 (the sweep and its rows kernel; knn_packed_wide and
+# knn_packed_any above the threshold) and 9 (its sweep and rows kernel,
+# knn_exact_kernel, knn_exact_wide, knn_exact_any and knn_exact_rows), and
+# the far pass of their all-far skip, by profiler name
 KNN_KERNEL_NAMES = ("knn_sweep::", "knn_rows_kernel", "knn_exact",
-                    "knn_far_kernel")
+                    "knn_far_kernel", "knn_packed")
 # chunk size of the plain kNN versions on the card (a (chunk x V) matrix):
 # large chunks keep their per-chunk launches few
 PLAIN_MAX_ELEMS = 1 << 26
@@ -571,9 +581,6 @@ def exact_line(pts, verts, k: int, exact: dict, reps: int = 20) -> dict:
     N, V = pts.shape[1], verts.shape[1]
     line = exact_check(pts, verts, k)
     share = line["swept_share"]
-    if share == 0.0:  # the run-time-k kernel keeps no stats: every pair
-        line["swept_share"] = share = None
-        share = 1.0
     ms = time_ms(lambda: knn_exact(pts, verts, k), reps)
     ms_nocull = time_ms(lambda: knn_exact(pts, verts, k, cull=False), reps)
     nbytes = N * 12 + V * 12 + N * 8 * k
@@ -1833,6 +1840,12 @@ def kernel_line_wgrad(dev, sass: dict):
 
 
 EDGE_POINTS = (1 << 20) - 37  # a whole number of no block's points
+# the edge lines of kernels 8 and 9 above 16 neighbours: each list size of
+# the warp-per-point kernels (32, 64 and 128 slots; kernel 9 holds k + 1)
+EDGE_WIDE_KS = (24, 33, 40, 64)
+# kernel 9's: fewer points (its plain version loops k x V / 512 times a
+# chunk)
+EDGE_WIDE_EXACT_POINTS = (1 << 16) - 37
 
 
 def kernel_lines_edge(dev):
@@ -1840,7 +1853,9 @@ def kernel_lines_edge(dev):
     N = 2^20 - 37 points, V in {K, 1025, 8192} vertices (one padded tile;
     one real row in the last tile; the index field's limit), K in {1, 4,
     8, 16}, kernel 1 (K = 4) with and without its tile skip; seeded clouds
-    (normal, 0.3 m) and points near them (0.05 m). Each output bit-equal
+    (normal, 0.3 m) and points near them (0.05 m); then kernel 8's
+    warp-per-point kernel at K in EDGE_WIDE_KS on V = K, 1025 and 8192,
+    and on the 1/64-grid tie cloud at K = 40 and 64. Each output bit-equal
     to its plain version, and the rows kernel's rows and visiting order
     (both layouts) to ``vertex_rows_plain``'s."""
     import torch
@@ -1889,6 +1904,25 @@ def kernel_lines_edge(dev):
                     shape=f"points (1,{N},3) verts (1,{V},3) K={K}",
                     max_abs_err=err, tolerance=0.0, idx_mismatch=mism,
                     rows_bit_equal=rows_equal)
+    # the warp-per-point kernel (knn_packed_wide), each register list's
+    # size: V = K, one real row in the last tile, the index field's limit;
+    # then the 1/64-grid tie cloud
+    clouds = []
+    for V in EDGE_WIDE_KS + (1025, 8192):
+        verts = 0.3 * torch.randn(1, V, 3, generator=g, device=dev)
+        pick = torch.randint(0, V, (N,), generator=g, device=dev)
+        pts = (verts[0, pick]
+               + 0.05 * torch.randn(N, 3, generator=g, device=dev))[None]
+        clouds.append(("normal", V, verts, pts.contiguous(),
+                       [K for K in EDGE_WIDE_KS if K == V or V > 64]))
+    clouds.append(("grid", 6890, morton_sorted(torch.randint(
+        -48, 49, (1, 6890, 3), generator=g, device=dev).float() / 64),
+        torch.randint(-56, 57, (1, N, 3), generator=g,
+                      device=dev).float() / 64, [40, 64]))
+    for cloud, V, verts, pts, ks in clouds:
+        for K in ks:
+            lines[f"knn_packed_{cloud}_k{K}_v{V}"] = packed_wide_line(
+                pts, verts, K, 3, timed=False)
     return lines
 
 
@@ -1990,12 +2024,19 @@ def kernel_lines_edge_exact(dev, exact: dict):
     last tile; just above the packed kernels' limit; SMPL-X), K in {1, 4,
     8, 16}, seeded Morton-sorted clouds (normal, 0.3 m) and Morton-ordered
     points near them (0.05 m), so that the cull skips; then a tie-rich
-    cloud, vertices and points on a 1/64 grid, at K = 4 and 16. Each
-    output, with and without the cull, bit-equal to knn_exact_plain, and
-    the rows kernel's rows and boxes to exact_rows_plain's."""
+    cloud, vertices and points on a 1/64 grid, at K = 4 and 16. Then the
+    warp-per-point kernel on EDGE_WIDE_EXACT_POINTS points at K in
+    EDGE_WIDE_KS: V = K, 513, 8193, 10475 and the grid cloud at K = 40 and
+    64. Each output, with and without the cull, bit-equal to
+    knn_exact_plain, and the rows kernel's rows and boxes to
+    exact_rows_plain's."""
     import torch
 
-    from animnerf_tpu_torch.ops.knn_kernel import exact_rows, exact_rows_plain
+    from animnerf_tpu_torch.ops.knn_kernel import (
+        EXACT_WIDE_ABOVE,
+        exact_rows,
+        exact_rows_plain,
+    )
 
     g = torch.Generator(device=dev).manual_seed(6)
     N = EDGE_POINTS
@@ -2013,6 +2054,20 @@ def kernel_lines_edge_exact(dev, exact: dict):
     grid_p = morton_sorted(torch.randint(-56, 57, (1, N, 3), generator=g,
                                          device=dev).float() / 64)
     clouds.append(("grid", 10475, grid_v, grid_p, [4, 16]))
+    # the warp-per-point kernel (knn_exact_wide): V = K, one real vertex in
+    # the last tile, above the packed limit, SMPL-X; the tie cloud, most of
+    # whose points take the slot rule after the nearest-first pass
+    n = EDGE_WIDE_EXACT_POINTS
+    for V in EDGE_WIDE_KS + (513, 8193, 10475):
+        verts = morton_sorted(0.3 * torch.randn(1, V, 3, generator=g,
+                                                device=dev))
+        pick = torch.randint(0, V, (n,), generator=g, device=dev)
+        pts = morton_sorted((verts[0, pick] + 0.05 * torch.randn(
+            n, 3, generator=g, device=dev))[None])
+        ks = {513: [33, 64], 8193: [40], 10475: [24, 40, 64]}.get(V, [V])
+        clouds.append(("normal", V, verts, pts, ks))
+    clouds.append(("grid", 10475, grid_v, grid_p[:, :n].contiguous(),
+                   [40, 64]))
     lines = {}
     for cloud, V, verts, pts, ks in clouds:
         rows_equal = all(torch.equal(a, b) for a, b in
@@ -2020,9 +2075,10 @@ def kernel_lines_edge_exact(dev, exact: dict):
         check(rows_equal, f"edge V={V}: exact rows kernel differs from plain")
         for K in ks:
             lines[f"knn_exact_{cloud}_k{K}_v{V}"] = dict(
-                shape=f"points (1,{N},3) verts (1,{V},3) K={K}",
+                shape=f"points {tuple(pts.shape)} verts (1,{V},3) K={K}",
                 **exact_check(pts, verts, K), rows_bit_equal=rows_equal,
-                **exact[K])
+                instantiation=knn_instantiation(9, K),
+                **(exact[K] if K <= EXACT_WIDE_ABOVE else {}))
     return lines
 
 
@@ -2090,24 +2146,110 @@ def kernel_lines_smplx(dev, exact: dict):
     return lines
 
 
-# the neighbour counts above 16: kernels 8, 2 at 24 and 32 on their wide
-# instantiations (17 on 24), kernel 9 on one instantiation each, all four
-# on their run-time-k versions at 40
+# the neighbour counts above 16 of kernels 2 and 5 (kernel 2 on its K = 32
+# instantiation to 32, its run-time-k version at 40)
 WIDE_KS = (17, 24, 32, 40)
+# kernels 8 and 9: either side of the threshold (ops/knn_kernel.py
+# PACKED_WIDE_ABOVE, EXACT_WIDE_ABOVE), of each register list's size and of
+# the cap (knn_wide::CAP), and one k above it (the global-memory versions)
+WIDE_KNN_KS = (17, 24, 32, 33, 40, 64, 128, 160)
 # kernel 9's wide lines: points of the SMPL-X cloud (its plain version
 # loops k x V / 512 times a chunk, so fewer than the K = 4, 8 lines' 2^20)
 WIDE_EXACT_POINTS = 1 << 18
+# from this k on, both kernels' wide lines take WIDE_BIG_K_POINTS points
+# (the plain versions' loops and the global-memory versions grow with k)
+WIDE_BIG_K = 64
+WIDE_BIG_K_POINTS = 1 << 16
+
+
+def knn_instantiation(kernel: int, k: int) -> str:
+    """The kernel kernel 8 or 9 launches at k on knn's own route."""
+    from animnerf_tpu_torch.ops import knn_kernel as kk
+
+    above = kk.PACKED_WIDE_ABOVE if kernel == 8 else kk.EXACT_WIDE_ABOVE
+    if k <= above:
+        return ("sweep_kernel" if kernel == 8 else "knn_exact_kernel") \
+            + f"<K={k}>"
+    name = "knn_packed" if kernel == 8 else "knn_exact"
+    if k > kk.WIDE_CAP:
+        return f"{name}_any (run-time k, slots in global memory)"
+    slots = k + 1 if kernel == 9 and k < kk.WIDE_CAP else k
+    return f"{name}_wide<R={1 if slots <= 32 else 2 if slots <= 64 else 4}>"
+
+
+def packed_wide_line(pts, verts, k: int, reps: int,
+                     timed: bool = True) -> dict:
+    """Kernel 8 at k on knn's route, bit-equal to its plain version: time,
+    the share of pairs swept (the wide route's stats) and (``timed``)
+    bounds for the swept pairs (bound_ms) and all pairs (bound_all_ms),
+    the plain version's and the library composite's times."""
+    import torch
+
+    from animnerf_tpu_torch.ops import knn_kernel as kk
+
+    B, N, V = pts.shape[0], pts.shape[1], verts.shape[1]
+    d, i = kk.knn_packed(pts, verts, k)
+    dp, ip = kk.knn_packed_plain(pts, verts, k, PLAIN_MAX_ELEMS)
+    torch.cuda.synchronize()
+    mism = int((i != ip).sum())
+    err = float((d - dp).abs().max())
+    check(mism == 0 and torch.equal(d, dp),
+          f"knn_packed K={k} {tuple(pts.shape)}: {mism} index mismatches, "
+          f"max err {err}")
+    share = 1.0
+    if kk.PACKED_WIDE_ABOVE < k <= kk.WIDE_CAP:
+        stats = torch.zeros(2, dtype=torch.int64, device=pts.device)
+        kk.knn_packed(pts, verts, k, stats=stats)
+        swept, skipped = (int(x) for x in stats.tolist())
+        share = swept / max(swept + skipped, 1)
+    nbytes = B * (N * 12 + V * 12 + N * 8 * k)
+    line = dict(
+        shape=f"points {tuple(pts.shape)} verts {tuple(verts.shape)} K={k}",
+        max_abs_err=err, tolerance=0.0, idx_mismatch=mism,
+        instantiation=knn_instantiation(8, k), swept_share=share,
+        ms=time_ms(lambda: kk.knn_packed(pts, verts, k), reps))
+    if not timed:
+        return line
+    line.update(
+        plain_ms=time_ms(lambda: kk.knn_packed_plain(pts, verts, k,
+                                                     PLAIN_MAX_ELEMS), 1),
+        bound_ms=knn_bound_ms(B * N * V * share, nbytes),
+        bound_all_ms=knn_bound_ms(B * N * V, nbytes), bound_by="operations",
+        library_ms=library_knn_ms(pts, verts, k),
+        library_call="torch.cdist + torch.topk, 32768-point chunks")
+    line["pct_of_bound"] = 100.0 * line["bound_ms"] / line["ms"]
+    line["pct_of_bound_all"] = 100.0 * line["bound_all_ms"] / line["ms"]
+    return line
+
+
+def route_times(fn, pts, verts, k: int, reps: int) -> dict:
+    """Kernel 8 or 9 (fn) at k up to its threshold on both routes: the
+    outputs bit-equal, each route's ms."""
+    import torch
+
+    a, b = fn(pts, verts, k, route="wide"), fn(pts, verts, k, route="sweep")
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          f"{fn.__name__} K={k} {tuple(pts.shape)}: the routes differ")
+    return {r: time_ms(lambda: fn(pts, verts, k, route=r), reps)
+            for r in ("wide", "sweep")}
 
 
 def kernel_lines_wide_k(dev, exact: dict) -> dict:
-    """Kernels 8, 9, 2 and 5 at K in WIDE_KS, each against its plain
-    version: the packed kNN on 2^20 points around the posed seed-0 SMPL
-    rig and kernel 9 on WIDE_EXACT_POINTS around the SMPL-X rig, both
-    bit-equal; the warp-blend on the packed kNN's K neighbours with
-    one-hot LBS columns within the K = 8 line's 1e-4; the scatter at the
-    training step's (16, K, 32768) -> (16, 6890, 16), bit-equal and
-    within the K = 8 line's tolerance. Times, bounds and library calls as
-    the K = 4 and 8 lines'."""
+    """Kernels 8 and 9 at K in WIDE_KNN_KS, 2 and 5 at K in WIDE_KS, each
+    against its plain version: the packed kNN on 2^20 points around the
+    posed seed-0 SMPL rig and kernel 9 on WIDE_EXACT_POINTS around the
+    SMPL-X rig (from WIDE_BIG_K on, the first WIDE_BIG_K_POINTS of each),
+    both bit-equal (kernel 9 with and without its cull), with the kernel
+    that ran, its swept share and both bounds; "knn_routes": both routes'
+    times where the per-K instantiations end (kernel 9 also at 17) on
+    those points and on a second shape (kernel 8: the training batch
+    (16, 32768); kernel 9: the same points in Morton order), the outputs
+    bit-equal across the routes; the warp-blend on
+    the packed kNN's K neighbours with one-hot LBS columns within the K =
+    8 line's 1e-4; the scatter at the training step's (16, K, 32768) ->
+    (16, 6890, 16), bit-equal and within the K = 8 line's tolerance.
+    Times, bounds and library calls as the K = 4 and 8 lines'."""
     import torch
 
     from animnerf_tpu_torch.data.synthetic import random_pose_params
@@ -2116,7 +2258,12 @@ def kernel_lines_wide_k(dev, exact: dict) -> dict:
         weighted_scatter_rows,
         weighted_scatter_rows_plain,
     )
-    from animnerf_tpu_torch.ops.knn_kernel import knn_packed, knn_packed_plain
+    from animnerf_tpu_torch.ops.knn_kernel import (
+        EXACT_WIDE_ABOVE,
+        PACKED_WIDE_ABOVE,
+        knn_exact,
+        knn_packed,
+    )
     from animnerf_tpu_torch.ops.warp_blend import (
         warp_blend_fwd,
         warp_blend_fwd_plain,
@@ -2158,30 +2305,33 @@ def kernel_lines_wide_k(dev, exact: dict) -> dict:
                                                 device=dev))
     sverts = verts.expand(B, V, 3).contiguous()
     gr = torch.randn(B, 16, NS, generator=g, device=dev)
-    for K in WIDE_KS:
-        # -- kernel 8
+    # the thresholds: both routes where the per-K instantiations end (and
+    # kernel 9 at 17), on two shapes a kernel
+    xpts_m = morton_sorted(xpts)
+    lines["knn_routes"] = {
+        "thresholds": {"knn_packed": PACKED_WIDE_ABOVE,
+                       "knn_exact": EXACT_WIDE_ABOVE},
+        "knn_packed": {PACKED_WIDE_ABOVE: {
+            "random_order": route_times(knn_packed, pts, verts,
+                                        PACKED_WIDE_ABOVE, reps),
+            "training_batch": route_times(knn_packed, spts, sverts,
+                                          PACKED_WIDE_ABOVE, reps)}},
+        "knn_exact": {K: {
+            "random_order": route_times(knn_exact, xpts, xverts, K, reps),
+            "morton_order": route_times(knn_exact, xpts_m, xverts, K, reps)}
+            for K in (17, EXACT_WIDE_ABOVE)}}
+    for K in WIDE_KNN_KS:
+        # -- kernels 8 and 9 (from WIDE_BIG_K on fewer points)
+        few = K >= WIDE_BIG_K
+        p8 = pts[:, :WIDE_BIG_K_POINTS] if few else pts
+        p9 = xpts[:, :WIDE_BIG_K_POINTS] if few else xpts
+        lines[f"knn_packed_k{K}"] = packed_wide_line(p8, verts, K, reps)
+        lines[f"knn_exact_k{K}"] = dict(
+            exact_line(p9, xverts, K, exact if K <= EXACT_WIDE_ABOVE else {},
+                       reps=reps), instantiation=knn_instantiation(9, K))
+        if K not in WIDE_KS:
+            continue
         d, i = knn_packed(pts, verts, K)
-        dp, ip = knn_packed_plain(pts, verts, K, PLAIN_MAX_ELEMS)
-        torch.cuda.synchronize()
-        mism = int((i != ip).sum())
-        err = float((d - dp).abs().max())
-        check(mism == 0 and err == 0.0,
-              f"knn_packed K={K}: {mism} index mismatches, max err {err}")
-        lines[f"knn_packed_k{K}"] = dict(
-            shape=f"points (1,{N},3) verts (1,{V},3) K={K}",
-            max_abs_err=err, tolerance=0.0, idx_mismatch=mism,
-            instantiation=K if K <= 16 else (-(-K // 8) * 8 if K <= 32
-                                             else "run-time k"),
-            ms=time_ms(lambda: knn_packed(pts, verts, K), reps),
-            plain_ms=time_ms(lambda: knn_packed_plain(pts, verts, K,
-                                                      PLAIN_MAX_ELEMS),
-                             preps),
-            bound_ms=knn_bound_ms(N * V, N * 12 + V * 12 + N * 8 * K),
-            bound_by="operations", library_ms=library_knn_ms(pts, verts, K),
-            library_call="torch.cdist + torch.topk, 32768-point chunks")
-        lines[f"knn_packed_k{K}"]["pct_of_bound"] = (
-            100.0 * lines[f"knn_packed_k{K}"]["bound_ms"]
-            / lines[f"knn_packed_k{K}"]["ms"])
         # -- kernel 2 on those neighbours
         args = (rows, d, i, table, J, 0.1, 0.9)
         out = warp_blend_fwd(*args)
@@ -2211,10 +2361,7 @@ def kernel_lines_wide_k(dev, exact: dict) -> dict:
                          N * (K * (3 * J + 40) + 100) / PEAK_F32) * 1e3,
             bound_by="bytes", library_ms=None,
             library_call=WARP_BLEND_LIBRARY)
-        del d, i, dp, ip, out, outp, o
-        # -- kernel 9
-        lines[f"knn_exact_k{K}"] = exact_line(xpts, xverts, K, exact,
-                                              reps=reps)
+        del d, i, out, outp, o
         # -- kernel 5 at the training step's shape
         _, si = knn_packed(spts, sverts, K)
         w = torch.rand(B, K, NS, generator=g, device=dev)
@@ -2409,8 +2556,9 @@ KERNELS = {
                              "animnerf_tpu/ops/fused_mlp.py:227"),
     "fused_mlp_bwd_f32_n16": ("animnerf_tpu_torch/csrc/mlp_f32.cu",
                               "animnerf_tpu/ops/fused_mlp.py:227"),
-    # kernels 8, 9, 2 and 5 above 16 neighbours: K = 24 (a wide
-    # instantiation; kernel 9 its own) and 40 (the run-time-k versions)
+    # kernels 8, 9, 2 and 5 above 16 neighbours: K = 24 and 40 (kernels 8
+    # and 9 on their warp-per-point kernels, kernel 2 on its K = 32
+    # instantiation and its run-time-k version)
     **{f"{name}_k{k}": (src, replaces) for k in (24, 40)
        for name, src, replaces in (
            ("knn_packed", "animnerf_tpu_torch/csrc/knn_packed.cu",
@@ -3041,7 +3189,8 @@ def profile_call(fn, what: str, by_kernel: bool = False):
               if any(k in e.key for k in FWD_NAMES)) / 1e3
     knn = sum(e.self_device_time_total for e in events
               if any(k in e.key for k in KNN_KERNEL_NAMES)) / 1e3
-    exact = [e for e in events if "knn_exact_kernel" in e.key]
+    exact = [e for e in events if "knn_exact" in e.key
+             and "knn_exact_rows" not in e.key]
     exact_rows = sum(e.self_device_time_total for e in events
                      if "knn_exact_rows" in e.key) / 1e3
     far = [e for e in events if "knn_far_kernel" in e.key]
@@ -3662,13 +3811,19 @@ def freqs_train_parity() -> dict:
 
 
 def wide_k_phases(ck, bp, tmpl) -> dict:
-    """The main paths at k_neigh 24 and 40 (kernels 8, 2, 5 on the SMPL
-    rigs, kernel 9 on SMPL-X), card against CPU, each with its launch
-    counts: one training step (the rigid rig, so that several neighbours
-    blend) within the flagship step's bounds, a 64x64 view (the scale512
-    weights on the seeded rig, both dtypes' bounds; at 24) and a 32x32
-    SMPL-X view (f32; the exact kNN's plain version on the CPU loops k x
-    V / 512 times a 400-point chunk)."""
+    """The main paths at k_neigh 24 and 40 (kernels 8, 2, 5 on the SMPL rigs,
+    kernel 9 on SMPL-X; every kNN launch on the warp-per-point kernels
+    above their thresholds), card against CPU, each with its launch counts:
+    one training step (the rigid rig, so that several neighbours blend)
+    within the flagship step's bounds, a 64x64 view (the scale512 weights
+    on the seeded rig, both dtypes' bounds; at 24) and a 32x32 SMPL-X view
+    (f32; the exact kNN's plain version on the CPU loops k x V / 512 times
+    a 400-point chunk)."""
+    from animnerf_tpu_torch.ops.knn_kernel import (
+        EXACT_WIDE_ABOVE,
+        PACKED_WIDE_ABOVE,
+    )
+
     out = {}
     for k in (24, 40):
         cfg = dict(FLAGSHIP_CFG, k_neigh=k)
@@ -3676,22 +3831,91 @@ def wide_k_phases(ck, bp, tmpl) -> dict:
             "cuda", cfg, rigid_smpl_rig))
         check(all(launches[n] > 0 for n in ("knn_packed", "warp_blend",
                                              "scatter", "fused_mlp_bwd"))
+              and launches["knn_packed_wide"] == (
+                  launches["knn_packed"] if k > PACKED_WIDE_ABOVE else 0)
               and launches["knn"] == launches["knn_exact"] == 0,
               f"k_neigh {k} step launched the wrong kernels: {launches}")
         out[f"k{k}_train_parity"] = dict(res, launches=launches)
         if k == 24:
             res, launches = with_launches(lambda: slice_parity(
                 ck, bp, tmpl, H=64, W=64, k_neigh=k))
-            check(launches["knn_packed"] > 0 and launches["knn"] == 0,
+            check(launches["knn_packed"] > 0 and launches["knn"] == 0
+                  and launches["knn_packed_wide"] == (
+                      launches["knn_packed"] if k > PACKED_WIDE_ABOVE
+                      else 0),
                   f"k_neigh {k} view launched the wrong kNN: {launches}")
             out[f"k{k}_serve_parity"] = dict(res, launches=launches)
         res, launches = with_launches(lambda: smplx_serve_parity(
             H=32, W=32, cfg=dict(SMPLX_CFG, k_neigh=k),
             bounds=PARITY_BOUNDS[1:]))
         check(launches["knn_exact"] > 0
+              and launches["knn_exact_wide"] == (
+                  launches["knn_exact"] if k > EXACT_WIDE_ABOVE else 0)
               and launches["knn"] == launches["knn_packed"] == 0,
               f"SMPL-X k_neigh {k} launched the wrong kNN: {launches}")
         out[f"k{k}_smplx_parity"] = dict(res, launches=launches)
+    return out
+
+
+# the k_neigh main paths profiled: timed steps and views a path
+WIDE_PROFILE_STEPS = 5
+WIDE_PROFILE_VIEWS = 3
+
+
+def wide_k_profile(ck, bp, tmpl, k: int = 40) -> dict:
+    """The main paths at k_neigh k on the card, timed and profiled: the
+    bench.py step (16 x 1024 rays through ``RowsCompactTrainer.step`` on
+    the rigid seed-0 SMPL rig: kernel 8, kernels 2 and 5 at K = k), the
+    scale512 view 29 at 512x512 (kernel 8, kernel 2) and an SMPL-X view
+    29 at 512x512 with the exact pre-pass (kernel 9; random weights, an
+    opaque shell). For each: a warm-up, the launch counts of one call, the
+    host-clock times of the next calls (each synchronised) and one
+    profiled call (``profile_call``: device busy time, the kNN's ms and
+    share). Uses nothing the port's earlier checkouts lack, so that
+    tools/ab_wide_knn.py can run it on a parent."""
+    import torch
+
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+    from animnerf_tpu_torch.training.system import RowsCompactTrainer
+
+    def measure(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        _, launches = with_launches(fn)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return {"median_ms": float(np.median(ms)), "ms": ms,
+                "launches": launches, "profile": profile_call(fn, "call")}
+
+    out = {"k_neigh": k}
+    system = AnimNeRFSystem(dict(FLAGSHIP_CFG, k_neigh=k), rigid_smpl_rig(),
+                            device="cuda", seed=0)
+    trainer = RowsCompactTrainer(system, steps_per_epoch=100)
+    batches = train_batches(16, 1024, range(WIDE_PROFILE_STEPS + 3), "cuda",
+                            "smpl")
+    turn = iter(range(10 ** 6))
+
+    def step():
+        d = trainer.step(batches[next(turn) % len(batches)])
+        check(finite(trainer, d), f"k_neigh {k} step: non-finite")
+
+    out["step"] = measure(step, WIDE_PROFILE_STEPS)
+    del system, trainer, batches
+    view = view_fn(scale512_system(ck, "cuda", k_neigh=k), bp, tmpl, 29)
+    out["view"] = measure(view, WIDE_PROFILE_VIEWS)
+    xsystem = AnimNeRFSystem(dict(SMPLX_CFG, k_neigh=k), smplx_rig(),
+                             device="cuda", seed=0)
+    opaque_shell(xsystem)
+    view = view_fn(xsystem, smplx_params(1, 1),
+                   smplx_params(1, 2, zero_transl=True), 29, prepass="exact")
+    out["smplx_view"] = measure(view, WIDE_PROFILE_VIEWS)
+    del xsystem, view
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4194,13 +4418,14 @@ def tile_skip_far_line(dev, thr: float = 0.2) -> dict:
 
 
 def kernel_lines_edge_far(dev, thr: float = 0.2) -> dict:
-    """Kernels 1 (with and without the tile skip), 8 and 9 with the far
-    skip at N = 2^20 - 37 points (the last group partial), K in {1, 4, 8,
-    16}: half the points near a seeded cloud (0.3 m) around the origin,
-    the other half (the last group's among them) 5 m away; the last
-    group's padding points at the origin keep it from skipping. Then the
-    cloud moved 3 m from the origin, where the last group skips. Each
-    output bit-equal to its plain version with the far skip."""
+    """Kernels 1 (with and without the tile skip), 8 and 9 with the far skip at
+    N = 2^20 - 37 points (the last group partial), K in {1, 4, 8, 16, 40}
+    (40: the warp-per-point kernels): half the points near a seeded cloud
+    (0.3 m) around the origin, the other half (the last group's among them)
+    5 m away; the last group's padding points at the origin keep it from
+    skipping. Then the cloud moved 3 m from the origin, where the last
+    group skips. Each output bit-equal to its plain version with the far
+    skip."""
     import torch
 
     from animnerf_tpu_torch.ops.knn_kernel import (
@@ -4243,12 +4468,14 @@ def kernel_lines_edge_far(dev, thr: float = 0.2) -> dict:
                 runs += [("knn_packed", K, lambda K: knn_packed(
                     pts, verts, K, far_skip=thr), lambda K: knn_packed_plain(
                         pts, verts, K, PLAIN_MAX_ELEMS, thr))
-                    for K in ((1, 4, 8, 16) if cloud == "origin" else (8,))]
+                    for K in ((1, 4, 8, 16, 40) if cloud == "origin"
+                              else (8, 40))]
             else:
                 runs += [("knn_exact", K, lambda K: knn_exact(
                     pts, verts, K, far_skip=thr), lambda K: knn_exact_plain(
                         pts, verts, K, PLAIN_EXACT_MAX_ELEMS, thr))
-                    for K in ((1, 4, 8, 16) if cloud == "origin" else (4,))]
+                    for K in ((1, 4, 8, 16, 40) if cloud == "origin"
+                              else (4,))]
             for kname, K, fn, plain in runs:
                 d, i = fn(K)
                 dp, ip = plain(K)
@@ -4668,6 +4895,7 @@ def main() -> int:
 
     import animnerf_tpu_torch  # noqa: F401  (fails outside the checkout)
     from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.ops.knn_kernel import EXACT_WIDE_ABOVE
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4698,11 +4926,10 @@ def main() -> int:
                          for (k, skip, insert), v in sorted(sass.items())},
           "exact_sass": {f"K={k}": v for k, v in sorted(exact.items())},
           "mlp_f32_smem": f32_smem_check()})
-    check(all((k, False, "packed") in sass
-              for k in list(range(1, 17)) + [24, 32])
+    check(all((k, False, "packed") in sass for k in range(1, 17))
           and (4, False, "top4") in sass and (4, True, "top4") in sass,
           f"sweep kernels missing from the SASS: {sorted(sass)}")
-    check(sorted(exact) == list(range(1, 33)),
+    check(sorted(exact) == list(range(1, EXACT_WIDE_ABOVE + 1)),
           f"exact kNN kernels missing from the SASS: {sorted(exact)}")
 
     # the MLP backward's weight-gradient pass first: it also probes the
@@ -5097,6 +5324,13 @@ def main() -> int:
     # warp-blend and scatter, card against CPU
     t0 = time.perf_counter()
     wide = wide_k_phases(ck, bp, tmpl)
+    k40prof = wide_k_profile(ck, bp, tmpl, 40)
+    check(all(k40prof[p]["launches"][n] > 0
+              for p, n in (("step", "knn_packed_wide"),
+                           ("view", "knn_packed_wide"),
+                           ("smplx_view", "knn_exact_wide"))),
+          f"k_neigh 40 paths: {k40prof}")
+    emit({"phase": "k40_profile", **k40prof})
     for name, res in wide.items():
         emit({"phase": name, **res})
     emit({"phase": "wide_k_done", "seconds": time.perf_counter() - t0})

@@ -297,14 +297,20 @@ def test_current_maximum_skips_leave_the_top_k_rule_unchanged(cloud, group):
     in ray order, the others in Morton order) leaves tile_slots_topk
     bit-identical, distances and indices; no skipped vertex would have
     entered a tile list. k = 4 and 8 over 1,300 Morton-sorted vertices
-    (three tiles)."""
+    (three tiles); k = 33, 40 and 64, the wide kernel's per-point cull
+    (group 1), over 4,100 (nine tiles)."""
+    for ks, extra in (((4, 8), 0), ((33, 40, 64), 2800)):
+        _check_current_maximum_skips(cloud, group, ks, extra)
+
+
+def _check_current_maximum_skips(cloud, group, ks, extra):
     if cloud == "grid":
-        pts, verts = _grid_cloud(1300, 64, seed=8)
+        pts, verts = _grid_cloud(1300 + extra, 64, seed=8)
     else:
         pts, verts = _ray_cloud(4) if cloud == "rays" else _random_cloud(4)
         rng = np.random.default_rng(4)
         verts = np.concatenate(
-            [verts[:1], rng.normal(scale=0.3, size=(1, 400, 3))],
+            [verts[:1], rng.normal(scale=0.3, size=(1, 400 + extra, 3))],
             axis=1).astype(np.float32)
         pts = pts[:1, :64]
     verts = _morton_sorted(verts)
@@ -317,7 +323,7 @@ def test_current_maximum_skips_leave_the_top_k_rule_unchanged(cloud, group):
     _, sbox, tbox = (b.numpy()[0] for b in exact_rows(torch.from_numpy(verts)))
     lb2_tile = np.stack([_rounded_lb2(p, b) for b in tbox], 1)
     lb2_sub = np.stack([_rounded_lb2(p, b) for b in sbox], 1)
-    for k in (4, 8):
+    for k in ks:
         masks = []
         for n in range(len(p)):
             skip, entered = _sweep_skips(d2[n], lb2_tile[n], lb2_sub[n], k)
