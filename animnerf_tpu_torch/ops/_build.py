@@ -50,8 +50,9 @@ SIGNATURES = {
     "animnerf_knn_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     "animnerf_knn_top4": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                           _I, _P],
-    "animnerf_warp_blend_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    "animnerf_warp_blend_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
+    "animnerf_warp_blend_group_max_k": [_I, _P],
     "animnerf_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _P],
     "animnerf_gather_lanes": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -73,7 +74,11 @@ SIGNATURES = {
     "animnerf_knn_packed_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _P],
     "animnerf_knn_far": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
-    "animnerf_knn_mxu": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "animnerf_knn_mxu": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _P],
+    "animnerf_knn_mxu_codes": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "animnerf_knn_mxu_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _I, _I, _I, _I, _P],
 }
 
 # "knn_tile_skip" counts the kNN launches with the tile skip on (they also
@@ -87,9 +92,10 @@ SIGNATURES = {
 # "fused_mlp_f32" / "fused_mlp_bwd_f32" the MLP kernels' float32 launches
 # (also counted under "fused_mlp" / "fused_mlp_bwd"); "knn_packed_wide" /
 # "knn_exact_wide" the kNN launches on the warp-per-point kernels (also
-# counted under "knn_packed" / "knn_exact")
+# counted under "knn_packed" / "knn_exact"); "warp_blend_group" the
+# warp-blend's launches on its group kernel (also under "warp_blend")
 LAUNCHES = {"knn": 0, "knn_tile_skip": 0, "warp_blend": 0,
-            "warp_blend_view_dir": 0, "scatter": 0,
+            "warp_blend_view_dir": 0, "warp_blend_group": 0, "scatter": 0,
             "fused_mlp": 0, "fused_mlp_bwd": 0, "fused_mlp_wgrad": 0,
             "fused_mlp_f32": 0, "fused_mlp_bwd_f32": 0,
             "permute_lanes": 0, "knn_exact": 0, "knn_exact_cull": 0,

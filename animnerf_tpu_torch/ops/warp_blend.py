@@ -16,6 +16,11 @@ the backward kernel); the distances, the indices and the LBS-weight gate
 are constants (the reference runs the kNN under no_grad and the gate is
 a hard threshold); and of ``warp_blend`` (the point layout, which packs
 the rows itself as ``xyz_rows=False`` does).
+
+On the card, k up to ``WARP_GROUP_ABOVE`` runs the per-K thread kernels
+and k above it the group kernel (``GROUP_LANES`` lanes a point, up to
+``group_max_k``), whose outputs equal the thread route's; ``route=``
+asks for either (``csrc/warp_blend.cu`` states both designs).
 """
 
 from __future__ import annotations
@@ -27,6 +32,30 @@ from animnerf_tpu_torch.ops.blend import (
     gather_blend_plain,
     weighted_scatter_rows,
 )
+
+
+# the k above which the warp-blend runs its group kernel (GROUP_LANES
+# lanes a point: csrc/warp_blend.cu warp_blend_group_kernel) up to
+# group_max_k, where its shared memory ends; up to it, and only there, the
+# per-K thread kernels, and above group_max_k the run-time-k thread kernel.
+# chip_smoke.py's "warp_routes" line times both routes at K = 8, 12, 16
+# and 17 on a 2^20-point random-order cloud and on a 512^2 view's call in
+# ray order (PERF.md §6, H100 80GB HBM3 at 700 W): the group kernel is the
+# faster on both shapes from 17, at 16 on the random cloud only. (At 8
+# lanes a point it measured slower on the view's call, PERF.md §6.)
+WARP_GROUP_ABOVE = 16
+GROUP_LANES = 4  # csrc/warp_blend.cu's G
+ROUTES = (None, "thread", "group")
+GROUP_SMEM = 232448  # a block's shared memory on the H100
+
+
+def group_max_k(num_lbs: int) -> int:
+    """The largest k the group kernel takes: its block of 256 threads
+    holds 256 / GROUP_LANES points' neighbour-0 LBS float4s and 12 B
+    (distance, index, weight) a neighbour a point in GROUP_SMEM bytes (the
+    C entry animnerf_warp_blend_group_max_k reports the same)."""
+    P = 256 // GROUP_LANES
+    return (GROUP_SMEM - 16 * P * -(-num_lbs // 4)) // (12 * P)
 
 
 def spread_bits(x: torch.Tensor) -> torch.Tensor:
@@ -83,15 +112,31 @@ def pad_table_plain(table: torch.Tensor, num_lbs: int) -> torch.Tensor:
                       table[..., num_lbs:]], dim=-1)
 
 
+def group_route(route, k: int, num_lbs: int) -> bool:
+    """Whether the warp-blend at k runs its group kernel: from
+    WARP_GROUP_ABOVE + 1 to group_max_k for ``route=None``; "thread" asks
+    for the thread kernels at any k, "group" for the group kernel up to
+    group_max_k (the outputs are equal, up to the sign of a zero)."""
+    top = group_max_k(num_lbs)
+    if route not in ROUTES or (route == "group" and k > top):
+        raise ValueError(f"route {route!r} does not take k={k}: one of "
+                         f"{ROUTES}, the group kernel up to {top}")
+    return route == "group" or (route is None
+                                and WARP_GROUP_ABOVE < k <= top)
+
+
 def warp_blend_fwd(xyz_rows: torch.Tensor, dists: torch.Tensor,
                    idx: torch.Tensor, table: torch.Tensor, num_lbs: int,
                    weight_std: float, conf_gate: float,
-                   residuals: bool = True, warp_view: bool = False):
+                   residuals: bool = True, warp_view: bool = False,
+                   route: str = None):
     """Kernel on CUDA tensors, plain version on CPU tensors. -> (out, w,
     bf); with ``residuals=False`` (the no-grad callers) only out is
     written: (out, None, None). ``warp_view`` warps the view direction of
-    rows 4:7 into out rows 4:7."""
+    rows 4:7 into out rows 4:7. ``route``: None picks the kernel by k
+    (``group_route``), "thread" or "group" asks for one."""
     _check(xyz_rows, dists, idx, table, num_lbs)
+    group = group_route(route, idx.shape[1], num_lbs)
     if xyz_rows.device.type == "cpu":
         return warp_blend_fwd_plain(xyz_rows, dists, idx, table, num_lbs,
                                     weight_std, conf_gate, residuals,
@@ -114,15 +159,23 @@ def warp_blend_fwd(xyz_rows: torch.Tensor, dists: torch.Tensor,
     if Lp != num_lbs or table.data_ptr() % 16:
         padded = torch.empty((B, V, Lp + 16), dtype=torch.float32,
                              device=dev)
+    # the group kernel's row summaries: each row's largest LBS weight and
+    # its column
+    summary = (torch.empty((B, V, 2), dtype=torch.float32, device=dev)
+               if group else None)
     _build.kernel_library().call(
         "animnerf_warp_blend_fwd", xyz_rows.data_ptr(), dists.data_ptr(),
         idx.data_ptr(), table.data_ptr(),
-        None if padded is None else padded.data_ptr(), out.data_ptr(),
+        None if padded is None else padded.data_ptr(),
+        None if summary is None else summary.data_ptr(), out.data_ptr(),
         w.data_ptr() if residuals else None,
         bf.data_ptr() if residuals else None, B, N, V, k, num_lbs,
         1.0 / (2.0 * float(weight_std) ** 2), float(conf_gate),
-        int(bool(warp_view)), _build.stream_of(xyz_rows))
+        int(bool(warp_view)), int(group),
+        _build.stream_of(xyz_rows))
     _build.LAUNCHES["warp_blend"] += 1
+    if group:
+        _build.LAUNCHES["warp_blend_group"] += 1
     if warp_view:
         _build.LAUNCHES["warp_blend_view_dir"] += 1
     return out, w, bf

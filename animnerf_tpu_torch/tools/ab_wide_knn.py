@@ -1,5 +1,5 @@
-"""Kernels 8 and 9 above 16 neighbours on several checkouts of the port, on
-one GPU.
+"""Kernels 8 and 9 above 16 neighbours, kernel 2 at wide K and kernel 10
+on several checkouts of the port, on one GPU.
 
     python3 animnerf_tpu_torch/tools/ab_wide_knn.py ROOT_A ROOT_B [ROOT ...]
 
@@ -9,11 +9,16 @@ code for every root, so two checkouts are measured alike): kernel 8 at K
 = 40 on 2^20 points around the posed seed-0 SMPL rig and kernel 9 at K =
 40 on 2^18 points around the SMPL-X rig (``kernel_lines_wide_k``'s
 clouds, random order; each output checked against its plain version,
-CUDA-event medians), then ``wide_k_profile`` at k_neigh 40 (the bench.py
-step, a scale512 view and an SMPL-X view at 512x512, each with its
-profiled device-busy time and the kNN's share). Give the roots as parent,
-change, change, parent to see the drift over the call. Prints one JSON
-line a measurement, tagged with its root and run, then one summary line.
+CUDA-event medians); kernel 2 at K = 24 and 40 on the packed kNN's
+neighbours of the SMPL cloud (within 1e-4 of its plain version); kernel
+10 in both precisions on the kNN tool's 16 x 65536 x 6890 (the sorted
+squared distances within eps = 2^-19 (|p| + max |v|)^2 of its plain
+version's, as ``ops/knn_mxu.py`` states); then ``wide_k_profile`` at
+k_neigh 40 (the bench.py step, a scale512 view and an SMPL-X view at
+512x512, each with its profiled device-busy time, the kNN's share and
+the warp-blend's ms). Give the roots as parent, change, change, parent to
+see the drift over the call. Prints one JSON line a measurement, tagged
+with its root and run, then one summary line.
 """
 
 from __future__ import annotations
@@ -29,14 +34,14 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 MEASURE_ROOT = os.path.dirname(os.path.dirname(HERE))
 K = 40
+WARP_KS = (24, 40)  # kernel 2's lines
 
 
 def knn_lines(cs) -> dict:
-    """Kernels 8 and 9 at K on kernel_lines_wide_k's clouds."""
-    import numpy as np
+    """Kernels 8 and 9 at K on kernel_lines_wide_k's clouds, kernel 2 at
+    WARP_KS on the SMPL cloud's packed neighbours."""
     import torch
 
-    from animnerf_tpu_torch.data.synthetic import random_pose_params
     from animnerf_tpu_torch.models.warp import prepare_frame
     from animnerf_tpu_torch.ops.knn_kernel import (
         knn_exact,
@@ -44,26 +49,21 @@ def knn_lines(cs) -> dict:
         knn_packed,
         knn_packed_plain,
     )
+    from animnerf_tpu_torch.ops.warp_blend import (
+        warp_blend_fwd,
+        warp_blend_fwd_plain,
+    )
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(24)
-    pose = random_pose_params(24, batch=1, seed=4)
-    tmpl = random_pose_params(24, batch=1, seed=2)
-    tmpl["transl"] = np.zeros_like(tmpl["transl"])
+    verts, pts, rows, table, J = cs.smpl_wide_cloud(dev, g)
     with torch.no_grad():
-        ctx = prepare_frame(cs.smpl_rig().to(dev), cs.tensors(pose, dev),
-                            cs.tensors(tmpl, dev))
         xctx = prepare_frame(cs.smplx_rig().to(dev),
                              cs.tensors(cs.smplx_params(1, 1), dev),
                              cs.tensors(cs.smplx_params(1, 2,
                                                         zero_transl=True),
                                         dev))
-    verts = ctx.verts_morton.contiguous()
     xverts = xctx.verts_morton.contiguous()
-    N = 1 << 20
-    pick = torch.randint(0, verts.shape[1], (N,), generator=g, device=dev)
-    pts = (verts[0, pick] + 0.05 * torch.randn(N, 3, generator=g,
-                                               device=dev))[None]
     XN = cs.WIDE_EXACT_POINTS
     xpick = torch.randint(0, xverts.shape[1], (XN,), generator=g,
                           device=dev)
@@ -85,6 +85,45 @@ def knn_lines(cs) -> dict:
         out[name] = {"shape": f"points {tuple(p.shape)} verts "
                               f"{tuple(v.shape)} K={K}",
                      "ms": cs.time_ms(lambda: fn(p, v, K), 10)}
+    for k in WARP_KS:
+        d, i = knn_packed(pts, verts, k)
+        args = (rows, d, i, table, J, 0.1, 0.9)
+        got, want = warp_blend_fwd(*args), warp_blend_fwd_plain(*args)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        cs.check(err <= 1e-4, f"warp_blend K={k}: max err {err}")
+        out[f"warp_blend_k{k}"] = {
+            "shape": f"knn {tuple(i.shape)} table {tuple(table.shape)}",
+            "max_abs_err": err,
+            "ms": cs.time_ms(lambda: warp_blend_fwd(*args), 10)}
+        del d, i, got, want
+    return out
+
+
+def mxu_lines(cs) -> dict:
+    """Kernel 10 in both precisions on the kNN tool's inputs, its sorted
+    squared distances within eps of its plain version's."""
+    import torch
+
+    from animnerf_tpu_torch.ops.knn_mxu import knn_mxu, knn_mxu_plain
+    from animnerf_tpu_torch.tools.bench_knn import make_inputs
+
+    verts, sets = make_inputs(16, 65536)
+    verts = torch.from_numpy(verts).to("cuda")
+    pts = torch.from_numpy(sets[0]).to("cuda")
+    c = verts.double().mean(dim=1, keepdim=True)
+    rv = (verts.double() - c).norm(dim=-1).amax(dim=1, keepdim=True)
+    eps = 2.0 ** -19 * ((pts.double() - c).norm(dim=-1) + rv) ** 2
+    out = {}
+    for prec, name in (("highest", "knn_mxu"), ("default", "knn_mxu_default")):
+        d = knn_mxu(pts, verts, 4, prec)[0].double() ** 2
+        dp = knn_mxu_plain(pts, verts, 4, prec,
+                           max_elems=cs.PLAIN_MAX_ELEMS)[0].double() ** 2
+        dev = float(((d - dp).abs() / eps[..., None]).max())
+        cs.check(dev <= 1.0, f"{name}: d2 {dev} eps from its plain version")
+        out[name] = {"max_d2_dev_over_eps": dev,
+                     "ms": cs.time_ms(lambda: knn_mxu(pts, verts, 4, prec),
+                                      10)}
     return out
 
 
@@ -101,6 +140,7 @@ def run_one(root: str, run: int) -> None:
         cs.emit({"root": root, "run": run, "name": name, **obj})
 
     emit("knn_lines", knn_lines(cs))
+    emit("mxu_lines", mxu_lines(cs))
     ck, _, bp, tmpl, _ = cs.scale512("cuda")
     emit("k40_profile", cs.wide_k_profile(ck, bp, tmpl, K))
 
@@ -134,13 +174,18 @@ def main() -> int:
             "seconds": time.perf_counter() - t0,
             **{f"{n}_k{K}_ms": by["knn_lines"][n]["ms"]
                for n in ("knn_packed", "knn_exact")},
+            **{f"warp_blend_k{k}_ms": by["knn_lines"][f"warp_blend_k{k}"][
+                "ms"] for k in WARP_KS},
+            **{f"{n}_ms": by["mxu_lines"][n]["ms"]
+               for n in ("knn_mxu", "knn_mxu_default")},
             **{f"{p}_{key}": prof[p][src] if src == "median_ms"
                else prof[p]["profile"][src]
                for p in ("step", "view", "smplx_view")
                for key, src in (("median_ms", "median_ms"),
                                 ("busy_ms", "device_busy_ms"),
                                 ("knn_ms", "knn_ms"),
-                                ("knn_share", "knn_share_of_busy"))}})
+                                ("knn_share", "knn_share_of_busy"),
+                                ("warp_blend_ms", "warp_blend_ms"))}})
     print(json.dumps({"summary": summary}), flush=True)
     return 0
 

@@ -36,8 +36,10 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      tie grid), each bit-equal to its plain version; the scatter at K in
      {1, 4, 8, 16} with one, two and three radix passes (bit-equal to its
      plain version and to a second run) and the warp-blend on every
-     family's row width and an unaligned table (within 1e-4, residual-free
-     out bit-equal);
+     family's row width and an unaligned table at K in {1, 4, 8, 16, 24,
+     33, 40, 64}, from 24 also with ``warp_view`` and on a table of V = K
+     rows (within 1e-4, residual-free out bit-equal, the group kernel
+     bit-equal to the thread route);
   4. serving: the trained scale512 checkpoint on the seed-3 SMPL rig, a
      512x512 turntable rendered through ``Renderer.render_stream``,
      launch counts reset just before and read just after; then one more
@@ -180,17 +182,25 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
  13a. above 16 neighbours: kernel lines of kernels 8 and 9 at K in
      WIDE_KNN_KS (17-160: the kernel that ran, its swept share and both
      bounds; ``knn_routes``: both routes' times at the thresholds on two
-     shapes) and of kernels 2 and 5 at {17, 24, 32, 40} (each
-     against its plain version: the kNN bit-equal, the warp-blend and
-     scatter within their K = 8 tolerances), then the main paths at
-     k_neigh 24 and 40 with their launch counts: a training step card
+     shapes), of kernel 2 at {17, 24, 32, 40, 64, 128} (its group
+     kernel bit-equal to the thread route, warp_blend_fwd_any, and within
+     1e-4 of its plain version, both routes' times; 2^16 points from 64
+     on) and
+     of kernel 5 at {17, 24, 32, 40} (within its K = 8 tolerance), then
+     the main paths at k_neigh 24 and 40 with their launch counts (every
+     warp-blend launch on the group kernel): a training step card
      against CPU on the rigid SMPL rig, a 64x64 view (24) and a 32x32
      SMPL-X view (kernel 9); then k40_profile (the bench.py step, a 512^2
      SMPL view and a 512^2 SMPL-X view at k_neigh 40, each timed and
-     profiled); the far pass's line carries its device time from the
-     profiler beside the CUDA-event time;
- 14. the matmul-form kNN (kernel 10) at "highest" and "default" against
-     its plain version at the kNN tool's shapes, then the port's kNN tool
+     profiled) and warp_routes (kernel 2's routes at K = 8, 12, 16, 17 on
+     a random-order cloud and a view's call, bit-equal); the far
+     pass's line carries its device time from the profiler beside the
+     CUDA-event time;
+ 14. the matmul-form kNN (kernel 10, on the tensor cores) at "highest"
+     and "default" against its plain version at the kNN tool's shapes and
+     on a 1/64 tie grid (``mxu_check``: sorted d2 within eps, an index
+     differing only at near-ties; the operands packed on the card
+     bit-equal to ``mxu_operands``), then the port's kNN tool
      (``animnerf_tpu_torch/tools/bench_knn.py``): every row, with the
      launch counts reset just before and read just after;
  15. the kernels summary line (with each kernel's launches in the fit
@@ -1191,6 +1201,28 @@ def f32_smem_check() -> dict:
     return out
 
 
+def group_max_k_check() -> dict:
+    """The warp-blend group kernel's largest k as the C entry
+    animnerf_warp_blend_group_max_k reports it, against its host
+    restatement ops/warp_blend.py::group_max_k, at each family's LBS
+    width."""
+    import ctypes
+
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.ops.warp_blend import group_max_k
+
+    out = {}
+    for num_lbs in (5, 16, 24, 52, 55):
+        got = ctypes.c_int()
+        _build.kernel_library().call("animnerf_warp_blend_group_max_k",
+                                     num_lbs, ctypes.addressof(got))
+        want = group_max_k(num_lbs)
+        check(got.value == want, f"group kernel max k at num_lbs "
+              f"{num_lbs}: C {got.value}, host {want}")
+        out[f"num_lbs {num_lbs}"] = got.value
+    return out
+
+
 def fwd_flops(n_freqs: int) -> float:
     """The MLP forward's operations a point (2 a multiply-add): xyz_0 and
     the skip's enc half over the 3 + 6 n_freqs encoding columns, the
@@ -1819,7 +1851,7 @@ def kernel_line_wgrad(dev, sass: dict):
                     lambda: wgrad_from_scratch_plain(scratch, heads, rows,
                                                      chunk), 3,
                     warmup=1) * scale,
-                bound_ms=bound, bound_by="bytes", pct_of_bound=bound / ms,
+                bound_ms=bound, bound_by="bytes", pct_of_bound=100.0 * bound / ms,
                 achieved_tb_s=(1 << 20) * 9872 / (ms / 1e3) / 1e12,
                 prev_ms=PREV_WGRAD_MS,
                 library_ms=time_ms(library, 10) * scale,
@@ -1932,22 +1964,18 @@ def kernel_lines_edge_scatter_warp(dev):
     N = 20,011: a ragged last tile) and three (B V = 275,600 > 2^18), half
     of the first neighbours on one row, zero weights and zero cotangent
     columns: each bit-equal to its plain version and to a second run. The
-    warp-blend at K in {1, 4, 8, 16} on each family's row (LBS part 5, 16,
-    24, 52, 55: FLAME, MANO, SMPL, SMPL-H, SMPL-X; padded to 4 floats where
-    it is not a multiple) and on an SMPL table 4 bytes off 16-byte
+    warp-blend (``edge_warp_line``) at K in {1, 4, 8, 16} and EDGE_WIDE_KS
+    (the latter also with ``warp_view``) on each family's row (LBS part 5,
+    16, 24, 52, 55: FLAME, MANO, SMPL, SMPL-H, SMPL-X; padded to 4 floats
+    where it is not a multiple) and on an SMPL table 4 bytes off 16-byte
     alignment (padded too), one-hot LBS columns so that several neighbours
-    blend: within 1e-4 of its plain version, the residual-free out
-    bit-equal to the full mode's."""
+    blend; at EDGE_WIDE_KS also on a table of V = K rows."""
     import torch
 
     from animnerf_tpu_torch.ops.blend import (
         radix_passes,
         weighted_scatter_rows,
         weighted_scatter_rows_plain,
-    )
-    from animnerf_tpu_torch.ops.warp_blend import (
-        warp_blend_fwd,
-        warp_blend_fwd_plain,
     )
 
     g = torch.Generator(device=dev).manual_seed(9)
@@ -1984,27 +2012,67 @@ def kernel_lines_edge_scatter_warp(dev):
                              device=dev)
         table[0, :, :num_lbs] = torch.nn.functional.one_hot(
             bone, num_lbs).float()
-        for K in (1, 4, 8, 16):
+        for K in (1, 4, 8, 16) + EDGE_WIDE_KS:
             idx = torch.randint(0, V, (1, K, N), generator=g, device=dev,
                                 dtype=torch.int32)
-            d = torch.rand(1, K, N, generator=g, device=dev).sort(1)[0]
-            rows = torch.zeros(1, 8, N, device=dev)
-            rows[0, :3] = torch.randn(3, N, generator=g, device=dev)
-            args = (rows, d.contiguous(), idx, table, num_lbs, 0.1, 0.9)
-            out = warp_blend_fwd(*args)
-            outp = warp_blend_fwd_plain(*args)
-            o = warp_blend_fwd(*args, residuals=False)[0]
-            torch.cuda.synchronize()
-            err = max(float((a - b).abs().max()) for a, b in zip(out, outp))
-            same = bool(torch.equal(o, out[0]))
-            check(err <= 1e-4 and same, f"edge warp_blend K={K} "
-                  f"num_lbs={num_lbs} aligned={aligned}: max err {err}, "
-                  f"residual-free out bit-equal {same}")
-            lines[f"warp_blend_k{K}_f{F}{'' if aligned else '_off16'}"] = \
-                dict(shape=f"knn (1,{K},{N}) table (1,{V},{F})",
-                     max_abs_err=err, tolerance=1e-4,
-                     out_only_bit_equal=same)
+            views = (False, True) if K in EDGE_WIDE_KS else (False,)
+            for view in views:
+                lines[f"warp_blend_k{K}_f{F}{'' if aligned else '_off16'}"
+                      f"{'_view' if view else ''}"] = edge_warp_line(
+                    g, idx, table, num_lbs, view)
+    # V = K: every vertex a neighbour of every point, in random order
+    table = torch.randn(1, 64, 40, generator=g, device=dev)
+    table[0, :, :24] = torch.nn.functional.one_hot(torch.randint(
+        0, 3, (64,), generator=g, device=dev), 24).float()
+    for K in EDGE_WIDE_KS:
+        idx = torch.argsort(torch.rand(1, K, N, generator=g, device=dev),
+                            dim=1).to(torch.int32)
+        lines[f"warp_blend_k{K}_v{K}"] = edge_warp_line(
+            g, idx, table[:, :K].contiguous(), 24, False)
     return lines
+
+
+def edge_warp_line(g, idx, table, num_lbs: int, warp_view: bool) -> dict:
+    """Kernel 2 at an edge shape (the neighbours idx (1, K, N) of table,
+    sorted random distances, random xyz and, with ``warp_view``, view rows):
+    within 1e-4 of its plain version, the residual-free out bit-equal to
+    the full mode's, and above WARP_GROUP_ABOVE (the group kernel) bit-equal
+    to the thread route."""
+    import torch
+
+    from animnerf_tpu_torch.ops.warp_blend import (
+        group_route,
+        warp_blend_fwd,
+        warp_blend_fwd_plain,
+    )
+
+    _, K, N = idx.shape
+    dev = idx.device
+    d = torch.rand(1, K, N, generator=g, device=dev).sort(1)[0]
+    rows = torch.zeros(1, 8, N, device=dev)
+    rows[0, :3] = torch.randn(3, N, generator=g, device=dev)
+    if warp_view:
+        rows[0, 4:7] = torch.randn(3, N, generator=g, device=dev)
+    args = (rows, d.contiguous(), idx, table, num_lbs, 0.1, 0.9)
+    kw = {"warp_view": warp_view}
+    out = warp_blend_fwd(*args, **kw)
+    outp = warp_blend_fwd_plain(*args, **kw)
+    o = warp_blend_fwd(*args, residuals=False, **kw)[0]
+    old = warp_blend_fwd(*args, route="thread", **kw)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(out, outp))
+    same = bool(torch.equal(o, out[0]))
+    group = group_route(None, K, num_lbs)
+    thread_equal = all(torch.equal(a, b) for a, b in zip(out, old))
+    check(err <= 1e-4 and same and thread_equal,
+          f"edge warp_blend K={K} table {tuple(table.shape)} num_lbs="
+          f"{num_lbs} view={warp_view}: max err {err}, residual-free out "
+          f"bit-equal {same}, bit-equal to the thread route {thread_equal}")
+    return dict(shape=f"knn (1,{K},{N}) table {tuple(table.shape)}"
+                      f"{' warp_view' if warp_view else ''}",
+                route="group" if group else "thread", max_abs_err=err,
+                tolerance=1e-4, out_only_bit_equal=same,
+                bit_equal_to_thread=thread_equal)
 
 
 def morton_sorted(x):
@@ -2146,9 +2214,13 @@ def kernel_lines_smplx(dev, exact: dict):
     return lines
 
 
-# the neighbour counts above 16 of kernels 2 and 5 (kernel 2 on its K = 32
-# instantiation to 32, its run-time-k version at 40)
+# the neighbour counts above 16 of kernel 5
 WIDE_KS = (17, 24, 32, 40)
+# kernel 2's: its group kernel above ops/warp_blend.py WARP_GROUP_ABOVE,
+# held bit for bit to the thread route there (the run-time-k kernel)
+WARP_WIDE_KS = (17, 24, 32, 40, 64, 128)
+# kernel 2's routes timed either side of the threshold ("warp_routes")
+WARP_ROUTE_KS = (8, 12, 16, 17)
 # kernels 8 and 9: either side of the threshold (ops/knn_kernel.py
 # PACKED_WIDE_ABOVE, EXACT_WIDE_ABOVE), of each register list's size and of
 # the cap (knn_wide::CAP), and one k above it (the global-memory versions)
@@ -2160,6 +2232,156 @@ WIDE_EXACT_POINTS = 1 << 18
 # (the plain versions' loops and the global-memory versions grow with k)
 WIDE_BIG_K = 64
 WIDE_BIG_K_POINTS = 1 << 16
+
+
+def smpl_wide_cloud(dev, g):
+    """The wide-K lines' SMPL cloud, drawn from g: the posed seed-0 rig's
+    Morton-ordered vertices (1, 6890, 3), 2^20 points around them in
+    random order, their (1, 8, N) rows, and the rig's table with one-hot
+    LBS columns (so that several neighbours pass the gate) -> (verts, pts,
+    rows, table, J)."""
+    import torch
+
+    from animnerf_tpu_torch.data.synthetic import random_pose_params
+    from animnerf_tpu_torch.models.warp import prepare_frame
+
+    pose = random_pose_params(24, batch=1, seed=4)
+    tmpl = random_pose_params(24, batch=1, seed=2)
+    tmpl["transl"] = np.zeros_like(tmpl["transl"])
+    with torch.no_grad():
+        ctx = prepare_frame(smpl_rig().to(dev), tensors(pose, dev),
+                            tensors(tmpl, dev))
+    verts = ctx.verts_morton.contiguous()
+    V, J = verts.shape[1], ctx.lbs_weights.shape[1]
+    N = 1 << 20
+    pick = torch.randint(0, V, (N,), generator=g, device=dev)
+    pts = (verts[0, pick] + 0.05 * torch.randn(N, 3, generator=g,
+                                               device=dev))[None]
+    rows = torch.nn.functional.pad(pts.transpose(1, 2),
+                                   (0, 0, 0, 5)).contiguous()
+    table = ctx.table_morton.clone()
+    table[..., :J] = torch.nn.functional.one_hot(
+        table[..., :J].argmax(-1), J).to(table.dtype)
+    return verts, pts, rows, table, J
+
+
+def warp_blend_bound_ms(args) -> float:
+    """Kernel 2's bound on (rows, dists, idx, table, ...) without the view
+    direction: the inputs once (3 xyz floats, K distances and indices a
+    point, the table) and the full mode's outputs once (8 + K + 16 floats
+    a point), or its f32 operations, the larger."""
+    rows, d, idx, table, J = args[:5]
+    B, K, N = idx.shape
+    nbytes = (3 * B * N + 2 * d.numel() + table.numel()
+              + B * N * (8 + K + 16)) * 4
+    return max(nbytes / PEAK_BYTES,
+               B * N * (K * (3 * J + 40) + 100) / PEAK_F32) * 1e3
+
+
+def warp_wide_line(args: tuple, reps: int, preps: int,
+                   cut: str = "") -> dict:
+    """Kernel 2 on (rows, dists, idx, table, num_lbs, std, gate) at wide K:
+    the route warp_blend_fwd takes (the group kernel above
+    WARP_GROUP_ABOVE) bit-equal to the thread route, within
+    1e-4 of the plain version (every output), its residual-free out
+    bit-equal to the full mode's; both routes' times, the residual-free
+    time, the bound and its share, the gathered table bytes."""
+    import torch
+
+    from animnerf_tpu_torch.ops.warp_blend import (
+        group_route,
+        warp_blend_fwd,
+        warp_blend_fwd_plain,
+    )
+
+    rows, d, idx, table, J = args[:5]
+    B, K, N = idx.shape
+    out = warp_blend_fwd(*args)
+    old = warp_blend_fwd(*args, route="thread")
+    outp = warp_blend_fwd_plain(*args)
+    o = warp_blend_fwd(*args, residuals=False)[0]
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(out, outp))
+    same = all(torch.equal(a, b) for a, b in zip(out, old))
+    tol = 1e-4
+    check(err <= tol and same and torch.equal(o, out[0]),
+          f"warp_blend K={K}: max err {err} > {tol}, bit-equal to the "
+          f"thread route {same}, or the residual-free out differs")
+    multi = float((out[1][:, 1:] > 0).any(dim=1).float().mean())
+    check(multi > 0.1, f"warp_blend K={K}: only {multi} of the points "
+          "blend more than one neighbour")
+    del out, old, outp, o
+    line = dict(
+        shape=f"rows ({B},8,{N}) knn ({B},{K},{N}) table "
+              f"{tuple(table.shape)} one-hot LBS{cut}",
+        route="group" if group_route(None, K, J) else "thread",
+        max_abs_err=err, tolerance=tol, bit_equal_to_thread=same,
+        out_only_bit_equal=True, share_blending_2_or_more=multi,
+        gathered_bytes=B * N * K * table.shape[2] * 4,
+        ms=time_ms(lambda: warp_blend_fwd(*args), reps),
+        thread_ms=time_ms(lambda: warp_blend_fwd(*args, route="thread"),
+                          reps),
+        out_only_ms=time_ms(lambda: warp_blend_fwd(*args, residuals=False),
+                            reps),
+        plain_ms=time_ms(lambda: warp_blend_fwd_plain(*args), preps),
+        bound_ms=warp_blend_bound_ms(args), bound_by="bytes",
+        library_ms=None, library_call=WARP_BLEND_LIBRARY)
+    line["pct_of_bound"] = 100.0 * line["bound_ms"] / line["ms"]
+    return line
+
+
+def warp_route_times(args: tuple, reps: int) -> dict:
+    """Kernel 2's routes on one call's arguments: the thread kernels and
+    the group kernel, its outputs compared bit for bit with the thread
+    route's."""
+    import torch
+
+    from animnerf_tpu_torch.ops.warp_blend import warp_blend_fwd
+
+    old = warp_blend_fwd(*args, route="thread")
+    got = warp_blend_fwd(*args, route="group")
+    torch.cuda.synchronize()
+    return dict(
+        group_bit_equal=all(torch.equal(a, b) for a, b in zip(got, old)),
+        thread_ms=time_ms(lambda: warp_blend_fwd(*args, route="thread"),
+                          reps),
+        group_ms=time_ms(lambda: warp_blend_fwd(*args, route="group"),
+                         reps))
+
+
+def warp_routes(ck, bp, tmpl) -> dict:
+    """Kernel 2's routes either side of WARP_GROUP_ABOVE (WARP_ROUTE_KS)
+    on two shapes: the wide-K lines' 2^20 random-order SMPL cloud with the
+    packed kNN's K neighbours, and the first warp-blend call of view 29 at
+    512x512 with k_neigh K (the scale512 weights on the one-hot rig), in
+    ray order. The group kernel must be bit-equal to the thread route at
+    every K."""
+    import torch
+
+    from animnerf_tpu_torch.ops.knn_kernel import knn_packed
+    from animnerf_tpu_torch.ops.warp_blend import GROUP_LANES, WARP_GROUP_ABOVE
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    verts, pts, rows, table, J = smpl_wide_cloud("cuda", g)
+    out = {"threshold": WARP_GROUP_ABOVE, "group_lanes": GROUP_LANES}
+    for K in WARP_ROUTE_KS:
+        d, i = knn_packed(pts, verts, K)
+        system = scale512_system(ck, "cuda", rigid=True, k_neigh=K)
+        call = capture_warp_blend(view_fn(system, bp, tmpl, 29))[0]["args"]
+        del system
+        res = {}
+        for shape, args in (("random_order", (rows, d, i, table, J, 0.1,
+                                              0.9)),
+                            ("view_ray_order", call)):
+            res[shape] = dict(points=int(args[2].shape[2]),
+                              **warp_route_times(args, 10))
+            check(res[shape]["group_bit_equal"],
+                  f"warp_routes K={K} {shape}: the group kernel "
+                  "differs from the thread route")
+        out[K] = res
+        del d, i, call
+    torch.cuda.empty_cache()
+    return out
 
 
 def knn_instantiation(kernel: int, k: int) -> str:
@@ -2246,13 +2468,12 @@ def kernel_lines_wide_k(dev, exact: dict) -> dict:
     those points and on a second shape (kernel 8: the training batch
     (16, 32768); kernel 9: the same points in Morton order), the outputs
     bit-equal across the routes; the warp-blend on
-    the packed kNN's K neighbours with one-hot LBS columns within the K =
-    8 line's 1e-4; the scatter at the training step's (16, K, 32768) ->
+    the packed kNN's K neighbours (K in WARP_WIDE_KS, ``warp_wide_line``);
+    the scatter at the training step's (16, K, 32768) ->
     (16, 6890, 16), bit-equal and within the K = 8 line's tolerance.
     Times, bounds and library calls as the K = 4 and 8 lines'."""
     import torch
 
-    from animnerf_tpu_torch.data.synthetic import random_pose_params
     from animnerf_tpu_torch.models.warp import prepare_frame
     from animnerf_tpu_torch.ops.blend import (
         weighted_scatter_rows,
@@ -2264,31 +2485,12 @@ def kernel_lines_wide_k(dev, exact: dict) -> dict:
         knn_exact,
         knn_packed,
     )
-    from animnerf_tpu_torch.ops.warp_blend import (
-        warp_blend_fwd,
-        warp_blend_fwd_plain,
-    )
 
     g = torch.Generator(device=dev).manual_seed(24)
     reps, preps = 5, 1
     lines = {}
-    pose = random_pose_params(24, batch=1, seed=4)
-    tmpl = random_pose_params(24, batch=1, seed=2)
-    tmpl["transl"] = np.zeros_like(tmpl["transl"])
-    with torch.no_grad():
-        ctx = prepare_frame(smpl_rig().to(dev), tensors(pose, dev),
-                            tensors(tmpl, dev))
-    verts = ctx.verts_morton.contiguous()
-    V, J = verts.shape[1], ctx.lbs_weights.shape[1]
-    N = 1 << 20
-    pick = torch.randint(0, V, (N,), generator=g, device=dev)
-    pts = (verts[0, pick] + 0.05 * torch.randn(N, 3, generator=g,
-                                               device=dev))[None]
-    rows = torch.nn.functional.pad(pts.transpose(1, 2),
-                                   (0, 0, 0, 5)).contiguous()
-    table = ctx.table_morton.clone()
-    table[..., :J] = torch.nn.functional.one_hot(
-        table[..., :J].argmax(-1), J).to(table.dtype)
+    verts, pts, rows, table, J = smpl_wide_cloud(dev, g)
+    V, N = verts.shape[1], pts.shape[1]
     with torch.no_grad():
         xctx = prepare_frame(smplx_rig().to(dev),
                              tensors(smplx_params(1, 1), dev),
@@ -2329,39 +2531,16 @@ def kernel_lines_wide_k(dev, exact: dict) -> dict:
         lines[f"knn_exact_k{K}"] = dict(
             exact_line(p9, xverts, K, exact if K <= EXACT_WIDE_ABOVE else {},
                        reps=reps), instantiation=knn_instantiation(9, K))
+        if K in WARP_WIDE_KS:
+            # -- kernel 2 on those neighbours (from WIDE_BIG_K on, fewer)
+            n2 = WIDE_BIG_K_POINTS if few else N
+            d, i = knn_packed(pts[:, :n2], verts, K)
+            lines[f"warp_blend_k{K}"] = warp_wide_line(
+                (rows[..., :n2].contiguous(), d, i, table, J, 0.1, 0.9),
+                reps, preps, " (2^16 points)" if few else "")
+            del d, i
         if K not in WIDE_KS:
             continue
-        d, i = knn_packed(pts, verts, K)
-        # -- kernel 2 on those neighbours
-        args = (rows, d, i, table, J, 0.1, 0.9)
-        out = warp_blend_fwd(*args)
-        outp = warp_blend_fwd_plain(*args)
-        o = warp_blend_fwd(*args, residuals=False)[0]
-        torch.cuda.synchronize()
-        err = max(float((a - b).abs().max()) for a, b in zip(out, outp))
-        tol = 1e-4
-        check(err <= tol and torch.equal(o, out[0]),
-              f"warp_blend K={K}: max err {err} > {tol}, or the "
-              "residual-free out differs")
-        multi = float((out[1][:, 1:] > 0).any(dim=1).float().mean())
-        check(multi > 0.1, f"warp_blend K={K}: only {multi} of the points "
-              "blend more than one neighbour")
-        wb_bytes = (3 * N + 2 * d.numel() + table.numel()
-                    + sum(t.numel() for t in out)) * 4
-        lines[f"warp_blend_k{K}"] = dict(
-            shape=f"rows (1,8,{N}) knn (1,{K},{N}) table "
-                  f"{tuple(table.shape)} one-hot LBS", max_abs_err=err,
-            tolerance=tol, share_blending_2_or_more=multi,
-            ms=time_ms(lambda: warp_blend_fwd(*args), reps),
-            out_only_ms=time_ms(lambda: warp_blend_fwd(*args,
-                                                       residuals=False),
-                                reps),
-            plain_ms=time_ms(lambda: warp_blend_fwd_plain(*args), preps),
-            bound_ms=max(wb_bytes / PEAK_BYTES,
-                         N * (K * (3 * J + 40) + 100) / PEAK_F32) * 1e3,
-            bound_by="bytes", library_ms=None,
-            library_call=WARP_BLEND_LIBRARY)
-        del d, i, out, outp, o
         # -- kernel 5 at the training step's shape
         _, si = knn_packed(spts, sverts, K)
         w = torch.rand(B, K, NS, generator=g, device=dev)
@@ -2396,15 +2575,107 @@ def kernel_lines_wide_k(dev, exact: dict) -> dict:
     return lines
 
 
-def kernel_lines_mxu(dev):
+def mxu_sass(funcs: dict) -> dict:
+    """Instruction counts of kernel 10's SASS (csrc/knn_mxu.cu
+    knn_mxu_mma_kernel<KC>, KC = 1 "default", 2 "highest"): its tensor-core
+    products (HMMA) and local-memory spills (STL / LDL)."""
+    import re
+
+    out = {}
+    for name, ins in funcs.items():
+        m = re.search(r"knn_mxu_mma_kernelILi(\d)E", name)
+        if m:
+            out[f"KC={m.group(1)}"] = {
+                op: sum(t.split()[0].split(".")[0] == op for _, t in ins)
+                for op in ("HMMA", "STL", "LDL")}
+    return out
+
+
+def mxu_pair_d2(P, A, b, n, v):
+    """The plain version's d2 of the pairs (b, n, v) (index tensors of one
+    shape): the rows P (B, 8, N) and A (B, V, 8) multiplied and summed left
+    to right, each operation rounded on its own (``mxu_d2``'s order)."""
+    Pg, Ag = P[b, :, n], A[b, v]
+    d2 = Ag[..., 0] * Pg[..., 0]
+    for col in range(1, 8):
+        d2 = d2 + Ag[..., col] * Pg[..., col]
+    return d2
+
+
+def mxu_check(pts, verts, got, want, precision: str) -> dict:
+    """Kernel 10's outputs got = (d, i) against its plain version's want,
+    both (B, N, 4) ascending: (a) the squared distances slot by slot
+    within eps (``ops/knn_mxu.py::mxu_eps``, plus 2^-21 of d2 for the
+    square root's rounding), (b) where an index differs, the plain d2s of
+    the two candidates within 2 eps of each other. Returns the largest
+    deviation and its share of eps, the index mismatches, how many of them
+    are near-ties (within 2 eps) and exact ties, and "ok"."""
+    import torch
+
+    from animnerf_tpu_torch.ops.knn_mxu import (
+        EPS_SCALE,
+        augmented_rows,
+        mxu_eps,
+    )
+
+    (d, i), (dp, ip) = got, want
+    eps = mxu_eps(pts, verts)[..., None]
+    d2, d2p = d.double() ** 2, dp.double() ** 2
+    dev_a = (d2 - d2p).abs()
+    ok_a = bool((dev_a <= eps + 2.0 ** -21 * torch.maximum(d2, d2p)).all())
+    P, A = augmented_rows(pts, verts)
+    if precision == "default":
+        P = P.to(torch.bfloat16).float()
+        A = A.to(torch.bfloat16).float()
+    b, n, slot = (i != ip).nonzero(as_tuple=True)
+    gap = (mxu_pair_d2(P, A, b, n, i[b, n, slot].long()).double()
+           - mxu_pair_d2(P, A, b, n, ip[b, n, slot].long()).double()).abs()
+    near = gap <= 2 * eps[b, n, 0]
+    return dict(eps_scale=EPS_SCALE, eps_max=float(eps.max()),
+                max_d2_dev=float(dev_a.max()),
+                max_d2_dev_over_eps=float((dev_a / eps).max()),
+                max_abs_err=float((d - dp).abs().max()),
+                idx_mismatch=int(b.numel()),
+                mismatch_near_ties=int(near.sum()),
+                mismatch_exact_ties=int((gap == 0).sum()),
+                ok=ok_a and bool(near.all()))
+
+
+def mxu_bound_ms(B: int, N: int, V: int, precision: str) -> dict:
+    """Kernel 10's bounds: the live bf16 products' flops (2 x 5 a pair at
+    "default", 2 x 30 at "highest"; the kernel's padding to a depth of 16
+    / 32 is not counted) at the bf16 tensor-core rate, one compare a pair
+    at the non-FMA f32 rate and the bytes (points, vertices and outputs
+    once), the largest; and the SIMT form's (8 multiply-adds a pair at the
+    f32 FMA rate), the bound before the tensor cores, kept for the table's
+    history."""
+    from animnerf_tpu_torch.ops.knn_mxu import LIVE
+
+    pairs = float(B) * N * V
+    nbytes = B * (N * 12 + V * 12 + N * 32) / PEAK_BYTES
+    return dict(bound_ms=max(2.0 * LIVE[precision] * pairs / PEAK_BF16,
+                             pairs / PEAK_F32_NONFMA, nbytes) * 1e3,
+                bound_simt_ms=max(16.0 * pairs / PEAK_F32,
+                                  pairs / PEAK_F32_NONFMA, nbytes) * 1e3)
+
+
+def kernel_lines_mxu(dev, sass: dict):
     """Check and time the matmul-form kNN at the kNN tool's shapes (16 x
     65536 ray-like points, V=6890, the tool's first point set) in both
-    precisions. The kernel and the plain version round every product and
-    sum alike, so the outputs must be bit-equal. library_ms times the
+    precisions, each against its plain version by ``mxu_check``, and the
+    same on the 1/64-grid tie cloud (2^16 points, V = 6890), the operands
+    the card packs bit-equal to ``mxu_operands`` on both; the restated
+    bound, the SIMT one, the SASS's HMMA count. library_ms times the
     composite cdist then topk (one for both precisions)."""
     import torch
 
-    from animnerf_tpu_torch.ops.knn_mxu import knn_mxu, knn_mxu_plain
+    from animnerf_tpu_torch.ops import knn_mxu as mx
+    from animnerf_tpu_torch.ops.knn_mxu import (
+        knn_mxu,
+        knn_mxu_plain,
+        mxu_operands,
+        mxu_operands_cuda,
+    )
     from animnerf_tpu_torch.tools.bench_knn import make_inputs
 
     verts, sets = make_inputs(16, 65536)
@@ -2412,30 +2683,48 @@ def kernel_lines_mxu(dev):
     pts = torch.from_numpy(sets[0]).to(dev)
     B, N, _ = pts.shape
     V = verts.shape[1]
+    g = torch.Generator(device=dev).manual_seed(10)
+    gverts = torch.randint(-48, 49, (1, V, 3), generator=g,
+                           device=dev).float() / 64
+    gpts = torch.randint(-56, 57, (1, 1 << 16, 3), generator=g,
+                         device=dev).float() / 64
     lines = {}
     lib_ms = library_knn_ms(pts, verts, 4)
-    for prec, name in (("highest", "knn_mxu"), ("default", "knn_mxu_default")):
-        d, i = knn_mxu(pts, verts, 4, prec)
-        dp, ip = knn_mxu_plain(pts, verts, 4, prec,
-                               max_elems=PLAIN_MAX_ELEMS)
-        torch.cuda.synchronize()
-        mism = int((i != ip).sum())
-        err = float((d - dp).abs().max())
-        check(mism == 0 and err == 0.0,
-              f"{name}: {mism} index mismatches, max err {err}")
+    for prec, name, kc in (("highest", "knn_mxu", "KC=2"),
+                           ("default", "knn_mxu_default", "KC=1")):
+        for p, v in ((pts, verts), (gpts, gverts)):
+            got = mxu_operands_cuda(p, v, prec)
+            want = mxu_operands(p, v, prec)
+            check(all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                      for a, b in zip(got, want)),
+                  f"{name}: the packed operands differ from mxu_operands")
+        chk = mxu_check(pts, verts, knn_mxu(pts, verts, 4, prec),
+                        knn_mxu_plain(pts, verts, 4, prec,
+                                      max_elems=PLAIN_MAX_ELEMS), prec)
+        tie = mxu_check(gpts, gverts, knn_mxu(gpts, gverts, 4, prec),
+                        knn_mxu_plain(gpts, gverts, 4, prec,
+                                      max_elems=PLAIN_MAX_ELEMS), prec)
+        check(chk["ok"] and tie["ok"] and sass[kc]["HMMA"] > 0,
+              f"{name}: {chk}, tie cloud {tie}, SASS {sass[kc]}")
+        stats = torch.zeros(3, dtype=torch.int64, device=dev)
+        knn_mxu(pts, verts, 4, prec, stats=stats)
+        T = -(-V // 8)  # vertex tiles, two a step
         lines[name] = dict(
             shape=f"points ({B},{N},3) verts ({B},{V},3) precision {prec}",
-            max_abs_err=err, tolerance=0.0, idx_mismatch=mism,
+            **chk, tolerance="eps = 2^-19 (|p| + max|v|)^2 on d2",
+            tie_cloud=tie, sass=sass[kc], tiles_per_warp=mx.TILES,
+            insert_steps=int(stats[0]), inserts=int(stats[1]),
+            warp_steps=B * -(-N // (16 * mx.TILES)) * -(-T // 2),
+            operands_ms=time_ms(lambda: mxu_operands_cuda(pts, verts, prec),
+                                10),
             ms=time_ms(lambda: knn_mxu(pts, verts, 4, prec), 10),
             plain_ms=time_ms(lambda: knn_mxu_plain(
                 pts, verts, 4, prec, max_elems=PLAIN_MAX_ELEMS), 1, warmup=0),
-            # 8 multiply-adds (16 flops) per pair at the FMA peak, above
-            # one compare per pair at the non-FMA rate
-            bound_ms=max(16.0 * B * N * V / PEAK_F32,
-                         1.0 * B * N * V / PEAK_F32_NONFMA,
-                         B * (N * 32 + V * 32 + N * 32) / PEAK_BYTES) * 1e3,
-            bound_by="operations", library_ms=lib_ms,
+            **mxu_bound_ms(B, N, V, prec), bound_by="operations",
+            library_ms=lib_ms,
             library_call="torch.cdist + torch.topk, 32768-point chunks")
+        lines[name]["pct_of_bound"] = \
+            100.0 * lines[name]["bound_ms"] / lines[name]["ms"]
     return lines
 
 
@@ -3818,11 +4107,13 @@ def wide_k_phases(ck, bp, tmpl) -> dict:
     within the flagship step's bounds, a 64x64 view (the scale512 weights
     on the seeded rig, both dtypes' bounds; at 24) and a 32x32 SMPL-X view
     (f32; the exact kNN's plain version on the CPU loops k x V / 512 times
-    a 400-point chunk)."""
+    a 400-point chunk). Every warp-blend launch of those paths must run
+    the group kernel."""
     from animnerf_tpu_torch.ops.knn_kernel import (
         EXACT_WIDE_ABOVE,
         PACKED_WIDE_ABOVE,
     )
+    from animnerf_tpu_torch.ops.warp_blend import WARP_GROUP_ABOVE
 
     out = {}
     for k in (24, 40):
@@ -3833,6 +4124,8 @@ def wide_k_phases(ck, bp, tmpl) -> dict:
                                              "scatter", "fused_mlp_bwd"))
               and launches["knn_packed_wide"] == (
                   launches["knn_packed"] if k > PACKED_WIDE_ABOVE else 0)
+              and launches["warp_blend_group"] == (
+                  launches["warp_blend"] if k > WARP_GROUP_ABOVE else 0)
               and launches["knn"] == launches["knn_exact"] == 0,
               f"k_neigh {k} step launched the wrong kernels: {launches}")
         out[f"k{k}_train_parity"] = dict(res, launches=launches)
@@ -3842,7 +4135,9 @@ def wide_k_phases(ck, bp, tmpl) -> dict:
             check(launches["knn_packed"] > 0 and launches["knn"] == 0
                   and launches["knn_packed_wide"] == (
                       launches["knn_packed"] if k > PACKED_WIDE_ABOVE
-                      else 0),
+                      else 0)
+                  and launches["warp_blend_group"] == (
+                      launches["warp_blend"] if k > WARP_GROUP_ABOVE else 0),
                   f"k_neigh {k} view launched the wrong kNN: {launches}")
             out[f"k{k}_serve_parity"] = dict(res, launches=launches)
         res, launches = with_launches(lambda: smplx_serve_parity(
@@ -3851,6 +4146,8 @@ def wide_k_phases(ck, bp, tmpl) -> dict:
         check(launches["knn_exact"] > 0
               and launches["knn_exact_wide"] == (
                   launches["knn_exact"] if k > EXACT_WIDE_ABOVE else 0)
+              and launches["warp_blend_group"] == (
+                  launches["warp_blend"] if k > WARP_GROUP_ABOVE else 0)
               and launches["knn"] == launches["knn_packed"] == 0,
               f"SMPL-X k_neigh {k} launched the wrong kNN: {launches}")
         out[f"k{k}_smplx_parity"] = dict(res, launches=launches)
@@ -4919,13 +5216,15 @@ def main() -> int:
     funcs = library_sass(str(lib.path))
     sass = sweep_sass(funcs)
     exact = exact_sass(funcs)
+    msass = mxu_sass(funcs)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "cached": lib.cached, "library": os.path.relpath(lib.path, ROOT),
           "ptxas": ptxas,
           "sweep_sass": {f"K={k} {insert}{' tile_skip' if skip else ''}": v
                          for (k, skip, insert), v in sorted(sass.items())},
           "exact_sass": {f"K={k}": v for k, v in sorted(exact.items())},
-          "mlp_f32_smem": f32_smem_check()})
+          "mxu_sass": msass, "mlp_f32_smem": f32_smem_check(),
+          "warp_group_max_k": group_max_k_check()})
     check(all((k, False, "packed") in sass for k in range(1, 17))
           and (4, False, "top4") in sass and (4, True, "top4") in sass,
           f"sweep kernels missing from the SASS: {sorted(sass)}")
@@ -5326,6 +5625,8 @@ def main() -> int:
     wide = wide_k_phases(ck, bp, tmpl)
     k40prof = wide_k_profile(ck, bp, tmpl, 40)
     check(all(k40prof[p]["launches"][n] > 0
+              and k40prof[p]["launches"]["warp_blend_group"]
+              == k40prof[p]["launches"]["warp_blend"] > 0
               for p, n in (("step", "knn_packed_wide"),
                            ("view", "knn_packed_wide"),
                            ("smplx_view", "knn_exact_wide"))),
@@ -5333,11 +5634,12 @@ def main() -> int:
     emit({"phase": "k40_profile", **k40prof})
     for name, res in wide.items():
         emit({"phase": name, **res})
+    emit({"phase": "warp_routes", **warp_routes(ck, bp, tmpl)})
     emit({"phase": "wide_k_done", "seconds": time.perf_counter() - t0})
 
     # ---- kernel 10 and the port's kNN tool
     t0 = time.perf_counter()
-    mlines = kernel_lines_mxu("cuda")
+    mlines = kernel_lines_mxu("cuda", msass)
     for name, line in mlines.items():
         emit(dict(phase="kernel", name=name, **line))
     lines.update(mlines)

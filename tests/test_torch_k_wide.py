@@ -1,6 +1,6 @@
 """The port's packed kNN, warp-blend and weighted scatter above 16
-neighbours (k_neigh 17, 24, 32, 40; the kernels' instantiations for 24
-and 32 and their run-time-k versions above 32) against the JAX package on
+neighbours (k_neigh 17, 24, 32, 40, and 64 for the warp-blend, which
+runs its group kernel there on the card) against the JAX package on
 the CPU: the plain versions against ``knn_pallas``'s extract-min kernel
 and the warp-blend and scatter TPU kernels in interpret mode (the exact
 kNN: tests/test_torch_k_wide_exact.py)."""
@@ -57,10 +57,11 @@ def _table(verts, num_lbs, seed):
     return t
 
 
-@pytest.mark.parametrize("k", WIDE_K)
+@pytest.mark.parametrize("k", WIDE_K + [64])
 def test_warp_blend_plain_matches_kernel_at_wide_k(k):
     """warp_blend_fwd_plain with k neighbour rows against the TPU
-    warp-blend kernel in interpret mode on the packed kNN's k neighbours:
+    warp-blend kernel in interpret mode on the packed kNN's k neighbours
+    (also at 64, which the card's group kernel takes as it takes 17-40):
     the sums over k in the same order, f32 rounding only (atol 1e-5, the
     k = 2, 8 tests' bound)."""
     from animnerf_tpu.ops.warp_blend import warp_blend_fwd_pallas

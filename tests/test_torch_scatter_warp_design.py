@@ -225,3 +225,114 @@ def test_warp_blend_rows_grad_keeps_residuals_and_matches_jax_vjp(
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(jgx), atol=1e-5)
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(jgt), atol=1e-5)
     assert np.abs(t.grad.numpy()[..., J:]).max() > 0
+
+
+class _Recorder:
+    """A kernel library that records the C entries called with their
+    arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def call(self, name, *args):
+        self.calls.append((name, args))
+
+
+@pytest.mark.parametrize("k", [1, 8, 16, 17, 24, 33, 40, 200, "top",
+                               "top+1"])
+@pytest.mark.parametrize("residuals", [True, False])
+def test_k_above_the_threshold_reaches_the_group_kernel(monkeypatch, k,
+                                                         residuals):
+    """On a device tensor (the meta device, the library replaced by a
+    recorder) ``warp_blend_fwd`` asks the C entry for the group kernel
+    (GROUP_LANES lanes a point) exactly when WARP_GROUP_ABOVE < k <=
+    group_max_k(), and counts the launch under "warp_blend" and
+    "warp_blend_group"; ``route`` asks for the thread kernels at any k and
+    for the group kernel up to group_max_k() (above, it raises, as does an
+    unknown route)."""
+    from animnerf_tpu_torch.ops import _build
+
+    lib = _Recorder()
+    monkeypatch.setattr(_build, "kernel_library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "check_cuda", lambda name, *t: None)
+    B, N, V, J = 1, 100, 6890, 24
+    top = warp_blend.group_max_k(J)
+    k = {"top": top, "top+1": top + 1}.get(k, k)
+    meta = {"device": "meta"}
+    rows = torch.empty((B, 8, N), **meta)
+    d = torch.empty((B, k, N), **meta)
+    idx = torch.empty((B, k, N), dtype=torch.int32, **meta)
+    table = torch.empty((B, V, J + 16), **meta)
+    routes = [(None, warp_blend.WARP_GROUP_ABOVE < k <= top),
+              ("thread", False)] + ([("group", True)] if k <= top else [])
+    for route, group in routes:
+        _build.reset_launches()
+        lib.calls.clear()
+        out, w, bf = warp_blend_fwd(rows, d, idx, table, J, 0.1, 0.9,
+                                    residuals=residuals, route=route)
+        assert out.shape == (B, 8, N)
+        assert (w is None) == (bf is None) == (not residuals)
+        (name, args), = lib.calls
+        assert name == "animnerf_warp_blend_fwd"
+        assert len(args) == len(_build.SIGNATURES[name])
+        assert args[17] == int(group)
+        assert (args[5] is not None) == group  # the rows' summaries
+        assert args[12] == k
+        assert _build.LAUNCHES["warp_blend"] == 1
+        assert _build.LAUNCHES["warp_blend_group"] == int(group)
+    if k > top:
+        with pytest.raises(ValueError, match="route"):
+            warp_blend_fwd(rows, d, idx, table, J, 0.1, 0.9, route="group")
+    with pytest.raises(ValueError, match="route"):
+        warp_blend_fwd(rows, d, idx, table, J, 0.1, 0.9, route="wide")
+
+
+def test_group_kernel_limit():
+    """group_max_k: the k at which the group kernel's block (256 /
+    GROUP_LANES = 64 points' neighbour-0 LBS float4s, 12 B a neighbour a
+    point) fills the H100's 232,448 B of shared memory, at each family's
+    LBS width."""
+    assert warp_blend.GROUP_LANES == 4
+    P = 64
+    for num_lbs in FAMILY_LBS:
+        fixed = P * 16 * -(-num_lbs // 4)
+        top = warp_blend.group_max_k(num_lbs)
+        assert fixed + 12 * P * top <= 232448 < fixed + 12 * P * (top + 1)
+    assert warp_blend.group_max_k(24) == 294
+
+
+@pytest.mark.parametrize("num_lbs", FAMILY_LBS)
+@pytest.mark.parametrize("rig", ["smooth", "one_hot"])
+def test_row_summary_bounds_the_gate(num_lbs, rig):
+    """The group kernel skips a neighbour whose gate provably closes
+    (csrc/warp_blend.cu, pass 1): l1, summed in float32 in column order
+    as the kernels sum it, is at least its term at the row's largest
+    weight, |amax - lbs_0[jmax]| (every term >= 0, every rounding
+    monotone), so where exp(-term c) <= conf_gate (1 - 2^-20) the gate is
+    closed and the weight 0, as the full sum gives it; on smooth and
+    one-hot rows of each family's width, with the main path's gate (std
+    0.1, conf_gate 0.9)."""
+    rng = np.random.default_rng(num_lbs)
+    V, N, K = 300, 200, 12
+    if rig == "smooth":
+        lbs = rng.dirichlet(np.full(num_lbs, 0.3), size=V)
+    else:
+        lbs = np.eye(num_lbs)[rng.integers(0, min(3, num_lbs), V)]
+    lbs = lbs.astype(np.float32)
+    idx = rng.integers(0, V, size=(N, K))
+    c = np.float32(1.0 / (2.0 * 0.1 ** 2))
+    amax, jmax = lbs.max(axis=1), lbs.argmax(axis=1)
+    row0 = lbs[idx[:, 0]]                                   # (N, L)
+    rows = lbs[idx]                                          # (N, K, L)
+    l1 = np.zeros((N, K), np.float32)
+    for j in range(num_lbs):                                 # column order
+        l1 = (l1 + np.abs(rows[..., j] - row0[:, None, j])).astype(
+            np.float32)
+    term = np.abs(amax[idx] - np.take_along_axis(
+        np.broadcast_to(row0[:, None], rows.shape), jmax[idx][..., None],
+        axis=2)[..., 0]).astype(np.float32)
+    assert (l1 >= term).all()
+    closed = np.exp(-term * c) <= np.float32(0.9) * np.float32(1 - 2 ** -20)
+    assert not (np.exp(-l1 * c) > 0.9)[closed].any()
+    assert closed.mean() > (0.5 if rig == "smooth" else 0.2)
