@@ -34,6 +34,12 @@ as ``knn_pallas`` does (``knn_pallas.py:554-607``) at its default
 - otherwise (SMPL-X's V=10475, or ``packed=False``): ``knn_exact``
   (kernel 9, ``_knn_kernel``'s counterpart), with its ``cull``.
 
+``ANIMNERF_KNN_PACKED=0`` in the environment turns ``packed`` off for
+every call, as the JAX package passes ``packed=False`` to ``knn_pallas``
+from every caller under it (``ops/knn.py:105``, ``models/warp.py:382``,
+``:478``). Its ``ANIMNERF_KNN_TILE_N`` / ``_TILE_V`` size the TPU
+kernels' VMEM tiles and have no meaning for these kernels.
+
 Packed keys (``knn_top4``, ``knn_packed``):
 
 Each candidate's key is ``(bits(max(d2, 0)) & ~0x1FFF) | vertex_index``
@@ -86,6 +92,8 @@ the groups kept.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -569,7 +577,10 @@ def knn(points: torch.Tensor, verts: torch.Tensor, k: int = K,
     ``packed`` and V <= 8192 (``knn_top4`` with ``tile_skip`` at k=4,
     ``knn_packed`` otherwise), the exact kernel with its cull otherwise.
     As in the JAX package only the k=4 packed kernel has the tile skip;
-    the others ignore it. All three take the all-far skip (``far_skip``)."""
+    the others ignore it. All three take the all-far skip (``far_skip``).
+    ``ANIMNERF_KNN_PACKED=0`` (read at each call) takes the exact kernel
+    for every V."""
+    packed = packed and os.environ.get("ANIMNERF_KNN_PACKED", "1") == "1"
     if packed and verts.shape[1] <= MAX_VERTS:
         if k == K:
             return knn_top4(points, verts, tile_skip=tile_skip,

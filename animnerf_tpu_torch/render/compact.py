@@ -1,11 +1,14 @@
-"""Sample-level compacted rendering for inference — counterpart of
-``animnerf_tpu/render/compact.py``.
+"""Sample-level compacted rendering, for inference and the point-major
+compacted training step — counterpart of ``animnerf_tpu/render/compact.py``.
 
 Most samples of a frame lie outside the ``dis_threshold`` shell around the
 body, where the warp gives sigma == SIGMA_OUTSIDE and zero composite
 weight; the kNN, warp-blend and MLP therefore run only on the survivors of
 a conservative pre-pass, and their results are scattered back into the
 dense (R, K) grid before compositing — exact end to end.
+``render_rays_compact`` (the training step's) runs the kNN dense instead,
+since its nearest distance is the exact validity test, and compacts only
+the blend and the coarse MLP behind it.
 
 The JAX package pads the survivor list to a static capacity rung (XLA
 needs static shapes) and pads with the out-of-bounds index N. Eager
@@ -23,9 +26,14 @@ import torch
 from animnerf_tpu_torch.models.anim_nerf import SIGMA_OUTSIDE
 from animnerf_tpu_torch.render.volume_renderer import (
     RendererConfig,
+    _eval_field,
+    _ray_points,
+    _warp,
     composite,
     composite_rows,
     composite_weights,
+    sample_coarse,
+    sample_fine,
     sort_by_depth,
 )
 
@@ -156,3 +164,97 @@ def compact_fine(cfg: RendererConfig, warp_fn, field_fn, rays: torch.Tensor,
     sp = sort_by_depth(pay, z_all)
     _, rgb_f, depth_f, alpha_f = composite_rows(cfg, sp, rays, sp[:, 4])
     return {"rgbs": rgb_f, "alphas": alpha_f, "depths": depth_f}
+
+
+def scatter_warped(warped_c, sel_c: torch.Tensor, R: int, K: int):
+    """Scatter compacted warp outputs (cano, viewdir, valid) (B, cap, C)
+    into dense (B, R, K, C) grids with a zero fill: an unselected sample
+    gets valid == 0, the state the dense warp leaves it in (invalid, its
+    sigma filled downstream), so a dense fine pass over these grids is
+    value-identical to the dense renderer's reuse of the coarse warp."""
+    B = sel_c.shape[0]
+    flat, ok = _flat_scatter_indices(sel_c, R * K)
+
+    def scat(t: torch.Tensor) -> torch.Tensor:
+        C = t.shape[-1]
+        return torch.stack([_scatter_1d(t.reshape(-1, C)[:, c], flat, ok,
+                                        B * R * K, 0.0)
+                            for c in range(C)], dim=-1).reshape(B, R, K, C)
+
+    cano, vd, valid = warped_c
+    return scat(cano), scat(vd), None if valid is None else scat(valid)
+
+
+def render_rays_compact(cfg: RendererConfig, warp_fn, field_fn,
+                        rays: torch.Tensor, knn_fn, blend_fn,
+                        keep_thr: float, perturb: float = 0.0, noise=None):
+    """The point-major compacted render of the training step (JAX
+    ``render_rays_compact``): (B, R, 8) root-frame rays -> (outputs as
+    ``render_rays_split`` gives them, the largest per-row count of coarse
+    survivors (an int)).
+
+    The kNN runs dense over the coarse samples (knn_fn(xyz (B, N, 3)) ->
+    (dists, idx) (B, N, k)); its nearest distance is the exact validity
+    test (the blended distance is a convex combination of neighbour
+    distances), so ``keep = dists[..., 0] < keep_thr``. The blend
+    (blend_fn(xyz, viewdir, dists, idx) -> (cano, viewdir', valid)) and
+    the coarse field run on the survivors only, every one of them
+    (``select_indices`` with no cap), and are scattered into the dense
+    grid before the coarse composite. The fine pass runs dense: the
+    coarse warp scattered back (``scatter_warped``), the fine samples
+    warped by warp_fn, both merged in depth order by the lane permute
+    (``sort_by_depth`` on a [cano | viewdir | valid | z] payload), one
+    fine-field pass and the fine composite. ``perturb`` > 0 reads
+    ``noise`` (a ``TrainNoise``) as ``render_rays_split`` does, the same
+    draws in the same places, so the outputs are the dense render's.
+    Fine depths are detached, as in the dense path; sample indices carry
+    no gradient."""
+    train = perturb > 0
+    if train and noise is None:
+        raise ValueError("render_rays_compact with perturb > 0 needs noise")
+    z_coarse = sample_coarse(cfg, rays, perturb,
+                             noise.coarse_u if train else None)
+    B, R, Kc = z_coarse.shape
+    xyz, vd = _ray_points(rays, z_coarse)                 # (B, R*Kc, 3)
+    dists, idx = knn_fn(xyz)
+    keep = dists[..., 0] < keep_thr
+    count = int(keep.sum(dim=1).max()) if B else 0
+    sel_c = select_indices(keep)
+    sel_g = torch.clamp_max(sel_c, xyz.shape[1] - 1)
+
+    def g(t: torch.Tensor) -> torch.Tensor:
+        return torch.gather(t, 1, sel_g[..., None].expand(
+            *sel_g.shape, t.shape[-1]))
+
+    cano, vd2, valid = blend_fn(g(xyz), g(vd), g(dists), g(idx))
+    if vd2 is None:
+        vd2 = g(vd)
+    rgb, sigma = field_fn(cano, vd2, valid, False)
+    rgb_d, sigma_d = scatter_dense(rgb, sigma[..., 0], sel_c, R, Kc)
+    weights, rgb_c, depth_c, alpha_c = composite(
+        cfg, rgb_d, sigma_d, rays, z_coarse, noise.sigma_c if train else None)
+    out = {"rgbs": rgb_c, "alphas": alpha_c, "depths": depth_c}
+    if cfg.n_fine <= 0:
+        return out, count
+
+    mids = 0.5 * (z_coarse[..., :-1] + z_coarse[..., 1:])
+    z_f = sample_fine(cfg, mids, weights[..., 1:-1],
+                      u=noise.fine_u if train else None)
+    cano_d, vd_d, valid_d = scatter_warped((cano, vd2, valid), sel_c, R, Kc)
+    cano_f, vd_f, valid_f = _warp(warp_fn, rays, z_f)
+    z_all = torch.cat([z_coarse, z_f], dim=-1)
+    # channel-leading payload (B, 8, R, K) [cano | viewdir | valid | z]
+    pay = torch.cat([torch.cat([cano_d, cano_f], dim=2),
+                     torch.cat([vd_d, vd_f], dim=2),
+                     torch.cat([valid_d, valid_f], dim=2),
+                     z_all[..., None]], dim=-1).permute(0, 3, 1, 2)
+    sp = sort_by_depth(pay, z_all).permute(0, 2, 3, 1)    # (B, R, K, 8)
+    rgbs, sigmas = _eval_field(field_fn, sp[..., 0:3], sp[..., 3:6],
+                               sp[..., 6:7], True)
+    _, rgb_f, depth_f, alpha_f = composite(
+        cfg, rgbs, sigmas, rays, sp[..., 7], noise.sigma_f if train else None)
+    if cfg.share_fine:
+        return {"rgbs": rgb_f, "alphas": alpha_f, "depths": depth_f}, count
+    out.update({"rgbs_fine": rgb_f, "alphas_fine": alpha_f,
+                "depths_fine": depth_f})
+    return out, count

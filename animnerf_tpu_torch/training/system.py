@@ -1,17 +1,22 @@
 """Training and evaluation steps — counterpart of
 ``animnerf_tpu/training/system.py`` (``psnr``, ``_safe_normalize``,
 ``compute_loss``, ``loss_fn`` and ``make_train_step`` (here
-``DenseTrainer``), ``rows_compact_loss_fn``, ``make_optimizer``,
-``RowsCompactTrainer``, ``make_eval_step``, ``compaction_applicable``,
+``DenseTrainer``), ``compact_loss_fn``, ``rows_compact_loss_fn``,
+``make_optimizer``, ``CompactTrainer``, ``RowsCompactTrainer``,
+``make_eval_step``, ``compaction_applicable``,
 ``rows_compaction_applicable``).
 
-Two engines, picked as the JAX package's ``auto`` picks them
-(``training/loop.py``): the rows-compacted step for the flagship
-configuration (``rows_compaction_applicable``), the dense step
-(``loss_fn``: ``AnimNeRFSystem.render`` with perturb 1, through
+Three engines (``make_trainer``). ``auto`` picks as the JAX package's
+``auto`` picks (``parallel/train_pjit.py``): the rows-compacted step for
+the flagship configuration (``rows_compaction_applicable``), the dense
+step (``loss_fn``: ``AnimNeRFSystem.render`` with perturb 1, through
 ``render_rays_split`` for view directions, latent codes, DeRF,
 depth-guided samples, no unposing or more than 128 samples a ray) for
-every other.
+every other. ``compact`` is the opt-in point-major compacted step
+(``compact_loss_fn``: the dense kNN's nearest distance selects the coarse
+survivors, the blend and coarse MLP run on them alone,
+``render/compact.py::render_rays_compact``); the environment variable
+``ANIMNERF_TRAINER`` names the engine when the caller does not.
 
 The JAX functions take a params pytree; here the parameters live in the
 ``AnimNeRFSystem`` (``system.py``), so the functions take the system.
@@ -27,12 +32,16 @@ The JAX trainer's capacity ladder, overflow re-runs and pipelined count
 polling (``CompactTrainer.step``) exist because XLA compiles static
 shapes. Eager PyTorch sizes the compaction from the exact survivor count,
 read once per step, so the step never overflows; ``compact_count`` is
-still reported, ``compact_overflow`` is always 0 and is not.
+still reported, and the point-major engine reports ``compact_overflow``
+as 0, as its JAX twin's details carry it. The ladder's and the polling's
+settings (JAX's ``quantum``, ``factor``, ``pipelined``, ``sync_every``,
+``margin``) have no counterpart.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -43,6 +52,7 @@ from animnerf_tpu_torch.models.body_params import (
 )
 from animnerf_tpu_torch.models.warp import prepare_frame, rays_to_root_frame
 from animnerf_tpu_torch.ops.knn import keep_rows_within_boxes
+from animnerf_tpu_torch.render.compact import render_rays_compact
 from animnerf_tpu_torch.render.compact_rows import render_rays_rows_compact
 from animnerf_tpu_torch.system import AnimNeRFSystem
 from animnerf_tpu_torch.utils.device import pin_fp32_geometry
@@ -166,6 +176,46 @@ def rows_compact_loss_fn(system: AnimNeRFSystem, batch: dict,
     rgb_key = "rgbs_fine" if "rgbs_fine" in results else "rgbs"
     details["psnr"] = psnr(results[rgb_key], batch["rgbs"])
     details["compact_count"] = n_c
+    return loss, details
+
+
+def compact_loss_fn(system: AnimNeRFSystem, batch: dict, noise: TrainNoise):
+    """The training loss on the point-major compacted render (JAX
+    ``AnimNeRFSystem.compact_loss_fn``) -> (loss, details): the dense kNN
+    of the coarse samples against the observed mesh-order verts
+    (``AnimNeRFModel.warp_knn``), the blend (``warp_points_with_knn``) and
+    the coarse field on the survivors of ``dists[..., 0] <
+    dis_threshold``, a dense fine pass (``render_rays_compact``), then
+    ``compute_loss``. details carry the psnr, ``compact_count`` (an int:
+    the largest per-row count of coarse survivors) and
+    ``compact_overflow`` (always 0: every survivor is selected). batch as
+    ``rows_compact_loss_fn`` takes it."""
+    frame_idx = batch["frame_idx"]
+    body_params, body_tmpl = _body_params(system, batch)
+    ctx = prepare_frame(system.body_model, body_params, body_tmpl)
+    rays_root = rays_to_root_frame(ctx, batch["rays"])
+    d_code, a_code = system.codes(frame_idx)
+    scene = system.scene
+
+    def field_fn(xyz, viewdir, valid, use_fine):
+        return scene.field_points(xyz, viewdir, valid, use_fine, d_code,
+                                  a_code)
+
+    results, count = render_rays_compact(
+        system.renderer_cfg,
+        lambda xyz, viewdir: scene.warp_points(ctx, xyz, viewdir),
+        field_fn, rays_root, lambda xyz: scene.warp_knn(ctx, xyz),
+        lambda xyz, viewdir, dists, idx: scene.warp_points_with_knn(
+            ctx, xyz, viewdir, dists, idx),
+        system.scene_cfg.dis_threshold, perturb=1.0, noise=noise)
+    loss, details = compute_loss(
+        system, results, batch["rgbs"], batch["alphas"], ctx, noise,
+        fg_points=batch.get("fg_points"), bg_points=batch.get("bg_points"),
+        frame_idx=frame_idx)
+    rgb_key = "rgbs_fine" if "rgbs_fine" in results else "rgbs"
+    details["psnr"] = psnr(results[rgb_key], batch["rgbs"])
+    details["compact_count"] = count
+    details["compact_overflow"] = 0
     return loss, details
 
 
@@ -307,13 +357,48 @@ class DenseTrainer(RowsCompactTrainer):
     loss_fn = staticmethod(loss_fn)
 
 
+class CompactTrainer(RowsCompactTrainer):
+    """The opt-in point-major compacted engine (JAX ``CompactTrainer``):
+    the same step on ``compact_loss_fn``, for configurations where
+    ``compaction_applicable`` (ValueError otherwise, as in JAX). Its
+    survivors are selected exactly, so a step never overflows and is
+    never re-run: no capacity ladder, no pipelined count polling."""
+
+    engine = "compact"
+    loss_fn = staticmethod(compact_loss_fn)
+
+    def __init__(self, system: AnimNeRFSystem, *args, **kwargs):
+        if not compaction_applicable(system):
+            raise ValueError(
+                "compacted training requires use_unpose and no "
+                "deformation/latent codes (see compaction_applicable)")
+        super().__init__(system, *args, **kwargs)
+
+
+ENGINES = {"rows": RowsCompactTrainer, "compact": CompactTrainer,
+           "dense": DenseTrainer}
+
+
 def make_trainer(system: AnimNeRFSystem, steps_per_epoch: int = 100,
-                 optimizer=None, scheduler=None, seed: int = 0):
-    """The engine the JAX package's ``auto`` picks: rows-compacted where
-    ``rows_compaction_applicable``, else dense."""
-    cls = RowsCompactTrainer if rows_compaction_applicable(system) \
-        else DenseTrainer
-    return cls(system, steps_per_epoch, optimizer, scheduler, seed)
+                 optimizer=None, scheduler=None, seed: int = 0,
+                 engine: Optional[str] = None):
+    """A trainer of the named engine: "rows", "compact", "dense" or
+    "auto"; None reads ``ANIMNERF_TRAINER`` (default "auto"), as the JAX
+    package's ``make_sharded_trainer`` does. "auto" is rows-compacted where
+    ``rows_compaction_applicable``, else dense. "rows" and "compact" raise
+    ValueError on a configuration they do not cover."""
+    if engine is None:
+        engine = os.environ.get("ANIMNERF_TRAINER", "auto")
+    if engine == "auto":
+        engine = "rows" if rows_compaction_applicable(system) else "dense"
+    if engine not in ENGINES:
+        raise ValueError(f"unknown trainer engine {engine!r}: use auto, "
+                         f"{', '.join(ENGINES)}")
+    if engine == "rows" and not rows_compaction_applicable(system):
+        raise ValueError("the rows engine needs the rows pipeline and "
+                         "compaction (see rows_compaction_applicable)")
+    return ENGINES[engine](system, steps_per_epoch, optimizer, scheduler,
+                           seed)
 
 
 def make_eval_step(system: AnimNeRFSystem):

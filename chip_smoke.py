@@ -49,7 +49,12 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      arguments of a view's first call (its coarse warp), within 1e-4 of
      its plain version, with the residual-free mode's time and out;
   5. serving parity: one view at 96x96 rendered on the card with the
-     kernels and on the CPU with the plain versions;
+     kernels and on the CPU with the plain versions; then
+     ``knn_packed_off``: scale512's view 29 at 512x512 with the packed kNN
+     and with ``ANIMNERF_KNN_PACKED=0`` (launch counts of each: kernel 9
+     in place of kernels 1 and 8), kernel 9 on a 65,536-point sample of
+     that view's first kNN call bit-equal to its plain version, the
+     images within PACKED_OFF_BOUNDS;
   5a. dense_serve: the same system through the dense route
      (``Renderer(compact_samples=False)``: every sample of every culled
      ray through the kNN, warp-blend and MLP kernels, 32,768-ray slabs)
@@ -87,7 +92,13 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      scatter calls (coarse, fine), with their row statistics, bit-equal to
      its plain version and to a second run, beside both library scatters;
      then 30 steps on one fixed batch, whose loss must fall, with finite
-     losses and gradients throughout;
+     losses and gradients throughout; ``compact_train``: the opt-in
+     point-major compacted step (``make_trainer(engine="compact")``) at
+     the same width, its loss and gradients on one batch and noise
+     against the dense and the rows engines within COMPACT_BOUND (and
+     whether the loss is bit-equal to the dense one), 10 timed steps
+     (kernels 1-6 launched), the survivor share, a profiled step by
+     kernel, and the rows engine's 10 steps and profile beside it;
   7. train parity: one step at full width with 2 x 128 rays on the card
      (kernels) and on the CPU (plain versions) from the same parameters
      and noise, in f32 and in bf16: loss terms, gradients per parameter
@@ -97,6 +108,10 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      holds the ``codes`` step at 4 frequencies and at 10, there its DeRF,
      code and body gradients within CODES10_MULT times the JAX package's
      own measured spread (tests/test_torch_codes_spread.py);
+  7-. prepare_template: the template tool at 64^3 points against the
+     seed-3 V=6890 rig on the card (wall time, the distance pass's
+     profile), card against CPU on 4,096 points (PREP_REL, signs outside
+     PREP_SIGN_BAND of the surface), the closed sphere's four signs;
   7a. fit: training from a dataset on disk as the train CLI runs it: the
      port writes a synthetic dataset (12 frames at 512x512 on the V=6890
      seed-0 rig), ``fit`` takes 60 steps of 16 x 32^2 foreground_pixel
@@ -130,6 +145,13 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      1 + max |sigma|; the native marching of the card's field against
      ``marching_tets_numpy`` through ``marching_model`` (soups bit-equal
      after sorting the triangles, the merge bit-equal to the native);
+  7e. convert_parity (on the fit dataset): a Lightning .ckpt of the
+     scale512 field and the fit run's body params under the reference's
+     names, with decoys and a hyper-parameter class the card's machine
+     cannot import, converted by ``tools/convert_checkpoint.py`` (every
+     array bit-equal to its tensor), then ``tools/parity_check.py`` on
+     the card: PSNR and SSIM equal to ``evaluate`` on the original
+     checkpoint;
  8. SMPL-X kernel lines: the exact kNN (kernel 9, with and without its
      cull, at K = 4 and 8, random-order points: the swept share, both
      bounds, SASS per pair) and the nearest-vertex distance against the
@@ -192,7 +214,9 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      against CPU on the rigid SMPL rig, a 64x64 view (24) and a 32x32
      SMPL-X view (kernel 9); then k40_profile (the bench.py step, a 512^2
      SMPL view and a 512^2 SMPL-X view at k_neigh 40, each timed and
-     profiled) and warp_routes (kernel 2's routes at K = 8, 12, 16, 17 on
+     profiled), k40_view_calls (kernel 2 on those two views' captured
+     calls: its time, bound and the plain version's time in 2^19-point
+     chunks) and warp_routes (kernel 2's routes at K = 8, 12, 16, 17 on
      a random-order cloud and a view's call, bit-equal); the far
      pass's line carries its device time from the profiler beside the
      CUDA-event time;
@@ -204,8 +228,10 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      (``animnerf_tpu_torch/tools/bench_knn.py``): every row, with the
      launch counts reset just before and read just after;
  15. the kernels summary line (with each kernel's launches in the fit
-     phase, ``fit_launches``, and in the cli phase, ``cli_launches``), the
-     card line, then the final status line.
+     phase, ``fit_launches``, in the cli phase, ``cli_launches``, in the
+     compact step, ``compact_launches``, and kernel 9's in the packed-off
+     view, ``packed_off_launches``), the card line, then the final status
+     line.
 The kNN, min-distance and MLP-forward lines also time the nearest PyTorch
 composite (``library_ms``: cdist then topk or amin by chunks of points;
 the encoding and bf16 F.linear chain).
@@ -4216,6 +4242,77 @@ def wide_k_profile(ck, bp, tmpl, k: int = 40) -> dict:
     return out
 
 
+# the k_neigh 40 views' warp-blend calls: the plain version is timed in
+# chunks of this many points (the whole call's gathered table rows would
+# take tens of GB at once)
+K40_PLAIN_CHUNK = 1 << 19
+
+
+def k40_view_calls(ck, bp, tmpl, H: int = 512, W: int = 512) -> dict:
+    """Kernel 2 on the calls of the k_neigh 40 views (scale512's view 29
+    and the SMPL-X view 29 of ``wide_k_profile``), each call captured: its
+    shape, the kernel's time (CUDA events), its bound (inputs read once,
+    outputs written once, as ``warp_blend_call_line`` counts them), the
+    gathered table bytes, and the plain version's time summed over
+    K40_PLAIN_CHUNK-point chunks, each chunk within 1e-4 of the kernel."""
+    import torch
+
+    from animnerf_tpu_torch.ops.warp_blend import (
+        warp_blend_fwd,
+        warp_blend_fwd_plain,
+    )
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+
+    xsystem = AnimNeRFSystem(dict(SMPLX_CFG, k_neigh=40), smplx_rig(),
+                             device="cuda", seed=0)
+    opaque_shell(xsystem)
+    views = {"smpl": view_fn(scale512_system(ck, "cuda", k_neigh=40), bp,
+                             tmpl, 29, H, W),
+             "smplx": view_fn(xsystem, smplx_params(1, 1),
+                              smplx_params(1, 2, zero_transl=True), 29, H, W,
+                              prepass="exact")}
+    out = {}
+    for name, view in views.items():
+        view()
+        calls = capture_warp_blend(view, keep=8)
+        lines = []
+        for c in calls:
+            args = c["args"]
+            rows, d, idx, table, num_lbs = args[:5]
+            B, K, N = idx.shape
+            F = table.shape[2]
+            in_bytes = (3 * N + 2 * K * N) * B * 4 + table.numel() * 4
+            bound = (in_bytes + B * N * (8 + K + 16) * 4) / PEAK_BYTES * 1e3
+            ms = time_ms(lambda: warp_blend_fwd(*args), 10)
+            full = warp_blend_fwd(*args)[0]
+            plain_ms, err = 0.0, 0.0
+            for s0 in range(0, N, K40_PLAIN_CHUNK):
+                sl = slice(s0, s0 + K40_PLAIN_CHUNK)
+                part = (rows[..., sl].contiguous(), d[..., sl].contiguous(),
+                        idx[..., sl].contiguous()) + tuple(args[3:])
+                plain_ms += time_ms(lambda: warp_blend_fwd_plain(*part), 1,
+                                    warmup=1)
+                o = warp_blend_fwd_plain(*part)[0]
+                err = max(err, float((o - full[..., sl]).abs().max()))
+                del o
+            check(err <= 1e-4, f"k_neigh 40 {name} warp-blend call: {err}")
+            lines.append(dict(shape=f"knn ({B},{K},{N}) table "
+                                    f"{tuple(table.shape)}",
+                              ms=ms, bound_ms=bound, bound_by="bytes",
+                              pct_of_bound=100.0 * bound / ms,
+                              gathered_bytes=B * N * K * F * 4,
+                              plain_ms=plain_ms, max_abs_err=err))
+            del full
+        out[name] = {"calls": lines,
+                     "ms": sum(ln["ms"] for ln in lines),
+                     "bound_ms": sum(ln["bound_ms"] for ln in lines),
+                     "plain_ms": sum(ln["plain_ms"] for ln in lines)}
+        del calls
+    del xsystem, views
+    torch.cuda.empty_cache()
+    return out
+
+
 # ----------------------------------------------------- the all-far skip
 
 # the far pass's non-FMA f32 operations per (point, 512-vertex tile) pair:
@@ -5187,6 +5284,516 @@ def split_fit(root: str) -> dict:
     return out
 
 
+
+# ------------------------------------------- data prep, checkpoints, compact
+
+# prepare_template: 64^3 points against the seed-3 rig (scale512's) on the
+# card; the card against the port's CPU path on the first PREP_CHECK of
+# them (the same float64 operations in the same order; the CPU's
+# vectorised sqrt is not always correctly rounded, so they differ by an
+# ulp: 2.2e-16 relative on the H100 (PERF.md); PREP_REL is the stated
+# bound); a sign may differ only within PREP_SIGN_BAND of the surface
+PREP_POINTS = 64 ** 3
+PREP_CHECK = 4096
+PREP_REL = 1e-12
+PREP_SIGN_BAND = 1e-9
+
+
+def uv_sphere():
+    """tests/test_tools.py's closed unit UV sphere, faces outward."""
+    th = np.linspace(0, np.pi, 9)[1:-1]
+    ph = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    pts = np.stack([np.sin(tt) * np.cos(pp), np.sin(tt) * np.sin(pp),
+                    np.cos(tt)], -1).reshape(-1, 3)
+    verts = np.concatenate([pts, [[0, 0, 1.0]], [[0, 0, -1.0]]])
+    faces = []
+    R, C = tt.shape
+    for i in range(R - 1):
+        for j in range(C):
+            a, b = i * C + j, i * C + (j + 1) % C
+            c, d = (i + 1) * C + j, (i + 1) * C + (j + 1) % C
+            faces += [[a, b, c], [b, d, c]]
+    top, bot = len(verts) - 2, len(verts) - 1
+    for j in range(C):
+        faces.append([top, (j + 1) % C, j])
+        faces.append([bot, (R - 1) * C + j, (R - 1) * C + (j + 1) % C])
+    faces = np.asarray(faces)
+    a, b, c = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+    flip = (np.cross(b - a, c - a) * (a + b + c) / 3).sum(-1) < 0
+    faces[flip] = faces[flip][:, [0, 2, 1]]
+    return verts, faces
+
+
+def prepare_template_phase(device: str = "cuda", points: int = PREP_POINTS,
+                           check_points: int = PREP_CHECK) -> dict:
+    """The port's prepare_template on the card at full size: a subject of
+    two seeded frame pickles on the seed-3 V=6890 rig (its 6,890 strip
+    faces), a seeded X-pose, 64^3 points; its wall time (synchronised,
+    the body model and the pickle included) and the distance pass's
+    alone. The
+    card against the CPU on the first PREP_CHECK points; the template's
+    own float32 distances there equal the card's float64 ones rounded;
+    the closed sphere on the card with tests/test_tools.py's four sign
+    assertions."""
+    import torch
+
+    from animnerf_tpu_torch.data.synthetic import make_rig
+    from animnerf_tpu_torch.ops.mesh_distance import (
+        chunk_points,
+        signed_distance,
+    )
+    from animnerf_tpu_torch.smpl.loader import load_pickle, save_model_data
+    from animnerf_tpu_torch.tools.prepare_template import (
+        prepare_template,
+        template_points,
+    )
+    from animnerf_tpu_torch.utils.io import write_pickle_file
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="prep_smoke_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        rig = make_rig(6890, 24, seed=3)
+        os.makedirs(os.path.join(root, "models"))
+        save_model_data(os.path.join(root, "models", "SMPL_NEUTRAL.pkl"),
+                        rig)
+        os.makedirs(os.path.join(root, "subj", "smpls"))
+        rng = np.random.default_rng(5)
+        for i in range(2):
+            write_pickle_file(
+                os.path.join(root, "subj", "smpls", f"{i + 1:06d}.pkl"),
+                {"betas": rng.normal(scale=0.3, size=(1, 10)).astype(
+                    np.float32)})
+        xpose = os.path.join(root, "X_pose.pkl")
+        body_pose = np.zeros(69, np.float32)
+        body_pose[[47, 50]] = [-1.0, 1.0]       # arms out, as an X
+        body_pose[[2, 5]] = [0.5, -0.5]         # legs apart
+        write_pickle_file(xpose, {"betas": np.zeros((1, 10), np.float32),
+                                  "global_orient": np.zeros(3, np.float32),
+                                  "body_pose": body_pose,
+                                  "transl": np.zeros(3, np.float32)})
+        sync(device)
+        t0 = time.perf_counter()
+        path = prepare_template(root, "subj", gender="neutral",
+                                model_path=os.path.join(root, "models"),
+                                template_path=xpose, num_points=points,
+                                device=device)
+        wall_s = time.perf_counter() - t0
+        tmpl = load_pickle(path)
+        verts, faces = tmpl["verts"], tmpl["faces"]
+        check(tmpl["points"].shape == (points, 3)
+              and tmpl["distances"].shape == (points,)
+              and np.isfinite(tmpl["distances"]).all(),
+              f"template: {tmpl['points'].shape} {tmpl['distances'].shape}")
+        _, _, pts = template_points(verts, points, seed=0)
+        check(np.array_equal(pts.astype(np.float32), tmpl["points"]),
+              "template points differ from default_rng's draws")
+        sync(device)
+        t0 = time.perf_counter()
+        signed_distance(pts, verts, faces, device=device)
+        sync(device)
+        dist_s = time.perf_counter() - t0
+        sub = pts[:check_points]
+        d_dev = signed_distance(sub, verts, faces, device=device).cpu()
+        t0 = time.perf_counter()
+        d_cpu = signed_distance(sub, verts, faces, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        rel = float(((d_dev - d_cpu).abs() / d_cpu.abs().clamp_min(
+            1e-300)).max())
+        flips = torch.sign(d_dev) != torch.sign(d_cpu)
+        band = float(d_cpu[flips].abs().max()) if flips.any() else 0.0
+        check(rel <= PREP_REL and band <= PREP_SIGN_BAND,
+              f"prepare_template card vs CPU: rel {rel}, sign band {band}")
+        check(np.array_equal(d_dev.numpy().astype(np.float32),
+                             tmpl["distances"][:check_points]),
+              "template distances differ from the card's float64 ones")
+        sv, sf = uv_sphere()
+        q = np.array([[0, 0, 0], [0.5, 0, 0], [2.0, 0, 0], [0, 1.5, 0]],
+                     np.float64)
+        ds = signed_distance(q, sv, sf, device=device).cpu().numpy()
+        sphere_ok = bool(ds[0] < -0.8 and ds[1] < 0 and 0.8 < ds[2] < 1.2
+                         and 0.3 < ds[3] < 0.7)
+        check(sphere_ok, f"sphere signs on the card: {ds}")
+        d = tmpl["distances"]
+        return {"points": points, "verts": int(len(verts)),
+                "faces": int(len(faces)), "pairs": points * int(len(faces)),
+                "chunk_points": chunk_points(len(faces)),
+                "wall_s": wall_s, "distances_s": dist_s,
+                "inside": int((d < 0).sum()), "outside": int((d > 0).sum()),
+                "card_vs_cpu": {"points": check_points, "max_rel": rel,
+                                "bit_equal": bool(torch.equal(d_dev, d_cpu)),
+                                "sign_flips": int(flips.sum()),
+                                "sign_band_m": band, "rel_bound": PREP_REL,
+                                "sign_band_bound_m": PREP_SIGN_BAND,
+                                "cpu_s": cpu_s},
+                "sphere": ds.tolist(), "sphere_signs_ok": sphere_ok,
+                "launches": "none: eager torch float64"}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reference_name(layer: str) -> str:
+    """A flax layer of the field -> the reference module's attribute."""
+    if layer == "xyz_final":
+        return "xyz_encoding_final"
+    if layer == "dir_0":
+        return "dir_encoding.0"
+    if layer == "rgb":
+        return "rgb.0"
+    if layer == "sigma":
+        return "sigma"
+    return f"xyz_encoding_{int(layer[4:]) + 1}.0"
+
+
+def write_reference_ckpt(path: str, nets: dict, body: dict,
+                         hparams: dict) -> dict:
+    """torch.save a Lightning checkpoint: the field's state dicts
+    (``nets``: {net: {"<layer>.<weight|bias>": tensor}}) under the
+    reference's names, ``body`` as body_model_params.*, the SMPL-buffer
+    and evaluator decoys, ``hparams`` beside an instance of a class whose
+    module exists only while the file is written. Returns the state dict."""
+    import types
+
+    import torch
+
+    sd = {}
+    for net, state in nets.items():
+        for name, t in state.items():
+            layer, leaf = name.split(".")
+            sd[f"anim_nerf.{net}.{_reference_name(layer)}.{leaf}"] = \
+                torch.as_tensor(t).detach().cpu().clone()
+    for k, v in body.items():
+        sd[f"body_model_params.{k}.weight"] = torch.from_numpy(
+            np.array(v))
+    sd["anim_nerf.body_model.v_template"] = torch.zeros(6890, 3)
+    sd["evaluator.lpips.net.slice1.0.weight"] = torch.zeros(64, 3, 11, 11)
+    gone = "reference_cfg_module"
+    mod = types.ModuleType(gone)
+
+    class CfgNode:
+        pass
+
+    CfgNode.__module__, CfgNode.__qualname__ = gone, "CfgNode"
+    mod.CfgNode = CfgNode
+    sys.modules[gone] = mod
+    try:
+        torch.save({"state_dict": sd, "epoch": 3, "global_step": 60,
+                    "hyper_parameters": dict(hparams, cfg_node=CfgNode())},
+                   path)
+    finally:
+        del sys.modules[gone]
+    return sd
+
+
+def converted_bit_equal(conv: str, sd: dict, body: dict) -> tuple:
+    """(every converted array equal to its source tensor (kernels
+    transposed) with its dtype, the count of arrays)."""
+    from animnerf_tpu_torch.utils.convert import NERF_LAYERS
+
+    with np.load(os.path.join(conv, "anim_nerf.npz")) as data:
+        nerf = {k: data[k] for k in data.files}
+    with np.load(os.path.join(conv, "body_params.npz")) as data:
+        cbody = {k: data[k] for k in data.files}
+    same = sorted(nerf) == sorted(
+        f"{net}/params/{layer}/{leaf}" for net in ("nerf", "nerf_fine")
+        for layer in NERF_LAYERS for leaf in ("kernel", "bias"))
+    for key, arr in nerf.items():
+        net, _, layer, leaf = key.split("/")
+        src = sd[f"anim_nerf.{net}.{_reference_name(layer)}."
+                 f"{'weight' if leaf == 'kernel' else 'bias'}"].numpy()
+        src = src.T if leaf == "kernel" else src
+        same = same and arr.dtype == src.dtype and np.array_equal(arr, src)
+    same = same and sorted(cbody) == sorted(body) and all(
+        np.array_equal(cbody[k], body[k]) for k in body)
+    return same, len(nerf) + len(cbody)
+
+
+def convert_parity(root: str, last: str, device: str = "cuda") -> dict:
+    """A Lightning .ckpt of the scale512 field and the fit run's body
+    params with the fit config as hyper-parameters
+    (``write_reference_ckpt``), converted without torch's unpickler:
+    every array bit-equal to its source tensor. Then parity_check on the
+    fit dataset (the asset paths of this run winning) on the card, whose
+    PSNR and SSIM must equal ``evaluate`` on the original checkpoint (the
+    same arrays written by save_params) exactly; the launch counts of
+    each set to 0 just before and read just after."""
+    import torch
+
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.tools.convert_checkpoint import convert
+    from animnerf_tpu_torch.tools.parity_check import run_parity_check
+    from animnerf_tpu_torch.training import loop as TL
+    from animnerf_tpu_torch.training.checkpoints import (
+        nerf_params_to_flax,
+        save_params,
+    )
+    from animnerf_tpu_torch.utils.convert import load_checkpoint
+
+    ck = load_checkpoint(CKPT)
+    nets = {net: {k: torch.as_tensor(v) for k, v in
+                  ck["anim_nerf"][net].items()}
+            for net in ("nerf", "nerf_fine")}
+    with np.load(os.path.join(last, "body_params.npz")) as data:
+        body = {k: data[k] for k in data.files}
+    cfg = fit_config(root)
+    hparams = json.loads(json.dumps(TL.dict_flat(cfg), default=list))
+    ckpt = os.path.join(root, "reference.ckpt")
+    sd = write_reference_ckpt(ckpt, nets, body, hparams)
+
+    t0 = time.perf_counter()
+    conv = convert(ckpt, os.path.join(root, "converted"))
+    convert_s = time.perf_counter() - t0
+    same, n_arrays = converted_bit_equal(conv, sd, body)
+    check(same, "converted arrays differ from the reference checkpoint's")
+
+    orig = os.path.join(root, "original")
+    flax = {}
+    for net, state in nets.items():
+        flax.update(nerf_params_to_flax(state, net))
+    save_params(orig, {"anim_nerf": flax, "body_params": body},
+                {"cfg": TL.dict_flat(cfg)})
+    sync(device)
+    reset_counts()
+    want = TL.evaluate(cfg, orig, device=device)
+    eval_launches = dict(_build.LAUNCHES)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = run_parity_check(root, os.path.join(root, "models",
+                                              "SMPL_NEUTRAL.pkl"),
+                           ckpt, ref_psnr=want["psnr"],
+                           ref_ssim=want["ssim"],
+                           out_dir=os.path.join(root, "parity"),
+                           device=device)
+    parity_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check(got["psnr"] == want["psnr"] and got["ssim"] == want["ssim"]
+          and "lpips" not in got,
+          f"parity_check {got} against evaluate {want}")
+    if device == "cuda":
+        check(all(launches[k] > 0 for k in SERVE_KERNELS),
+              f"parity_check's evaluate launched: {launches}")
+    return {"arrays_bit_equal": same, "arrays": n_arrays,
+            "convert_s": convert_s, "parity_check_s": parity_s,
+            "report": got, "evaluate_original": want, "launches": launches,
+            "evaluate_launches": eval_launches}
+
+
+# compact_train: the point-major compacted step (CompactTrainer) at the
+# flagship's full width against the dense and rows engines on one batch
+# and noise (bf16 field). Not bit-equal: the compacted step's kNN runs on
+# the mesh-order cloud, the others' on the Morton order, so the packed
+# keys break near-ties by other indices, and the composites sum in other
+# layouts; bf16 roundings of the MLP inputs then differ. The H100 run
+# measured loss terms 1.9e-5 relative, field gradients 1.0-1.1e-4
+# and body-param gradients 4.0e-2 rel-L2 against both (PERF.md;
+# card against CPU the body gradients are 2.1-2.3e-2 in bf16): the stated
+# bounds are loss terms 1e-4, field gradients 1e-3, body gradients 1e-1
+COMPACT_BOUND = dict(loss_rtol=1e-4, grad_rel_l2={
+    "field": 1e-3, "fine_field": 1e-3, "body_params": 1e-1})
+COMPACT_STEPS = 10
+COMPACT_KERNELS = ("knn", "warp_blend", "scatter", "fused_mlp",
+                   "fused_mlp_bwd", "fused_mlp_wgrad", "permute_lanes")
+
+
+def engine_grads(engine: str, batch, noise, dev, make_rig=None) -> tuple:
+    """One loss and backward of ``engine``'s loss on a fresh seed-0
+    flagship system: (details as floats, gradients by group)."""
+    import torch
+
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+    from animnerf_tpu_torch.training.system import ENGINES
+
+    system = AnimNeRFSystem(FLAGSHIP_CFG, (make_rig or smpl_rig)(),
+                            device=dev, seed=0)
+    loss, d = ENGINES[engine].loss_fn(system, batch, noise)
+    loss.backward()
+    sync(dev)
+    return ({k: float(v.detach()) if torch.is_tensor(v) else float(v)
+             for k, v in d.items()}, _grad_groups(system))
+
+
+def timed_steps(trainer, batches, n: int):
+    """A warm-up step, then n timed steps (synchronised) with the launch
+    counts set to 0 just before and read just after: (ms, compact counts,
+    launches)."""
+    from animnerf_tpu_torch.ops import _build
+
+    dev = trainer.system.device
+    trainer.step(batches[n])
+    sync(dev)
+    reset_counts()
+    ms, counts = [], []
+    for s in range(n):
+        t0 = time.perf_counter()
+        d = trainer.step(batches[s])
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(d["compact_count"])
+        check(finite(trainer, d), f"{trainer.engine} step {s}: non-finite")
+    return ms, counts, dict(_build.LAUNCHES)
+
+
+def compact_train(dev, B: int = 16, R: int = 1024, n: int = COMPACT_STEPS,
+                  make_rig=None) -> dict:
+    """The flagship step (bench.py's 16 x 1024 rays, V = 6890, 64 + 32
+    samples, bf16) through ``make_trainer(engine="compact")``: first its
+    loss and gradients on one batch and noise against the dense engine's
+    (``loss_fn``: the rows render) and the rows engine's, each within
+    COMPACT_BOUND (whether the loss is bit-equal to the dense one is
+    reported); then n timed steps (kernels 1-6 launched, no tile skip),
+    the survivor share (coarse survivors over a row's R x Kc samples),
+    one profiled step split by kernel, and the rows engine's steps and
+    profile in the same run."""
+    import torch
+
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+    from animnerf_tpu_torch.training.system import make_trainer
+    from animnerf_tpu_torch.utils.rng import draw_noise
+
+    batches = train_batches(B, R, range(n + 1), dev)
+    system = AnimNeRFSystem(FLAGSHIP_CFG, (make_rig or smpl_rig)(),
+                            device=dev, seed=0)
+    noise = draw_noise(torch.Generator(device=dev).manual_seed(7), B, R,
+                       system.renderer_cfg, system.body_model.num_verts)
+    res = {e: engine_grads(e, batches[0], noise, dev, make_rig)
+           for e in ("compact", "dense", "rows")}
+    dc, gc = res["compact"]
+    agree = {}
+    bd = COMPACT_BOUND
+    for other in ("dense", "rows"):
+        do, go = res[other]
+        loss_rel = max(abs(dc[k] - do[k]) / max(abs(do[k]), 1e-12)
+                       for k in do if k in dc
+                       and not k.startswith("compact"))
+        grad_rel = {k: float((gc[k] - go[k]).norm()
+                             / max(float(go[k].norm()), 1e-30)) for k in go}
+        agree[other] = dict(loss=do["loss"], max_loss_term_rel=loss_rel,
+                            loss_bit_equal=dc["loss"] == do["loss"],
+                            grad_rel_l2=grad_rel, bounds=bd,
+                            compact_count=do.get("compact_count"))
+        check(loss_rel <= bd["loss_rtol"]
+              and all(v <= bd["grad_rel_l2"][k] for k, v in grad_rel.items()),
+              f"compact step against {other}: {agree[other]}")
+    del res
+
+    out = {"rays_per_step": B * R, "loss": dc["loss"],
+           "compact_count": dc["compact_count"], "against": agree}
+    Kc = system.renderer_cfg.n_coarse
+    for engine in ("compact", "rows"):
+        trainer = make_trainer(system, steps_per_epoch=100, engine=engine)
+        ms, counts, launches = timed_steps(trainer, batches, n)
+        med = float(np.median(ms))
+        out[engine] = dict(
+            engine=trainer.engine, steps=n, ms=ms, median_step_ms=med,
+            train_rays_per_s=B * R / (med / 1e3),
+            median_compact_count=float(np.median(counts)),
+            survivor_share=float(np.median(counts)) / (R * Kc),
+            launches=launches,
+            profile=profile_call(lambda: trainer.step(batches[0]), "step",
+                                 by_kernel=True)
+            if dev == "cuda" else None)
+    if dev == "cuda":
+        launches = out["compact"]["launches"]
+        check(all(launches[k] > 0 for k in COMPACT_KERNELS)
+              and launches["knn_tile_skip"] == 0,
+              f"the compact step launched the wrong kernels: {launches}")
+    return out
+
+
+# knn_packed_off: one SMPL view (scale512, view 29, 512^2) with
+# ANIMNERF_KNN_PACKED=0 against the same view with the packed keys, the
+# images within PACKED_OFF_BOUNDS (max |d|, PSNR dB). The packed keys
+# quantise d2 to 2^-10 relative, which moves the blended distance of a
+# few samples across dis_threshold (a sample then takes the MLP's sigma
+# in one view and the outside fill in the other): the H100 run
+# measured max |d| 0.0796 on 102 pixels at 68.9 dB (PERF.md)
+PACKED_OFF_VIEW = 29
+PACKED_OFF_SAMPLE = 1 << 16
+PACKED_OFF_BOUNDS = (0.2, 60.0)
+
+
+def knn_packed_off(ck, bp, tmpl, device: str = "cuda", H: int = 512,
+                   W: int = 512) -> dict:
+    """The scale512 view with the packed kNN (kernel 1), then with
+    ANIMNERF_KNN_PACKED=0, the launch counts set to 0 just before and read
+    just after each: kernel 9 launched and kernels 1 and 8 not; the exact
+    view's first kNN call's points (its coarse warp), on a seeded sample
+    of PACKED_OFF_SAMPLE, through the dispatch (kernel 9) against the
+    plain exact version, bit-equal; the two images within
+    PACKED_OFF_BOUNDS."""
+    import torch
+
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.ops.knn_kernel import knn, knn_exact_plain
+    from animnerf_tpu_torch.render.inference import (
+        Renderer,
+        turntable_rotation,
+    )
+
+    system = scale512_system(ck, device)
+    renderer = Renderer(system, device=device)
+    P = turntable_rotation(PACKED_OFF_VIEW, 64)
+
+    def render():
+        return renderer.render_frame(bp, tmpl, frame_rays(H, W), P, (W, H))
+
+    def view():
+        sync(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        img = render()[0]
+        return img, (time.perf_counter() - t0) * 1e3, dict(_build.LAUNCHES)
+
+    view()                                     # warm-up
+    img_p, ms_p, launches_p = view()
+    os.environ["ANIMNERF_KNN_PACKED"] = "0"
+    try:
+        view()
+        img_e, ms_e, launches_e = view()
+        calls = capture_knn(render, keep=True)
+        pts, verts, k = calls[0]["points"], calls[0]["verts"], calls[0]["k"]
+        sel = torch.from_numpy(np.sort(np.random.default_rng(0).choice(
+            pts.shape[1], min(PACKED_OFF_SAMPLE, pts.shape[1]),
+            replace=False))).to(pts.device)
+        sample = pts[:, sel].contiguous()
+        reset_counts()
+        d, i = knn(sample, verts, k)
+        sample_launches = dict(_build.LAUNCHES)
+        dp, ip = knn_exact_plain(sample, verts, k)
+        bit_equal = bool(torch.equal(d, dp) and torch.equal(i, ip))
+    finally:
+        del os.environ["ANIMNERF_KNN_PACKED"]
+    if device == "cuda":
+        check(launches_e["knn_exact"] > 0 and launches_e["knn"] == 0
+              and launches_e["knn_packed"] == 0
+              and sample_launches["knn_exact"] == 1,
+              f"ANIMNERF_KNN_PACKED=0 view launched: {launches_e}")
+        check(launches_p["knn"] > 0 and launches_p["knn_exact"] == 0,
+              f"the packed view launched: {launches_p}")
+    check(bit_equal, "kernel 9 on the view's points differs from its plain "
+          "version")
+    diff = dict(image_diff(img_e, img_p), pixels_over_1e_2=int(
+        (np.abs(img_e - img_p).max(-1) > 1e-2).sum()))
+    check(np.isfinite(img_e).all() and diff["max_abs"] <= PACKED_OFF_BOUNDS[0]
+          and diff["psnr_db"] >= PACKED_OFF_BOUNDS[1],
+          f"packed-off view against the packed view: {diff}")
+    return {"view": PACKED_OFF_VIEW, "size": [W, H],
+            "ms_packed": ms_p, "ms_exact": ms_e,
+            "launches_packed": launches_p, "launches": launches_e,
+            "knn_calls": [[c["N"], c["V"], c["k"]] for c in calls],
+            "sample_points": int(sample.shape[1]),
+            "sample_bit_equal_plain": bit_equal,
+            "exact_vs_packed_image": diff, "bounds": PACKED_OFF_BOUNDS}
+
+
 def main() -> int:
     import torch
 
@@ -5289,6 +5896,12 @@ def main() -> int:
     emit({"phase": "slice_parity", **parity,
           "seconds": time.perf_counter() - t0})
 
+    # ---- ANIMNERF_KNN_PACKED=0: the exact kNN (kernel 9) on an SMPL view
+    t0 = time.perf_counter()
+    packed_off = knn_packed_off(ck, bp, tmpl)
+    emit({"phase": "knn_packed_off", **packed_off,
+          "seconds": time.perf_counter() - t0})
+
     # ---- the dense rows render, with the kNN's all-far skip off and on
     t0 = time.perf_counter()
     dense, dense_agree = dense_serve(system, bp, tmpl, dict(zip(angles,
@@ -5356,6 +5969,12 @@ def main() -> int:
               seconds=time.perf_counter() - t0))
     launches = summary["launches"]
 
+    # ---- the opt-in point-major compacted step against dense and rows
+    t0 = time.perf_counter()
+    compact = compact_train("cuda")
+    emit({"phase": "compact_train", **compact,
+          "seconds": time.perf_counter() - t0})
+
     t0 = time.perf_counter()
     tparity = train_parity("cuda")
     emit({"phase": "train_parity", **tparity,
@@ -5413,9 +6032,15 @@ def main() -> int:
     emit({"phase": "split_serve", **sserve,
           "seconds": time.perf_counter() - t0})
 
+    # ---- dataset preparation: the signed-distance template at 64^3
+    t0 = time.perf_counter()
+    emit({"phase": "prepare_template", **prepare_template_phase(),
+          "seconds": time.perf_counter() - t0})
+
     # ---- training from a dataset on disk: fit, then evaluate from 'last';
     # then the post-training CLIs on that dataset and 'last', the mesh of
-    # the trained scale512 system and the sigma grid card against CPU
+    # the trained scale512 system and the sigma grid card against CPU; a
+    # reference checkpoint converted and checked on that dataset
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     fit_root = tempfile.mkdtemp(prefix="fit_smoke_",
                                 dir=os.path.join(ROOT, "build"))
@@ -5446,6 +6071,10 @@ def main() -> int:
 
         t0 = time.perf_counter()
         emit({"phase": "split_fit", **split_fit(fit_root),
+              "seconds": time.perf_counter() - t0})
+
+        t0 = time.perf_counter()
+        emit({"phase": "convert_parity", **convert_parity(fit_root, last),
               "seconds": time.perf_counter() - t0})
     finally:
         shutil.rmtree(fit_root, ignore_errors=True)
@@ -5632,6 +6261,7 @@ def main() -> int:
                            ("smplx_view", "knn_exact_wide"))),
           f"k_neigh 40 paths: {k40prof}")
     emit({"phase": "k40_profile", **k40prof})
+    emit({"phase": "k40_view_calls", **k40_view_calls(ck, bp, tmpl)})
     for name, res in wide.items():
         emit({"phase": name, **res})
     emit({"phase": "warp_routes", **warp_routes(ck, bp, tmpl)})
@@ -5702,6 +6332,8 @@ def main() -> int:
                  if n.startswith(f"k{k}_")]
         for kernel in ("knn_packed", "warp_blend", "scatter", "knn_exact"):
             row_launches[f"{kernel}_k{k}"] = sum(p[kernel] for p in paths)
+    # the compact step's launches (its timed steps) of kernels 1-6
+    compact_launches = compact["compact"]["launches"]
     lines["knn_exact_nocull"] = dict(lines["knn_exact"],
                                      ms=lines["knn_exact"]["ms_nocull"],
                                      bound_ms=lines["knn_exact"]["bound_all_ms"])
@@ -5721,6 +6353,10 @@ def main() -> int:
                         if name in fit_launches else {}),
                      **({"cli_launches": cli_launches[name]}
                         if name in cli_launches else {}),
+                     **({"compact_launches": compact_launches[name]}
+                        if name in compact_launches else {}),
+                     **({"packed_off_launches": packed_off["launches"][name]}
+                        if name == "knn_exact" else {}),
                      **({"serve_launches": sserve["view"]["launches"][name]}
                         if name == "warp_blend_view_dir" else {}),
                      **({"functions": {k: v[0] for k, v in

@@ -18,8 +18,10 @@ torch.set_num_threads(1)
 PKG = pathlib.Path(__file__).resolve().parents[1] / "animnerf_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "animnerf_tpu")
 # the card's machine has none of these (yaml is imported only to read a
-# YAML config, so it is banned at import time alone)
+# YAML config and h5py only to read a People-Snapshot release, so they are
+# banned at import time alone)
 NOT_ON_THE_CARD = ("cv2", "PIL", "imageio")
+IMPORT_TIME_BAN = ("yaml", "h5py")
 
 
 def test_import_loads_no_jax():
@@ -45,10 +47,11 @@ def test_import_loads_no_jax():
 
 def test_importing_every_module_loads_no_jax_cv2_pil_imageio_or_yaml():
     """Every port module and chip_smoke.py import in a fresh interpreter
-    without loading JAX, the JAX package, OpenCV, PIL, imageio or PyYAML
-    (the card's machine has none of the last four; yaml is imported only
-    to read a YAML config)."""
-    banned = FORBIDDEN + NOT_ON_THE_CARD + ("yaml",)
+    without loading JAX, the JAX package, OpenCV, PIL, imageio, PyYAML or
+    h5py (the card's machine has none of the last five; yaml is imported
+    only to read a YAML config, h5py only inside the People-Snapshot
+    tool's ``prepare``)."""
+    banned = FORBIDDEN + NOT_ON_THE_CARD + IMPORT_TIME_BAN
     code = (
         "import importlib, pkgutil, sys, animnerf_tpu_torch as p;"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
@@ -87,7 +90,8 @@ def test_no_module_imports_jax_or_the_jax_package(path):
 def test_chip_smoke_imports_nothing_the_card_lacks():
     root = PKG.parent / "chip_smoke.py"
     bad = [m for m in _imports(root)
-           if m.split(".")[0] in FORBIDDEN + NOT_ON_THE_CARD + ("yaml",)]
+           if m.split(".")[0] in FORBIDDEN + NOT_ON_THE_CARD
+           + IMPORT_TIME_BAN]
     assert not bad, f"chip_smoke.py imports {bad}"
 
 
@@ -126,6 +130,16 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert Renderer(system, device="cpu").device.type == "cpu"
+
+
+def test_prep_tools_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    """The template tool resolves its device before it reads anything: no
+    card and no "cpu" raises."""
+    from animnerf_tpu_torch.tools.prepare_template import prepare_template
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prepare_template(str(tmp_path), "subj", template_path="missing.pkl")
 
 
 def test_missing_nvcc_is_named(monkeypatch, tmp_path):
