@@ -1,5 +1,7 @@
 """Evaluation CLI of the port: full-frame renders of a split, the mean
-PSNR and SSIM; ``--vis`` saves GT | prediction | depth triptychs.
+PSNR, SSIM and LPIPS (where its weights file exists:
+``$ANIMNERF_LPIPS_WEIGHTS`` or ``assets/lpips_alex.npz``); ``--vis`` saves
+GT | prediction | depth triptychs.
 
     python -m animnerf_tpu_torch.cli.test --ckpt_path <dir> [--device cpu]
         [--cfg_file <yaml>] [--split test] [--vis] [key value ...]

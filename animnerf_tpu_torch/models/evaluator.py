@@ -1,17 +1,30 @@
-"""Image-quality metrics: PSNR and SSIM — counterpart of
-``animnerf_tpu/models/evaluator.py``.
+"""Image-quality metrics: PSNR, SSIM and LPIPS — counterpart of
+``animnerf_tpu/models/evaluator.py`` (reference models/evaluator.py:9-27).
 
 PSNR with data_range 1.0 and SSIM with the 11 x 11 gaussian window
 (Wang et al. 2004, torchmetrics' definition), both in float64 numpy /
 scipy as the JAX package computes them, so one image pair scores the same
-in both packages. LPIPS is not ported: ``Evaluator`` reports ``psnr`` and
-``ssim`` only, as the JAX package does where the LPIPS weights are not
-available.
+in both packages. LPIPS-AlexNet is ``models/lpips.py`` on the card (on
+[0, 1] images without the [-1, 1] mapping, the reference's convention),
+from the ``.npz`` weights file the JAX package reads: ``lpips_weights``,
+else ``$ANIMNERF_LPIPS_WEIGHTS``, else ``assets/lpips_alex.npz``. Without
+that file ``Evaluator`` reports ``psnr`` and ``ssim`` only. The JAX
+package then tries the ``lpips`` pip package, which downloads its
+weights; the port has no counterpart of that fallback, and makes the
+file from weights the user has with ``python -m
+animnerf_tpu_torch.models.lpips``.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from animnerf_tpu_torch.models.lpips import LPIPSMetric
+from animnerf_tpu_torch.utils.device import DeviceLike
+
+DEFAULT_LPIPS_WEIGHTS = "assets/lpips_alex.npz"
 
 def psnr(pred: np.ndarray, target: np.ndarray,
          data_range: float = 1.0) -> float:
@@ -59,7 +72,22 @@ def ssim(pred: np.ndarray, target: np.ndarray, data_range: float = 1.0,
 
 
 class Evaluator:
-    """The per-image metrics of the evaluation: {"psnr", "ssim"}."""
+    """The per-image metrics of the evaluation: {"psnr", "ssim"} and
+    "lpips" where the weights file exists (on ``device``: the card unless
+    "cpu" is asked for). A file that exists but cannot be read raises."""
+
+    def __init__(self, use_lpips: bool = True,
+                 lpips_weights: "str | None" = None,
+                 device: DeviceLike = None):
+        self.lpips = None
+        if use_lpips:
+            weights = lpips_weights or os.environ.get(
+                "ANIMNERF_LPIPS_WEIGHTS", DEFAULT_LPIPS_WEIGHTS)
+            if os.path.exists(weights):
+                self.lpips = LPIPSMetric(weights, device)
 
     def __call__(self, img_pred: np.ndarray, img_gt: np.ndarray) -> dict:
-        return {"psnr": psnr(img_pred, img_gt), "ssim": ssim(img_pred, img_gt)}
+        out = {"psnr": psnr(img_pred, img_gt), "ssim": ssim(img_pred, img_gt)}
+        if self.lpips is not None:
+            out["lpips"] = self.lpips(img_pred, img_gt)
+        return out

@@ -6,10 +6,12 @@ People-Snapshot data dir, the SMPL model pkl, a trained reference
 Lightning ``.ckpt``), converts the checkpoint without torch's unpickler
 (``tools/convert_checkpoint.py``), evaluates the split with the port's
 ``training/loop.py::evaluate`` (on the card unless ``--device cpu``) and
-prints the PSNR / SSIM means and their deltas against the reference's
-printed numbers (reference test.py:91-93). The port computes no LPIPS
-yet, so the report has no ``lpips`` key, as the JAX tool's has none when
-its LPIPS weights are absent.
+prints the PSNR / SSIM / LPIPS means and their deltas against the
+reference's printed numbers (reference test.py:91-93). LPIPS is in the
+report where its weights file exists (``$ANIMNERF_LPIPS_WEIGHTS`` or
+``assets/lpips_alex.npz``, made by ``python -m
+animnerf_tpu_torch.models.lpips``); without it the report has no
+``lpips`` key.
 
     python -m animnerf_tpu_torch.tools.parity_check \
         --data_dir data/male-3-casual \
@@ -35,7 +37,8 @@ from animnerf_tpu_torch.utils.device import DeviceLike
 def run_parity_check(data_dir: str, smpl_pkl: str, ckpt: str,
                      cfg_file: str | None = None, opts: list | None = None,
                      ref_psnr: float | None = None,
-                     ref_ssim: float | None = None, split: str = "test",
+                     ref_ssim: float | None = None,
+                     ref_lpips: float | None = None, split: str = "test",
                      out_dir: str | None = None, vis: bool = False,
                      device: DeviceLike = None) -> dict:
     """Convert -> evaluate -> report: the metric means, with ``<m>_ref``
@@ -58,7 +61,8 @@ def run_parity_check(data_dir: str, smpl_pkl: str, ckpt: str,
     means = evaluate(cfg, conv_dir, split=split, save_vis=vis,
                      out_dir=os.path.join(out_dir, "vis"), device=device)
     report = {k: float(v) for k, v in means.items()}
-    for name, ref in (("psnr", ref_psnr), ("ssim", ref_ssim)):
+    for name, ref in (("psnr", ref_psnr), ("ssim", ref_ssim),
+                      ("lpips", ref_lpips)):
         if ref is not None and name in report:
             report[f"{name}_ref"] = float(ref)
             report[f"{name}_delta"] = report[name] - float(ref)
@@ -95,6 +99,7 @@ def main(argv=None) -> None:
     p.add_argument("--ref_psnr", type=float, default=None,
                    help="the reference test.py's printed mean PSNR")
     p.add_argument("--ref_ssim", type=float, default=None)
+    p.add_argument("--ref_lpips", type=float, default=None)
     p.add_argument("--out_dir", default=None)
     p.add_argument("--vis", action="store_true")
     p.add_argument("--device", default=None,
@@ -105,8 +110,8 @@ def main(argv=None) -> None:
     report = run_parity_check(
         args.data_dir, args.smpl_pkl, args.ckpt, cfg_file=args.cfg_file,
         opts=args.opts, ref_psnr=args.ref_psnr, ref_ssim=args.ref_ssim,
-        split=args.split, out_dir=args.out_dir, vis=args.vis,
-        device=args.device)
+        ref_lpips=args.ref_lpips, split=args.split, out_dir=args.out_dir,
+        vis=args.vis, device=args.device)
     print(json.dumps(report, indent=2, sort_keys=True))
     if "psnr_delta" in report:
         verdict = "PASS" if report["psnr_within_0.1dB"] else "FAIL"

@@ -10,7 +10,8 @@ tool's keys, shapes and dtypes. Where the JAX tool calls OpenCV:
 
   * ``cv2.Rodrigues`` -> ``rodrigues`` (OpenCV's formula in double);
   * ``cv2.VideoCapture`` -> a decoder, a callable video path ->
-    (width, height, count, an iterator of (H, W, 3) uint8 RGB frames):
+    (width, height, count, an iterator of (H, W, 3) uint8 RGB frames),
+    count None where the container does not say:
     ``ffmpeg_frames`` (an ``ffmpeg`` subprocess, rawvideo rgb24) by
     default, ``png_frames`` for a directory of extracted frames;
   * ``cv2.resize(INTER_NEAREST)`` of a mask -> ``resize_nearest``;
@@ -35,7 +36,7 @@ import sys
 import numpy as np
 
 from animnerf_tpu_torch.smpl.loader import load_pickle
-from animnerf_tpu_torch.utils.image import read_png, write_png
+from animnerf_tpu_torch.utils.image import read_rgb, write_png
 from animnerf_tpu_torch.utils.io import write_pickle_file
 
 DBL_EPSILON = sys.float_info.epsilon
@@ -83,9 +84,11 @@ def resize_nearest(img: np.ndarray, size: tuple) -> np.ndarray:
 def ffmpeg_frames(video_path: str):
     """Decode a video with ``ffmpeg`` -> (width, height, count, frames):
     the size and the container's frame count from ``ffprobe`` (as
-    OpenCV's CAP_PROP_FRAME_COUNT reads it), frames an iterator of
-    (H, W, 3) uint8 RGB arrays from an ``ffmpeg`` rawvideo rgb24 pipe,
-    which is stopped when the iterator is closed or finished."""
+    OpenCV's CAP_PROP_FRAME_COUNT reads it; None where ``ffprobe`` says
+    ``N/A``, and then ``prepare`` reads to the end of the stream), frames
+    an iterator of (H, W, 3) uint8 RGB arrays from an ``ffmpeg`` rawvideo
+    rgb24 pipe, which is stopped when the iterator is closed or
+    finished."""
     probe = subprocess.run(
         ["ffprobe", "-v", "error", "-select_streams", "v:0",
          "-show_entries", "stream=width,height,nb_frames",
@@ -93,7 +96,7 @@ def ffmpeg_frames(video_path: str):
         check=True, capture_output=True, text=True).stdout.strip()
     fields = probe.splitlines()[0].split(",")
     width, height = int(fields[0]), int(fields[1])
-    count = int(fields[2]) if fields[2].isdigit() else 0
+    count = int(fields[2]) if fields[2].isdigit() else None
 
     def frames():
         proc = subprocess.Popen(
@@ -123,15 +126,9 @@ def png_frames(frames_dir: str):
     if not files:
         raise FileNotFoundError(f"no PNG frames in {frames_dir!r}")
 
-    def rgb(path):
-        img = read_png(path)
-        if img.ndim == 2:
-            img = img[..., None]
-        return np.repeat(img, 3, axis=2) if img.shape[2] < 3 else img[..., :3]
-
-    first = rgb(os.path.join(frames_dir, files[0]))
+    first = read_rgb(os.path.join(frames_dir, files[0]))
     height, width = first.shape[:2]
-    frames = (rgb(os.path.join(frames_dir, f)) for f in files)
+    frames = (read_rgb(os.path.join(frames_dir, f)) for f in files)
     return width, height, len(files), frames
 
 
@@ -139,7 +136,10 @@ def prepare(people_dir: str, out_dir: str, decoder=None,
             frames_dir: str = None) -> int:
     """Write the prepared subject into ``out_dir``; returns the frame
     count. Frames from ``frames_dir`` (PNGs) when given, else from
-    ``decoder(<people_dir>/<name>.mp4)`` (default ``ffmpeg_frames``)."""
+    ``decoder(<people_dir>/<name>.mp4)`` (default ``ffmpeg_frames``):
+    as many as there are masks, poses and frames, to the end of the
+    stream where the decoder gives no count. Raises ``RuntimeError``
+    when it writes no frame."""
     import h5py
 
     os.makedirs(out_dir, exist_ok=True)
@@ -177,7 +177,9 @@ def prepare(people_dir: str, out_dir: str, decoder=None,
     n_done = 0
     with h5py.File(os.path.join(people_dir, "masks.hdf5"), "r") as f:
         masks = f["masks"]
-        n_frames = min(len(masks), count, len(poses))
+        n_frames = min(len(masks), len(poses))
+        if count is not None:
+            n_frames = min(n_frames, count)
         frames = iter(frames)
         try:
             for i in range(n_frames):
@@ -203,7 +205,11 @@ def prepare(people_dir: str, out_dir: str, decoder=None,
             close = getattr(frames, "close", None)
             if close is not None:
                 close()
-    print(f"prepared {n_frames} frames into {out_dir}")
+    if n_done == 0:
+        raise RuntimeError(
+            f"prepared no frame from {people_dir!r}: the video gave none "
+            f"(count {count}), or the release has no masks or poses")
+    print(f"prepared {n_done} frames into {out_dir}")
     return n_done
 
 

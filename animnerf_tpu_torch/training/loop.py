@@ -8,9 +8,10 @@ takes steps of the engine the JAX package's ``auto`` picks
 for every other; a line names it), renders one validation frame per epoch
 (``make_eval_step`` in slabs of 32,768 rays), and writes the top-k and
 ``last`` checkpoints in the JAX package's layout; ``evaluate`` scores a
-split's frames with PSNR and SSIM. Log lines, ``metrics.jsonl`` keys,
-TensorBoard events, the checkpoint cadence, refinement
-(``train.ckpt_path``, ``model_names_to_load``,
+split's frames with PSNR and SSIM, and LPIPS on the card where its
+weights file exists (``models/evaluator.py``). Log lines,
+``metrics.jsonl`` keys, TensorBoard events, the checkpoint cadence,
+refinement (``train.ckpt_path``, ``model_names_to_load``,
 ``pretrained_model_requires_grad``) and resume follow the JAX package.
 Resume continues the data stream where the checkpoint left it (the
 epoch's first batches are drawn again and skipped), so a resumed run
@@ -329,9 +330,10 @@ def evaluate(cfg: CfgNode, ckpt_path: str, split: str = "test",
              save_vis: bool = False, out_dir: Optional[str] = None,
              device: DeviceLike = None,
              stats: Optional[dict] = None) -> dict:
-    """Full-frame renders of a split -> the means of PSNR and SSIM (LPIPS
-    is not ported). ``stats``, when given, collects ``frame_s``: each
-    frame's render on the host clock, synchronised."""
+    """Full-frame renders of a split -> the means of PSNR, SSIM and, where
+    the LPIPS weights file exists, LPIPS (on the system's device).
+    ``stats``, when given, collects ``frame_s``: each frame's render on
+    the host clock, synchronised, and ``score_s``: its metrics."""
     from animnerf_tpu_torch.models.evaluator import Evaluator
 
     check_single_device(cfg)
@@ -342,9 +344,10 @@ def evaluate(cfg: CfgNode, ckpt_path: str, split: str = "test",
         cfg.frame_IDs, cfg.root_dir, cfg.model_type))
     load_params(ckpt_path, system)
     eval_step = make_eval_step(system)
-    evaluator = Evaluator()
+    evaluator = Evaluator(device=dev)
     if stats is not None:
         stats.setdefault("frame_s", [])
+        stats.setdefault("score_s", [])
 
     W, H = cfg.img_wh
     scores = []
@@ -356,7 +359,10 @@ def evaluate(cfg: CfgNode, ckpt_path: str, split: str = "test",
         rgb_key = "rgbs_fine" if "rgbs_fine" in out else "rgbs"
         pred = out[rgb_key].reshape(H, W, 3)
         gt = batch["rgbs"].reshape(H, W, 3)
+        t0 = time.perf_counter()
         s = evaluator(pred, gt)
+        if stats is not None:
+            stats["score_s"].append(time.perf_counter() - t0)
         scores.append(s)
         frame_id = int(batch["frame_id"][0])
         print(f"frame {frame_id}: "

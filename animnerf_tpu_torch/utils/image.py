@@ -9,7 +9,8 @@ package (``tests/test_torch_image_ops.py`` holds each function against
 
   * ``read_png`` / ``write_png`` / ``encode_png``: 8-bit gray, RGB and
     RGBA on ``zlib``, all five row filters on reading (OpenCV can write
-    any of them, or choose per row);
+    any of them, or choose per row); ``read_rgb``: a frame as
+    ``cv2.imread`` reads it in colour;
   * ``resize_linear_u8``: OpenCV's uint8 ``INTER_LINEAR``, fixed point with
     11-bit coefficients, and its exact 2x downscale (a 2x2 box average);
   * ``undistort_u8``: ``initUndistortRectifyMap`` on a 1/32-pixel table
@@ -24,6 +25,7 @@ Images are (H, W) or (H, W, C) arrays in RGB(A) channel order.
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -116,6 +118,24 @@ def read_png(path: str) -> np.ndarray:
     rows = _unfilter(zlib.decompress(b"".join(idat)), height, width * cn, cn)
     img = rows.reshape(height, width, cn)
     return img[..., 0] if cn == 1 else img
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """A frame as (H, W, 3) uint8 RGB, as ``cv2.imread`` reads a PNG in
+    colour (an alpha channel dropped, gray repeated), in RGB order. The
+    port decodes PNG only: a JPEG frame raises ``ValueError`` naming it."""
+    if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
+        raise ValueError(
+            f"{path!r} is a JPEG frame, and the port decodes PNG only (it "
+            "has no JPEG decoder without OpenCV or PIL): extract the "
+            "frames as PNG (python -m animnerf_tpu_torch.tools."
+            "video_to_images) or pass a reader that decodes them")
+    img = read_png(path)
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.shape[2] < 3:
+        return np.repeat(img[..., :1], 3, axis=2)
+    return np.ascontiguousarray(img[..., :3])
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -16,7 +16,14 @@ parameter rebuild functions and storage markers, ``collections.OrderedDict``
 numpy's own array reconstructors, scalars and dtypes. Every other global
 becomes a ``Placeholder`` that records its name and arguments, so loading
 a checkpoint runs no code it names (``os.system``, ``builtins.eval``, ...).
-A valid checkpoint's tensors come back as the JAX reader's, bit for bit.
+A ``dict`` subclass outside the allowlist, such as the yacs ``CfgNode``
+the reference freezes into every Lightning checkpoint, reads as a plain
+dict of the items the pickle gives it (``SETITEMS``), nested sections
+too; its ``__dict__`` state (yacs' ``__immutable__`` and the like) adds
+no keys. That is what the JAX package's reader returns where the class
+is importable: a dict with those items. A yacs ``CfgNode`` with no items
+reads as an empty dict. A valid checkpoint's tensors come back as the JAX
+reader's, bit for bit.
 """
 
 from __future__ import annotations
@@ -87,16 +94,20 @@ def _rebuild_parameter(data, requires_grad=True, backward_hooks=None,
 class Placeholder:
     """Stands in for a global outside the allowlist: it records the
     module and name (``_global``), the arguments it was called with and
-    any state or items the pickle gives it, and runs nothing."""
+    any state or items the pickle gives it, and runs nothing. Its fields
+    are set in ``__new__``: pickle's ``NEWOBJ`` creates an instance
+    without calling ``__init__``."""
 
     _global = ("", "")
 
-    def __init__(self, *args, **kwargs):
+    def __new__(cls, *args, **kwargs):
+        self = super().__new__(cls)
         self.args = args
         self.kwargs = kwargs
         self.state = None
         self.items = {}
         self.elements = []
+        return self
 
     def __setstate__(self, state):
         self.state = state
@@ -112,6 +123,41 @@ class Placeholder:
 
     def __repr__(self) -> str:
         return "Placeholder(%s.%s)" % self._global
+
+
+# dict subclasses that read as a dict even when the pickle gives no items
+_DICT_GLOBALS = {("yacs.config", "CfgNode")}
+
+
+def _reads_as_dict(obj: Placeholder) -> bool:
+    return bool(obj.items) or (obj._global in _DICT_GLOBALS
+                               and not obj.args and not obj.kwargs)
+
+
+def _plain(obj: Any, seen: dict) -> Any:
+    """Replace every placeholder filled by ``SETITEMS`` (and every empty
+    yacs ``CfgNode``) by the dict of its items, through dicts, lists and
+    tuples; an object the pickle shares stays shared. ``seen`` maps an
+    object's id to (the object, its result): holding the object keeps its
+    id from being reused while the walk runs."""
+    key = id(obj)
+    if key in seen:
+        return seen[key][1]
+    if isinstance(obj, Placeholder) and _reads_as_dict(obj):
+        out = {}
+        seen[key] = (obj, out)
+        for k, v in obj.items.items():
+            out[k] = _plain(v, seen)
+        return out
+    seen[key] = (obj, obj)
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            obj[k] = _plain(v, seen)
+    elif isinstance(obj, list):
+        obj[:] = [_plain(v, seen) for v in obj]
+    elif isinstance(obj, tuple):
+        seen[key] = (obj, tuple(_plain(v, seen) for v in obj))
+    return seen[key][1]
 
 
 class _Namespace(dict):
@@ -167,7 +213,8 @@ class _RestrictedUnpickler(pickle.Unpickler):
 
 def load_torch_checkpoint(path: str) -> Any:
     """Load a torch zip-serialized checkpoint into numpy arrays, dicts and
-    ``Placeholder``s, without torch and without running code it names."""
+    ``Placeholder``s, without torch and without running code it names;
+    pickled dict subclasses come back as plain dicts."""
     with zipfile.ZipFile(path) as zf:
         pkl_names = [n for n in zf.namelist() if n.endswith("data.pkl")]
         if not pkl_names:
@@ -176,4 +223,4 @@ def load_torch_checkpoint(path: str) -> Any:
         prefix = pkl_name[: -len("/data.pkl")]
         with zf.open(pkl_name) as f:
             up = _RestrictedUnpickler(io.BytesIO(f.read()), zf, prefix)
-            return up.load()
+            return _plain(up.load(), {})

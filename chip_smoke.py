@@ -112,6 +112,14 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      seed-3 V=6890 rig on the card (wall time, the distance pass's
      profile), card against CPU on 4,096 points (PREP_REL, signs outside
      PREP_SIGN_BAND of the surface), the closed sphere's four signs;
+  7-. prep_tools: ``tools/rvm.py`` on eight 512x512 PNG frames with a
+     small recurrent TorchScript matting model loaded onto the card, its
+     RGBA PNGs equal to a CPU run of the same file, the warm-up frames
+     not written; ``tools/vibe_driver.py`` on 30 frames of two
+     fabricated people with an injected detector and a small torch
+     regressor on the card, then ``tools/convert_vibe.py`` on its output:
+     the tracklets, the pickles' keys and shapes, ``orig_cam`` against
+     numpy's formula; each step's ms;
   7a. fit: training from a dataset on disk as the train CLI runs it: the
      port writes a synthetic dataset (12 frames at 512x512 on the V=6890
      seed-0 rig), ``fit`` takes 60 steps of 16 x 32^2 foreground_pixel
@@ -145,13 +153,24 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      1 + max |sigma|; the native marching of the card's field against
      ``marching_tets_numpy`` through ``marching_model`` (soups bit-equal
      after sorting the triangles, the merge bit-equal to the native);
-  7e. convert_parity (on the fit dataset): a Lightning .ckpt of the
+  7e. lpips (on the fit dataset): seeded torchvision-layout AlexNet and
+     lpips-head files converted by ``models/lpips.py`` (the .npz equal to
+     the arrays saved); the scale512 run's 512x512 validation render
+     against its ground truth (docs/demo/scale512/fit_val.png) scored on
+     the card and on the CPU within LPIPS_REL, also with cuDNN's global
+     TF32 switch on (the score unchanged) and, for the record, with TF32
+     let into LPIPS's convolutions; the pair timed by CUDA events beside
+     its FP32 bound; ``evaluate`` with ``$ANIMNERF_LPIPS_WEIGHTS`` set:
+     lpips beside PSNR and SSIM (equal to the fit phase's), the ms of an
+     eval frame's render and scores with and without LPIPS;
+  7f. convert_parity (on the fit dataset): a Lightning .ckpt of the
      scale512 field and the fit run's body params under the reference's
-     names, with decoys and a hyper-parameter class the card's machine
-     cannot import, converted by ``tools/convert_checkpoint.py`` (every
-     array bit-equal to its tensor), then ``tools/parity_check.py`` on
-     the card: PSNR and SSIM equal to ``evaluate`` on the original
-     checkpoint;
+     names, with decoys, its hyper-parameters a yacs ``CfgNode`` stand-in
+     (a dict subclass whose module exists only while the file is
+     written), converted by ``tools/convert_checkpoint.py`` (every array
+     bit-equal to its tensor, the config's sections in meta.json), then
+     ``tools/parity_check.py --ref_lpips`` on the card: PSNR, SSIM and
+     LPIPS equal to ``evaluate`` on the original checkpoint;
  8. SMPL-X kernel lines: the exact kNN (kernel 9, with and without its
      cull, at K = 4 and 8, random-order points: the swept share, both
      bounds, SASS per pair) and the nearest-vertex distance against the
@@ -239,6 +258,7 @@ the encoding and bf16 F.linear chain).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -3012,6 +3032,7 @@ def fit_phase(root: str, train_median_ms: float,
         "median_produce_ms": float(np.median(stats["produce_s"])) * 1e3,
         "val_frame_ms": [t * 1e3 for t in stats["val_s"]],
         "eval_frame_ms": [t * 1e3 for t in estats["frame_s"]],
+        "eval_score_ms": [t * 1e3 for t in estats["score_s"]],
         "save_ms": [t * 1e3 for t in stats["save_s"]],
         "losses_first5": losses[:5], "losses_last5": losses[-5:],
         "test_psnr": scores["psnr"], "test_ssim": scores["ssim"],
@@ -5453,13 +5474,32 @@ def _reference_name(layer: str) -> str:
     return f"xyz_encoding_{int(layer[4:]) + 1}.0"
 
 
+def yacs_cfgnode() -> type:
+    """A stand-in for yacs' ``CfgNode``: a dict subclass whose dict
+    sections become CfgNodes, yacs' attributes in ``__dict__``."""
+
+    class CfgNode(dict):
+        def __init__(self, init_dict=None):
+            init_dict = dict(init_dict or {})
+            for k, v in init_dict.items():
+                if type(v) is dict:
+                    init_dict[k] = CfgNode(v)
+            super().__init__(init_dict)
+            self.__dict__["__immutable__"] = False
+            self.__dict__["__new_allowed__"] = False
+
+    CfgNode.__module__, CfgNode.__qualname__ = "yacs.config", "CfgNode"
+    return CfgNode
+
+
 def write_reference_ckpt(path: str, nets: dict, body: dict,
                          hparams: dict) -> dict:
     """torch.save a Lightning checkpoint: the field's state dicts
     (``nets``: {net: {"<layer>.<weight|bias>": tensor}}) under the
     reference's names, ``body`` as body_model_params.*, the SMPL-buffer
-    and evaluator decoys, ``hparams`` beside an instance of a class whose
-    module exists only while the file is written. Returns the state dict."""
+    and evaluator decoys, ``hparams`` as a yacs ``CfgNode`` (the stand-in
+    registered as ``yacs.config`` only while the file is written, as the
+    card's machine has no yacs). Returns the state dict."""
     import types
 
     import torch
@@ -5475,21 +5515,20 @@ def write_reference_ckpt(path: str, nets: dict, body: dict,
             np.array(v))
     sd["anim_nerf.body_model.v_template"] = torch.zeros(6890, 3)
     sd["evaluator.lpips.net.slice1.0.weight"] = torch.zeros(64, 3, 11, 11)
-    gone = "reference_cfg_module"
-    mod = types.ModuleType(gone)
-
-    class CfgNode:
-        pass
-
-    CfgNode.__module__, CfgNode.__qualname__ = gone, "CfgNode"
-    mod.CfgNode = CfgNode
-    sys.modules[gone] = mod
+    cls = yacs_cfgnode()
+    saved = {m: sys.modules.get(m) for m in ("yacs", "yacs.config")}
+    yacs, config = types.ModuleType("yacs"), types.ModuleType("yacs.config")
+    config.CfgNode, yacs.config = cls, config
+    sys.modules.update({"yacs": yacs, "yacs.config": config})
     try:
         torch.save({"state_dict": sd, "epoch": 3, "global_step": 60,
-                    "hyper_parameters": dict(hparams, cfg_node=CfgNode())},
-                   path)
+                    "hyper_parameters": cls(hparams)}, path)
     finally:
-        del sys.modules[gone]
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
     return sd
 
 
@@ -5516,15 +5555,18 @@ def converted_bit_equal(conv: str, sd: dict, body: dict) -> tuple:
     return same, len(nerf) + len(cbody)
 
 
-def convert_parity(root: str, last: str, device: str = "cuda") -> dict:
+def convert_parity(root: str, last: str, lpips_weights: str,
+                   device: str = "cuda") -> dict:
     """A Lightning .ckpt of the scale512 field and the fit run's body
-    params with the fit config as hyper-parameters
+    params with the fit config as hyper-parameters, a yacs ``CfgNode``
     (``write_reference_ckpt``), converted without torch's unpickler:
-    every array bit-equal to its source tensor. Then parity_check on the
-    fit dataset (the asset paths of this run winning) on the card, whose
-    PSNR and SSIM must equal ``evaluate`` on the original checkpoint (the
-    same arrays written by save_params) exactly; the launch counts of
-    each set to 0 just before and read just after."""
+    every array bit-equal to its source tensor, the config with its
+    sections in meta.json. Then parity_check with ``--ref_lpips`` on the
+    fit dataset (the asset paths of this run winning) on the card, with
+    ``$ANIMNERF_LPIPS_WEIGHTS`` at ``lpips_weights``: its PSNR, SSIM and
+    LPIPS must equal ``evaluate`` on the original checkpoint (the same
+    arrays written by save_params) exactly; the launch counts of each set
+    to 0 just before and read just after."""
     import torch
 
     from animnerf_tpu_torch.ops import _build
@@ -5532,6 +5574,7 @@ def convert_parity(root: str, last: str, device: str = "cuda") -> dict:
     from animnerf_tpu_torch.tools.parity_check import run_parity_check
     from animnerf_tpu_torch.training import loop as TL
     from animnerf_tpu_torch.training.checkpoints import (
+        load_metadata,
         nerf_params_to_flax,
         save_params,
     )
@@ -5553,6 +5596,10 @@ def convert_parity(root: str, last: str, device: str = "cuda") -> dict:
     convert_s = time.perf_counter() - t0
     same, n_arrays = converted_bit_equal(conv, sd, body)
     check(same, "converted arrays differ from the reference checkpoint's")
+    meta_cfg = load_metadata(conv).get("cfg")
+    check(meta_cfg == hparams,
+          "the CfgNode hyper-parameters did not reach meta.json as the "
+          f"config: {sorted(meta_cfg or {})}")
 
     orig = os.path.join(root, "original")
     flax = {}
@@ -5560,30 +5607,447 @@ def convert_parity(root: str, last: str, device: str = "cuda") -> dict:
         flax.update(nerf_params_to_flax(state, net))
     save_params(orig, {"anim_nerf": flax, "body_params": body},
                 {"cfg": TL.dict_flat(cfg)})
-    sync(device)
-    reset_counts()
-    want = TL.evaluate(cfg, orig, device=device)
-    eval_launches = dict(_build.LAUNCHES)
-    reset_counts()
-    t0 = time.perf_counter()
-    got = run_parity_check(root, os.path.join(root, "models",
-                                              "SMPL_NEUTRAL.pkl"),
-                           ckpt, ref_psnr=want["psnr"],
-                           ref_ssim=want["ssim"],
-                           out_dir=os.path.join(root, "parity"),
-                           device=device)
-    parity_s = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    check(got["psnr"] == want["psnr"] and got["ssim"] == want["ssim"]
-          and "lpips" not in got,
+    with env_var("ANIMNERF_LPIPS_WEIGHTS", lpips_weights):
+        sync(device)
+        reset_counts()
+        want = TL.evaluate(cfg, orig, device=device)
+        eval_launches = dict(_build.LAUNCHES)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = run_parity_check(root, os.path.join(root, "models",
+                                                  "SMPL_NEUTRAL.pkl"),
+                               ckpt, ref_psnr=want["psnr"],
+                               ref_ssim=want["ssim"],
+                               ref_lpips=want["lpips"],
+                               out_dir=os.path.join(root, "parity"),
+                               device=device)
+        parity_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    check(all(got[k] == want[k] for k in ("psnr", "ssim", "lpips"))
+          and got["lpips_delta"] == 0.0,
           f"parity_check {got} against evaluate {want}")
     if device == "cuda":
         check(all(launches[k] > 0 for k in SERVE_KERNELS),
               f"parity_check's evaluate launched: {launches}")
     return {"arrays_bit_equal": same, "arrays": n_arrays,
+            "cfg_sections": sorted(k for k, v in meta_cfg.items()
+                                   if isinstance(v, dict)),
             "convert_s": convert_s, "parity_check_s": parity_s,
             "report": got, "evaluate_original": want, "launches": launches,
             "evaluate_launches": eval_launches}
+
+
+@contextlib.contextmanager
+def env_var(name: str, value: str):
+    """``os.environ[name] = value`` for the block's length only."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+# lpips: the metric's weights from this seed; the card's score against the
+# CPU's within LPIPS_REL relative (1e-5 predicted with TF32 off, ~1e-3 with
+# it on); the pair timed over LPIPS_REPS CUDA-event runs
+LPIPS_SEED = 21
+LPIPS_REL = 1e-4
+LPIPS_REPS = 20
+LPIPS_PAIR = os.path.join(ROOT, "docs", "demo", "scale512", "fit_val.png")
+
+
+def lpips_files(root: str, seed: int = LPIPS_SEED) -> tuple:
+    """torchvision's alexnet features and lpips' alex.pth heads from a
+    seed, torch.saved into root: (alexnet path, heads path, the npz arrays
+    they must convert to)."""
+    import torch
+
+    from animnerf_tpu_torch.models.lpips import ALEX_LAYERS, TORCH_INDEX
+
+    rng = np.random.default_rng(seed)
+    alex, lin, want = {}, {}, {}
+    cin = 3
+    for i, (cout, kk, _, _) in enumerate(ALEX_LAYERS):
+        ti = TORCH_INDEX[i]
+        w = rng.normal(scale=0.05, size=(cout, cin, kk, kk)).astype(
+            np.float32)
+        b = rng.normal(scale=0.01, size=cout).astype(np.float32)
+        h = rng.uniform(0, 0.1, size=(1, cout, 1, 1)).astype(np.float32)
+        alex[f"features.{ti}.weight"] = torch.from_numpy(w)
+        alex[f"features.{ti}.bias"] = torch.from_numpy(b)
+        lin[f"lin{i}.model.1.weight"] = torch.from_numpy(h)
+        want.update({f"conv{i}_w": w.transpose(2, 3, 1, 0),
+                     f"conv{i}_b": b, f"lin{i}_w": h.reshape(-1)})
+        cin = cout
+    paths = (os.path.join(root, "alexnet.pth"), os.path.join(root, "alex.pth"))
+    torch.save(alex, paths[0])
+    torch.save(lin, paths[1])
+    return paths[0], paths[1], want
+
+
+def lpips_cost(H: int, W: int) -> tuple:
+    """(the FP32 operations of one LPIPS pair at H x W: the five
+    convolutions of both pictures, 2 per multiply-add; the bytes it must
+    move: both pictures and the weights read once)."""
+    from animnerf_tpu_torch.models.lpips import ALEX_LAYERS, POOL_AFTER
+
+    flops, params, cin = 0.0, 0, 3
+    for i, (cout, k, stride, pad) in enumerate(ALEX_LAYERS):
+        H = (H + 2 * pad - k) // stride + 1
+        W = (W + 2 * pad - k) // stride + 1
+        flops += 2.0 * H * W * cout * cin * k * k
+        params += cout * cin * k * k + 2 * cout
+        if i in POOL_AFTER:
+            H, W = (H - 3) // 2 + 1, (W - 3) // 2 + 1
+        cin = cout
+    return 2 * flops, 4.0 * (params + 2 * 3 * H * W)
+
+
+def lpips_phase(cfg, last: str, fitted: dict, device: str = "cuda") -> dict:
+    """LPIPS from weight files to the evaluation: seeded torch files
+    converted (the .npz equal to the arrays saved); the scale512 run's
+    validation render and its ground truth (512x512) scored on ``device``
+    and on the CPU within LPIPS_REL, again with cuDNN's global TF32 switch
+    on (the same score: LPIPS keeps its convolutions in float32), and
+    with TF32 let into its convolutions (the trap, recorded); the pair's
+    CUDA-event ms beside its FP32 bound; then ``evaluate`` of ``last``
+    with ``$ANIMNERF_LPIPS_WEIGHTS`` set: lpips, and PSNR and SSIM equal
+    to the fit phase's ``evaluate`` without it. Returns the line and the
+    weights file."""
+    import torch
+
+    from animnerf_tpu_torch.models import lpips as L
+    from animnerf_tpu_torch.ops import _build
+    from animnerf_tpu_torch.training import loop as TL
+    from animnerf_tpu_torch.utils.image import read_png
+
+    root = cfg.root_dir
+    alex, heads, want = lpips_files(root)
+    t0 = time.perf_counter()
+    npz = L.convert_torch_lpips(alex, heads, os.path.join(root, "lpips.npz"))
+    convert_ms = (time.perf_counter() - t0) * 1e3
+    got = L.load_params(npz)
+    same = sorted(got) == sorted(want) and all(
+        got[k].dtype == np.float32 and np.array_equal(got[k], want[k])
+        for k in want)
+    check(same, "the converted LPIPS .npz differs from the arrays saved")
+
+    panels = read_png(LPIPS_PAIR).astype(np.float32) / 255.0
+    gt, pred = panels[:, :512], panels[:, 512:1024]
+    H, W = gt.shape[:2]
+    card = L.LPIPSMetric(npz, device)
+    cpu = L.LPIPSMetric(npz, "cpu")
+    score = card(pred, gt)
+    t0 = time.perf_counter()
+    score_cpu = cpu(pred, gt)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    rel = abs(score - score_cpu) / abs(score_cpu)
+    check(math.isfinite(score) and score > 0 and rel <= LPIPS_REL,
+          f"LPIPS card {score} against CPU {score_cpu}: {rel:.3g} relative")
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        score_global_tf32 = card(pred, gt)
+        fp32_flags = L.fp32_convolutions
+        L.fp32_convolutions = contextlib.nullcontext
+        try:
+            score_tf32 = card(pred, gt)
+        finally:
+            L.fp32_convolutions = fp32_flags
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    check(score_global_tf32 == score,
+          f"LPIPS moved with cuDNN's TF32 switch: {score_global_tf32} "
+          f"against {score}")
+    a = L.to_batch(pred, card.device)
+    b = L.to_batch(gt, card.device)
+    flops, nbytes = lpips_cost(H, W)
+    bound_ms = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
+    with torch.no_grad():
+        pair_ms = (time_ms(lambda: card.model(a, b), LPIPS_REPS)
+                   if torch.device(device).type == "cuda" else None)
+
+    estats: dict = {}
+    with env_var("ANIMNERF_LPIPS_WEIGHTS", npz):
+        sync(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        scores = TL.evaluate(cfg, last, device=device, stats=estats)
+        eval_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    check(sorted(scores) == ["lpips", "psnr", "ssim"]
+          and math.isfinite(scores["lpips"]) and scores["lpips"] > 0
+          and scores["psnr"] == fitted["test_psnr"]
+          and scores["ssim"] == fitted["test_ssim"],
+          f"evaluate with LPIPS {scores} against the fit phase's "
+          f"{fitted['test_psnr']}, {fitted['test_ssim']}")
+    if torch.device(device).type == "cuda":
+        check(all(launches[k] > 0 for k in SERVE_KERNELS),
+              f"evaluate with LPIPS launched: {launches}")
+    score_ms = [t * 1e3 for t in estats["score_s"]]
+    base_ms = fitted["eval_score_ms"]
+    return {
+        "npz_equal": same, "convert_ms": convert_ms,
+        "pair": "docs/demo/scale512/fit_val.png: render vs ground truth, "
+                f"{H}x{W}",
+        "score_card": score, "score_cpu": score_cpu, "rel": rel,
+        "bound_rel": LPIPS_REL, "score_global_tf32_on": score_global_tf32,
+        "score_tf32_convs": score_tf32,
+        "rel_tf32_convs": abs(score_tf32 - score_cpu) / abs(score_cpu),
+        "pair_ms": pair_ms, "cpu_pair_ms_host": cpu_ms,
+        "pair_gflop": flops / 1e9, "pair_mbytes": nbytes / 1e6,
+        "bound_ms": bound_ms, "bound_by": "operations"
+        if flops / PEAK_F32 >= nbytes / PEAK_BYTES else "bytes",
+        "evaluate": scores, "evaluate_s": eval_s,
+        "eval_render_ms": [t * 1e3 for t in estats["frame_s"]],
+        "eval_score_ms_lpips": score_ms,
+        "eval_score_ms_no_lpips": base_ms,
+        "eval_frame_ms_lpips": [r + m for r, m in zip(
+            (t * 1e3 for t in estats["frame_s"]), score_ms)],
+        "eval_frame_ms_no_lpips": [r + m for r, m in zip(
+            fitted["eval_frame_ms"], base_ms)],
+        "lpips_added_ms": float(np.median(score_ms) - np.median(base_ms)),
+        "launches": launches}, npz
+
+
+# prep_tools: RVM on RVM_FRAMES PNG frames at RVM_SIZE^2 with a warm-up of
+# RVM_WARMUP; the VIBE driver on VIBE_FRAMES frames of VIBE_HW with two
+# people, one in view for fewer frames than the driver keeps
+RVM_FRAMES = 8
+RVM_SIZE = 512
+RVM_WARMUP = 4
+VIBE_FRAMES = 30
+VIBE_HW = (480, 640)
+
+
+def tiny_rvm():
+    """A small recurrent matting model with RVM's signature, for
+    ``torch.jit.script``. Its arithmetic is exact in float32 on any
+    device (integer pixel values, sums of at most 2^24, scalings by
+    powers of two, one rounded add and halving a frame for the state), so
+    a card run and a CPU run give the same matte bit for bit: the frame
+    quantised back to 0..255, a luma-like channel sum, an area pool by
+    1 / downsample_ratio, a 3x3 neighbour sum, the state r1 = (r1 + h) / 2,
+    r2 counting frames, the matte clamp(r1 / 16384 + 1 / 16) upsampled by
+    repetition."""
+    import torch
+    import torch.nn.functional as F
+    from typing import Optional
+
+    class TinyRVM(torch.nn.Module):
+        def forward(self, src, r1: Optional[torch.Tensor] = None,
+                    r2: Optional[torch.Tensor] = None,
+                    r3: Optional[torch.Tensor] = None,
+                    r4: Optional[torch.Tensor] = None,
+                    downsample_ratio: float = 0.25):
+            q = torch.round(src * 255.0)
+            g = 2.0 * q[:, 0:1] + 5.0 * q[:, 1:2] + q[:, 2:3]
+            k = int(round(1.0 / downsample_ratio))
+            low = F.avg_pool2d(g, k)
+            p = F.pad(low, (1, 1, 1, 1), mode="replicate")
+            hh, ww = low.shape[2], low.shape[3]
+            h = torch.zeros_like(low)
+            for dy in range(3):
+                for dx in range(3):
+                    h = h + p[:, :, dy:dy + hh, dx:dx + ww]
+            if r1 is None:
+                r1 = h
+            else:
+                r1 = (r1 + h) * 0.5
+            if r2 is None:
+                r2 = torch.zeros(1, device=src.device)
+            r2 = r2 + 1.0
+            pha = torch.clamp(r1 * (1.0 / 16384.0) + 0.0625, 0.0, 1.0)
+            pha = pha.repeat_interleave(k, dim=2).repeat_interleave(k, dim=3)
+            return src, pha, r1, r2, r3, r4
+
+    return torch.jit.script(TinyRVM())
+
+
+def vibe_frames(d: str, n: int = VIBE_FRAMES, hw=VIBE_HW) -> list:
+    """Frames of two walkers as PNGs (person A, red, in every frame;
+    person B, blue, in the first 10) and their true boxes."""
+    from animnerf_tpu_torch.utils.image import write_png
+
+    os.makedirs(d)
+    H, W = hw
+    boxes = []
+    for f in range(n):
+        img = np.full((H, W, 3), 30, np.uint8)
+        a = [40 + 6 * f, 100, 200 + 6 * f, 420]
+        img[a[1]:a[3], a[0]:a[2]] = (200, 60 + f, 40)
+        fb = [a]
+        if f < 10:
+            b = [500 - 4 * f, 150, 600 - 4 * f, 400]
+            img[b[1]:b[3], b[0]:b[2]] = (30, 40, 220)
+            fb.append(b)
+        write_png(os.path.join(d, f"{f:06d}.png"), img)
+        boxes.append(fb)
+    return boxes
+
+
+def vibe_detector(img):
+    """The injected person detector: the red and the blue boxes."""
+    boxes = []
+    for mask in (img[..., 0] > 150, (img[..., 2] > 150) & (img[..., 0] < 100)):
+        ys, xs = np.nonzero(mask)
+        if len(xs) > 50:
+            boxes.append([xs.min(), ys.min(), xs.max() + 1, ys.max() + 1])
+    return np.asarray(boxes, np.float32).reshape(-1, 4)
+
+
+def vibe_regressor(device):
+    """The injected regressor: a small torch module on ``device`` (a
+    strided convolution, a pool and a linear head) mapping (T, S, S, 3)
+    crops to cam (3), pose (72) and betas (10), as tensors there."""
+    import torch
+
+    torch.manual_seed(LPIPS_SEED)
+    conv = torch.nn.Conv2d(3, 16, 8, stride=8).to(device)
+    head = torch.nn.Linear(16, 3 + 72 + 10).to(device)
+
+    def model_fn(crops):
+        x = torch.from_numpy(crops).to(device).permute(0, 3, 1, 2)
+        with torch.no_grad():
+            y = head(torch.relu(conv(x)).mean(dim=(2, 3)))
+        cam = torch.cat([0.8 + 0.1 * torch.tanh(y[:, :1]), y[:, 1:3]], 1)
+        return {"cam": cam, "pose": 0.1 * y[:, 3:75],
+                "betas": 0.1 * y[:, 75:]}
+
+    return model_fn
+
+
+def prep_tools_phase(device: str = "cuda", rvm_size: int = RVM_SIZE,
+                     vibe_hw=VIBE_HW) -> dict:
+    """The subject-from-video tools on ``device``: ``run_rvm`` with the
+    scripted ``tiny_rvm`` saved and loaded back with
+    ``torch.jit.load(map_location=device)`` against a CPU run of the same
+    file (RGBA PNGs bit-equal, the warm-up frames not written); then
+    ``run_vibe_driver`` with ``vibe_detector`` and ``vibe_regressor`` on
+    the device, and ``convert_vibe`` on its output (tracklets, keys,
+    shapes, orig_cam against numpy's formula in float32)."""
+    from animnerf_tpu_torch.smpl.loader import load_pickle
+    from animnerf_tpu_torch.tools.convert_vibe import convert
+    from animnerf_tpu_torch.tools.rvm import run_rvm
+    from animnerf_tpu_torch.tools.vibe_driver import (
+        MIN_NUM_FRAMES,
+        run_vibe_driver,
+    )
+    from animnerf_tpu_torch.utils.image import read_png, write_png
+
+    root = tempfile.mkdtemp(prefix="prep_tools_", dir=os.path.join(ROOT,
+                                                                   "build"))
+    try:
+        rng = np.random.default_rng(LPIPS_SEED)
+        frames = os.path.join(root, "frames")
+        os.makedirs(frames)
+        yy, xx = np.mgrid[0:rvm_size, 0:rvm_size]
+        for i in range(RVM_FRAMES):
+            img = np.stack([(xx + 16 * i) % 256, (yy * 2) % 256,
+                            (xx + yy) % 256], -1).astype(np.int64)
+            img = img + rng.integers(-20, 21, img.shape)
+            write_png(os.path.join(frames, f"{i:06d}.png"),
+                      np.clip(img, 0, 255).astype(np.uint8))
+        ts = os.path.join(root, "rvm.torchscript")
+        tiny_rvm().save(ts)
+        out = {}
+        ms = {}
+        for dev in (device, "cpu"):
+            sync(dev)
+            t0 = time.perf_counter()
+            n = run_rvm(frames, os.path.join(root, f"out_{dev}"),
+                        checkpoint=ts, warmup=RVM_WARMUP, device=dev)
+            sync(dev)
+            ms[dev] = (time.perf_counter() - t0) * 1e3
+            names = sorted(os.listdir(os.path.join(root, f"out_{dev}")))
+            check(n == RVM_FRAMES and names == sorted(os.listdir(frames)),
+                  f"run_rvm on {dev} wrote {n}: {names}")
+            out[dev] = [read_png(os.path.join(root, f"out_{dev}", f))
+                        for f in names]
+        rvm_equal = all(np.array_equal(a, b)
+                        for a, b in zip(out[device], out["cpu"]))
+        check(rvm_equal, "run_rvm on the card differs from the CPU run")
+        rgb_kept = all(np.array_equal(o[..., :3], read_png(
+            os.path.join(frames, f"{i:06d}.png")))
+            for i, o in enumerate(out[device]))
+        alphas = np.stack([o[..., 3] for o in out[device]])
+        check(rgb_kept and 0 < alphas.mean() < 255,
+              "the RGBA frames lost their pixels or have a flat matte")
+
+        images = os.path.join(root, "subj", "cam000", "images")
+        truth = vibe_frames(images, hw=vibe_hw)
+        sync(device)
+        t0 = time.perf_counter()
+        res = run_vibe_driver(images, os.path.join(root, "vibe"),
+                              vibe_detector, vibe_regressor(device),
+                              batch_size=16)
+        sync(device)
+        driver_ms = (time.perf_counter() - t0) * 1e3
+        check(len(res) == 1, f"tracklets kept: {sorted(res)}")
+        tid, track = next(iter(res.items()))
+        F_ = len(track["frame_ids"])
+        check(F_ == VIBE_FRAMES >= MIN_NUM_FRAMES
+              and track["pose"].shape == (F_, 72)
+              and track["betas"].shape == (F_, 10)
+              and track["pred_cam"].shape == (F_, 3)
+              and track["bboxes"].shape == (F_, 4)
+              and np.isfinite(track["orig_cam"]).all(),
+              f"the tracklet: { {k: np.shape(v) for k, v in track.items()} }")
+        a0 = np.asarray(truth[0][0], np.float32)
+        check(np.array_equal(track["bboxes"][0], np.array(
+            [(a0[0] + a0[2]) / 2, (a0[1] + a0[3]) / 2, a0[2] - a0[0],
+             a0[3] - a0[1]], np.float32)), "the tracker's first box")
+        cam, bb = track["pred_cam"], track["bboxes"]
+        H, W = vibe_hw
+        h = np.maximum(bb[:, 2], bb[:, 3])
+        sx = cam[:, 0] * (1.0 / (W / h))
+        sy = cam[:, 0] * (1.0 / (H / h))
+        want_cam = np.stack([
+            sx, sy,
+            (bb[:, 0] - W / 2.0) / (W / 2.0) / np.maximum(sx, 1e-9)
+            + cam[:, 1],
+            (bb[:, 1] - H / 2.0) / (H / 2.0) / np.maximum(sy, 1e-9)
+            + cam[:, 2]], -1)
+        check(np.array_equal(track["orig_cam"], want_cam),
+              "orig_cam differs from numpy's formula")
+
+        for f in sorted(os.listdir(images), reverse=True):
+            os.rename(os.path.join(images, f), os.path.join(
+                images, f"{int(f[:6]) + 1:06d}.png"))
+        shutil.copy(os.path.join(root, "vibe", "vibe_output.pkl"),
+                    os.path.join(root, "subj", "vibe_output.pkl"))
+        t0 = time.perf_counter()
+        convert(root, "subj", track_id=tid)
+        convert_ms = (time.perf_counter() - t0) * 1e3
+        smpls = sorted(os.listdir(os.path.join(root, "subj", "smpls")))
+        camera = load_pickle(os.path.join(root, "subj", "cam000",
+                                          "camera.pkl"))
+        p = load_pickle(os.path.join(root, "subj", "smpls", smpls[0]))
+        shapes = {k: list(np.shape(v)) for k, v in p.items()
+                  if not isinstance(v, str)}
+        check(len(smpls) == F_ and camera["height"] == H
+              and camera["width"] == W
+              and list(camera["camera_c"]) == [H // 2, W // 2]
+              and shapes == {"betas": [10], "global_orient": [3],
+                             "body_pose": [69], "transl": [3]}
+              and p["transl"].dtype == np.float32
+              and np.isfinite(p["transl"]).all(),
+              f"convert_vibe: {len(smpls)} pickles, {shapes}")
+        return {"rvm_frames": RVM_FRAMES, "rvm_size": rvm_size,
+                "rvm_warmup": RVM_WARMUP, "rvm_ms": ms[device],
+                "rvm_ms_per_frame": ms[device] / (RVM_FRAMES + RVM_WARMUP),
+                "rvm_cpu_ms": ms["cpu"], "rvm_card_equals_cpu": rvm_equal,
+                "alpha_mean": float(alphas.mean()),
+                "vibe_frames": VIBE_FRAMES, "vibe_hw": list(vibe_hw),
+                "vibe_driver_ms": driver_ms, "tracklets": len(res),
+                "tracklet_frames": F_, "convert_vibe_ms": convert_ms,
+                "smpl_pickles": len(smpls), "pickle_shapes": shapes}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # compact_train: the point-major compacted step (CompactTrainer) at the
@@ -6037,6 +6501,13 @@ def main() -> int:
     emit({"phase": "prepare_template", **prepare_template_phase(),
           "seconds": time.perf_counter() - t0})
 
+    # ---- the subject-from-video tools: RVM's matting driver, the VIBE
+    # driver and its converter
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    t0 = time.perf_counter()
+    emit({"phase": "prep_tools", **prep_tools_phase(),
+          "seconds": time.perf_counter() - t0})
+
     # ---- training from a dataset on disk: fit, then evaluate from 'last';
     # then the post-training CLIs on that dataset and 'last', the mesh of
     # the trained scale512 system and the sigma grid card against CPU; a
@@ -6074,7 +6545,12 @@ def main() -> int:
               "seconds": time.perf_counter() - t0})
 
         t0 = time.perf_counter()
-        emit({"phase": "convert_parity", **convert_parity(fit_root, last),
+        lp, lpips_npz = lpips_phase(fit_config(fit_root), last, fitted)
+        emit({"phase": "lpips", **lp, "seconds": time.perf_counter() - t0})
+
+        t0 = time.perf_counter()
+        emit({"phase": "convert_parity",
+              **convert_parity(fit_root, last, lpips_npz),
               "seconds": time.perf_counter() - t0})
     finally:
         shutil.rmtree(fit_root, ignore_errors=True)

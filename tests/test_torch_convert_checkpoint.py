@@ -14,6 +14,7 @@ tool's on the same assets.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pickle
@@ -236,6 +237,161 @@ def test_namespace_hparams_become_a_dict(tmp_path):
     convert(path, str(tmp_path / "conv"))
     with open(tmp_path / "conv" / "meta.json") as f:
         assert json.load(f)["cfg"] == {"n_samples": 16, "exp_name": "ns"}
+
+
+def _yacs_cfgnode():
+    """A stand-in for yacs' ``CfgNode``: a dict subclass whose sections
+    are CfgNodes, with yacs' attributes in ``__dict__`` (pickled as the
+    BUILD state) and its attribute access."""
+
+    class CfgNode(dict):
+        def __init__(self, init_dict=None, new_allowed=False):
+            init_dict = dict(init_dict or {})
+            for k, v in init_dict.items():
+                if type(v) is dict:
+                    init_dict[k] = CfgNode(v, new_allowed)
+            super().__init__(init_dict)
+            self.__dict__["__immutable__"] = False
+            self.__dict__["__deprecated_keys__"] = set()
+            self.__dict__["__renamed_keys__"] = {}
+            self.__dict__["__new_allowed__"] = new_allowed
+
+        def __getattr__(self, name):
+            if name in self:
+                return self[name]
+            raise AttributeError(name)
+
+    CfgNode.__module__, CfgNode.__qualname__ = "yacs.config", "CfgNode"
+    return CfgNode
+
+
+@contextlib.contextmanager
+def _yacs_registered(cls):
+    """``yacs`` and ``yacs.config`` (holding ``cls`` as CfgNode) in
+    sys.modules for the block's length only."""
+    saved = {m: sys.modules.get(m) for m in ("yacs", "yacs.config")}
+    yacs, config = types.ModuleType("yacs"), types.ModuleType("yacs.config")
+    config.CfgNode = cls
+    yacs.config = config
+    sys.modules.update({"yacs": yacs, "yacs.config": config})
+    try:
+        yield
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+
+
+HPARAMS = {"exp_name": "yacs", "n_samples": 16, "img_wh": [24, 32],
+           "frame_IDs": (1, 2, 3),
+           "train": {"lr": 1e-3, "frame_start_ID": 1,
+                     "sched": {"gamma": 0.5, "milestones": [10, 20]}},
+           "val": {}}
+
+
+@pytest.fixture(scope="module")
+def yacs_ckpt(tmp_path_factory):
+    """A Lightning checkpoint whose hyper_parameters are a yacs CfgNode
+    with nested sections (one empty), saved while the stand-in is
+    registered; its module is gone afterwards."""
+    cls = _yacs_cfgnode()
+    path = str(tmp_path_factory.mktemp("yacs") / "last.ckpt")
+    sd = {"anim_nerf.nerf.sigma.weight": torch.arange(6.0).reshape(1, 6),
+          "anim_nerf.nerf.sigma.bias": torch.ones(1)}
+    with _yacs_registered(cls):
+        node = cls(json.loads(json.dumps(HPARAMS)))
+        node["frame_IDs"] = (1, 2, 3)
+        torch.save({"state_dict": sd, "epoch": 1,
+                    "hyper_parameters": node}, path)
+    assert "yacs.config" not in sys.modules or \
+        sys.modules["yacs.config"].CfgNode is not cls
+    return path, cls
+
+
+def _plain_dicts(obj):
+    """True where every mapping in obj is a dict, not a subclass."""
+    if isinstance(obj, dict):
+        return type(obj) is dict and all(map(_plain_dicts, obj.values()))
+    if isinstance(obj, (list, tuple)):
+        return all(map(_plain_dicts, obj))
+    return True
+
+
+def test_a_yacs_cfgnode_reads_as_plain_dicts(yacs_ckpt):
+    """A pickled dict subclass named yacs.config.CfgNode (which pickle
+    creates by NEWOBJ, without __init__, then fills by SETITEMS) reads as
+    a plain dict of its items, its sections too (the empty one as {}),
+    and yacs' __dict__ state adds no key. The result equals what the JAX
+    package's reader returns with the class importable (CfgNodes)."""
+    from animnerf_tpu.utils.torch_pickle import load_torch_checkpoint as jl
+
+    path, cls = yacs_ckpt
+    hp = load_torch_checkpoint(path)["hyper_parameters"]
+    assert type(hp) is dict and _plain_dicts(hp)
+    assert hp == HPARAMS
+    assert hp["train"]["sched"] == {"gamma": 0.5, "milestones": [10, 20]}
+    assert hp["val"] == {} and hp["frame_IDs"] == (1, 2, 3)
+    assert not any(k.startswith("__") for k in hp)
+    with _yacs_registered(cls):
+        want = jl(path)["hyper_parameters"]
+    assert type(want) is cls and type(want["train"]) is cls
+    assert hp == want and want == hp
+
+
+def test_convert_keeps_the_cfgnode_sections(yacs_ckpt, tmp_path):
+    """``convert`` keeps the CfgNode's sections in meta["cfg"], as the
+    JAX converter does with the class importable: the same meta.json."""
+    from animnerf_tpu.tools.convert_checkpoint import convert as jconvert
+
+    path, cls = yacs_ckpt
+    tdir, jdir = str(tmp_path / "port"), str(tmp_path / "jax")
+    convert(path, tdir)
+    with _yacs_registered(cls):
+        jconvert(path, jdir)
+    with open(os.path.join(tdir, "meta.json")) as ft, \
+            open(os.path.join(jdir, "meta.json")) as fj:
+        mt, mj = json.load(ft), json.load(fj)
+    assert mt["cfg"]["train"] == json.loads(json.dumps(HPARAMS["train"]))
+    assert mt["cfg"]["val"] == {} and mt["cfg"]["n_samples"] == 16
+    assert mt == mj
+
+
+@pytest.mark.parametrize("where", ["node", "item"])
+def test_a_cfgnode_named_global_runs_nothing(tmp_path, where):
+    """A yacs.config.CfgNode whose reduce calls os.system (the node
+    itself, or an item inside a real node) loads and converts without
+    calling it: os.system is a Placeholder holding its argument."""
+    marker = tmp_path / "ran"
+    code = f"touch {marker}"
+    cls = _yacs_cfgnode()
+    if where == "node":
+        class Hostile(cls):
+            def __reduce__(self):
+                return os.system, (code,)
+
+        Hostile.__module__, Hostile.__qualname__ = "yacs.config", "CfgNode"
+        make = Hostile
+    else:
+        make = cls
+    path = str(tmp_path / "evil.ckpt")
+    with _yacs_registered(make):
+        node = make({"n_samples": 8})
+        if where == "item":
+            node["x"] = _Evil(os.system, code)
+        torch.save({"state_dict": {"w": torch.ones(2)},
+                    "hyper_parameters": node}, path)
+    out = load_torch_checkpoint(path)
+    assert not marker.exists()
+    hp = out["hyper_parameters"]
+    x = hp if where == "node" else hp["x"]
+    assert isinstance(x, Placeholder) and x._global[1] == "system"
+    assert x.args == (code,)
+    if where == "item":
+        assert type(hp) is dict and hp["n_samples"] == 8
+    convert(path, str(tmp_path / "conv"))
+    assert not marker.exists()
 
 
 def test_not_a_zip_is_refused(tmp_path):

@@ -37,7 +37,13 @@ def test_import_loads_no_jax():
             " animnerf_tpu_torch.cli.extract_mesh,"
             " animnerf_tpu_torch.ops.marching,"
             " animnerf_tpu_torch.utils.renderer,"
-            " animnerf_tpu_torch.utils.host_lib;"
+            " animnerf_tpu_torch.utils.host_lib,"
+            " animnerf_tpu_torch.models.lpips,"
+            " animnerf_tpu_torch.models.evaluator,"
+            " animnerf_tpu_torch.tools.vibe,"
+            " animnerf_tpu_torch.tools.convert_vibe,"
+            " animnerf_tpu_torch.tools.vibe_driver,"
+            " animnerf_tpu_torch.tools.rvm;"
             "bad = [m for m in sys.modules if m.split('.')[0] in %r];"
             "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

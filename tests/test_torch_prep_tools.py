@@ -302,3 +302,79 @@ def test_template_points_and_distances_on_the_same_mesh(templates):
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
     np.testing.assert_array_equal(np.sign(got), np.sign(want))
     np.testing.assert_array_equal(got.astype(np.float32), j["distances"])
+
+
+def _stand_in_ffmpeg(tmp_path, monkeypatch, nb_frames: str,
+                     frames: np.ndarray) -> None:
+    """``ffprobe`` and ``ffmpeg`` shell scripts first on PATH: ffprobe
+    prints ``W,H,<nb_frames>``, ffmpeg writes ``frames`` (F, H, W, 3) as
+    raw rgb24 bytes to its standard output."""
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    raw = tmp_path / "frames.rgb24"
+    raw.write_bytes(np.ascontiguousarray(frames, np.uint8).tobytes())
+    H, W = frames.shape[1:3]
+    for name, body in (("ffprobe", f"echo {W},{H},{nb_frames}"),
+                       ("ffmpeg", f"cat {raw}")):
+        script = bindir / name
+        script.write_text(f"#!/bin/sh\n{body}\n")
+        script.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+
+
+@pytest.mark.parametrize("nb_frames, n_stream, n_want", [
+    ("N/A", 4, 4),   # no container count: decode to the end of the stream
+    ("3", 4, 3),     # a container count: at most that many
+])
+def test_ffmpeg_frames_without_a_container_count(tmp_path, monkeypatch,
+                                                 nb_frames, n_stream,
+                                                 n_want):
+    """``ffmpeg_frames`` through stand-in ffprobe / ffmpeg scripts: the
+    count None where ffprobe says N/A (it was 0, and ``prepare`` wrote no
+    frame); ``prepare`` writes every frame the stream has (of the release's
+    5 masks and poses), or the container's count, each PNG bit-equal to
+    the raw frame with its mask in alpha, and the same tree as from the
+    same frames handed over through ``decoder=``."""
+    H, W, F = 32, 24, 5
+    raw = tmp_path / "male-9-test"
+    _fabricate_release(raw, H, W, F, (H, W), np.random.default_rng(1))
+    frames = np.random.default_rng(2).integers(0, 256, (n_stream, H, W, 3),
+                                               dtype=np.uint8)
+    _stand_in_ffmpeg(tmp_path, monkeypatch, nb_frames, frames)
+    w, h, count, it = PS.ffmpeg_frames(str(raw / f"{raw.name}.mp4"))
+    assert (w, h) == (W, H)
+    assert count == (None if nb_frames == "N/A" else int(nb_frames))
+    decoded = list(it)
+    assert len(decoded) == n_stream
+    for a, b in zip(decoded, frames):
+        np.testing.assert_array_equal(a, b)
+
+    out = str(tmp_path / "port")
+    assert PS.prepare(str(raw), out) == n_want
+    names = sorted(os.listdir(os.path.join(out, "cam000", "images")))
+    assert names == [f"{i + 1:06d}.png" for i in range(n_want)]
+    assert len(os.listdir(os.path.join(out, "smpls"))) == n_want
+    import h5py
+
+    with h5py.File(raw / "masks.hdf5", "r") as f:
+        masks = (np.asarray(f["masks"]) > 0).astype(np.uint8) * 255
+    for i, n in enumerate(names):
+        got = read_png(os.path.join(out, "cam000", "images", n))
+        np.testing.assert_array_equal(got[..., :3], frames[i])
+        np.testing.assert_array_equal(got[..., 3], masks[i])
+    via = str(tmp_path / "via_decoder")
+    assert PS.prepare(str(raw), via, decoder=lambda p: (
+        W, H, count, iter(frames))) == n_want
+    _same_tree(out, via, n_want)
+
+
+def test_prepare_raises_when_it_writes_no_frame(tmp_path, monkeypatch):
+    """A stream with no frame (and no container count) is an error, not
+    "prepared 0 frames"."""
+    H, W = 32, 24
+    raw = tmp_path / "male-9-test"
+    _fabricate_release(raw, H, W, 3, (H, W), np.random.default_rng(1))
+    _stand_in_ffmpeg(tmp_path, monkeypatch, "N/A",
+                     np.zeros((0, H, W, 3), np.uint8))
+    with pytest.raises(RuntimeError, match="no frame"):
+        PS.prepare(str(raw), str(tmp_path / "port"))
