@@ -8,7 +8,9 @@ GT | prediction | depth triptychs.
 
 The config is the checkpoint's (``meta.json["cfg"]``), then the YAML file,
 then the options (``cli/common.py::resolve_cfg``). Runs on the card unless
-``--device cpu`` is given.
+``--device cpu`` is given; under torchrun (``WORLD_SIZE`` > 1) or with
+``ANIMNERF_MULTIHOST`` set, on every rank (``evaluate`` splits each
+frame's rays over them).
 """
 
 from __future__ import annotations
@@ -20,6 +22,12 @@ from animnerf_tpu_torch.cli.common import resolve_cfg
 
 
 def main(argv=None) -> dict:
+    import torch.distributed as dist
+
+    from animnerf_tpu_torch.parallel.mesh import (
+        distributed_requested,
+        init_distributed,
+    )
     from animnerf_tpu_torch.training.loop import evaluate
 
     parser = argparse.ArgumentParser()
@@ -36,10 +44,18 @@ def main(argv=None) -> dict:
 
     cfg = resolve_cfg(args.ckpt_path, args.cfg_file, args.opts)
     out_dir = os.path.join(cfg.outputs_dir, cfg.exp_name)
-    means = evaluate(cfg, args.ckpt_path, split=args.split,
-                     save_vis=args.vis, out_dir=out_dir, device=args.device)
-    for k, v in means.items():
-        print(f"{k}: {v:.4f}")
+    device = args.device
+    if distributed_requested():
+        device = init_distributed(args.device)
+    try:
+        means = evaluate(cfg, args.ckpt_path, split=args.split,
+                         save_vis=args.vis, out_dir=out_dir, device=device)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            for k, v in means.items():
+                print(f"{k}: {v:.4f}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return means
 
 

@@ -5,8 +5,9 @@ YAML files and the JAX package's checkpoints (``meta.json["cfg"]``) load
 unchanged: a minimal attribute dict (``CfgNode``) with YAML-file merge and
 dotted-key option merge. ``yaml`` is imported only by ``merge_from_file``;
 configs built with ``merge_from_list`` / ``merge_from_dict`` need no YAML
-package. The port trains on one device: ``mesh_shape`` must name one
-(``check_single_device``).
+package. ``mesh_shape`` is kept for the JAX package's configs and read
+by neither package: training takes every rank of the process group that
+divides the batch (``parallel/mesh.py::mesh_for_batch``).
 """
 
 from __future__ import annotations
@@ -155,7 +156,7 @@ def get_default_config() -> CfgNode:
             # kernel 3 for flagship-architecture fields ('auto' / 'on'),
             # the plain MLP for every field ('off')
             "fused_mlp": "auto",
-            "mesh_shape": (-1,),  # one device: (-1,) or (1,)
+            "mesh_shape": (-1,),  # not read, as in the JAX package
             "seed": 42,
             "train": {
                 "frame_start_ID": 1,
@@ -210,16 +211,6 @@ def get_default_config() -> CfgNode:
         }
     )
     return cfg
-
-
-def check_single_device(cfg: CfgNode) -> None:
-    """The port trains and evaluates on one device; a mesh over several
-    raises (multi-GPU data parallelism is not ported)."""
-    shape = tuple(cfg.get("mesh_shape", (-1,)) or (-1,))
-    if shape not in ((-1,), (1,)):
-        raise NotImplementedError(
-            f"mesh_shape {shape}: the port runs on one device; use (-1,) "
-            "or (1,)")
 
 
 def finalize(cfg: CfgNode) -> CfgNode:

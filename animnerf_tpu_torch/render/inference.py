@@ -29,6 +29,12 @@ the JAX package, the renderer passes no latent codes: a model with
 ``deformation_dim`` or ``apperance_dim`` renders through
 ``make_eval_step``, and the renderer raises for it.
 
+Under a ``parallel/mesh.py::Mesh`` of more than one rank (``mesh=``, JAX
+``Renderer(mesh=)``) compaction and the ray cull are off, as in the JAX
+package: each frame's rays are padded to a multiple of the mesh size,
+each rank renders its contiguous shard through the dense route, and the
+image is gathered on every rank.
+
 The JAX package's capacity rungs, overflow ratchet and ray padding
 (``_quantize``, ``_prime_caps``, ``_fetch_ratchet``, ``_pad_ray_ids`` and
 the 32768- and 8192-ray quanta) exist only because XLA compiles static
@@ -46,6 +52,12 @@ import numpy as np
 import torch
 
 from animnerf_tpu_torch.models.warp import prepare_frame, rays_to_root_frame
+from animnerf_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_rays,
+    pad_rays_for_mesh,
+    shard_rows,
+)
 from animnerf_tpu_torch.ops.knn import keep_within_boxes, min_vertex_distance
 from animnerf_tpu_torch.render.compact import (
     compact_coarse,
@@ -105,18 +117,29 @@ class Renderer:
     the warp and the MLP); ``cull_rays=False`` renders every ray of a
     large frame (both exact: the image is the same). ``max_rays_per_call``
     (a class attribute, as in the JAX package) sets the cull's threshold
-    and the slab sizes."""
+    and the slab sizes.
+
+    ``mesh``: the ranks that split each frame's rays (the module's
+    docstring); the renderer's device is then the mesh's, and
+    ``last_counts`` are this rank's."""
 
     max_rays_per_call: int = MAX_RAYS_PER_CALL
 
     def __init__(self, system: AnimNeRFSystem, device: DeviceLike = None,
                  prepass: str = "boxes", compact_samples: bool = True,
-                 cull_rays: bool = True):
+                 cull_rays: bool = True, mesh: Optional[Mesh] = None):
         if prepass not in PREPASSES:
             raise ValueError(f"prepass {prepass!r}: one of {PREPASSES}")
         self.prepass = prepass
-        self.compact_samples = compact_samples
-        self.cull_rays = cull_rays
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.compact_samples = compact_samples and self.mesh is None
+        self.cull_rays = cull_rays and self.mesh is None
+        if mesh is not None:
+            if device is not None \
+                    and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device!r} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         pin_fp32_geometry()
         self.system = system.to_device(self.device)
@@ -281,6 +304,16 @@ class Renderer:
                             for i in range(3))
         return img[0], mask[0], depth[0], n_c, n_f
 
+    def _render_sharded(self, ctx, rays_root: torch.Tensor):
+        """This rank's contiguous share of the (padded) rays through the
+        dense route, the outputs gathered from every rank."""
+        rays_root, n = pad_rays_for_mesh(rays_root, self.mesh)
+        img, mask, depth, n_c, n_f = self._render_slabs(
+            ctx, shard_rows(self.mesh, rays_root, 1))
+        img, mask, depth = (gather_rays(self.mesh, t, n, 0)
+                            for t in (img, mask, depth))
+        return img, mask, depth, n_c, n_f
+
     def render_frame(self, body_params: dict, body_tmpl: dict, rays,
                      P: Optional[np.ndarray] = None,
                      img_wh: Optional[tuple] = None):
@@ -304,7 +337,10 @@ class Renderer:
                 active = torch.nonzero(maybe[0], as_tuple=False)[:, 0]
                 if len(active) == n:
                     active = None
-            if active is None:
+            if self.mesh is not None:
+                img, mask, depth, n_c, n_f = self._render_sharded(
+                    ctx, rays_root)
+            elif active is None:
                 img, mask, depth, n_c, n_f = self._render_slabs(ctx, rays_root)
             else:
                 bg = 1.0 if cfg.white_bkgd else 0.0

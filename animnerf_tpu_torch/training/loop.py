@@ -19,6 +19,18 @@ takes the same steps as one that did not stop. ``ANIMNERF_PROFILE``
 writes a ``torch.profiler`` trace of steps 2-4.
 
 Both entry points run on the card unless ``device="cpu"`` is asked for.
+Under ``torch.distributed`` (``parallel/mesh.py::init_distributed``, the
+train and test CLIs under torchrun) they run on every rank, as the JAX
+package's run on every device: ``fit`` over ``mesh_for_batch`` (the
+largest number of ranks that divides the batch; a rank left out waits at
+the end), ``evaluate`` over every rank. Every rank's ``Loader`` draws the
+global batch from the same seed and keeps its rows (``place_batch``);
+validation and evaluation slabs are 32,768 rays a rank; the mesh's rank 0
+alone writes checkpoints, logs, images and scores, and the others wait at
+a barrier after each write; resume and ``evaluate`` load the checkpoint
+on every rank, so across hosts ``checkpoints_dir`` must be a directory
+that every rank sees (``check_visible`` raises on every rank where one
+does not); ``evaluate`` returns the same means on every rank.
 """
 
 from __future__ import annotations
@@ -31,10 +43,21 @@ from typing import Optional
 import numpy as np
 import torch
 
-from animnerf_tpu_torch.config import CfgNode, check_single_device
+from animnerf_tpu_torch.config import CfgNode
 from animnerf_tpu_torch.data.dataset import AnimNeRFDataset, Loader
 from animnerf_tpu_torch.models.body_params import (
     load_body_params_from_dataset,
+)
+from animnerf_tpu_torch.parallel.mesh import (
+    barrier,
+    broadcast_object,
+    check_visible,
+    make_mesh,
+    mesh_for_batch,
+)
+from animnerf_tpu_torch.parallel.train_pjit import (
+    make_sharded_eval_step,
+    make_sharded_trainer,
 )
 from animnerf_tpu_torch.system import AnimNeRFSystem
 from animnerf_tpu_torch.training.checkpoints import (
@@ -44,15 +67,11 @@ from animnerf_tpu_torch.training.checkpoints import (
     save_train_state,
     system_params,
 )
-from animnerf_tpu_torch.training.system import (
-    _schedule,
-    make_eval_step,
-    make_optimizer,
-    make_trainer,
-)
-from animnerf_tpu_torch.utils.device import DeviceLike, resolve_device
+from animnerf_tpu_torch.training.system import _schedule, make_optimizer
+from animnerf_tpu_torch.utils.device import DeviceLike
 
-# rays per eval_step call: a 512^2 frame renders in 8 slabs
+# rays per eval_step call and rank: a 512^2 frame renders in 8 slabs on
+# one rank
 EVAL_SLAB = 32768
 
 
@@ -112,29 +131,17 @@ def _frame_dataset(cfg: CfgNode, split: str) -> AnimNeRFDataset:
         frame_ids_index={fid: i for i, fid in enumerate(cfg.frame_IDs)})
 
 
-def to_device(batch: dict, device: torch.device) -> dict:
-    """numpy batch -> tensors on the device (pinned host memory and a
-    non-blocking copy on the card)."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
-    return out
-
-
-def render_frame(eval_step, batch: dict, device: torch.device,
-                 slab: int = EVAL_SLAB) -> dict:
-    """One numpy frame batch (1, R, ...) through the eval step in slabs
-    of ``slab`` rays -> numpy outputs (1, R, C)."""
+def render_frame(eval_step, batch: dict, slab: int = EVAL_SLAB) -> dict:
+    """One numpy frame batch (1, R, ...) through a sharded eval step
+    (``make_sharded_eval_step``) in slabs of ``slab`` rays -> numpy
+    outputs (1, R, C)."""
     n = batch["rays"].shape[1]
     outs = []
     for i in range(0, n, slab):
         sub = dict(batch)
         for k in ("rays", "rgbs", "alphas"):
             sub[k] = batch[k][:, i:i + slab]
-        out = eval_step(to_device(sub, device))
+        out = eval_step(sub)
         outs.append({k: v.float().cpu().numpy() for k, v in out.items()})
     return {k: np.concatenate([o[k] for o in outs], axis=1)
             for k in outs[0]}
@@ -152,9 +159,16 @@ def fit(cfg: CfgNode, profile: bool = False, device: DeviceLike = None,
     ``wait_s`` (time blocked on the loader), ``produce_s`` (the loader's
     producer per batch), ``val_s``, ``save_s``, each step's
     ``compact_count`` (coarse survivors), the logged ``losses`` as
-    (step, loss) and the trained ``system``."""
-    check_single_device(cfg)
-    dev = resolve_device(device)
+    (step, loss) and the trained ``system``. Under a process group it runs
+    on every rank (the module's docstring); ``cfg.mesh_shape`` is not read,
+    as in the JAX package."""
+    mesh = mesh_for_batch(cfg.train.batch_size, device)
+    ckpt_dir = os.path.join(cfg.checkpoints_dir, cfg.exp_name)
+    if not mesh.active:  # the batch does not split over this rank
+        barrier()
+        return ckpt_dir
+    dev = mesh.device
+    main = mesh.is_main
     system = build_system(cfg, dev)
 
     train_ds = AnimNeRFDataset(
@@ -181,6 +195,7 @@ def fit(cfg: CfgNode, profile: bool = False, device: DeviceLike = None,
     # the per-frame body params of new frames)
     train_field = True
     if cfg.train.ckpt_path:
+        check_visible(mesh, cfg.train.ckpt_path)
         groups = cfg.train.model_names_to_load
         load_params(cfg.train.ckpt_path, system, groups)
         if (groups and "anim_nerf" in groups
@@ -188,24 +203,24 @@ def fit(cfg: CfgNode, profile: bool = False, device: DeviceLike = None,
             train_field = False
     optimizer, scheduler = make_optimizer(system, steps_per_epoch,
                                           train_field=train_field)
-    trainer = make_trainer(system, steps_per_epoch, optimizer, scheduler,
-                           seed=cfg.seed + 1)
-    print(f"trainer engine: {trainer.engine} "
-          f"(compute_dtype={system.scene_cfg.compute_dtype}, "
-          f"remat={system.scene_cfg.remat}, device={dev.type})", flush=True)
+    train_step, place_state, place_batch = make_sharded_trainer(
+        system, optimizer, scheduler, mesh, seed=cfg.seed + 1)
+    trainer = train_step.__self__
     start_step = 0
     if cfg.train.resume and cfg.train.ckpt_path:
         start_step = load_train_state(cfg.train.ckpt_path, system,
                                       optimizer, scheduler,
                                       trainer.generator)
         trainer.steps = start_step
+    place_state(system)
 
-    ckpt_dir = os.path.join(cfg.checkpoints_dir, cfg.exp_name)
-    manager = CheckpointManager(ckpt_dir, monitor="psnr", mode="max",
-                                save_top_k=cfg.train.save_top_k)
-    logger = MetricLogger(cfg.logs_dir, cfg.exp_name)
+    manager = logger = None
+    if main:
+        manager = CheckpointManager(ckpt_dir, monitor="psnr", mode="max",
+                                    save_top_k=cfg.train.save_top_k)
+        logger = MetricLogger(cfg.logs_dir, cfg.exp_name)
     val_ds = _frame_dataset(cfg, "val")
-    eval_step = make_eval_step(system)
+    eval_step = make_sharded_eval_step(system, mesh)
     lr_factor = _schedule(system.train_cfg, float(cfg.train.lr),
                           steps_per_epoch)
     timing = stats is not None
@@ -216,14 +231,17 @@ def fit(cfg: CfgNode, profile: bool = False, device: DeviceLike = None,
         stats["produce_s"] = loader.produce_s
         stats["system"] = system
 
-    def run_validation(epoch: int) -> dict:
+    def run_validation(epoch: int) -> Optional[dict]:
+        """The validation frame on every rank; rank 0 scores and writes."""
         from animnerf_tpu_torch.models.evaluator import psnr as psnr_np, ssim
 
         batch = {k: np.asarray(v)[None] for k, v in val_ds[0].items()}
         t0 = time.perf_counter()
-        out = render_frame(eval_step, batch, dev)
+        out = render_frame(eval_step, batch, EVAL_SLAB * mesh.size)
         if timing:
             stats["val_s"].append(time.perf_counter() - t0)
+        if not main:
+            return None
         rgb_key = "rgbs_fine" if "rgbs_fine" in out else "rgbs"
         d_key = "depths_fine" if "depths_fine" in out else "depths"
         W, H = cfg.img_wh
@@ -260,14 +278,14 @@ def fit(cfg: CfgNode, profile: bool = False, device: DeviceLike = None,
             i += 1
             if epoch == first_epoch and i <= skip:
                 continue  # resumed: these steps were taken before
-            if profile and step == start_step + 2:
+            if profile and main and step == start_step + 2:
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     *([torch.profiler.ProfilerActivity.CUDA]
                       if dev.type == "cuda" else [])])
                 prof.start()
             t_step = time.perf_counter()
-            metrics = trainer.step(to_device(batch, dev))
+            metrics = train_step(place_batch(batch))
             if timing:
                 _sync(dev)
                 stats["wait_s"].append(t_step - t_wait)
@@ -283,7 +301,7 @@ def fit(cfg: CfgNode, profile: bool = False, device: DeviceLike = None,
                     logger.dir, "profile", "trace.json"))
                 prof = None
             step += 1
-            if step % log_every == 0 or step == 1:
+            if main and (step % log_every == 0 or step == 1):
                 m = {k: float(v) for k, v in metrics.items()}
                 # windowed rate (since the last log)
                 now = time.time()
@@ -304,25 +322,31 @@ def fit(cfg: CfgNode, profile: bool = False, device: DeviceLike = None,
         m = {k: float(v) for k, v in metrics.items()}
         try:
             val_m = run_validation(epoch)
-            print(f"epoch {epoch} val psnr {val_m['psnr']:.2f} "
-                  f"ssim {val_m['ssim']:.4f}", flush=True)
+            if main:
+                print(f"epoch {epoch} val psnr {val_m['psnr']:.2f} "
+                      f"ssim {val_m['ssim']:.4f}", flush=True)
         except (FileNotFoundError, IndexError, KeyError) as e:
             # val data is optional (missing frames / dirs); any other
             # exception must surface
-            print(f"epoch {epoch} validation skipped: {e}", flush=True)
+            if main:
+                print(f"epoch {epoch} validation skipped: {e}", flush=True)
         t0 = time.perf_counter()
-        meta = {"epoch": epoch, "cfg": dict_flat(cfg)}
-        manager.save(system_params(system), step, m, extra_meta=meta)
-        # 'last' carries the full train state for resume
-        save_train_state(os.path.join(ckpt_dir, "last"), system, optimizer,
-                         scheduler, step, trainer.generator,
-                         dict(meta, metrics=m))
+        if main:
+            meta = {"epoch": epoch, "cfg": dict_flat(cfg)}
+            manager.save(system_params(system), step, m, extra_meta=meta)
+            # 'last' carries the full train state for resume
+            save_train_state(os.path.join(ckpt_dir, "last"), system,
+                             optimizer, scheduler, step, trainer.generator,
+                             dict(meta, metrics=m))
+        barrier(mesh)
         if timing:
             stats["save_s"].append(time.perf_counter() - t0)
         if step >= max_steps:
             break
 
-    logger.close()
+    if main:
+        logger.close()
+    barrier()
     return ckpt_dir
 
 
@@ -333,18 +357,22 @@ def evaluate(cfg: CfgNode, ckpt_path: str, split: str = "test",
     """Full-frame renders of a split -> the means of PSNR, SSIM and, where
     the LPIPS weights file exists, LPIPS (on the system's device).
     ``stats``, when given, collects ``frame_s``: each frame's render on
-    the host clock, synchronised, and ``score_s``: its metrics."""
+    the host clock, synchronised, and ``score_s``: its metrics. Under a
+    process group every rank renders its share of each frame's rays, rank
+    0 scores, prints and saves, and every rank returns its means."""
     from animnerf_tpu_torch.models.evaluator import Evaluator
 
-    check_single_device(cfg)
-    dev = resolve_device(device)
+    mesh = make_mesh(device=device)
+    dev = mesh.device
+    main = mesh.is_main
     system = build_system(cfg, dev)
     ds = _frame_dataset(cfg, split)
     system.set_body_params(load_body_params_from_dataset(
         cfg.frame_IDs, cfg.root_dir, cfg.model_type))
+    check_visible(mesh, ckpt_path)
     load_params(ckpt_path, system)
-    eval_step = make_eval_step(system)
-    evaluator = Evaluator(device=dev)
+    eval_step = make_sharded_eval_step(system, mesh)
+    evaluator = Evaluator(device=dev) if main else None
     if stats is not None:
         stats.setdefault("frame_s", [])
         stats.setdefault("score_s", [])
@@ -353,9 +381,11 @@ def evaluate(cfg: CfgNode, ckpt_path: str, split: str = "test",
     scores = []
     for batch in Loader(ds, batch_size=1, shuffle=False).epoch(0):
         t0 = time.perf_counter()
-        out = render_frame(eval_step, batch, dev)
+        out = render_frame(eval_step, batch, EVAL_SLAB * mesh.size)
         if stats is not None:
             stats["frame_s"].append(time.perf_counter() - t0)
+        if not main:
+            continue
         rgb_key = "rgbs_fine" if "rgbs_fine" in out else "rgbs"
         pred = out[rgb_key].reshape(H, W, 3)
         gt = batch["rgbs"].reshape(H, W, 3)
@@ -377,6 +407,7 @@ def evaluate(cfg: CfgNode, ckpt_path: str, split: str = "test",
 
     means = {k: float(np.mean([s[k] for s in scores]))
              for k in scores[0]} if scores else {}
-    for k, v in means.items():
-        print(f"mean {k}: {v:.4f}")
-    return means
+    if main:
+        for k, v in means.items():
+            print(f"mean {k}: {v:.4f}")
+    return broadcast_object(mesh, means)

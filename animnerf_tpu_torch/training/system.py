@@ -36,6 +36,18 @@ still reported, and the point-major engine reports ``compact_overflow``
 as 0, as its JAX twin's details carry it. The ladder's and the polling's
 settings (JAX's ``quantum``, ``factor``, ``pipelined``, ``sync_every``,
 ``margin``) have no counterpart.
+
+Every trainer takes a ``parallel/mesh.py::Mesh`` (JAX: ``mesh=`` of
+``make_rows_compact_trainer``, ``training/system.py:617-704``). Under a
+mesh of more than one rank each rank takes its rows of the global batch
+(``parallel/train_pjit.py``'s ``place_batch``), draws the noise of the
+whole batch from its generator (every rank the same, so a rank's noise is
+the same rows of the one-process draw and the generators stay equal) and
+keeps its rows, then after the backward the gradients are averaged in one
+all-reduce (JAX's ``pmean``), the details in another and ``compact_count``
+takes the maximum over ranks (JAX's ``pmax``). Survivor selection stays
+exact on each shard. Without a mesh, or with a mesh of one, the step is
+the one-process step.
 """
 
 from __future__ import annotations
@@ -52,6 +64,12 @@ from animnerf_tpu_torch.models.body_params import (
 )
 from animnerf_tpu_torch.models.warp import prepare_frame, rays_to_root_frame
 from animnerf_tpu_torch.ops.knn import keep_rows_within_boxes
+from animnerf_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_grads,
+    reduce_details,
+    shard_noise,
+)
 from animnerf_tpu_torch.render.compact import render_rays_compact
 from animnerf_tpu_torch.render.compact_rows import render_rays_rows_compact
 from animnerf_tpu_torch.system import AnimNeRFSystem
@@ -311,13 +329,15 @@ def make_optimizer(system: AnimNeRFSystem, steps_per_epoch: int,
 class RowsCompactTrainer:
     """One training step: noise from the trainer's generator (or given),
     the rows-compacted loss, its backward, the optimizer and scheduler
-    steps. Exact survivor selection: no capacity, no re-run."""
+    steps. Exact survivor selection: no capacity, no re-run. ``mesh``: the
+    ranks that split each batch (see the module's docstring)."""
 
     engine = "rows"
     loss_fn = staticmethod(rows_compact_loss_fn)
 
     def __init__(self, system: AnimNeRFSystem, steps_per_epoch: int = 100,
-                 optimizer=None, scheduler=None, seed: int = 0):
+                 optimizer=None, scheduler=None, seed: int = 0,
+                 mesh: Optional[Mesh] = None):
         pin_fp32_geometry()
         self.system = system
         if optimizer is None:
@@ -326,21 +346,34 @@ class RowsCompactTrainer:
         self.scheduler = scheduler
         self.generator = torch.Generator(device=system.device)
         self.generator.manual_seed(seed)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.steps = 0
 
     def draw_noise(self, batch: dict) -> TrainNoise:
+        """The noise of the global batch: this rank's rows times the mesh
+        size."""
         B, R = batch["rays"].shape[:2]
+        if self.mesh is not None:
+            B *= self.mesh.size
         return draw_noise(self.generator, B, R, self.system.renderer_cfg,
                           self.system.body_model.num_verts)
 
     def step(self, batch: dict, noise: Optional[TrainNoise] = None) -> dict:
-        """batch as ``rows_compact_loss_fn`` takes it -> details (0-d
-        tensors; the rows engine's ``compact_count`` an int)."""
+        """batch as ``rows_compact_loss_fn`` takes it (under a mesh: this
+        rank's rows) -> details (0-d tensors; the rows engine's
+        ``compact_count`` an int). ``noise``: the global batch's (drawn
+        from the trainer's generator when None)."""
         if noise is None:
             noise = self.draw_noise(batch)
+        if self.mesh is not None:
+            noise = shard_noise(self.mesh, noise)
         self.optimizer.zero_grad(set_to_none=True)
         loss, details = self.loss_fn(self.system, batch, noise)
         loss.backward()
+        if self.mesh is not None:
+            all_reduce_grads(self.mesh, [
+                p for g in self.optimizer.param_groups for p in g["params"]])
+            details = reduce_details(self.mesh, details)
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
@@ -381,12 +414,13 @@ ENGINES = {"rows": RowsCompactTrainer, "compact": CompactTrainer,
 
 def make_trainer(system: AnimNeRFSystem, steps_per_epoch: int = 100,
                  optimizer=None, scheduler=None, seed: int = 0,
-                 engine: Optional[str] = None):
+                 engine: Optional[str] = None, mesh: Optional[Mesh] = None):
     """A trainer of the named engine: "rows", "compact", "dense" or
     "auto"; None reads ``ANIMNERF_TRAINER`` (default "auto"), as the JAX
     package's ``make_sharded_trainer`` does. "auto" is rows-compacted where
     ``rows_compaction_applicable``, else dense. "rows" and "compact" raise
-    ValueError on a configuration they do not cover."""
+    ValueError on a configuration they do not cover. ``mesh``: the ranks
+    that split each batch."""
     if engine is None:
         engine = os.environ.get("ANIMNERF_TRAINER", "auto")
     if engine == "auto":
@@ -398,7 +432,7 @@ def make_trainer(system: AnimNeRFSystem, steps_per_epoch: int = 100,
         raise ValueError("the rows engine needs the rows pipeline and "
                          "compaction (see rows_compaction_applicable)")
     return ENGINES[engine](system, steps_per_epoch, optimizer, scheduler,
-                           seed)
+                           seed, mesh=mesh)
 
 
 def make_eval_step(system: AnimNeRFSystem):

@@ -108,6 +108,19 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      holds the ``codes`` step at 4 frequencies and at 10, there its DeRF,
      code and body gradients within CODES10_MULT times the JAX package's
      own measured spread (tests/test_torch_codes_spread.py);
+  7+. dist: data parallelism (``animnerf_tpu_torch/parallel/``) in ranks
+     spawned with a file:// rendezvous, each group under a join time
+     limit: (a) one rank over NCCL, bench.py's step through
+     ``make_sharded_trainer`` bit-equal (losses, every parameter) to
+     ``RowsCompactTrainer.step`` over three steps, both steps' ms, the
+     gradient all-reduce's own ms and bytes; (b) two gloo ranks sharing
+     the card, 8 x 1024 rays each: kernels 1-6 launched on each rank,
+     step 1's loss terms and gradients against the one-process 16 x 1024
+     step (DIST_BOUNDS), the replicas bit-equal after three steps, the
+     step ms per rank (DIST_LABEL); (c) on those ranks the scale512
+     512x512 evaluation frame through ``make_sharded_eval_step`` and a
+     view through ``Renderer(mesh=)``, each bit-equal to one process (or
+     within the bf16 image bounds, with the difference printed);
   7-. prepare_template: the template tool at 64^3 points against the
      seed-3 V=6890 rig on the card (wall time, the distance pass's
      profile), card against CPU on 4,096 points (PREP_REL, signs outside
@@ -132,6 +145,10 @@ Phases, each printed as a JSON line; any failed check raises (exit != 0):
      6's step median; the validation and evaluation ms per frame, the
      checkpoint save ms, the first and last five losses, the test PSNR
      and SSIM;
+   7a+. dist_torchrun: ``torchrun --standalone --nproc_per_node 1 -m
+     animnerf_tpu_torch.cli.train`` (NCCL) on the fit dataset for
+     DIST_FIT_STEPS steps, its ``last`` bit-equal to a one-process
+     ``fit`` of the same steps;
    7b. cli: the post-training CLIs through their ``main`` on the card, on
      the fit phase's dataset and ``last``, the launch counts reset just
      before and read just after each: ``novel_view`` (8 views at 512x512,
@@ -2927,14 +2944,20 @@ FIT_FRAMES = 12
 FIT_STEPS = 60
 
 
-def fit_config(root: str):
+def fit_config(root: str, opts=None):
     """The flagship field (64 + 32 samples, freqs_xyz 10, bf16) on the fit
     dataset: 16 frames x 32^2 foreground_pixel rays a step, FIT_STEPS
-    steps, every step logged."""
+    steps, every step logged (``opts``: in place of ``fit_opts(root)``)."""
     from animnerf_tpu_torch.config import finalize, get_default_config
 
     cfg = get_default_config()
-    cfg.merge_from_list([
+    cfg.merge_from_list(fit_opts(root) if opts is None else opts)
+    return finalize(cfg)
+
+
+def fit_opts(root: str) -> list:
+    """fit_config's options, as the train CLI takes them."""
+    return [
         "root_dir", root, "model_path", os.path.join(root, "models"),
         "gender", "neutral", "pose_dim", "69", "img_wh", "(512, 512)",
         "n_samples", "64", "n_importance", "32", "freqs_xyz", "10",
@@ -2949,8 +2972,7 @@ def fit_config(root: str):
         "val.frame_start_ID", "9", "val.frame_end_ID", "10",
         "val.frame_skip", "1",
         "test.frame_start_ID", "11", "test.frame_end_ID", "12",
-        "test.frame_skip", "1"])
-    return finalize(cfg)
+        "test.frame_skip", "1"]
 
 
 def fit_phase(root: str, train_median_ms: float,
@@ -6258,6 +6280,552 @@ def knn_packed_off(ck, bp, tmpl, device: str = "cuda", H: int = 512,
             "exact_vs_packed_image": diff, "bounds": PACKED_OFF_BOUNDS}
 
 
+# ------------------------------------------------------------------ dist
+
+# the dist phase: data parallelism (``animnerf_tpu_torch/parallel/``) in
+# child processes made with the spawn context, a file:// rendezvous in a
+# temporary directory; each rank group may take DIST_JOIN_S seconds and
+# each collective DIST_COLLECTIVE_S before the run fails
+DIST_STEPS = 3
+DIST_JOIN_S = 420
+DIST_COLLECTIVE_S = 180
+DIST_VIEW = 29
+DIST_REPS = 20
+# two ranks sharing one card: step 1 against the one-process 16 x 1024
+# loss. Every term is held to loss_rtol against that loss with its
+# cuBLAS calls that depend on the batch size cut at a rank's 8 rows (the
+# plain nn.Linear MLP's GEMMs, gemm_rows_split; the body model's,
+# frames_per_shard), and bit-equal to the mean of two one-process
+# 8 x 1024 loss evaluations on the same rows and noise. Against the
+# unchanged one-process step the terms of the hand kernels' render and
+# the total are held to loss_rtol; PLAIN_MLP_TERMS, which the plain MLP
+# computes in bf16 on cuBLAS, to plain_mlp_loss_rtol: cuBLAS rounds a
+# row differently at 8 and at 16 rows
+DIST_BOUNDS = dict(loss_rtol=1e-5, plain_mlp_loss_rtol=1e-4,
+                   grad_rel_l2=2e-2)
+PLAIN_MLP_TERMS = ("loss_foreground", "loss_background", "loss_normals")
+DIST_LABEL = "two ranks sharing one H100, not a scaling figure"
+# the torchrun fit: steps of the fit phase's dataset
+DIST_FIT_STEPS = 4
+
+
+def _dist_child(rank: int, world: int, backend: str, init: str, out: str,
+                task: str) -> None:
+    """One spawned rank on card 0: join the group (NCCL or gloo), run
+    DIST_TASKS[task], pickle its result."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    extra = {"device_id": torch.device("cuda", 0)} if backend == "nccl" \
+        else {}
+    dist.init_process_group(
+        backend, init_method=init, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_COLLECTIVE_S), **extra)
+    try:
+        res = DIST_TASKS[task]()
+        torch.cuda.synchronize()
+        with open(os.path.join(out, f"{task}-{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def frames_per_shard(parts: int):
+    """``training/system.py``'s ``prepare_frame`` evaluated on each of
+    ``parts`` equal slices of the batch, the frame contexts concatenated:
+    the body model's batched GEMMs see the rows of one of ``parts``
+    ranks."""
+    import dataclasses
+
+    import torch
+
+    from animnerf_tpu_torch.training import system as TS
+
+    whole = TS.prepare_frame
+
+    def prepare(model, params: dict, tmpl: dict):
+        m = next(iter(params.values())).shape[0] // parts
+        ctxs = [whole(model, *({k: v[i * m:(i + 1) * m] for k, v in
+                                d.items()} for d in (params, tmpl)))
+                for i in range(parts)]
+        return dataclasses.replace(ctxs[0], **{
+            f.name: torch.cat([getattr(c, f.name) for c in ctxs])
+            for f in dataclasses.fields(ctxs[0])
+            if f.name != "lbs_weights"})
+
+    TS.prepare_frame = prepare
+    try:
+        yield
+    finally:
+        TS.prepare_frame = whole
+
+
+@contextlib.contextmanager
+def gemm_rows_split(parts: int):
+    """Every ``torch.nn.functional.linear`` on an input of 3 or more axes
+    evaluated as ``parts`` calls on equal slices of its leading (batch)
+    axis, the backward too: the plain MLP's cuBLAS GEMMs see the rows of
+    one of ``parts`` ranks."""
+    import torch
+
+    F = torch.nn.functional
+    whole = F.linear
+
+    def linear(x, w, b=None):
+        if x.dim() >= 3 and x.shape[0] % parts == 0:
+            return torch.cat([whole(c, w, b) for c in x.chunk(parts)], 0)
+        return whole(x, w, b)
+
+    F.linear = linear
+    try:
+        yield
+    finally:
+        F.linear = whole
+
+
+def smi_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
+def dist_spawn(task: str, world: int, backend: str, tmp: str) -> list:
+    """DIST_TASKS[task] on ``world`` spawned ranks -> each rank's result.
+    A rank that raises fails the run; ranks still running after
+    DIST_JOIN_S seconds are killed and fail it."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(
+        _dist_child, args=(world, backend,
+                           f"file://{os.path.join(tmp, 'rdv-' + task)}",
+                           tmp, task),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DIST_JOIN_S
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                p.kill()
+            ctx.join(timeout=30)
+            raise AssertionError(f"dist {task}: ranks still running after "
+                                 f"{DIST_JOIN_S} s")
+    res = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{task}-{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def host_batches(seeds) -> list:
+    """bench.py's 16 x 1024 batches (train_batches) as numpy, the global
+    batches the sharded step's place_batch takes."""
+    return [{k: v.numpy() for k, v in b.items()}
+            for b in train_batches(16, 1024, seeds, "cpu")]
+
+
+def dist_frame_batch(bp: dict, tmpl: dict, H: int = 512,
+                     W: int = 512) -> dict:
+    """One H x W evaluation frame of the scale512 body (given params,
+    frame_idx -1) as the loop's render_frame takes it."""
+    n = H * W
+    return {"frame_idx": np.array([-1]), **bp,
+            **{k + "_template": v for k, v in tmpl.items()},
+            "rays": frame_rays(H, W)[None],
+            "rgbs": np.zeros((1, n, 3), np.float32),
+            "alphas": np.zeros((1, n, 1), np.float32)}
+
+
+def _dist_train(system, step, place_batch, host: list) -> dict:
+    """The steps on the host batches: each synchronised step's ms, the
+    losses, the details, the launch counts (set to 0 just before, read
+    just after) and step 1's gradients by group."""
+    import torch
+
+    from animnerf_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, details, grads = [], [], None
+    for b in host:
+        t0 = time.perf_counter()
+        d = step(place_batch(b))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        details.append({k: float(v) for k, v in d.items()})
+        if grads is None:
+            grads = _grad_groups(system)
+    launches = dict(_build.LAUNCHES)
+    return {"step_ms": ms, "details": details, "grads": grads,
+            "launches": launches,
+            "params": {k: v.detach().cpu() for k, v in
+                       system.named_parameters()}}
+
+
+def dist_world1() -> dict:
+    """(a) One rank over NCCL: bench.py's step through
+    ``make_sharded_trainer`` and through ``RowsCompactTrainer.step``, each
+    on a fresh seed-0 system, one warm-up step then DIST_STEPS steps on the
+    same host batches (to the device as each path takes them) with the
+    trainers' own noise; then ``all_reduce_grads`` alone on the sharded
+    trainer's last gradients (CUDA events), which must leave them
+    bit-equal."""
+    import torch
+
+    from animnerf_tpu_torch.parallel import mesh as PM
+    from animnerf_tpu_torch.parallel.train_pjit import make_sharded_trainer
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+    from animnerf_tpu_torch.training.system import (
+        RowsCompactTrainer,
+        make_optimizer,
+    )
+
+    mesh = PM.make_mesh()
+    check(mesh.size == 1 and mesh.backend == "nccl"
+          and mesh.device == torch.device("cuda", 0), f"world 1: {mesh}")
+    host = host_batches(range(DIST_STEPS + 1))
+    out = {}
+    for name in ("mesh", "plain"):
+        system = AnimNeRFSystem(FLAGSHIP_CFG, smpl_rig(), device="cuda",
+                                seed=0)
+        opt, sched = make_optimizer(system, 100)
+        if name == "mesh":
+            step, place_state, place_batch = make_sharded_trainer(
+                system, opt, sched, mesh)
+            place_state(system)
+        else:
+            step = RowsCompactTrainer(system, optimizer=opt,
+                                      scheduler=sched).step
+
+            def place_batch(b):
+                return PM.to_device(b, mesh.device)
+        step(place_batch(host[DIST_STEPS]))  # warm-up
+        out[name] = _dist_train(system, step, place_batch, host[:DIST_STEPS])
+        if name == "mesh":
+            params = [p for g in opt.param_groups for p in g["params"]]
+            before = [p.grad.clone() for p in params]
+            nbytes = PM.all_reduce_grads(mesh, params)
+            ms = time_ms(lambda: PM.all_reduce_grads(mesh, params),
+                         DIST_REPS)
+            out["all_reduce"] = {
+                "bytes": nbytes, "tensors": len(params), "ms": ms,
+                "bit_equal": all(torch.equal(a, p.grad)
+                                 for a, p in zip(before, params))}
+        del system, opt, sched, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_world2() -> dict:
+    """(b) and (c) on two gloo ranks sharing card 0. (b): bench.py's step
+    through ``make_sharded_trainer``, each rank on its 8 x 1024 rows of
+    the global 16 x 1024 batches, DIST_STEPS steps (no warm-up). (c): one
+    512x512 evaluation frame of the scale512 checkpoint through
+    ``make_sharded_eval_step`` (the loop's ``render_frame``, 2 x 32,768-ray
+    slabs), a warm-up then a timed frame; view DIST_VIEW through
+    ``Renderer(mesh=)``, a warm-up then a timed view."""
+    import torch
+
+    from animnerf_tpu_torch.parallel import mesh as PM
+    from animnerf_tpu_torch.parallel.train_pjit import (
+        make_sharded_eval_step,
+        make_sharded_trainer,
+    )
+    from animnerf_tpu_torch.render.inference import Renderer, turntable_rotation
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+    from animnerf_tpu_torch.training import loop as TL
+    from animnerf_tpu_torch.training.system import make_optimizer
+
+    mesh = PM.make_mesh(device="cuda")
+    check(mesh.size == 2 and mesh.backend == "gloo"
+          and mesh.device == torch.device("cuda", 0), f"world 2: {mesh}")
+    # the collectives the loop adds to the step's (all_reduce SUM and MAX,
+    # broadcast, all_gather), on CUDA tensors over gloo
+    PM.barrier(mesh)
+    PM.check_visible(mesh, ROOT)
+    collectives = {"barrier": True, "check_visible": True,
+                   "broadcast_object": PM.broadcast_object(
+                       mesh, {"rank": mesh.rank}) == {"rank": 0}}
+    system = AnimNeRFSystem(FLAGSHIP_CFG, smpl_rig(), device="cuda", seed=0)
+    opt, sched = make_optimizer(system, 100)
+    step, place_state, place_batch = make_sharded_trainer(system, opt, sched,
+                                                          mesh)
+    place_state(system)
+    out = {"rank": mesh.rank, "collectives": collectives,
+           "train": _dist_train(system, step, place_batch,
+                                host_batches(range(DIST_STEPS)))}
+    del system, opt, sched, step
+    torch.cuda.empty_cache()
+
+    _, sys512, bp, tmpl, _ = scale512("cuda")
+    eval_step = make_sharded_eval_step(sys512, mesh)
+    batch = dist_frame_batch(bp, tmpl)
+    slab = TL.EVAL_SLAB * mesh.size
+    TL.render_frame(eval_step, batch, slab)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame = TL.render_frame(eval_step, batch, slab)
+    out["eval_ms"] = (time.perf_counter() - t0) * 1e3
+    out["eval"] = frame
+    renderer = Renderer(sys512, mesh=mesh)
+    P = turntable_rotation(DIST_VIEW, 64)
+    renderer.render_frame(bp, tmpl, frame_rays(512, 512), P, (512, 512))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["view"] = renderer.render_frame(bp, tmpl, frame_rays(512, 512), P,
+                                        (512, 512))
+    out["view_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+DIST_TASKS = {"world1": dist_world1, "world2": dist_world2}
+
+
+def dist_phase() -> dict:
+    """Data parallelism on the card. The one-process references first, in
+    this process: bench.py's rows-compacted step 1 on the whole 16 x 1024
+    batch (loss terms, gradients by group) and, on the scale512
+    checkpoint, the 512x512 evaluation frame through the loop's
+    ``render_frame`` (32,768-ray slabs) and view DIST_VIEW through
+    ``Renderer(compact_samples=False, cull_rays=False)``. Then (a) one
+    rank over NCCL (``dist_world1``): losses and every parameter bit-equal
+    to ``RowsCompactTrainer.step``'s; (b) and (c) two gloo ranks on the one
+    card (``dist_world2``): each rank launches kernels 1-6, step 1's loss
+    terms within DIST_BOUNDS of the one-process 16 x 1024 loss, with its
+    plain-MLP GEMMs at a rank's rows and unchanged (the module's bounds;
+    ``psnr``, a mean of the shards' PSNRs, is left out), and bit-equal to
+    the mean of the one-process loss on each rank's rows and noise, its
+    gradients within
+    rel-L2 DIST_BOUNDS, the replicas bit-equal after DIST_STEPS steps; the
+    sharded frame and the view bit-equal to the one-process ones."""
+    import torch
+
+    from animnerf_tpu_torch.parallel import mesh as PM
+    from animnerf_tpu_torch.parallel.train_pjit import make_sharded_eval_step
+    from animnerf_tpu_torch.render.inference import Renderer, turntable_rotation
+    from animnerf_tpu_torch.system import AnimNeRFSystem
+    from animnerf_tpu_torch.training import loop as TL
+    from animnerf_tpu_torch.training import system as TS
+    from animnerf_tpu_torch.training.system import (
+        RowsCompactTrainer,
+        rows_compact_loss_fn,
+    )
+
+    smi = smi_line()
+    system = AnimNeRFSystem(FLAGSHIP_CFG, smpl_rig(), device="cuda", seed=0)
+    trainer = RowsCompactTrainer(system, steps_per_epoch=100)
+    batch = PM.to_device(host_batches([0])[0], system.device)
+    noise = trainer.draw_noise(batch)
+    halves = []
+    for h in range(2):  # each rank's rows through the one-process loss
+        half = PM.Mesh(None, h, 2, system.device)
+        _, d = rows_compact_loss_fn(
+            system, {k: PM.shard_rows(half, v) for k, v in batch.items()},
+            PM.shard_noise(half, noise))
+        halves.append({k: v.detach() for k, v in d.items()
+                       if k.startswith("loss")})
+    half_mean = {k: float((halves[0][k] + halves[1][k]) / 2)
+                 for k in halves[0]}
+    # the whole batch with the batch-size-dependent cuBLAS calls at 8 rows
+    with torch.no_grad():
+        obs, canonical = TS._body_params(system, batch)
+        ctx16 = TS.prepare_frame(system.body_model, obs, canonical)
+        with frames_per_shard(2):
+            ctx8 = TS.prepare_frame(system.body_model, obs, canonical)
+        frame_diff = {k: float((getattr(ctx16, k) - getattr(ctx8, k))
+                               .abs().max())
+                      for k in ("verts", "verts_template", "ober2cano")}
+    cut = {}
+    for name, body in (("mlp", False), ("mlp_and_body_model", True)):
+        with gemm_rows_split(2), (frames_per_shard(2) if body
+                                  else contextlib.nullcontext()):
+            _, d = rows_compact_loss_fn(system, batch, noise)
+        cut[name] = {k: float(v.detach()) for k, v in d.items()
+                     if k.startswith("loss")}
+    d = trainer.step(batch, noise)
+    ref_loss = {k: float(v) for k, v in d.items() if k.startswith("loss")}
+    ref_grads = _grad_groups(system)
+    del system, trainer, batch, noise, halves, ctx16, ctx8
+    _, sys512, bp, tmpl, _ = scale512("cuda")
+    ref_frame = TL.render_frame(
+        make_sharded_eval_step(sys512, PM.make_mesh(device="cuda")),
+        dist_frame_batch(bp, tmpl))
+    ref_view = Renderer(sys512, compact_samples=False,
+                        cull_rays=False).render_frame(
+        bp, tmpl, frame_rays(512, 512), turntable_rotation(DIST_VIEW, 64),
+        (512, 512))
+    del sys512
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="dist_", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        (w1,) = dist_spawn("world1", 1, "nccl", tmp)
+        w1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        w2 = dist_spawn("world2", 2, "gloo", tmp)
+        w2_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (a)
+    m, p = w1["mesh"], w1["plain"]
+    same1 = ([x["loss"] for x in m["details"]]
+             == [x["loss"] for x in p["details"]]
+             and sorted(m["params"]) == sorted(p["params"])
+             and all(torch.equal(m["params"][k], v)
+                     for k, v in p["params"].items()))
+    check(same1 and w1["all_reduce"]["bit_equal"],
+          "dist world 1 (NCCL): the sharded step differs from "
+          "RowsCompactTrainer.step, or the all-reduce changed a gradient")
+    check(all(m["launches"][k] > 0 for k in TRAIN_KERNELS),
+          f"dist world 1: a kernel was not launched: {m['launches']}")
+    world1 = {"backend": "nccl", "steps": DIST_STEPS, "rays": 16 * 1024,
+              "losses": [x["loss"] for x in m["details"]],
+              "bit_equal_to_one_process": same1,
+              "step_ms_mesh": m["step_ms"], "step_ms_plain": p["step_ms"],
+              "median_step_ms_mesh": float(np.median(m["step_ms"])),
+              "median_step_ms_plain": float(np.median(p["step_ms"])),
+              "all_reduce": w1["all_reduce"], "launches": m["launches"],
+              "seconds": w1_s}
+
+    # (b)
+    r0, r1 = (w["train"] for w in w2)
+    check([w["rank"] for w in w2] == [0, 1]
+          and all(all(w["collectives"].values()) for w in w2),
+          f"dist world 2: ranks, collectives {[w['collectives'] for w in w2]}")
+    for w in (r0, r1):
+        check(all(w["launches"][k] > 0 for k in TRAIN_KERNELS),
+              f"dist world 2: a kernel was not launched: {w['launches']}")
+    def rel(want: dict) -> dict:
+        return {k: abs(r0["details"][0][k] - v) / max(abs(v), 1e-12)
+                for k, v in want.items()}
+
+    loss_rel = rel(ref_loss)
+    cut_rel = {k: rel(v) for k, v in cut.items()}
+    split_rel = cut_rel["mlp_and_body_model"]
+    plain_mlp = [k for k in loss_rel if k.startswith(PLAIN_MLP_TERMS)]
+    terms_ok = (max(split_rel.values()) <= DIST_BOUNDS["loss_rtol"]
+                and all(v <= DIST_BOUNDS["plain_mlp_loss_rtol"
+                                         if k in plain_mlp else "loss_rtol"]
+                        for k, v in loss_rel.items()))
+    grad_rel = {k: float((r0["grads"][k] - g).norm()
+                         / max(float(g.norm()), 1e-30))
+                for k, g in ref_grads.items()}
+    halves_equal = all(r0["details"][0][k] == v
+                       for k, v in half_mean.items())
+    replicas = (r0["details"] == r1["details"]
+                and all(torch.equal(v, r1["params"][k])
+                        for k, v in r0["params"].items())
+                and all(torch.equal(v, r1["grads"][k])
+                        for k, v in r0["grads"].items()))
+    check(terms_ok and max(grad_rel.values()) <= DIST_BOUNDS["grad_rel_l2"]
+          and replicas and halves_equal,
+          f"dist world 2: loss terms {loss_rel}, against the cuBLAS "
+          f"calls at 8 rows {cut_rel}, gradients {grad_rel}, replicas "
+          f"bit-equal "
+          f"{replicas}, step 1 {r0['details'][0]} against the half-batch "
+          f"mean {half_mean}")
+    world2 = {"backend": "gloo", "collectives": [w["collectives"]
+                                                 for w in w2], "device":
+              "cuda:0 for both ranks", "label": DIST_LABEL,
+              "rays_per_rank": 8 * 1024, "steps": DIST_STEPS,
+              "step_ms_per_rank": [r0["step_ms"], r1["step_ms"]],
+              "launches_per_rank": [r0["launches"], r1["launches"]],
+              "losses": [x["loss"] for x in r0["details"]],
+              "one_process_step1_loss": ref_loss["loss"],
+              "step1_loss_term_rel": loss_rel,
+              "step1_loss_term_rel_cublas_at_8_rows": cut_rel,
+              "frame_context_16_vs_8_rows_max_abs": frame_diff,
+              "plain_mlp_terms": plain_mlp, "step1_grad_rel_l2": grad_rel,
+              "step1_bit_equal_to_half_batch_mean": halves_equal,
+              "bounds": DIST_BOUNDS, "replicas_bit_equal": replicas,
+              "seconds": w2_s}
+
+    # (c)
+    ev = {}
+    for w in w2:
+        same = sorted(w["eval"]) == sorted(ref_frame) and all(
+            np.array_equal(w["eval"][k], v) for k, v in ref_frame.items())
+        diff = image_diff(w["eval"]["rgbs_fine"][0].reshape(512, 512, 3),
+                          ref_frame["rgbs_fine"][0].reshape(512, 512, 3))
+        vsame = all(np.array_equal(a, b) for a, b in zip(w["view"],
+                                                          ref_view))
+        vdiff = image_diff(w["view"][0], ref_view[0])
+        ev[w["rank"]] = {"eval_bit_equal": same, "eval_vs_one": diff,
+                         "eval_frame_ms": w["eval_ms"],
+                         "view_bit_equal": vsame, "view_vs_one": vdiff,
+                         "view_ms": w["view_ms"]}
+        bound = dict(PARITY_BOUNDS)["bfloat16"]
+        check((same or (diff["max_abs"] <= bound[0]
+                        and diff["psnr_db"] >= bound[1]))
+              and (vsame or (vdiff["max_abs"] <= bound[0]
+                             and vdiff["psnr_db"] >= bound[1])),
+              f"dist sharded evaluation: {ev}")
+    return {"nvidia_smi": smi, "world1_nccl": world1,
+            "world2_gloo_one_card": world2,
+            "sharded_eval": {"frame": [512, 512], "view": DIST_VIEW,
+                             "label": DIST_LABEL, "by_rank": ev}}
+
+
+def npz_arrays(ckpt: str) -> dict:
+    """Every array of a checkpoint's anim_nerf.npz and body_params.npz."""
+    out = {}
+    for g in ("anim_nerf", "body_params"):
+        with np.load(os.path.join(ckpt, f"{g}.npz")) as d:
+            out.update({f"{g}:{k}": d[k] for k in d.files})
+    return out
+
+
+def dist_torchrun(root: str) -> dict:
+    """``torchrun --standalone --nproc_per_node 1 -m
+    animnerf_tpu_torch.cli.train`` (NCCL) on the fit phase's dataset for
+    DIST_FIT_STEPS steps, and a one-process ``fit`` of the same steps:
+    the two ``last`` checkpoints bit-equal, array by array."""
+    from animnerf_tpu_torch.training import loop as TL
+
+    opts = fit_opts(root) + ["train.max_steps", str(DIST_FIT_STEPS),
+                             "checkpoints_dir", os.path.join(root, "dist_ck"),
+                             "logs_dir", os.path.join(root, "dist_logs")]
+    t0 = time.perf_counter()
+    # at one rank the group is joined only when ANIMNERF_MULTIHOST asks
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "animnerf_tpu_torch.cli.train",
+         *opts, "exp_name", "torchrun"], cwd=ROOT, capture_output=True,
+        text=True, timeout=DIST_JOIN_S,
+        env=dict(os.environ, ANIMNERF_MULTIHOST="1"))
+    run_s = time.perf_counter() - t0
+    check(r.returncode == 0, "torchrun cli.train failed:\n"
+          + r.stdout[-4000:] + r.stderr[-4000:])
+    engine = [ln for ln in r.stdout.splitlines()
+              if ln.startswith("trainer engine:")]
+    backend = engine[0].rsplit("backend=", 1)[-1].rstrip(")") \
+        if len(engine) == 1 else None
+    check(backend == "nccl" and "mesh=1dev" in engine[0]
+          and "device=cuda" in engine[0],
+          f"torchrun cli.train: no NCCL engine line:\n{r.stdout[-2000:]}")
+    cfg = fit_config(root, opts + ["exp_name", "one"])
+    t0 = time.perf_counter()
+    TL.fit(cfg, device="cuda")
+    fit_s = time.perf_counter() - t0
+    got, want = (npz_arrays(os.path.join(root, "dist_ck", exp, "last"))
+                 for exp in ("torchrun", "one"))
+    same = sorted(got) == sorted(want) and all(
+        np.array_equal(got[k], v) for k, v in want.items())
+    check(same, "torchrun cli.train's last differs from one-process fit's")
+    return {"nvidia_smi": smi_line(), "steps": DIST_FIT_STEPS,
+            "backend": backend, "engine_line": engine[0], "nproc": 1,
+            "last_bit_equal": same, "arrays": len(want),
+            "torchrun_s": run_s, "one_process_fit_s": fit_s}
+
+
 def main() -> int:
     import torch
 
@@ -6444,6 +7012,13 @@ def main() -> int:
     emit({"phase": "train_parity", **tparity,
           "seconds": time.perf_counter() - t0})
 
+    # ---- data parallelism: one rank over NCCL, two ranks on the card
+    # over gloo, the sharded evaluation and Renderer(mesh=)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    t0 = time.perf_counter()
+    emit({"phase": "dist", **dist_phase(),
+          "seconds": time.perf_counter() - t0})
+
     # kernels 3 and 6 in f32 on the flagship's step and view
     t0 = time.perf_counter()
     f32 = f32_profile("cuda")
@@ -6522,6 +7097,10 @@ def main() -> int:
         last = fitted.pop("last")
         emit({"phase": "fit", **fitted, "seconds": time.perf_counter() - t0})
         fit_launches = fitted["launches"]
+
+        t0 = time.perf_counter()
+        emit({"phase": "dist_torchrun", **dist_torchrun(fit_root),
+              "seconds": time.perf_counter() - t0})
 
         t0 = time.perf_counter()
         cli = cli_phase(fit_root, last)

@@ -255,16 +255,6 @@ def test_cfg_merges_equal(tmp_path):
         b.merge_from_list(["no_such_key", "1"])
 
 
-def test_mesh_over_several_devices_raises():
-    from animnerf_tpu_torch.config import check_single_device
-
-    cfg = get_default_config()
-    check_single_device(cfg)
-    cfg.mesh_shape = (4,)
-    with pytest.raises(NotImplementedError, match="one device"):
-        check_single_device(cfg)
-
-
 def test_rational_camera_batches_bit_equal(jax_root, rational_root):
     """An 8-coefficient camera (k4..k6 of OpenCV's rational model, which
     the JAX loader hands to cv2.undistort): training batches and a

@@ -306,15 +306,19 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(root, tmp_path,
         TL.evaluate(cfg, str(tmp_path))
 
 
-@pytest.mark.parametrize("opts, match", [
-    (["mesh_shape", "(2,)"], "one device"),
-])
-def test_fit_raises_for_configs_it_cannot_take(root, tmp_path, opts, match):
-    """A mesh over several devices (more neighbours than 16 train:
-    test_fit_trains_at_k_neigh_17; more than 128 samples a ray train with
-    the dense engine: tests/test_torch_split_train.py)."""
-    with pytest.raises(NotImplementedError, match=match):
-        TL.fit(_port_cfg(root, str(tmp_path), "x", *opts), device="cpu")
+def test_fit_ignores_mesh_shape(root, tmp_path):
+    """``mesh_shape`` (4,) in one process trains bit for bit as (-1,):
+    the JAX package's fit reads no mesh_shape either, and the mesh is the
+    ranks of the process group that divide the batch (here one)."""
+    outs = {}
+    for shape in ("(-1,)", "(4,)"):
+        out = str(tmp_path / shape.strip("(),-"))
+        cfg = _port_cfg(root, out, "m", "mesh_shape", shape)
+        outs[shape] = _npz(os.path.join(TL.fit(cfg, device="cpu"), "last"))
+    a, b = outs["(-1,)"], outs["(4,)"]
+    assert sorted(a) == sorted(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], k)
 
 
 def test_fit_trains_at_k_neigh_17(root, tmp_path):

@@ -43,7 +43,9 @@ def test_import_loads_no_jax():
             " animnerf_tpu_torch.tools.vibe,"
             " animnerf_tpu_torch.tools.convert_vibe,"
             " animnerf_tpu_torch.tools.vibe_driver,"
-            " animnerf_tpu_torch.tools.rvm;"
+            " animnerf_tpu_torch.tools.rvm,"
+            " animnerf_tpu_torch.parallel.mesh,"
+            " animnerf_tpu_torch.parallel.train_pjit;"
             "bad = [m for m in sys.modules if m.split('.')[0] in %r];"
             "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
