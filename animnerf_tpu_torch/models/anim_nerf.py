@@ -17,6 +17,8 @@ package's rule (``use_fused_mlp``: the flagship architecture, unless
 ``fused_mlp`` is "off"). ``query_sigma`` / ``query_normal`` (the loss's
 density and normal terms) run the plain trunk with the deformation code
 but never DeRF, as the JAX package does (they need grad-of-grad).
+The warp hooks are ``warp`` spans, the field hooks ``field`` spans
+(``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from animnerf_tpu_torch.models.warp import (
     unpose_with_knn,
 )
 from animnerf_tpu_torch.ops.knn_kernel import knn
+from animnerf_tpu_torch.utils import trace
 
 SIGMA_OUTSIDE = -1e5
 # the fused MLP's encoding block holds up to 128 rows
@@ -158,17 +161,21 @@ class AnimNeRFModel(nn.Module):
         c = self.cfg
         if not c.use_unpose:
             return xyz, viewdir, None
-        return unpose(ctx, xyz, viewdir, k=c.k_neigh,
-                      dis_threshold=c.dis_threshold, weight_std=c.weight_std,
-                      unpose_view=c.unpose_view, far_skip=c.knn_far_skip)
+        with trace.span("warp"):
+            return unpose(ctx, xyz, viewdir, k=c.k_neigh,
+                          dis_threshold=c.dis_threshold,
+                          weight_std=c.weight_std,
+                          unpose_view=c.unpose_view,
+                          far_skip=c.knn_far_skip)
 
     def warp_knn(self, ctx: FrameContext, xyz: torch.Tensor):
         """The kNN half of the warp against the observed verts in mesh
         order -> (dists, idx) (B, N, k)."""
         c = self.cfg
-        d, i = knn(xyz.detach().contiguous(), ctx.verts.detach()
-                   .contiguous(), c.k_neigh,
-                   far_skip=c.dis_threshold if c.knn_far_skip else 0.0)
+        with trace.span("warp"):
+            d, i = knn(xyz.detach().contiguous(), ctx.verts.detach()
+                       .contiguous(), c.k_neigh,
+                       far_skip=c.dis_threshold if c.knn_far_skip else 0.0)
         return d.transpose(1, 2), i.transpose(1, 2)
 
     def warp_points_with_knn(self, ctx: FrameContext, xyz: torch.Tensor,
@@ -176,26 +183,29 @@ class AnimNeRFModel(nn.Module):
         """The blend half of the warp on points whose (dists, idx) are
         known (``warp_knn``): per point equal to ``warp_points``."""
         c = self.cfg
-        return unpose_with_knn(ctx, xyz, viewdir, dists, idx,
-                               dis_threshold=c.dis_threshold,
-                               weight_std=c.weight_std,
-                               unpose_view=c.unpose_view)
+        with trace.span("warp"):
+            return unpose_with_knn(ctx, xyz, viewdir, dists, idx,
+                                   dis_threshold=c.dis_threshold,
+                                   weight_std=c.weight_std,
+                                   unpose_view=c.unpose_view)
 
     def field_points(self, xyz: torch.Tensor, viewdir=None, valid=None,
                      use_fine: bool = False, deformation_code=None,
                      apperance_code=None):
         """Canonical query: (DeRF) -> MLP -> the outside-shell sigma fill
         (reference anim_nerf.py:298-307)."""
-        if self.cfg.use_deformation:
-            xyz = self.apply_deformation(xyz, valid, deformation_code)
-        rgb, sigma = self.query_canonical(xyz, viewdir, use_fine,
-                                          deformation_code, apperance_code)
-        if valid is not None:
-            sigma = torch.where(valid < 1.0,
-                                torch.full_like(sigma, SIGMA_OUTSIDE), sigma)
-            if self.cfg.query_inside:
-                rgb = torch.where(valid < 1.0, torch.zeros_like(rgb), rgb)
-        return rgb, sigma
+        with trace.span("field"):
+            if self.cfg.use_deformation:
+                xyz = self.apply_deformation(xyz, valid, deformation_code)
+            rgb, sigma = self.query_canonical(
+                xyz, viewdir, use_fine, deformation_code, apperance_code)
+            if valid is not None:
+                sigma = torch.where(valid < 1.0, torch.full_like(
+                    sigma, SIGMA_OUTSIDE), sigma)
+                if self.cfg.query_inside:
+                    rgb = torch.where(valid < 1.0, torch.zeros_like(rgb),
+                                      rgb)
+            return rgb, sigma
 
     def apply_points(self, ctx: Optional[FrameContext], xyz: torch.Tensor,
                      viewdir=None, use_fine: bool = False,
@@ -209,21 +219,24 @@ class AnimNeRFModel(nn.Module):
                   tile_skip: bool = False) -> torch.Tensor:
         """(B, 8, N) rows -> (B, 8, N) rows [x'|y'|z'|bd|0..]."""
         c = self.cfg
-        return unpose_rows(ctx, xyz_t, k=c.k_neigh, weight_std=c.weight_std,
-                           far_skip=c.dis_threshold if c.knn_far_skip
-                           else 0.0, tile_skip=tile_skip)
+        with trace.span("warp"):
+            return unpose_rows(ctx, xyz_t, k=c.k_neigh,
+                               weight_std=c.weight_std,
+                               far_skip=c.dis_threshold if c.knn_far_skip
+                               else 0.0, tile_skip=tile_skip)
 
     def field_rows(self, rows: torch.Tensor, use_fine: bool) -> torch.Tensor:
         """rows (B, 8, N) [x'|y'|z'|bd|..] -> (B, 8, N) [r|g|b|sigma|0..]
         with the outside-shell sigma fill (reference anim_nerf.py:298-307)."""
-        out = self._field(use_fine).forward_rows(rows)
-        valid = rows[:, 3:4] < self.cfg.dis_threshold
-        sigma = torch.where(valid, out[:, 3:4],
-                            torch.full_like(out[:, 3:4], SIGMA_OUTSIDE))
-        rgb = out[:, 0:3]
-        if self.cfg.query_inside:
-            rgb = torch.where(valid, rgb, torch.zeros_like(rgb))
-        return torch.cat([rgb, sigma, out[:, 4:]], dim=1)
+        with trace.span("field"):
+            out = self._field(use_fine).forward_rows(rows)
+            valid = rows[:, 3:4] < self.cfg.dis_threshold
+            sigma = torch.where(valid, out[:, 3:4],
+                                torch.full_like(out[:, 3:4], SIGMA_OUTSIDE))
+            rgb = out[:, 0:3]
+            if self.cfg.query_inside:
+                rgb = torch.where(valid, rgb, torch.zeros_like(rgb))
+            return torch.cat([rgb, sigma, out[:, 4:]], dim=1)
 
     def query_sigma(self, xyz: torch.Tensor, use_fine: bool = False,
                     deformation_code=None) -> torch.Tensor:

@@ -12,6 +12,8 @@ column of the inverted vertex transform before left-multiplying the
 template transform; neighbour weights are exp(-dist) gated by a hard
 (> 0.9) LBS-weight similarity with std 0.1. Float32 products here must be
 full precision: callers pin TF32 off (``utils/device.pin_fp32_geometry``).
+``prepare_frame`` and ``rays_to_root_frame`` are ``body.frame`` spans
+(``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from animnerf_tpu_torch.ops.warp_blend import (
 )
 from animnerf_tpu_torch.smpl.body_model import BodyModel, BodyModelOutput
 from animnerf_tpu_torch.smpl.body_model import forward as body_forward
+from animnerf_tpu_torch.utils import trace
 
 
 def affine_inverse(T: torch.Tensor) -> torch.Tensor:
@@ -143,6 +146,12 @@ def prepare_frame(model: BodyModel, params: dict,
                   params_template: dict) -> FrameContext:
     """Body model for observed + template params, the rebased geometry,
     the obs->canonical transforms and the Morton-sorted warp inputs."""
+    with trace.span("body.frame"):
+        return _prepare_frame(model, params, params_template)
+
+
+def _prepare_frame(model: BodyModel, params: dict,
+                   params_template: dict) -> FrameContext:
     obs, tmpl = _forward_obs_template(model, params, params_template)
     root_inv = affine_inverse(obs.joints_transform[:, 0])
     J = model.num_joints
@@ -184,13 +193,14 @@ def _morton_inputs(ctx: FrameContext):
 def rays_to_root_frame(ctx: FrameContext, rays: torch.Tensor) -> torch.Tensor:
     """Rebase (B, R, 8) rays into the root frame, tightening near/far to
     the +/-1m shell around the body."""
-    Tinv = ctx.root_inv[:, None]
-    o = transform_points(Tinv, rays[..., 0:3])
-    d = transform_points(Tinv, rays[..., 3:6], directional=True)
-    cam_dist = torch.linalg.norm(o, dim=-1, keepdim=True)
-    near = torch.maximum(rays[..., 6:7], cam_dist - 1.0)
-    far = torch.minimum(rays[..., 7:8], cam_dist + 1.0)
-    return torch.cat([o, d, near, far], dim=-1)
+    with trace.span("body.frame"):
+        Tinv = ctx.root_inv[:, None]
+        o = transform_points(Tinv, rays[..., 0:3])
+        d = transform_points(Tinv, rays[..., 3:6], directional=True)
+        cam_dist = torch.linalg.norm(o, dim=-1, keepdim=True)
+        near = torch.maximum(rays[..., 6:7], cam_dist - 1.0)
+        far = torch.minimum(rays[..., 7:8], cam_dist + 1.0)
+        return torch.cat([o, d, near, far], dim=-1)
 
 
 def _table(ctx: FrameContext) -> torch.Tensor:

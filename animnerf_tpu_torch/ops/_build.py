@@ -10,8 +10,9 @@ package's rounding (see each source's note).
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; the wrappers raise on a non-zero code. A wrapper
-adds one to its entry in ``LAUNCHES`` each time it launches its kernel,
-so a run can show that the main path went through the kernels.
+adds one to its entry in ``LAUNCHES`` (``utils/trace.py``) each time it
+launches its kernel, so a run can show that the main path went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -25,6 +26,13 @@ import tempfile
 import time
 from pathlib import Path
 from typing import Optional
+
+# the launch counts live with the tracer (``utils/trace.py``), which adds
+# each call's launches to its record; the same dict object is re-exported
+from animnerf_tpu_torch.utils.trace import (  # noqa: F401
+    LAUNCHES,
+    reset_launches,
+)
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -80,32 +88,6 @@ SIGNATURES = {
     "animnerf_knn_mxu_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _I, _P],
 }
-
-# "knn_tile_skip" counts the kNN launches with the tile skip on (they also
-# count under "knn", the kernel's total), "knn_exact_cull" the exact kNN's
-# launches with the cull on (also under "knn_exact"); "fused_mlp_wgrad"
-# the bf16 MLP backward's weight-gradient pass, launched by fused_nerf_bwd
-# (which also counts under "fused_mlp_bwd") or alone by fused_nerf_wgrad;
-# "knn_far" the all-far skip's pass, launched by a kNN wrapper in front of
-# its sweep when far_skip > 0; "warp_blend_view_dir" the warp-blend's
-# launches with warp_view on (also counted under "warp_blend");
-# "fused_mlp_f32" / "fused_mlp_bwd_f32" the MLP kernels' float32 launches
-# (also counted under "fused_mlp" / "fused_mlp_bwd"); "knn_packed_wide" /
-# "knn_exact_wide" the kNN launches on the warp-per-point kernels (also
-# counted under "knn_packed" / "knn_exact"); "warp_blend_group" the
-# warp-blend's launches on its group kernel (also under "warp_blend")
-LAUNCHES = {"knn": 0, "knn_tile_skip": 0, "warp_blend": 0,
-            "warp_blend_view_dir": 0, "warp_blend_group": 0, "scatter": 0,
-            "fused_mlp": 0, "fused_mlp_bwd": 0, "fused_mlp_wgrad": 0,
-            "fused_mlp_f32": 0, "fused_mlp_bwd_f32": 0,
-            "permute_lanes": 0, "knn_exact": 0, "knn_exact_cull": 0,
-            "min_dist": 0, "knn_packed": 0, "knn_mxu": 0, "knn_far": 0,
-            "knn_packed_wide": 0, "knn_exact_wide": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def find_nvcc() -> str:

@@ -6,7 +6,8 @@ channel-leading form, the rows-compacted training step's) and
 ``min_vertex_distance`` (``prepass="exact"``: the CUDA kernel
 ``csrc/min_dist.cu``, the counterpart of ``knn_pallas.py::_min_dist_kernel``
 through ``min_dist_pallas``, with its plain version). The kNN itself is
-``ops/knn_kernel.py``.
+``ops/knn_kernel.py``. Each pre-pass is a ``compact.prepass`` span
+(``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from animnerf_tpu_torch.ops.knn_kernel import (
     exact_d2,
     ieee_sqrt,
 )
+from animnerf_tpu_torch.utils import trace
 
 NB = 64  # index chunks of the vertex cloud
 
@@ -45,13 +47,14 @@ def keep_within_boxes(points: torch.Tensor, verts: torch.Tensor,
     (L-inf >= L2) and keep a point iff it lies in any box. A strict
     superset of ``min_vertex_distance < thr``, which is exact end to end:
     kept-but-invalid samples get the same sigma fill in the warp."""
-    lo, hi = _chunk_boxes(verts, thr)
-    keep = torch.zeros(points.shape[:2], dtype=torch.bool,
-                       device=points.device)
-    for b in range(lo.shape[1]):
-        inb = ((points >= lo[:, None, b]) & (points <= hi[:, None, b])).all(-1)
-        keep |= inb
-    return keep
+    with trace.span("compact.prepass"):
+        lo, hi = _chunk_boxes(verts, thr)
+        keep = torch.zeros(points.shape[:2], dtype=torch.bool,
+                           device=points.device)
+        for b in range(lo.shape[1]):
+            keep |= ((points >= lo[:, None, b])
+                     & (points <= hi[:, None, b])).all(-1)
+        return keep
 
 
 def keep_rows_within_boxes(xyz_t: torch.Tensor, verts: torch.Tensor,
@@ -59,15 +62,16 @@ def keep_rows_within_boxes(xyz_t: torch.Tensor, verts: torch.Tensor,
     """keep_within_boxes for channel-leading rows: xyz_t (B, C >= 3, N)
     [x|y|z|..] -> (B, N) bool; the same boxes and result, on detached
     inputs."""
-    xyz_t = xyz_t.detach()
-    lo, hi = _chunk_boxes(verts.detach(), thr)
-    x, y, z = xyz_t[:, 0], xyz_t[:, 1], xyz_t[:, 2]  # (B, N) each
-    keep = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
-    for b in range(lo.shape[1]):
-        keep |= ((x >= lo[:, b, 0:1]) & (x <= hi[:, b, 0:1])
-                 & (y >= lo[:, b, 1:2]) & (y <= hi[:, b, 1:2])
-                 & (z >= lo[:, b, 2:3]) & (z <= hi[:, b, 2:3]))
-    return keep
+    with trace.span("compact.prepass"):
+        xyz_t = xyz_t.detach()
+        lo, hi = _chunk_boxes(verts.detach(), thr)
+        x, y, z = xyz_t[:, 0], xyz_t[:, 1], xyz_t[:, 2]  # (B, N) each
+        keep = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+        for b in range(lo.shape[1]):
+            keep |= ((x >= lo[:, b, 0:1]) & (x <= hi[:, b, 0:1])
+                     & (y >= lo[:, b, 1:2]) & (y <= hi[:, b, 1:2])
+                     & (z >= lo[:, b, 2:3]) & (z <= hi[:, b, 2:3]))
+        return keep
 
 
 def min_vertex_distance(points: torch.Tensor,
@@ -75,6 +79,12 @@ def min_vertex_distance(points: torch.Tensor,
     """(B, N, 3) points, (B, V, 3) verts -> (B, N) exact nearest-vertex
     distance, on detached inputs: kernel on CUDA tensors, plain version on
     CPU tensors."""
+    with trace.span("compact.prepass"):
+        return _min_vertex_distance(points, verts)
+
+
+def _min_vertex_distance(points: torch.Tensor,
+                         verts: torch.Tensor) -> torch.Tensor:
     check_points_verts(points, verts, min_verts=1, max_verts=2**31 - 1)
     if points.device.type == "cpu":
         return min_vertex_distance_plain(points, verts)

@@ -24,6 +24,7 @@ from typing import Sequence
 import torch
 
 from animnerf_tpu_torch.ops.warp_blend import spread_bits
+from animnerf_tpu_torch.utils import trace
 
 
 def _take(x: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
@@ -81,18 +82,21 @@ def compaction_ranks(keep: torch.Tensor, xyz_rows=None):
     of each rank (survivors first, in original order or, with
     ``xyz_rows`` = (px, py, pz), in Morton order; then the dropped ones in
     original order), inv (B, N) its inverse, n the largest per-row
-    survivor count (a 0-d tensor: reading it is the caller's one sync)."""
-    B, N = keep.shape
-    iota = torch.arange(N, device=keep.device).expand(B, N)
-    if xyz_rows is None:
-        keys = torch.where(keep, iota, iota + N)
-    else:
-        m = _morton_rows(*(p.detach() for p in xyz_rows))
-        keys = torch.where(keep, m, torch.full_like(m, 0x7FFFFFFF))
-    o = torch.argsort(keys, dim=1, stable=True)
-    inv = inverse_permutation(o)
-    n = keep.sum(dim=1).max() if B else keep.new_zeros((), dtype=torch.int64)
-    return o, inv, n
+    survivor count (a 0-d tensor: reading it is the caller's one sync).
+    Span ``compact.prepass``."""
+    with trace.span("compact.prepass"):
+        B, N = keep.shape
+        iota = torch.arange(N, device=keep.device).expand(B, N)
+        if xyz_rows is None:
+            keys = torch.where(keep, iota, iota + N)
+        else:
+            m = _morton_rows(*(p.detach() for p in xyz_rows))
+            keys = torch.where(keep, m, torch.full_like(m, 0x7FFFFFFF))
+        o = torch.argsort(keys, dim=1, stable=True)
+        inv = inverse_permutation(o)
+        n = keep.sum(dim=1).max() if B \
+            else keep.new_zeros((), dtype=torch.int64)
+        return o, inv, n
 
 
 def compact_channels(vals: Sequence[torch.Tensor], o: torch.Tensor,

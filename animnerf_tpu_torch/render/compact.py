@@ -15,6 +15,12 @@ needs static shapes) and pads with the out-of-bounds index N. Eager
 PyTorch has dynamic shapes: ``select_indices`` lists every survivor
 exactly (``torch.nonzero``, flat order); only a batch of several rows pads
 its shorter rows with N, which the gathers clamp and the scatters drop.
+
+Spans (``utils/trace.py``): ``compact.prepass`` around the selection
+(``select_indices``), ``composite`` around each pass's scatter into the
+dense grid and its composite; the waits ``wait.survivors`` (the
+selection's ``torch.nonzero``, its largest row count and its masked
+writes) and ``wait.scatter`` (the scatters' masked reads and writes).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from animnerf_tpu_torch.render.volume_renderer import (
     sample_fine,
     sort_by_depth,
 )
+from animnerf_tpu_torch.utils import trace
 
 
 def select_indices(keep: torch.Tensor,
@@ -43,17 +50,20 @@ def select_indices(keep: torch.Tensor,
     """(B, N) bool -> (B, cap) int64 survivor indices in flat order, padded
     with N; cap defaults to the largest row count (no survivor dropped).
     With an explicit cap the result equals the JAX package's."""
-    B, n = keep.shape
-    rows, cols = torch.nonzero(keep, as_tuple=True)  # row-major order
-    counts = keep.sum(dim=1)
-    if cap is None:
-        cap = int(counts.max()) if B else 0
-    pos = torch.arange(len(rows), device=keep.device) \
-        - (torch.cumsum(counts, 0) - counts)[rows]
-    sel = torch.full((B, cap), n, dtype=torch.int64, device=keep.device)
-    fits = pos < cap
-    sel[rows[fits], pos[fits]] = cols[fits]
-    return sel
+    with trace.span("compact.prepass"):
+        B, n = keep.shape
+        counts = keep.sum(dim=1)
+        with trace.wait("wait.survivors"):
+            rows, cols = torch.nonzero(keep, as_tuple=True)  # row-major
+            if cap is None:
+                cap = int(counts.max()) if B else 0
+        pos = torch.arange(len(rows), device=keep.device) \
+            - (torch.cumsum(counts, 0) - counts)[rows]
+        sel = torch.full((B, cap), n, dtype=torch.int64, device=keep.device)
+        fits = pos < cap
+        with trace.wait("wait.survivors"):
+            sel[rows[fits], pos[fits]] = cols[fits]
+        return sel
 
 
 def _flat_scatter_indices(sel: torch.Tensor, n: int):
@@ -78,7 +88,8 @@ def gather_samples(rays: torch.Tensor, z_flat: torch.Tensor,
 def _scatter_1d(vals: torch.Tensor, flat: torch.Tensor, ok: torch.Tensor,
                 n: int, fill: float) -> torch.Tensor:
     base = torch.full((n,), fill, dtype=vals.dtype, device=vals.device)
-    base[flat[ok]] = vals[ok]
+    with trace.wait("wait.scatter"):
+        base[flat[ok]] = vals[ok]
     return base
 
 
@@ -113,13 +124,14 @@ def compact_coarse(cfg: RendererConfig, warp_fn, field_fn,
     if vd2 is None:
         vd2 = vd
     rgb, sigma = field_fn(cano, vd2, valid, False)
-    if not need_rgb:
-        _, sigma_d = scatter_dense(None, sigma[..., 0], sel_c, R, Kc)
-        weights, _ = composite_weights(cfg, sigma_d, rays, z_c)
-        return None, weights, (cano, vd2, valid)
-    rgb_d, sigma_d = scatter_dense(rgb, sigma[..., 0], sel_c, R, Kc)
-    weights, rgb_c, depth_c, alpha_c = composite(cfg, rgb_d, sigma_d, rays,
-                                                 z_c)
+    with trace.span("composite"):
+        if not need_rgb:
+            _, sigma_d = scatter_dense(None, sigma[..., 0], sel_c, R, Kc)
+            weights, _ = composite_weights(cfg, sigma_d, rays, z_c)
+            return None, weights, (cano, vd2, valid)
+        rgb_d, sigma_d = scatter_dense(rgb, sigma[..., 0], sel_c, R, Kc)
+        weights, rgb_c, depth_c, alpha_c = composite(cfg, rgb_d, sigma_d,
+                                                     rays, z_c)
     return ({"rgbs": rgb_c, "alphas": alpha_c, "depths": depth_c}, weights,
             (cano, vd2, valid))
 
@@ -148,21 +160,22 @@ def compact_fine(cfg: RendererConfig, warp_fn, field_fn, rays: torch.Tensor,
     # dense concat layout (R, Kc + Kf), coarse slots first — the dense
     # renderer's concat order before its stable argsort; a padded entry
     # (sel == R*K) maps to R*Kall, still out of bounds
-    idx_c = (sel_c // Kc) * Kall + (sel_c % Kc)
-    idx_f = (sel_f // Kf) * Kall + Kc + (sel_f % Kf)
-    sel_all = torch.cat([idx_c, idx_f], dim=1)
-    z_all = torch.cat([z_c, z_f], dim=-1)
+    with trace.span("composite"):
+        idx_c = (sel_c // Kc) * Kall + (sel_c % Kc)
+        idx_f = (sel_f // Kf) * Kall + Kc + (sel_f % Kf)
+        sel_all = torch.cat([idx_c, idx_f], dim=1)
+        z_all = torch.cat([z_c, z_f], dim=-1)
 
-    flat, ok = _flat_scatter_indices(sel_all, R * Kall)
-    n = B * R * Kall
-    rows = [_scatter_1d(rgb[..., c].reshape(-1), flat, ok, n, 0.0)
-            for c in range(3)]
-    rows.append(_scatter_1d(sigma[..., 0].reshape(-1), flat, ok, n,
-                            SIGMA_OUTSIDE))
-    pay = torch.stack([r.reshape(B, R, Kall) for r in rows]
-                      + [z_all.to(rows[0].dtype)], dim=1)   # (B, 5, R, Kall)
-    sp = sort_by_depth(pay, z_all)
-    _, rgb_f, depth_f, alpha_f = composite_rows(cfg, sp, rays, sp[:, 4])
+        flat, ok = _flat_scatter_indices(sel_all, R * Kall)
+        n = B * R * Kall
+        rows = [_scatter_1d(rgb[..., c].reshape(-1), flat, ok, n, 0.0)
+                for c in range(3)]
+        rows.append(_scatter_1d(sigma[..., 0].reshape(-1), flat, ok, n,
+                                SIGMA_OUTSIDE))
+        pay = torch.stack([r.reshape(B, R, Kall) for r in rows]
+                          + [z_all.to(rows[0].dtype)], dim=1)  # (B,5,R,Kall)
+        sp = sort_by_depth(pay, z_all)
+        _, rgb_f, depth_f, alpha_f = composite_rows(cfg, sp, rays, sp[:, 4])
     return {"rgbs": rgb_f, "alphas": alpha_f, "depths": depth_f}
 
 
@@ -218,7 +231,8 @@ def render_rays_compact(cfg: RendererConfig, warp_fn, field_fn,
     xyz, vd = _ray_points(rays, z_coarse)                 # (B, R*Kc, 3)
     dists, idx = knn_fn(xyz)
     keep = dists[..., 0] < keep_thr
-    count = int(keep.sum(dim=1).max()) if B else 0
+    with trace.wait("wait.survivors"):
+        count = int(keep.sum(dim=1).max()) if B else 0
     sel_c = select_indices(keep)
     sel_g = torch.clamp_max(sel_c, xyz.shape[1] - 1)
 
@@ -230,9 +244,11 @@ def render_rays_compact(cfg: RendererConfig, warp_fn, field_fn,
     if vd2 is None:
         vd2 = g(vd)
     rgb, sigma = field_fn(cano, vd2, valid, False)
-    rgb_d, sigma_d = scatter_dense(rgb, sigma[..., 0], sel_c, R, Kc)
-    weights, rgb_c, depth_c, alpha_c = composite(
-        cfg, rgb_d, sigma_d, rays, z_coarse, noise.sigma_c if train else None)
+    with trace.span("composite"):
+        rgb_d, sigma_d = scatter_dense(rgb, sigma[..., 0], sel_c, R, Kc)
+        weights, rgb_c, depth_c, alpha_c = composite(
+            cfg, rgb_d, sigma_d, rays, z_coarse,
+            noise.sigma_c if train else None)
     out = {"rgbs": rgb_c, "alphas": alpha_c, "depths": depth_c}
     if cfg.n_fine <= 0:
         return out, count

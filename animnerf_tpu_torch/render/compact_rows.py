@@ -16,8 +16,11 @@ warp's own validity test gives sigma == SIGMA_OUTSIDE, so their composite
 weight is exactly 0 and their cotangent zero: expanding them with the
 fills is the dense result. The JAX package pads the survivors to a static
 capacity rung and re-runs a step that overflowed it; here the capacity is
-the exact largest per-row survivor count, read once per step (the step's
-one host sync), so nothing overflows.
+the exact largest per-row survivor count, read once per step (the wait
+span ``wait.survivors``), so nothing overflows. The counters
+``compact.survivors`` (the coarse survivors over every row) and
+``compact.rows`` (rows x the capacity: the columns the coarse warp and
+field run on) give the share of that work that is samples, not padding.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from animnerf_tpu_torch.render.volume_renderer import (
     sample_fine,
     sort_by_depth,
 )
+from animnerf_tpu_torch.utils import trace
 from animnerf_tpu_torch.utils.rng import TrainNoise
 
 FILLS = (0.0, 0.0, 0.0, SIGMA_OUTSIDE)
@@ -77,8 +81,12 @@ def render_rays_rows_compact(cfg: RendererConfig, warp_rows_fn: Callable,
 
     keep_c = keep_rows_fn(rows_c)                          # (B, R*Kc)
     o, inv, n = compaction_ranks(keep_c, xyz_rows=_xyz(rows_c))
-    n_c = int(n)  # the step's one host sync: sizes follow from it
+    if trace.on():
+        trace.count("compact.survivors", keep_c.sum())
+    with trace.wait("wait.survivors"):
+        n_c = int(n)  # sizes follow from it
     cap = max(n_c, 1)
+    trace.count("compact.rows", B * cap)
     sel_rows = _rows_of(compact_channels(_xyz(rows_c), o, inv, cap), B, cap)
     wout_sel = warp_rows_fn(sel_rows)
 
@@ -89,9 +97,11 @@ def render_rays_rows_compact(cfg: RendererConfig, warp_rows_fn: Callable,
 
     def run_coarse():
         f_sel = field_rows_fn(wout_sel, False)             # (B, 8, cap)
-        frows_c = torch.stack(expand_cols(f_sel, o, inv, Kc), dim=1)
-        return composite_rows(cfg, frows_c, rays, z_coarse,
-                              noise.sigma_c if noise is not None else None)
+        with trace.span("composite"):
+            frows_c = torch.stack(expand_cols(f_sel, o, inv, Kc), dim=1)
+            return composite_rows(
+                cfg, frows_c, rays, z_coarse,
+                noise.sigma_c if noise is not None else None)
 
     shared = cfg.n_fine > 0 and cfg.share_fine
     with torch.set_grad_enabled(torch.is_grad_enabled() and not shared):
@@ -117,17 +127,19 @@ def render_rays_rows_compact(cfg: RendererConfig, warp_rows_fn: Callable,
     # one fine-MLP call on [coarse survivors | fine samples]: the MLP is
     # pointwise, only the composite needs depth order
     f_m = field_rows_fn(torch.cat([wout_sel, wout_f], dim=2), True)
-    f_mc, f_mf = f_m[:, :, :cap], f_m[:, :, cap:]
-    cols_c = expand_cols(f_mc, o, inv, Kc)
-    cols_f = expand_cols(f_mf, o_f, inv_f, Kf)
-    check_lanes(Kc + Kf)
-    z_all = torch.cat([z_coarse, z_fine], dim=-1)
-    pay = torch.stack([torch.cat([c, f], dim=-1)
-                       for c, f in zip(cols_c, cols_f)] + [z_all], dim=1)
+    with trace.span("composite"):
+        f_mc, f_mf = f_m[:, :, :cap], f_m[:, :, cap:]
+        cols_c = expand_cols(f_mc, o, inv, Kc)
+        cols_f = expand_cols(f_mf, o_f, inv_f, Kf)
+        check_lanes(Kc + Kf)
+        z_all = torch.cat([z_coarse, z_fine], dim=-1)
+        pay = torch.stack([torch.cat([c, f], dim=-1)
+                           for c, f in zip(cols_c, cols_f)] + [z_all], dim=1)
 
-    sp = sort_by_depth(pay, z_all)
-    _, rgb_f, depth_f, alpha_f = composite_rows(
-        cfg, sp, rays, sp[:, 4], noise.sigma_f if noise is not None else None)
+        sp = sort_by_depth(pay, z_all)
+        _, rgb_f, depth_f, alpha_f = composite_rows(
+            cfg, sp, rays, sp[:, 4],
+            noise.sigma_f if noise is not None else None)
     if shared:
         return {"rgbs": rgb_f, "alphas": alpha_f, "depths": depth_f}, n_c
     out.update({"rgbs_fine": rgb_f, "alphas_fine": alpha_f,

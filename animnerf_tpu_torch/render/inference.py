@@ -41,6 +41,12 @@ the 32768- and 8192-ray quanta) exist only because XLA compiles static
 shapes. Eager PyTorch selects the survivors exactly (``torch.nonzero``)
 and renders the active rays as they are, so they are dropped here; the
 outputs are the same.
+
+Spans (``utils/trace.py``): ``view.frame`` around ``render_frame`` (one
+call record a view), ``view.cull`` around the ray cull, and the waits
+``wait.upload`` (the frame's inputs copied to the card), ``wait.cull``
+(the cull's ``torch.nonzero``) and ``wait.to_host`` (the image's copies
+to the host).
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ from animnerf_tpu_torch.render.volume_renderer import (
     sample_fine,
 )
 from animnerf_tpu_torch.system import AnimNeRFSystem
+from animnerf_tpu_torch.utils import trace
 from animnerf_tpu_torch.utils.device import (
     DeviceLike,
     pin_fp32_geometry,
@@ -167,10 +174,10 @@ class Renderer:
     def frame_context(self, body_params: dict, body_tmpl: dict):
         """The frame geometry (``prepare_frame``) of body params and
         template params (arrays or tensors, (1, dim) each) on the device."""
+        with trace.wait("wait.upload"):
+            params, tmpl = self._params(body_params), self._params(body_tmpl)
         with torch.no_grad():
-            return prepare_frame(self.system.body_model,
-                                 self._params(body_params),
-                                 self._params(body_tmpl))
+            return prepare_frame(self.system.body_model, params, tmpl)
 
     def _rays_root_rotated(self, ctx, rays: torch.Tensor, P: torch.Tensor):
         rays_root = rays_to_root_frame(ctx, rays)
@@ -319,22 +326,31 @@ class Renderer:
                      img_wh: Optional[tuple] = None):
         """rays (R, 8) -> numpy (img (R, 3), mask (R,), depth (R,)), or
         (H, W, 3), (H, W), (H, W) with img_wh = (W, H)."""
+        with trace.span("view.frame", root=True):
+            return self._render_frame(body_params, body_tmpl, rays, P,
+                                      img_wh)
+
+    def _render_frame(self, body_params, body_tmpl, rays, P, img_wh):
         if P is None:
             P = np.eye(4, dtype=np.float32)
         cfg = self.system.renderer_cfg
         ctx = self.frame_context(body_params, body_tmpl)
         with torch.no_grad():
-            rays_t = self._tensor(rays)[None]
+            with trace.wait("wait.upload"):
+                rays_t = self._tensor(rays)[None]
+                P_t = self._tensor(P)
             n = rays_t.shape[1]
-            rays_root = self._rays_root_rotated(ctx, rays_t, self._tensor(P))
+            rays_root = self._rays_root_rotated(ctx, rays_t, P_t)
             active = None
             # the cull's proof needs the shell: unposing, and no
             # depth-guided samples (JAX inference.py:379-381)
             if self.cull_rays and n > self.max_rays_per_call \
                     and self.system.scene_cfg.use_unpose \
                     and cfg.n_fine_depth == 0:
-                maybe, fars = self._maybe_hit_ctx(ctx, rays_root)
-                active = torch.nonzero(maybe[0], as_tuple=False)[:, 0]
+                with trace.span("view.cull"):
+                    maybe, fars = self._maybe_hit_ctx(ctx, rays_root)
+                    with trace.wait("wait.cull"):
+                        active = torch.nonzero(maybe[0], as_tuple=False)[:, 0]
                 if len(active) == n:
                     active = None
             if self.mesh is not None:
@@ -355,7 +371,9 @@ class Renderer:
                         ctx, rays_root[:, active])
                     img[active], mask[active], depth[active] = ai, am, ad
             self.last_counts = (n_c, n_f)
-            img, mask, depth = (t.cpu().numpy() for t in (img, mask, depth))
+            with trace.wait("wait.to_host"):
+                img, mask, depth = (t.cpu().numpy()
+                                    for t in (img, mask, depth))
         if img_wh is not None:
             W, H = img_wh
             return img.reshape(H, W, 3), mask.reshape(H, W), depth.reshape(H, W)

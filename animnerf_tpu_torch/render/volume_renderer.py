@@ -24,6 +24,10 @@ warp and field callbacks that carry view directions and latent codes,
 depth-guided fine samples, any number of samples a ray, training noise;
 the merged samples are depth-sorted by ``sort_payload``, a gather whose
 backward is the inverse gather (``permute_samples``).
+
+Waits (``utils/trace.py``): ``wait.upload`` around ``linspace``'s
+constants, ``wait.cumprod`` around the backward of the composite's
+transmittance product, which reads on the host whether a factor is 0.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from animnerf_tpu_torch.ops.sort_lanes import (
     gather_lanes,
     permute_lanes,
 )
+from animnerf_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,15 +77,17 @@ def linspace(start: float, stop: float, num: int,
              device=None) -> torch.Tensor:
     """float32 linspace with jnp.linspace's arithmetic (start*(1-s) +
     stop*s, s = iota/div, exact endpoint), so sample depths match bit for
-    bit; torch.linspace rounds some steps differently."""
+    bit; torch.linspace rounds some steps differently. Its constants are
+    copied to ``device``: a ``wait.upload`` span (``utils/trace.py``)."""
     f32 = torch.float32
-    start_t = torch.tensor(start, dtype=f32, device=device)
-    stop_t = torch.tensor(stop, dtype=f32, device=device)
-    if num == 1:
-        return start_t.reshape(1)
-    div = num - 1
-    step = torch.arange(div, dtype=f32, device=device) / torch.tensor(
-        float(div), dtype=f32, device=device)
+    with trace.wait("wait.upload"):
+        start_t = torch.tensor(start, dtype=f32, device=device)
+        stop_t = torch.tensor(stop, dtype=f32, device=device)
+        if num == 1:
+            return start_t.reshape(1)
+        div = num - 1
+        div_t = torch.tensor(float(div), dtype=f32, device=device)
+    step = torch.arange(div, dtype=f32, device=device) / div_t
     out = start_t * (1 - step) + stop_t * step
     return torch.cat([out, stop_t.reshape(1)])
 
@@ -171,7 +178,11 @@ def composite_weights(cfg: RendererConfig, sigmas: torch.Tensor,
     alphas = 1.0 - torch.exp(-deltas * torch.relu(sigmas))
     shifted = torch.cat([torch.ones_like(alphas[..., :1]),
                          1.0 - alphas + 1e-10], dim=-1)
-    transmittance = torch.cumprod(shifted, dim=-1)[..., :-1]
+    cp = torch.cumprod(shifted, dim=-1)
+    if cp.grad_fn is not None:
+        # the product's backward reads whether any factor is 0 on the host
+        trace.wait_in_backward(cp.grad_fn, "wait.cumprod")
+    transmittance = cp[..., :-1]
     weights = alphas * transmittance
     return weights, torch.sum(weights, dim=-1, keepdim=True)
 

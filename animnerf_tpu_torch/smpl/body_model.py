@@ -8,7 +8,8 @@ Anim-NeRF modification of SMPL). Five families: SMPL, SMPL-H and SMPL-X
 (hand poses through a PCA basis plus the mean hand pose; SMPL-X adds the
 jaw and eye joints), MANO (hand rig) and FLAME (head rig: neck, jaw, eyes);
 SMPL-X and FLAME add expression blendshapes when ``shapedirs`` holds
-them after the shape directions.
+them after the shape directions. The extra joints' vertex indices are
+copied to the card in a ``wait.upload`` span (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from animnerf_tpu_torch.smpl import lbs as lbs_mod
 from animnerf_tpu_torch.smpl.loader import load_model_data
 from animnerf_tpu_torch.smpl.vertex_ids import extra_joint_ids
+from animnerf_tpu_torch.utils import trace
 
 # skeleton joints driven by LBS (incl. root) per family
 NUM_JOINTS = {"smpl": 24, "smplh": 52, "smplx": 55, "mano": 16, "flame": 5}
@@ -200,9 +202,11 @@ def forward(model: BodyModel, betas: torch.Tensor,
     out = lbs_mod.lbs(coeffs, full_pose, model.v_template, shapedirs,
                       model.posedirs, model.J_regressor, model.parents,
                       model.lbs_weights, pose2rot=pose2rot)
-    extra_j = out.vertices[:, torch.as_tensor(model.extra_joint_idxs,
-                                              device=out.vertices.device,
-                                              dtype=torch.long)]
+    with trace.wait("wait.upload"):
+        extra_idx = torch.as_tensor(model.extra_joint_idxs,
+                                    device=out.vertices.device,
+                                    dtype=torch.long)
+    extra_j = out.vertices[:, extra_idx]
     joints = torch.cat([out.joints, extra_j], dim=1)
     vertices, A, T = out.vertices, out.joints_transform, out.vertices_transform
     if transl is not None:

@@ -2,7 +2,9 @@
 
 Same math and the same pointer-doubling forward kinematics (log-depth
 batched 4x4 products instead of a loop over the 24 joints), so results
-match the JAX package to float32 rounding.
+match the JAX package to float32 rounding. The kinematic tree's index
+arrays live on the host: each copy to the card waits for it, a
+``wait.upload`` span (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from animnerf_tpu_torch.utils import trace
 
 
 def rodrigues(rot_vecs: torch.Tensor, epsilon: float = 1e-8) -> torch.Tensor:
@@ -72,7 +76,8 @@ def rigid_transform_chain(rot_mats: torch.Tensor, joints: torch.Tensor,
     B, J = joints.shape[:2]
     parents = np.asarray(parents)
     rel_joints = joints.clone()
-    rel_joints[:, 1:] = joints[:, 1:] - joints[:, parents[1:]]
+    with trace.wait("wait.upload"):  # parents[1:] copied to the card
+        rel_joints[:, 1:] = joints[:, 1:] - joints[:, parents[1:]]
     local = transform_mat(rot_mats, rel_joints)
     eye = torch.eye(4, dtype=joints.dtype, device=joints.device)
     G = torch.cat([local, eye.expand(B, 1, 4, 4)], dim=1)  # identity at J
@@ -80,7 +85,9 @@ def rigid_transform_chain(rot_mats: torch.Tensor, joints: torch.Tensor,
     p[0] = J
     p = np.concatenate([p, np.array([J])])
     for _ in range(_doubling_steps(parents)):
-        G = G[:, torch.as_tensor(p, device=G.device)] @ G
+        with trace.wait("wait.upload"):
+            p_t = torch.as_tensor(p, device=G.device)
+        G = G[:, p_t] @ G
         p = p[p]
     world = G[:, :J]
     posed_joints = world[..., :3, 3]

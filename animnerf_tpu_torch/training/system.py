@@ -28,6 +28,12 @@ regularisers, normal smoothness through the plain MLP's input gradient;
 each also on the fine field) and its backward, which runs the backward
 kernels of the fused MLP and the warp-blend.
 
+Spans (``utils/trace.py``): ``train.step`` around each trainer's step,
+inside it ``train.forward`` (the loss function), ``train.backward`` (the
+backward and, under a mesh, the gradients' all-reduce) and
+``train.optimizer`` (the optimizer's and the scheduler's steps); ``loss``
+around ``compute_loss``.
+
 The JAX trainer's capacity ladder, overflow re-runs and pipelined count
 polling (``CompactTrainer.step``) exist because XLA compiles static
 shapes. Eager PyTorch sizes the compaction from the exact survivor count,
@@ -73,6 +79,7 @@ from animnerf_tpu_torch.parallel.mesh import (
 from animnerf_tpu_torch.render.compact import render_rays_compact
 from animnerf_tpu_torch.render.compact_rows import render_rays_rows_compact
 from animnerf_tpu_torch.system import AnimNeRFSystem
+from animnerf_tpu_torch.utils import trace
 from animnerf_tpu_torch.utils.device import pin_fp32_geometry
 from animnerf_tpu_torch.utils.rng import TrainNoise, draw_noise
 
@@ -96,6 +103,13 @@ def compute_loss(system: AnimNeRFSystem, results: dict, rgbs: torch.Tensor,
     """Six-term loss (reference train.py:228-322) -> (loss, details). The
     density terms take the frames' deformation code; without unposing the
     fg/bg terms are left out, as in the JAX package."""
+    with trace.span("loss"):
+        return _compute_loss(system, results, rgbs, alphas, ctx, noise,
+                             fg_points, bg_points, frame_idx)
+
+
+def _compute_loss(system, results, rgbs, alphas, ctx, noise, fg_points,
+                  bg_points, frame_idx):
     t = system.train_cfg
     scene = system.scene
     has_fine = system.renderer_cfg.n_fine > 0 \
@@ -363,23 +377,28 @@ class RowsCompactTrainer:
         rank's rows) -> details (0-d tensors; the rows engine's
         ``compact_count`` an int). ``noise``: the global batch's (drawn
         from the trainer's generator when None)."""
-        if noise is None:
-            noise = self.draw_noise(batch)
-        if self.mesh is not None:
-            noise = shard_noise(self.mesh, noise)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, details = self.loss_fn(self.system, batch, noise)
-        loss.backward()
-        if self.mesh is not None:
-            all_reduce_grads(self.mesh, [
-                p for g in self.optimizer.param_groups for p in g["params"]])
-            details = reduce_details(self.mesh, details)
-        self.optimizer.step()
-        if self.scheduler is not None:
-            self.scheduler.step()
-        self.steps += 1
-        return {k: v.detach() if torch.is_tensor(v) else v
-                for k, v in details.items()}
+        with trace.span("train.step", root=True):
+            if noise is None:
+                noise = self.draw_noise(batch)
+            if self.mesh is not None:
+                noise = shard_noise(self.mesh, noise)
+            self.optimizer.zero_grad(set_to_none=True)
+            with trace.span("train.forward"):
+                loss, details = self.loss_fn(self.system, batch, noise)
+            with trace.span("train.backward"):
+                loss.backward()
+                if self.mesh is not None:
+                    all_reduce_grads(self.mesh, [
+                        p for g in self.optimizer.param_groups
+                        for p in g["params"]])
+                    details = reduce_details(self.mesh, details)
+            with trace.span("train.optimizer"):
+                self.optimizer.step()
+                if self.scheduler is not None:
+                    self.scheduler.step()
+            self.steps += 1
+            return {k: v.detach() if torch.is_tensor(v) else v
+                    for k, v in details.items()}
 
 
 class DenseTrainer(RowsCompactTrainer):

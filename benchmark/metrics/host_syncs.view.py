@@ -1,0 +1,9 @@
+"""Wait spans a traced view: the program's blocking reads of the card
+(``wait.*``), the mean over the device pass's views."""
+
+from harness import spans
+
+
+def read(rec):
+    return spans.mean([float(len(spans.waits(c)))
+                       for c in spans.calls(rec, "view.frame")])
